@@ -8,22 +8,33 @@ CUDA toolkit:
 
 Phases, each printing JSON lines on stdout:
 
-1. device   the card, its power limit (nvidia-smi), TF32 matmul off;
+1. device   the card, its power limit (nvidia-smi), TF32 off for matmuls
+            and cuDNN;
 2. build    nvcc builds every kernel of ``equss_tpu_torch/csrc`` into
             ``equss_tpu_torch/_build`` (full compiler log:
             ``equss_tpu_torch/_build/build.log``);
 3. kernels  each kernel against its plain PyTorch version on the card at
-            the main path's shapes and a few more, with its time, the
+            the main paths' shapes and a few more, with its time, the
             plain version's, one PyTorch library call's (a yardstick the
             port never calls) and the bound the card's peak rates set;
-4. main     the ViT-S/8 224^2 bf16 -> head -> PQ 64x256 forward on raw
-            uint8 requests at b = 1, 8 and 128 with seeded weights: launch
-            counts (12 attention and 1 PQ per forward), ms per batch and
-            img/s; a second configuration with exact PQ at b = 8; and the
-            card's output held stage by stage against the same model run
-            on the CPU on a small input;
-5. profile  device time by kernel and the device's busy share over two
-            forwards at b = 1 and b = 128 (torch.profiler).
+4. main     serving: the ViT-S/8 224^2 bf16 -> head -> PQ 64x256 forward
+            on raw uint8 requests at b = 1, 8 and 128 with seeded weights:
+            launch counts (12 attention and 1 PQ per forward), ms per
+            batch and img/s; a second configuration with exact PQ at b = 8;
+            the card's output held stage by stage against the same model
+            run on the CPU on a small input; and the b = 128 forward with
+            the LayerNorm kernels (``fused_ln``) beside the stock one;
+5. train    the pqgo train step of ``configs/pqgo_cocostuff27.yaml``
+            (written out below as ``PQGO_COCOSTUFF27``) at b = 16 on
+            synthetic batches, in two configurations: ``kernel``
+            (``vq.use_pallas: 1`` and ``fused_ln``: 12 attention, 1
+            LayerNorm, 24 add + LayerNorm and 1 PQ launch per step) and
+            ``stock`` (the preset as it is: 12 attention launches); then
+            one step at b = 2 on the card against the same step on the CPU;
+6. profile  device time by kernel and the device's busy share (torch
+            profiler) of two serving forwards at b = 1 and b = 128, with
+            and without ``fused_ln``, and of two train steps of each
+            configuration.
 
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failed check exits non-zero without the ok line; without
@@ -31,6 +42,7 @@ CUDA it exits non-zero before doing anything.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -39,6 +51,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 
@@ -48,6 +61,72 @@ PEAK_F32_FLOPS = 67e12        # CUDA cores, no tensor cores
 PEAK_BYTES = 3.35e12
 
 FAILURES: list = []
+
+# configs/pqgo_cocostuff27.yaml as a dict (the card machine has no YAML
+# reader); tests/test_torch_trainer.py holds it against the file
+PQGO_COCOSTUFF27 = {
+    "save_dir": "output",
+    "wandb": {"project": "equss_tpu", "mode": "offline", "name": "pqgo_cocostuff27"},
+    "seed": 10,
+    "num_classes": 27,
+    "dataset_name": "cocostuff27",
+    "data_dir": "../Datasets/cocostuff27",
+    "is_visualize": False,
+    "visualize_path": "./visualize/pqgo",
+    "model": {
+        "name": "pqgo",
+        "pretrained": {"model_type": "vit_small", "dino_patch_size": 8,
+                       "freeze_backbone": True, "dropout": True, "drop_prob": 0.1,
+                       "pretrained_weights": None, "precision": "bf16"},
+        "vq": {"assign_precision": "bf16", "vq_type": "param", "num_codebooks": [256],
+               "embed_dims": [1024], "beta": 0.25, "book": 1.0, "normalize": "l2",
+               "use_restart": False, "use_split": False, "use_weighted_sum": False,
+               "use_gumbel": False, "need_initialized": "uni", "pq_dropout": 0.0,
+               "decay": 0.99, "eps": 1.0e-6, "num_pq": [64]},
+    },
+    "loss": {
+        "stego_weight": 1.0, "vq_weight": 1.0,
+        "stego": {"neg_inter_weight": 0.63, "pos_inter_weight": 0.25,
+                  "pos_intra_weight": 0.67, "neg_inter_shift": 0.66,
+                  "pos_inter_shift": 0.02, "pos_intra_shift": 0.08, "zero_clamp": True,
+                  "pointwise": True, "stabilize": False, "feature_samples": 11,
+                  "neg_samples": 5, "correlation_precision": "bf16"},
+    },
+    "dataset": {
+        "train": {"data_dir": "${data_dir}", "dataset_name": "${dataset_name}",
+                  "model_type": "${model.pretrained.model_type}", "crop_type": "five",
+                  "crop_ratio": 0.5, "loader_crop_type": "center", "num_neighbors": 7,
+                  "res": 224},
+        "val": {"data_dir": "${data_dir}", "dataset_name": "${dataset_name}",
+                "model_type": "${model.pretrained.model_type}", "crop_type": None,
+                "loader_crop_type": "center", "res": 320},
+    },
+    "dataloader": {"train": {"batch_size": 16}, "val": {"batch_size": 8}},
+    "optimizer": {"model": {"name": "adam", "lr": 3.0e-4, "weight_decay": 0.0},
+                  "cluster": {"name": "adam", "lr": 3.0e-3},
+                  "linear": {"name": "adam", "lr": 3.0e-3}},
+    "scheduler": {"model": {"name": "constant"}, "cluster": {"name": "constant"},
+                  "linear": {"name": "constant"}},
+    "eval": {"output_type": "vq0", "extra_classes": 0, "probe_res": "feat",
+             "final_crf": True},
+    "train": {"max_epochs": 15, "print_interval_iters": 25, "valid_interval_iters": 75,
+              "clip_grad": 10.0, "num_accum": 1},
+}
+
+# the kernels each driven path must launch, per forward or per step
+SERVE_KERNELS = {"attention_qkv": 12, "pq_assign": 1}
+FUSED_LN_KERNELS = {"attention_qkv": 12, "layernorm": 1, "add_layernorm": 24, "pq_assign": 1}
+
+
+def train_config(kind: str) -> dict:
+    """``stock``: the preset as it is; ``kernel``: with ``vq.use_pallas: 1``,
+    the PQ kernel's training route."""
+    cfg = copy.deepcopy(PQGO_COCOSTUFF27)
+    if kind == "kernel":
+        cfg["model"]["vq"]["use_pallas"] = 1
+    elif kind != "stock":
+        raise ValueError(kind)
+    return cfg
 
 
 def emit(obj) -> None:
@@ -86,23 +165,68 @@ def bf16_ulp(x: torch.Tensor) -> float:
     return 2.0 ** (math.floor(math.log2(x.abs().max().item())) - 7)
 
 
+def expected(per_unit: dict, units: int) -> dict:
+    """Launch counts of every kernel wrapper for ``units`` forwards or
+    steps of a path that launches ``per_unit`` of each."""
+    from equss_tpu_torch import launch_counts
+
+    return {k: per_unit.get(k, 0) * units for k in launch_counts()}
+
+
+def device_profile(fn, calls: int, pick=()) -> dict:
+    """Device time by kernel and the device's busy share over ``calls``
+    calls of ``fn`` (after two unprofiled ones), torch.profiler; the top
+    kernels, and under ``picked`` every kernel whose name holds one of the
+    strings ``pick``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the kernels themselves (device-side events), not the ops that
+    # launched them, which report the same time again
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:14]
+    row = lambda e: {"name": e.key[:80], "ms": e.self_device_time_total / 1e3,  # noqa: E731
+                     "calls": e.count}
+    return {"calls": calls, "wall_ms": 1e3 * wall, "device_ms": total / 1e3,
+            "device_busy_share": total / 1e3 / (1e3 * wall),
+            "kernel_launches": sum(e.count for e in events),
+            "top": [row(e) for e in top],
+            "picked": [row(e) for e in events if any(s in e.key for s in pick)]}
+
+
 # ---------------------------------------------------------------- phases
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
 
 def phase_device() -> str:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on a CUDA card", file=sys.stderr)
         sys.exit(2)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
+    smi = nvidia_smi()
+    print(smi, flush=True)
     check(not torch.backends.cuda.matmul.allow_tf32,
           "torch.backends.cuda.matmul.allow_tf32 must be False")
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
-          "nvidia_smi": smi.splitlines()[0], "torch": torch.__version__,
+          "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32})
     return kind
@@ -134,7 +258,8 @@ def phase_attention(results: dict) -> None:
 
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = [  # name, B, N, H, n_real
-        ("vit_s_224", 128, 785, 6, 785),      # the main path's shape
+        ("vit_s_224", 128, 785, 6, 785),      # the serving path's shape
+        ("vit_s_224_train", 32, 785, 6, 785),  # the train step's [img; img_pos]
         ("vit_s_224_padded", 128, 896, 6, 785),
         ("vit_b_224", 32, 785, 12, 785),
         ("vit_s_320", 32, 1601, 6, 1601),
@@ -179,7 +304,8 @@ def phase_pq(results: dict) -> None:
     M, K, d = 64, 256, 16
     n_bench = 128 * 28 * 28
     cases = [  # name, n, normalize, exact
-        ("bench_fast_l2", n_bench, "l2", False),   # the main path's call
+        ("bench_fast_l2", n_bench, "l2", False),   # the serving path's call
+        ("train_fast_l2", 16 * 28 * 28, "l2", False),   # the train step's
         ("bench_exact_l2", n_bench, "l2", True),
         ("z_norm_exact", 16384, "z_norm", True),
         ("z_trainable_fast", 16384, "z_trainable", False),
@@ -235,6 +361,113 @@ def phase_pq(results: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def phase_layernorm(results: dict) -> None:
+    """Both LayerNorm kernels against their plain versions at the train
+    step's rows (32 * 785), the b = 128 serving rows and ViT-B's width.
+    Tolerance: at most 0.1% of elements differ, each by at most one bf16
+    ulp of max(|out|, |bias|) (rsqrtf is not correctly rounded and the f32
+    sums run in another order; where the affine terms cancel the output is
+    far smaller than the terms that carry that error); the add kernel's
+    bf16 sum bit-equal.  Library yardstick: ``F.layer_norm`` on the bf16
+    rows with a bf16-cast affine (after ``x + y`` for the add kernel),
+    which is not the same function: its statistics and affine are not
+    those of the kernel."""
+    import torch.nn.functional as F
+
+    from equss_tpu_torch.ops.layernorm import (
+        add_layernorm_reference,
+        fused_add_layernorm,
+        fused_layernorm,
+        layernorm_reference,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    eps = 1e-6
+    for name, rows, C in (("train_vit_s", 32 * 785, 384), ("serve_vit_s", 128 * 785, 384),
+                          ("train_vit_b", 32 * 785, 768)):
+        x = (3 * torch.randn((rows, C), generator=g, device="cuda") + 1).to(torch.bfloat16)
+        y = torch.randn((rows, C), generator=g, device="cuda").to(torch.bfloat16)
+        scale = 1 + 0.1 * torch.randn(C, generator=g, device="cuda")
+        bias = 0.1 * torch.randn(C, generator=g, device="cuda")
+        sc16, bi16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+        for kernel in ("layernorm", "add_layernorm"):
+            if kernel == "layernorm":
+                fn = lambda: fused_layernorm(x, scale, bias, eps)                  # noqa: E731
+                plain = lambda: layernorm_reference(x, scale, bias, eps)           # noqa: E731
+                lib = lambda: F.layer_norm(x, (C,), sc16, bi16, eps)               # noqa: E731
+                out, ref, sum_equal = fn(), plain(), True
+                nbytes, flops = 4.0 * rows * C + 8.0 * C, 8.0 * rows * C
+            else:
+                fn = lambda: fused_add_layernorm(x, y, scale, bias, eps)          # noqa: E731
+                plain = lambda: add_layernorm_reference(x, y, scale, bias, eps)   # noqa: E731
+                lib = lambda: F.layer_norm(x + y, (C,), sc16, bi16, eps)          # noqa: E731
+                (s, out), (s_ref, ref) = fn(), plain()
+                sum_equal = torch.equal(s, s_ref)
+                nbytes, flops = 8.0 * rows * C + 8.0 * C, 9.0 * rows * C
+            torch.cuda.synchronize()
+            diff = (out.float() - ref.float()).abs()
+            mag = torch.maximum(ref.float().abs(), bias.abs().expand_as(diff))
+            ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+            frac = (diff > 0).float().mean().item()
+            err = diff.max().item()
+            check(sum_equal and bool(torch.isfinite(out.float()).all())
+                  and bool((diff <= ulp).all()) and frac <= 1e-3,
+                  f"{kernel} {name}: {frac} of elements differ, max err {err}, "
+                  f"beyond 1 ulp {int((diff > ulp).sum())}, sum equal {sum_equal}")
+            bnd, by = bound_ms(flops, PEAK_F32_FLOPS, nbytes)
+            row = {"phase": "kernel", "kernel": kernel, "case": name, "rows": rows, "C": C,
+                   "max_abs_err": err, "frac_elements_differing": frac,
+                   "tolerance": "1 bf16 ulp of max(|out|, |bias|) on <= 0.1% of elements",
+                   "ms": cuda_ms(fn, iters=20), "plain_ms": cuda_ms(plain, iters=5),
+                   "library_ms": cuda_ms(lib, iters=20),
+                   "library": "F.layer_norm, bf16 affine" + (" after x + y" if kernel ==
+                                                             "add_layernorm" else ""),
+                   "bound_ms": bnd, "bound_by": by}
+            emit(row)
+            results.setdefault(kernel, row)
+        del x, y
+        torch.cuda.empty_cache()
+
+
+def phase_fused_attention(results: dict) -> None:
+    """The separate-q/k/v attention kernel against its plain version at
+    the JAX package's test shapes and at the ViT-S b = 128 shape (the
+    timing case); tolerance one bf16 ulp of the output's scale.  Library
+    yardstick: ``F.scaled_dot_product_attention`` on the same tensors."""
+    import torch.nn.functional as F
+
+    from equss_tpu_torch.ops.attention import fused_attention, fused_attention_reference
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for name, B, N, H, hd in (("jax_test_785", 2, 785, 6, 64), ("jax_test_1601", 1, 1601, 2, 64),
+                              ("jax_test_5", 1, 5, 2, 64), ("hd32", 2, 128, 1, 32),
+                              ("vit_s_224", 128, 785, 6, 64)):
+        q, k, v = (torch.randn((B, N, H, hd), generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        scale = hd ** -0.5
+        out = fused_attention(q, k, v, scale=scale)
+        ref = fused_attention_reference(q, k, v, scale=scale)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ulp = bf16_ulp(ref.float())
+        check(bool(torch.isfinite(out.float()).all()) and err <= ulp,
+              f"attention {name}: max abs err {err} > 1 bf16 ulp {ulp}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        bnd, by = bound_ms(4.0 * B * H * N * N * hd, PEAK_BF16_FLOPS, 8.0 * B * N * H * hd)
+        row = {"phase": "kernel", "kernel": "attention", "case": name, "shape": [B, N, H, hd],
+               "max_abs_err": err, "tolerance": ulp,
+               "ms": cuda_ms(lambda: fused_attention(q, k, v, scale=scale), iters=10),
+               "plain_ms": cuda_ms(lambda: fused_attention_reference(q, k, v, scale=scale),
+                                   iters=3),
+               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, scale=scale), iters=10),
+               "bound_ms": bnd, "bound_by": by}
+        emit(row)
+        results["attention"] = row          # the last case, the timing one
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
+
+
 def main_config(precision: str = "bf16"):
     """bench.py's preset: ViT-S/8 at 224^2 in bf16 with attn_bf16, hidden
     1024, PQ 64 x 256 with l2 normalisation."""
@@ -280,7 +513,7 @@ def check_outputs(out, batch: int, K: int, what: str) -> None:
 
 def phase_main(results: dict):
     """Serve the main configuration and the exact one; returns the main
-    model."""
+    model and its configuration."""
     from equss_tpu_torch import EQUSS, launch_counts, reset_launch_counts
 
     cfg = main_config("bf16")
@@ -301,8 +534,7 @@ def phase_main(results: dict):
         forwards += warm + timed
         after = launch_counts()
         n_fwd = warm + timed
-        check(after["attention_qkv"] - before["attention_qkv"] == depth * n_fwd
-              and after["pq_assign"] - before["pq_assign"] == n_fwd,
+        check({k: after[k] - before[k] for k in after} == expected(SERVE_KERNELS, n_fwd),
               f"main b={batch}: launches {after} vs {before} for {n_fwd} forwards")
         for out in outs:
             check_outputs(out, batch, cfg.pq.num_codebook, f"main b={batch}")
@@ -315,10 +547,10 @@ def phase_main(results: dict):
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
         del outs
     counts = launch_counts()
-    check(counts["attention_qkv"] == depth * forwards and counts["pq_assign"] == forwards,
+    check(counts == expected(SERVE_KERNELS, forwards),
           f"main path launches {counts} for {forwards} forwards")
-    check(all(v > 0 for v in counts.values()), f"a kernel never launched: {counts}")
-    results["launches"] = counts
+    check(all(counts[k] > 0 for k in SERVE_KERNELS), f"a kernel never launched: {counts}")
+    results["launches"]["serve"] = counts
     emit({"phase": "main_launches", "forwards": forwards, **counts})
 
     # second configuration: exact PQ at b = 8
@@ -327,7 +559,7 @@ def phase_main(results: dict):
     reset_launch_counts()
     outs, times = serve(model_x, requests(8, warm + timed, seed=80))
     counts_x = launch_counts()
-    check(counts_x == {"attention_qkv": depth * (warm + timed), "pq_assign": warm + timed},
+    check(counts_x == expected(SERVE_KERNELS, warm + timed),
           f"exact config launches {counts_x}")
     for out in outs:
         check_outputs(out, 8, cfg.pq.num_codebook, "exact b=8")
@@ -336,10 +568,11 @@ def phase_main(results: dict):
           "ms_per_batch_mean": 1e3 * sum(t) / len(t),
           "ms_per_batch_median": 1e3 * t[len(t) // 2], "img_per_s": 8 * len(t) / sum(t),
           **{f"launches_{k}": v for k, v in counts_x.items()}})
+    results["launches"]["serve_exact"] = counts_x
     del model_x, outs
 
     phase_reference(model, cfg)
-    return model
+    return model, cfg
 
 
 def phase_reference(model, cfg) -> None:
@@ -382,56 +615,185 @@ def phase_reference(model, cfg) -> None:
 
 def phase_profile(model) -> None:
     """Device time by kernel and the device's busy share over two
-    forwards at b = 1 and at b = 128 (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    serving forwards at b = 1 and at b = 128."""
     from equss_tpu_torch.data.transforms import normalize_images
 
     for batch in (1, 128):
         img = normalize_images(requests(batch, 1, seed=3)[0].to("cuda"))
-        for _ in range(2):
-            model(img)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        emit({"phase": "profile", "what": "serve", "batch": batch, "forwards": 2,
+              **device_profile(lambda: model(img), 2)})
+
+
+def phase_serve_fused_ln(model, cfg, results: dict) -> None:
+    """The b = 128 serving forward with the LayerNorm kernels (``fused_ln``)
+    beside the stock one, same seeded weights, in turns (stock, fused,
+    fused, stock); its features held against the stock forward's on the
+    card in the bf16 class of the reference phase (mean relative error
+    <= 2e-2, max abs error <= 0.25) and its indices >= 95% equal."""
+    from equss_tpu_torch import EQUSS, launch_counts, reset_launch_counts
+    from equss_tpu_torch.data.transforms import normalize_images
+
+    fused = EQUSS(dataclasses.replace(cfg, fused_ln=True), device="cuda", seed=0)
+    reqs = requests(128, 7, seed=1280)
+    times = {"stock": [], "fused_ln": []}
+    outs = {}
+    for name in ("stock", "fused_ln", "fused_ln", "stock"):
+        reset_launch_counts()
+        o, t = serve(fused if name == "fused_ln" else model, reqs)
+        counts = launch_counts()
+        want = FUSED_LN_KERNELS if name == "fused_ln" else SERVE_KERNELS
+        check(counts == expected(want, len(reqs)), f"serve {name}: launches {counts}")
+        times[name] += t[2:]
+        outs[name] = o[-1]
+        if name == "fused_ln":
+            results["launches"]["serve_fused_ln"] = counts
+    a, b = outs["fused_ln"]["feat"], outs["stock"]["feat"]
+    rel = ((a - b).abs().mean() / b.abs().mean()).item()
+    mx = (a - b).abs().max().item()
+    agree = (outs["fused_ln"]["indices"] == outs["stock"]["indices"]).float().mean().item()
+    check(rel <= 2e-2 and mx <= 0.25 and agree >= 0.95,
+          f"serve fused_ln vs stock: rel {rel} max {mx} indices {agree}")
+    row = {"phase": "serve_fused_ln", "batch": 128, "requests_timed": len(times["stock"]),
+           "feat_mean_rel_err": rel, "feat_max_abs_err": mx, "index_agreement": agree}
+    for name, t in times.items():
+        t = sorted(t)
+        row[f"{name}_ms_median"] = 1e3 * t[len(t) // 2]
+        row[f"{name}_ms_min"] = 1e3 * t[0]
+    emit(row)
+    img = normalize_images(reqs[0].to("cuda"))
+    emit({"phase": "profile", "what": "serve_fused_ln", "batch": 128, "forwards": 2,
+          **device_profile(lambda: fused(img), 2)})
+
+
+def train_model(kind: str, device: str = "cuda", dropout: bool = True):
+    """(config, Trainer) of one train configuration, weights from seed 0."""
+    from equss_tpu_torch.models.equss import EQUSS, EQUSSConfig
+    from equss_tpu_torch.train.trainer import Trainer
+
+    cfg = train_config(kind)
+    cfg["model"]["pretrained"]["dropout"] = dropout
+    mcfg = dataclasses.replace(EQUSSConfig.from_config(cfg), fused_ln=kind == "kernel")
+    return cfg, Trainer(cfg, device=device, model=EQUSS(mcfg, device=device, seed=0))
+
+
+def phase_train(results: dict) -> None:
+    """The pqgo train step at b = 16 (+16 positives) on synthetic 224^2
+    batches: ``kernel`` and ``stock``, each 3 warm-up and 20 timed steps
+    (host clock to the synchronised end of the step, the batch's copy to
+    the card included), exact launch counts per step, every loss finite,
+    and a profile of two steps."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+
+    warm, timed = 3, 20
+    batches = list(synthetic_batches(0, warm + timed, 16, res=224, num_classes=27))
+    for kind, per_step in (("kernel", FUSED_LN_KERNELS), ("stock", {"attention_qkv": 12})):
+        torch.cuda.reset_peak_memory_stats()
+        _, tr = train_model(kind)
+        times, metrics = [], []
+        for i, batch in enumerate(batches):
+            if i == warm:
+                reset_launch_counts()
             t0 = time.perf_counter()
-            for _ in range(2):
-                model(img)
+            metrics.append(tr.train_step(batch))
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # the kernels themselves (device-side events), not the ops that
-        # launched them, which report the same time again
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.self_device_time_total > 0]
-        total = sum(e.self_device_time_total for e in events)
-        top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
-        emit({"phase": "profile", "batch": batch, "forwards": 2, "wall_ms": 1e3 * wall,
-              "device_ms": total / 1e3, "device_busy_share": total / 1e3 / (1e3 * wall),
-              "kernel_launches": sum(e.count for e in events),
-              "top": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
-                       "calls": e.count} for e in top]})
+            times.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        results["launches"][f"train_{kind}"] = counts
+        check(counts == expected(per_step, timed), f"train {kind}: launches {counts}")
+        check(all(np.isfinite(v) for m in metrics for v in m.values())
+              and not any(m["skipped"] for m in metrics), f"train {kind}: non-finite step")
+        t = sorted(times[warm:])
+        emit({"phase": "train", "config": kind, "batch": 16, "steps_timed": timed,
+              "ms_per_step_median": 1e3 * t[timed // 2], "ms_per_step_min": 1e3 * t[0],
+              "ms_per_step_mean": 1e3 * sum(t) / timed, "first_step_ms": 1e3 * times[0],
+              "launches_per_step": {k: v / timed for k, v in counts.items()},
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+              **{f"{k}_per_step": [m[k] for m in metrics]
+                 for k in ("loss", "stego-loss", "vq-loss", "linear-loss", "cluster-loss")}})
+        cycle = iter(batches * 2)
+        emit({"phase": "profile", "what": f"train_{kind}", "batch": 16, "steps": 2,
+              **device_profile(lambda: tr.train_step(next(cycle)), 2,
+                               pick=("index", "layernorm", "pq_assign", "bmm", "Memcpy"))})
+        del tr
+        torch.cuda.empty_cache()
+
+
+def phase_train_reference() -> None:
+    """One ``kernel`` train step at b = 2, dropout off, the same STEGO
+    samples, on the card and on the CPU (plain kernel versions) from the
+    same seeded weights; TF32 is off on the card (phase 1).  Bars: each
+    loss term within 5e-2 relative, the cosine similarity of the head's
+    and the codebook's gradients >= 0.98, indices >= 95% equal (the
+    end-to-end class of the serving reference)."""
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+
+    batch = next(synthetic_batches(7, 1, 2, res=224, num_classes=27))
+    rng = np.random.RandomState(7)
+    batch["stego_coords1"] = rng.uniform(-1, 1, (2, 11, 11, 2)).astype(np.float32)
+    batch["stego_coords2"] = rng.uniform(-1, 1, (2, 11, 11, 2)).astype(np.float32)
+    batch["stego_perms"] = np.stack([rng.permutation(2) for _ in range(5)]).astype(np.int32)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        _, tr = train_model("kernel", device=device, dropout=False)
+        metrics, out = tr.forward_backward(batch)
+        head = torch.cat([p.grad.flatten() for n, p in tr.model_params if n.startswith("head.")])
+        runs[device] = ({k: v.detach().item() for k, v in metrics.items()}, head.cpu(),
+                        tr.model.pq["codebook"].grad.flatten().cpu(), out["indices"].cpu())
+    (m_g, head_g, cb_g, idx_g), (m_c, head_c, cb_c, idx_c) = runs["cuda"], runs["cpu"]
+    terms = ("loss", "stego-loss", "vq-loss", "linear-loss", "cluster-loss")
+    rel = {k: abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in terms}
+    cos = {name: torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+           for name, a, b in (("head", head_g, head_c), ("codebook", cb_g, cb_c))}
+    agree = (idx_g == idx_c).float().mean().item()
+    check(all(v <= 5e-2 for v in rel.values()), f"train reference: loss rel errors {rel}")
+    check(all(v >= 0.98 for v in cos.values()), f"train reference: gradient cosines {cos}")
+    check(agree >= 0.95, f"train reference: index agreement {agree}")
+    emit({"phase": "train_reference_cpu", "config": "kernel", "batch": 2, "tf32": False,
+          "loss_rel_err": rel, "grad_cosine": cos, "index_agreement": agree,
+          "card": {k: m_g[k] for k in terms}, "cpu": {k: m_c[k] for k in terms}})
+
+
+KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
+    "attention_qkv": ("equss_tpu_torch/csrc/attention_qkv.cu", "equss_tpu/ops/attention.py:198"),
+    "attention": ("equss_tpu_torch/csrc/attention_qkv.cu", "equss_tpu/ops/attention.py:91"),
+    "layernorm": ("equss_tpu_torch/csrc/layernorm.cu", "equss_tpu/ops/layernorm.py:74"),
+    "add_layernorm": ("equss_tpu_torch/csrc/layernorm.cu", "equss_tpu/ops/layernorm.py:112"),
+    "pq_assign": ("equss_tpu_torch/csrc/pq_assign.cu", "equss_tpu/ops/pq_pallas.py:443"),
+}
 
 
 def main() -> int:
     kind = phase_device()
     phase_build()
-    results: dict = {}
+    results: dict = {"launches": {}}
     phase_attention(results)
     phase_pq(results)
-    phase_profile(phase_main(results))
+    phase_layernorm(results)
+    phase_fused_attention(results)
+    model, cfg = phase_main(results)
+    phase_serve_fused_ln(model, cfg, results)
+    phase_profile(model)
+    del model
+    torch.cuda.empty_cache()
+    phase_train(results)
+    phase_train_reference()
 
-    sources = {"attention_qkv": ("equss_tpu_torch/csrc/attention_qkv.cu",
-                                 "equss_tpu/ops/attention.py:198"),
-               "pq_assign": ("equss_tpu_torch/csrc/pq_assign.cu",
-                             "equss_tpu/ops/pq_pallas.py:443")}
+    # launches: every main-path run (serving, serving with fused_ln, both
+    # train configurations), each counted from 0; ``attention`` has no
+    # caller on any path and is launched by its kernel phase only
+    by_path = results["launches"]
     kernels = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces) in KERNEL_SOURCES.items():
         r = results[name]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": results["launches"][name],
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": sum(c[name] for c in by_path.values()),
+                        "launches_by_path": {p: c[name] for p, c in by_path.items()},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "case": r["case"]})
+    print(nvidia_smi(), flush=True)
     emit({"kernels": kernels})
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed", file=sys.stderr)

@@ -2,7 +2,8 @@
 
 * ``params_from_jax`` maps the ``(params, state)`` pytrees of the JAX
   package's ``EQUSS.init`` (numpy-valued) onto ``EQUSS.state_dict()``
-  names, so both packages compute with the same numbers.
+  names, and the Trainer's probe parameters onto ``Evaluator`` names
+  under ``probes.``, so both packages compute with the same numbers.
 * ``load_dino_state_dict`` reads a local DINO ``.pth`` (the torch key
   names ``equss_tpu.models.vit.convert_dino_torch_state`` consumes) into
   the port's ``VisionTransformer`` names.
@@ -13,7 +14,7 @@ in)``; the flax patch conv ``(kh, kw, in, out)`` and the torch patch conv
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -65,15 +66,30 @@ def head_from_flax(head: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def probes_from_flax(probes: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``Evaluator`` params -> port ``Evaluator`` state: the linear
+    probe's Dense and the cluster probe's centroids."""
+    sd = _dense(probes["linear_probe"]["linear"], "linear_probe.linear")
+    if "cluster_probe" in probes:
+        sd["cluster_probe.clusters"] = _t(probes["cluster_probe"]["clusters"])
+    return sd
+
+
 def params_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
-                    cfg: EQUSSConfig) -> Dict[str, torch.Tensor]:
-    """JAX ``EQUSS.init`` pytrees -> port ``EQUSS`` state dict (CPU f32)."""
+                    cfg: EQUSSConfig, probe_params: Optional[Mapping[str, Any]] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX ``EQUSS.init`` pytrees -> port ``EQUSS`` state dict (CPU f32).
+    With ``probe_params`` (a JAX Trainer state's ``probe_params``) the
+    probes come along under ``probes.``, the names ``Trainer.load_state_dict``
+    routes to its ``Evaluator``."""
     depth = VIT_PRESETS[cfg.model_type][1]
     sd = {f"backbone.{k}": v
           for k, v in backbone_from_flax(params["backbone"], depth).items()}
     sd.update({f"head.{k}": v for k, v in head_from_flax(params["head"]).items()})
     sd.update({f"pq.{k}": _t(v) for k, v in params["pq"].items()})
     sd.update({f"pq_state.{k}": _t(v) for k, v in state["pq"].items()})
+    if probe_params is not None:
+        sd.update({f"probes.{k}": v for k, v in probes_from_flax(probe_params).items()})
     return sd
 
 

@@ -1,19 +1,26 @@
-// Multi-head softmax attention read straight off the packed qkv projection.
+// Multi-head softmax attention, read straight off the packed qkv projection
+// or off separate q, k and v tensors.
 //
-// Replaces the TPU kernel equss_tpu/ops/attention.py::fused_attention_qkv
-// (kernel body _attn_qkv_kernel).  Same arithmetic, row by row:
+// Replaces the TPU kernels equss_tpu/ops/attention.py::fused_attention_qkv
+// (kernel body _attn_qkv_kernel) and ::fused_attention (_attn_kernel).
+// Same arithmetic, row by row:
 //   logits = (q . k) accumulated in f32, times scale
 //   keys at index >= n_real are masked to -1e30
 //   m = row max;  p = exp(logit - m) in f32;  r = 1 / sum(p) in f32
 //   out = (bf16(p) . v) accumulated in f32, times r, stored as bf16
-// q, k and v of head h are read in place from the (B, N, 3C) bf16 tensor at
-// columns h*hd, C + h*hd and 2C + h*hd; the output is (B, N, C) bf16 with
-// head h at columns h*hd.  No transpose and no padded copy exist.
+// One body serves both entries: it takes base pointers for q, k and v, a
+// batch stride and a token stride.  The packed entry reads the (B, N, 3C)
+// bf16 tensor in place, q = base, k = base + C, v = base + 2C with token
+// stride 3C; the separate entry reads (B, N, H, hd) tensors with token
+// stride H*hd.  Head h sits at column h*hd of each.  The output is
+// (B, N, H*hd) bf16 with head h at columns h*hd, which is also the
+// (B, N, H, hd) layout.  No transpose and no padded copy exist.
 //
 // Design: one block of 4 warps per (q tile of 64 rows, head, batch item);
 // each warp owns 16 q rows.  The q tile, one 64-key k tile and one v tile
-// sit in shared memory (8 KB each at hd = 64, rows padded to 144 bytes so
-// the ldmatrix reads are free of bank conflicts).  Products run on the
+// sit in shared memory (8 KB each at hd = 64, rows padded by 16 bytes so
+// the ldmatrix reads are free of bank conflicts).  hd is a template
+// argument, 32 or 64.  Products run on the
 // tensor cores through mma.sync m16n8k16 (bf16 in, f32 accumulate).
 // Two passes over the key tiles: the first finds the row max, the second
 // forms p against that final max, sums it and accumulates p.v.  Taking p
@@ -31,11 +38,11 @@
 
 namespace {
 
-constexpr int HD = 64;          // head dim the kernel takes
 constexpr int BQ = 64;          // q rows per block, 16 per warp
 constexpr int BK = 64;          // keys per tile
-constexpr int LDS = HD + 8;     // shared row stride in bf16 elements (144 B)
 constexpr int THREADS = 128;
+
+// shared row stride in bf16 elements: LDS = hd + 8 (144 B at hd = 64)
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -70,11 +77,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// 64 rows x 64 bf16 from global rows [r0, r0 + 64) into shared memory;
+// 64 rows x hd bf16 from global rows [r0, r0 + 64) into shared memory;
 // rows at or past N are zero
+template <int HD>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* s,
                                           const __nv_bfloat16* g,
                                           int row_stride, int r0, int N) {
+    constexpr int LDS = HD + 8;
     for (int c = threadIdx.x; c < 64 * (HD / 8); c += THREADS) {
         const int r = c / (HD / 8), ch = c % (HD / 8);
         uint4 v = make_uint4(0u, 0u, 0u, 0u);
@@ -86,9 +95,11 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* s,
 }
 
 // s[j] = this warp's 16 q rows against keys [8j, 8j + 8) of the k tile
+template <int HD>
 __device__ __forceinline__ void qk_tile(const uint32_t (&qf)[HD / 16][4],
                                         const __nv_bfloat16* sK, int lane,
                                         float (&s)[BK / 8][4]) {
+    constexpr int LDS = HD + 8;
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
         s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
@@ -109,23 +120,29 @@ __device__ __forceinline__ void qk_tile(const uint32_t (&qf)[HD / 16][4],
     }
 }
 
+// q, k, v: head 0 of batch item 0; batch item b starts batch_stride
+// elements further, token n token_stride elements further, head h at h*HD.
+// out: (B, N, C) with C = H * HD.
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-attention_qkv_kernel(const __nv_bfloat16* __restrict__ qkv,
-                     __nv_bfloat16* __restrict__ out,
-                     int N, int C, int n_real, float scale) {
+attention_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 __nv_bfloat16* __restrict__ out,
+                 size_t batch_stride, int token_stride,
+                 int N, int C, int n_real, float scale) {
+    constexpr int LDS = HD + 8;
     __shared__ __align__(16) __nv_bfloat16 sQ[BQ * LDS];
     __shared__ __align__(16) __nv_bfloat16 sK[BK * LDS];
     __shared__ __align__(16) __nv_bfloat16 sV[BK * LDS];
 
     const int q0 = blockIdx.x * BQ;
     const int h = blockIdx.y;
-    const int C3 = 3 * C;
-    const __nv_bfloat16* base =
-        qkv + static_cast<size_t>(blockIdx.z) * N * C3;
+    const size_t head0 = static_cast<size_t>(blockIdx.z) * batch_stride + h * HD;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
 
-    load_tile(sQ, base + h * HD, C3, q0, N);
+    load_tile<HD>(sQ, q + head0, token_stride, q0, N);
     __syncthreads();
     uint32_t qf[HD / 16][4];
 #pragma unroll
@@ -141,18 +158,18 @@ attention_qkv_kernel(const __nv_bfloat16* __restrict__ qkv,
     float m_lo = -INFINITY, m_hi = -INFINITY;
     for (int kt = 0; kt < n_tiles; ++kt) {
         __syncthreads();
-        load_tile(sK, base + C + h * HD, C3, kt * BK, N);
+        load_tile<HD>(sK, k + head0, token_stride, kt * BK, N);
         __syncthreads();
         float s[BK / 8][4];
-        qk_tile(qf, sK, lane, s);
+        qk_tile<HD>(qf, sK, lane, s);
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
                 const int key = kt * BK + j * 8 + 2 * t + (e & 1);
-                const float v = key < n_real ? __fmul_rn(s[j][e], scale) : -1e30f;
-                if (e < 2) m_lo = fmaxf(m_lo, v);
-                else m_hi = fmaxf(m_hi, v);
+                const float l = key < n_real ? __fmul_rn(s[j][e], scale) : -1e30f;
+                if (e < 2) m_lo = fmaxf(m_lo, l);
+                else m_hi = fmaxf(m_hi, l);
             }
         }
     }
@@ -170,11 +187,11 @@ attention_qkv_kernel(const __nv_bfloat16* __restrict__ qkv,
         acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
     for (int kt = 0; kt < n_tiles; ++kt) {
         __syncthreads();
-        load_tile(sK, base + C + h * HD, C3, kt * BK, N);
-        load_tile(sV, base + 2 * C + h * HD, C3, kt * BK, N);
+        load_tile<HD>(sK, k + head0, token_stride, kt * BK, N);
+        load_tile<HD>(sV, v + head0, token_stride, kt * BK, N);
         __syncthreads();
         float s[BK / 8][4];
-        qk_tile(qf, sK, lane, s);
+        qk_tile<HD>(qf, sK, lane, s);
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
@@ -234,6 +251,19 @@ attention_qkv_kernel(const __nv_bfloat16* __restrict__ qkv,
     }
 }
 
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out,
+           size_t batch_stride, int token_stride, int B, int N, int H,
+           int n_real, float scale, void* stream) {
+    if (B == 0 || N == 0) return 0;
+    const dim3 grid((N + BQ - 1) / BQ, H, B);
+    attention_kernel<HD><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+        batch_stride, token_stride, N, H * HD, n_real, scale);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // qkv (B, N, 3*H*64) bf16 contiguous -> out (B, N, H*64) bf16 contiguous,
@@ -241,10 +271,25 @@ attention_qkv_kernel(const __nv_bfloat16* __restrict__ qkv,
 extern "C" int attention_qkv_launch(const void* qkv, void* out, int B, int N,
                                     int H, int n_real, float scale,
                                     void* stream) {
-    if (B == 0 || N == 0) return 0;
-    const dim3 grid((N + BQ - 1) / BQ, H, B);
-    attention_qkv_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const __nv_bfloat16*>(qkv),
-        static_cast<__nv_bfloat16*>(out), N, H * HD, n_real, scale);
-    return static_cast<int>(cudaGetLastError());
+    const int C = H * 64;
+    const auto* base = static_cast<const __nv_bfloat16*>(qkv);
+    return launch<64>(base, base + C, base + 2 * C, out,
+                      static_cast<size_t>(N) * 3 * C, 3 * C, B, N, H, n_real,
+                      scale, stream);
+}
+
+// q, k, v (B, N, H, hd) bf16 contiguous -> out (B, N, H, hd) bf16
+// contiguous, hd 32 or 64, on `stream`.  Returns the cudaError_t of the
+// launch (0 = success).
+extern "C" int attention_launch(const void* q, const void* k, const void* v,
+                                void* out, int B, int N, int H, int hd,
+                                int n_real, float scale, void* stream) {
+    const size_t batch_stride = static_cast<size_t>(N) * H * hd;
+    if (hd == 64)
+        return launch<64>(q, k, v, out, batch_stride, H * hd, B, N, H, n_real,
+                          scale, stream);
+    if (hd == 32)
+        return launch<32>(q, k, v, out, batch_stride, H * hd, B, N, H, n_real,
+                          scale, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,25 +1,56 @@
 """EQUSS: frozen DINO ViT -> expansion head -> product quantization.
 
-Counterpart of ``equss_tpu/models/equss.py`` (``EQUSSConfig`` and the
-inference branch of ``EQUSS.init/features/encode/apply``).  The model is an
-``nn.Module`` holding the backbone, the head, the quantizer parameters
-(``pq.*``) and its state (``pq_state.*``); ``convert.params_from_jax``
-maps the JAX package's pytrees onto the same names.  NHWC throughout:
-images (b, H, W, 3) already normalised (``data.transforms``), features
-(b, gh, gw, C).
+Counterpart of ``equss_tpu/models/equss.py`` (``pq_config_from_dict``,
+``stego_config_from_dict``, ``EQUSSConfig`` with ``from_config``, and
+``EQUSS.init/features/encode/apply``).  The model is an ``nn.Module``
+holding the backbone, the head, the quantizer parameters (``pq.*``) and
+its state (``pq_state.*``); ``convert.params_from_jax`` maps the JAX
+package's pytrees onto the same names.  NHWC throughout: images (b, H, W,
+3) already normalised (``data.transforms``), features (b, gh, gw, C).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from equss_tpu_torch.device import DeviceLike, resolve_device
-from equss_tpu_torch.models.heads import ExpansionHead
+from equss_tpu_torch.losses.stego import StegoLossConfig, stego_loss
+from equss_tpu_torch.models.heads import ExpansionHead, dropout2d
 from equss_tpu_torch.models.vit import VisionTransformer, make_vit_config
 from equss_tpu_torch.ops.quantizer import PQConfig, pq_forward, pq_init
+
+
+def pq_config_from_dict(vq: Dict[str, Any]) -> PQConfig:
+    """cfg['model']['vq'] -> PQConfig."""
+    num_pq = vq.get("num_pq", 1)
+    if isinstance(num_pq, (list, tuple)):
+        num_pq = num_pq[0]
+    return PQConfig(
+        num_pq=num_pq,
+        num_codebook=vq["num_codebooks"][0],
+        embed_dim=vq["embed_dims"][0],
+        vq_type=vq.get("vq_type", "param"),
+        beta=vq.get("beta", 0.25),
+        book=vq.get("book", 1.0),
+        normalize=vq.get("normalize", "none"),
+        use_weighted_sum=vq.get("use_weighted_sum", False),
+        use_gumbel=vq.get("use_gumbel", False),
+        use_restart=vq.get("use_restart", False),
+        use_split=vq.get("use_split", False),
+        need_initialized=vq.get("need_initialized", "none"),
+        pq_dropout=vq.get("pq_dropout", 0.0),
+        use_pallas=vq.get("use_pallas", "auto"),
+        assign_precision=vq.get("assign_precision", "exact"),
+    )
+
+
+def stego_config_from_dict(stego: Dict[str, Any]) -> StegoLossConfig:
+    """cfg['loss']['stego'] -> StegoLossConfig (defaults where omitted)."""
+    defaults = dataclasses.asdict(StegoLossConfig())
+    return StegoLossConfig(**{k: stego.get(k, v) for k, v in defaults.items()})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,10 +58,39 @@ class EQUSSConfig:
     model_type: str = "vit_small"
     patch_size: int = 8
     hidden_dim: int = 1024
+    dropout: bool = True
+    drop_prob: float = 0.1
     backbone_dtype: torch.dtype = torch.float32
     attn_bf16: bool = False
     gelu: Any = None                 # None (auto) | 'erf' | 'tanh'
+    fused_ln: bool = False           # ViTConfig.fused_ln (no YAML key)
     pq: PQConfig = dataclasses.field(default_factory=PQConfig)
+    stego: StegoLossConfig = dataclasses.field(default_factory=StegoLossConfig)
+
+    @staticmethod
+    def from_config(cfg: Dict[str, Any]) -> "EQUSSConfig":
+        """The model part of a config dict, as the JAX package reads it:
+        ``model.pretrained.precision: bf16`` selects the bf16 backbone
+        with bf16 attention.  ``freeze_backbone`` changes nothing that
+        trains (the backbone is never among the trained parameters), so
+        the port always runs the backbone without autograd."""
+        m = cfg["model"]
+        pre = m["pretrained"]
+        bf16 = pre.get("precision", "f32") == "bf16"
+        if pre.get("ln_stats", "f32") != "f32":
+            raise NotImplementedError("model.pretrained.ln_stats is not ported")
+        return EQUSSConfig(
+            model_type=pre["model_type"],
+            patch_size=pre["dino_patch_size"],
+            hidden_dim=m["vq"]["embed_dims"][0],
+            dropout=pre.get("dropout", True),
+            drop_prob=pre.get("drop_prob", 0.1),
+            backbone_dtype=torch.bfloat16 if bf16 else torch.float32,
+            attn_bf16=bf16,
+            gelu=pre.get("gelu"),
+            pq=pq_config_from_dict(m["vq"]),
+            stego=stego_config_from_dict(cfg["loss"]["stego"]),
+        )
 
 
 class _Buffers(nn.Module):
@@ -47,7 +107,7 @@ class _Buffers(nn.Module):
 
 
 class EQUSS(nn.Module):
-    """The EQUSS model, inference path.
+    """The EQUSS model.
 
     Weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)``
     and then moved to ``device``: ``None`` means CUDA, which must then be
@@ -61,9 +121,10 @@ class EQUSS(nn.Module):
         self.cfg = cfg
         self.vit_cfg = make_vit_config(
             cfg.model_type, cfg.patch_size, dtype=cfg.backbone_dtype,
-            attn_bf16=cfg.attn_bf16, gelu=cfg.gelu)
+            attn_bf16=cfg.attn_bf16, gelu=cfg.gelu, fused_ln=cfg.fused_ln)
         self.backbone = VisionTransformer(self.vit_cfg, device=self.device,
                                           generator=generator)
+        self.backbone.requires_grad_(False)          # frozen
         self.feat_dim = self.vit_cfg.embed_dim
         self.head = ExpansionHead(self.feat_dim, cfg.hidden_dim, generator)
         pq_params, pq_state = pq_init(generator, cfg.pq)
@@ -73,30 +134,68 @@ class EQUSS(nn.Module):
 
     def features(self, img: torch.Tensor) -> torch.Tensor:
         """Frozen backbone dense features (b, gh, gw, C) in f32."""
-        return self.backbone(img)["dense"].float()
+        with torch.no_grad():
+            return self.backbone(img)["dense"].float()
 
     def encode(self, feat: torch.Tensor) -> torch.Tensor:
         """Expansion head: (b, gh, gw, C) -> (b, gh, gw, hidden_dim)."""
         return self.head(feat)
 
-    @torch.no_grad()
-    def forward(self, img: Optional[torch.Tensor] = None, *,
+    def forward(self, img: Optional[torch.Tensor] = None,
+                img_pos: Optional[torch.Tensor] = None, *,
                 feat: Optional[torch.Tensor] = None,
-                training: bool = False) -> Dict[str, Any]:
-        """Inference forward, the counterpart of ``EQUSS.apply(training=False)``:
-        images (or cached dense features) -> ``feat``, ``code``, ``z_q``
-        (b, gh, gw, hidden_dim), ``indices`` (b, gh, gw, M) int32 and
-        ``aux`` (``vq-loss``, ``codebook-sum``)."""
-        if training:
-            raise NotImplementedError(
-                "EQUSS training (STEGO loss, codebook updates) belongs to the "
-                "train-step slice of the port")
-        if feat is None:
-            if img is None:
-                raise ValueError("forward needs img or feat")
-            feat = self.features(img)
-        code = self.encode(feat)
-        z_q, indices, aux, _ = pq_forward(
-            code, dict(self.pq), self.pq_state.as_dict(), self.cfg.pq)
+                feat_pos: Optional[torch.Tensor] = None,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None,
+                stego_override: Optional[Tuple] = None) -> Dict[str, Any]:
+        """The counterpart of ``EQUSS.apply``: images (or cached dense
+        features) -> ``feat``, ``code``, ``z_q`` (b, gh, gw, hidden_dim),
+        ``indices`` (b, gh, gw, M) int32 and ``aux``.
+
+        Inference (``training=False``) runs without autograd; aux holds
+        ``vq-loss`` and ``codebook-sum``.
+
+        Training takes the kNN positives ``img_pos`` (or ``feat`` and
+        ``feat_pos``): one backbone pass over ``[img; img_pos]`` without
+        autograd (the frozen backbone), channel dropout drawn from
+        ``generator``, the head on both halves, the quantizer on the first
+        and the STEGO loss (``aux['stego-loss']``; ``stego_override`` =
+        ``(coords1, coords2, perms)`` replaces its random draws).  The
+        quantizer's new state is returned under ``pq_state`` and is not
+        applied: the caller decides."""
+        if not training:
+            with torch.no_grad():
+                if feat is None:
+                    if img is None:
+                        raise ValueError("forward needs img or feat")
+                    feat = self.features(img)
+                code = self.encode(feat)
+                z_q, indices, aux, _ = pq_forward(
+                    code, dict(self.pq), self.pq_state.as_dict(), self.cfg.pq)
+            return {"feat": feat, "code": code, "z_q": z_q, "indices": indices,
+                    "aux": aux}
+
+        cfg = self.cfg
+        if feat is not None:
+            if feat_pos is None:
+                raise ValueError("cached-feature training requires feat_pos")
+            b = feat.shape[0]
+            both = torch.cat([feat, feat_pos], 0)
+        else:
+            if img is None or img_pos is None:
+                raise ValueError("training forward requires img and img_pos (kNN positive)")
+            b = img.shape[0]
+            both = self.features(torch.cat([img, img_pos], 0))
+        if cfg.dropout:
+            if generator is None:
+                raise ValueError("training with dropout requires a generator")
+            both = dropout2d(generator, both, cfg.drop_prob)
+        code_both = self.encode(both)
+        feat, feat_pos = both[:b], both[b:]
+        code, code_pos = code_both[:b], code_both[b:]
+        z_q, indices, aux, pq_state = pq_forward(
+            code, dict(self.pq), self.pq_state.as_dict(), cfg.pq, training=True)
+        aux["stego-loss"] = stego_loss(generator, feat, feat_pos, code, code_pos,
+                                       cfg.stego, sample_override=stego_override)
         return {"feat": feat, "code": code, "z_q": z_q, "indices": indices,
-                "aux": aux}
+                "aux": aux, "pq_state": pq_state}

@@ -17,6 +17,11 @@ Numerics follow the JAX package:
   ``fused_attn_min_n``; otherwise plain matmuls with f32 logits (bf16
   logits in ``attn_bf16`` mode).  The kernel masks keys by count, so the
   token stream is not padded.
+* ``fused_ln`` (bf16 only, off by default) puts every LayerNorm on the
+  kernels of ``ops/layernorm.py``: each block's residual adds ride inside
+  the add + LayerNorm kernel, and the MLP output travels as a pending
+  residual into the next block's norm1 or the final norm.  The parameter
+  names do not change, so the same weights load either way.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from torch import nn
 
 from equss_tpu_torch.device import DeviceLike, resolve_device
 from equss_tpu_torch.ops.attention import attention_qkv
+from equss_tpu_torch.ops.layernorm import fused_add_layernorm, fused_layernorm
 from equss_tpu_torch.ops.resize import resize2d
 
 
@@ -47,6 +53,7 @@ class ViTConfig:
     attn_bf16: bool = False
     fused_attn_min_n: int = 512
     gelu_tanh: Any = None         # None: tanh in bf16, erf in f32
+    fused_ln: bool = False        # LayerNorm kernels in bf16 (use_fused_ln)
 
     @property
     def head_dim(self) -> int:
@@ -70,7 +77,8 @@ VIT_PRESETS = {
 
 def make_vit_config(model_type: str, patch_size: int,
                     dtype: torch.dtype = torch.float32, img_size: int = 224,
-                    attn_bf16: bool = False, gelu: Any = None) -> ViTConfig:
+                    attn_bf16: bool = False, gelu: Any = None,
+                    fused_ln: bool = False) -> ViTConfig:
     """gelu: None (auto), 'erf'/False or 'tanh'/True."""
     if model_type not in VIT_PRESETS:
         raise ValueError(f"Unknown arch {model_type}")
@@ -81,7 +89,15 @@ def make_vit_config(model_type: str, patch_size: int,
         gelu = gelu == "tanh"
     return ViTConfig(patch_size=patch_size, embed_dim=dim, depth=depth,
                      num_heads=heads, pos_grid=img_size // patch_size,
-                     dtype=dtype, attn_bf16=attn_bf16, gelu_tanh=gelu)
+                     dtype=dtype, attn_bf16=attn_bf16, gelu_tanh=gelu,
+                     fused_ln=fused_ln)
+
+
+def use_fused_ln(cfg: ViTConfig) -> bool:
+    """The one gate for both the LayerNorm kind and the pending-residual
+    threading of ``Block``: the threading is valid only where every norm
+    is a ``FusedLayerNorm``."""
+    return cfg.fused_ln and cfg.dtype == torch.bfloat16
 
 
 def _trunc_normal(shape, std: float, generator: torch.Generator) -> torch.Tensor:
@@ -113,6 +129,37 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return F.layer_norm(x.float(), self.normalized_shape, self.weight,
                             self.bias, self.eps).to(dtype)
+
+
+class FusedLayerNorm(nn.Module):
+    """LayerNorm on the kernels of ``ops/layernorm.py``, with the
+    parameter names of ``LayerNorm`` (``weight``, ``bias``, f32).  Called
+    with a second operand it fuses the residual add: ``(x, y) -> (x + y,
+    LN(x + y))``.  Operands must be of the compute dtype: the kernels take
+    bf16 and f32 statistics, and a silent cast would round a wider stream
+    before its statistics."""
+
+    def __init__(self, dim: int, eps: float, dtype: torch.dtype):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor, y: Optional[torch.Tensor] = None):
+        for name, v in (("x", x), ("y", y)):
+            if v is not None and v.dtype != self.dtype:
+                raise TypeError(f"FusedLayerNorm({self.dtype}) got {name} of dtype "
+                                f"{v.dtype}; cast explicitly")
+        if y is None:
+            return fused_layernorm(x, self.weight, self.bias, self.eps)
+        return fused_add_layernorm(x, y, self.weight, self.bias, self.eps)
+
+
+def _make_norm(cfg: ViTConfig) -> nn.Module:
+    if use_fused_ln(cfg):
+        return FusedLayerNorm(cfg.embed_dim, cfg.ln_eps, cfg.dtype)
+    return LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
 
 
 class Attention(nn.Module):
@@ -159,17 +206,30 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
+    """Returns ``(x, pending)``.  Under ``use_fused_ln`` the MLP output is
+    the pending residual that the next block's norm1 (or the final norm)
+    adds inside its add + LayerNorm kernel; on the stock path the adds
+    happen here and pending is None."""
+
     def __init__(self, cfg: ViTConfig, generator: torch.Generator):
         super().__init__()
         self.cfg = cfg
-        self.norm1 = LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
+        self.fused_ln = use_fused_ln(cfg)
+        self.norm1 = _make_norm(cfg)
         self.attn = Attention(cfg, generator)
-        self.norm2 = LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
+        self.norm2 = _make_norm(cfg)
         self.mlp = Mlp(cfg, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pending: Optional[torch.Tensor] = None):
+        if self.fused_ln:
+            if pending is None:
+                h1 = self.norm1(x)
+            else:
+                x, h1 = self.norm1(x, pending)
+            x, h2 = self.norm2(x, self.attn(h1))
+            return x, self.mlp(h2)
         x = x + self.attn(self.norm1(x, self.cfg.dtype))
-        return x + self.mlp(self.norm2(x, self.cfg.dtype))
+        return x + self.mlp(self.norm2(x, self.cfg.dtype)), None
 
 
 class VisionTransformer(nn.Module):
@@ -195,7 +255,7 @@ class VisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(
             _trunc_normal((1, cfg.pos_grid ** 2 + 1, C), 0.02, generator))
         self.blocks = nn.ModuleList(Block(cfg, generator) for _ in range(cfg.depth))
-        self.norm = LayerNorm(C, eps=cfg.ln_eps)
+        self.norm = _make_norm(cfg)
         self.to(device)
 
     def _interpolate_pos_embed(self, gh: int, gw: int) -> torch.Tensor:
@@ -221,9 +281,13 @@ class VisionTransformer(nn.Module):
         x = torch.cat([cls, x], 1)
         x = x + self._interpolate_pos_embed(gh, gw).to(cfg.dtype)
 
+        pending = None
         for blk in self.blocks:
-            x = blk(x)
-        tokens = self.norm(x, cfg.dtype)
+            x, pending = blk(x, pending)
+        if pending is None:
+            tokens = self.norm(x, cfg.dtype)
+        else:   # only under use_fused_ln, where the final norm is fused too
+            tokens = self.norm(x, pending)[1]
         return {
             "dense": tokens[:, 1:].reshape(b, gh, gw, cfg.embed_dim),
             "cls": tokens[:, 0],

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-KERNELS = ("attention_qkv", "pq_assign")
+KERNELS = ("attention_qkv", "layernorm", "pq_assign")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v",

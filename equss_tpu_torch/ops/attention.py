@@ -1,11 +1,13 @@
-"""Multi-head attention straight off the packed qkv projection.
+"""Multi-head attention, straight off the packed qkv projection or on
+separate q, k and v.
 
-Counterpart of ``equss_tpu/ops/attention.py::fused_attention_qkv``.  The
-kernel is ``csrc/attention_qkv.cu`` (CUDA C++ for sm_90a);
-``attention_qkv_reference`` is its plain PyTorch version, the same
-arithmetic written with whole-tensor ops.  ``attention_qkv`` takes the
-plain version for a tensor on the CPU and the kernel for a tensor on
-CUDA; it never falls back from one to the other.
+Counterparts of ``equss_tpu/ops/attention.py::fused_attention_qkv`` and
+``::fused_attention``.  Both kernels are entries of
+``csrc/attention_qkv.cu`` (CUDA C++ for sm_90a);
+``attention_qkv_reference`` and ``fused_attention_reference`` are their
+plain PyTorch versions, the same arithmetic written with whole-tensor
+ops.  The wrappers take the plain version for tensors on the CPU and the
+kernel for tensors on CUDA; they never fall back from one to the other.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import torch
 from equss_tpu_torch.device import check_cuda_tensor, launch_stream
 from equss_tpu_torch.ops import _build
 
-KERNEL_HEAD_DIM = 64
+KERNEL_HEAD_DIM = 64                 # the packed entry
+KERNEL_HEAD_DIMS = (32, 64)          # the separate-q/k/v entry
 
 
 def _split_heads(qkv: torch.Tensor, num_heads: int, n_real: Optional[int]):
@@ -38,14 +41,24 @@ def attention_qkv_reference(qkv: torch.Tensor, num_heads: int, scale: float,
     product, 1/sum applied after it in f32."""
     B, N, C, hd, n_real = _split_heads(qkv, num_heads, n_real)
     x = qkv.reshape(B, N, 3, num_heads, hd)
-    q, k, v = (x[:, :, i].transpose(1, 2).float() for i in range(3))
+    out = _attention_plain(x[:, :, 0], x[:, :, 1], x[:, :, 2], scale, n_real)
+    return out.reshape(B, N, C)
+
+
+def _attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float, n_real: int) -> torch.Tensor:
+    """(B, N, H, hd) q, k, v -> (B, N, H, hd) in their dtype: f32 logits
+    and softmax, keys >= n_real masked to -1e30, probabilities cast to the
+    input dtype before the value product, 1/sum applied after it in f32."""
+    dtype = q.dtype
+    q, k, v = (t.transpose(1, 2).float() for t in (q, k, v))   # (B, H, N, hd)
     logits = torch.matmul(q, k.transpose(-1, -2)) * scale      # (B, H, N, N)
-    if n_real != N:
+    if n_real != logits.shape[-1]:
         logits[..., n_real:] = -1e30
     p = torch.exp(logits - logits.amax(-1, keepdim=True))
     r = 1.0 / p.sum(-1, keepdim=True)
-    out = torch.matmul(p.to(qkv.dtype).float(), v) * r
-    return out.transpose(1, 2).reshape(B, N, C).to(qkv.dtype)
+    out = torch.matmul(p.to(dtype).float(), v) * r
+    return out.transpose(1, 2).to(dtype, memory_format=torch.contiguous_format)
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -84,3 +97,48 @@ def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
 
 
 attention_qkv.launches = 0
+
+
+def fused_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              *, scale: float) -> torch.Tensor:
+    """Plain version of the separate-q/k/v kernel: (B, N, H, hd) each ->
+    (B, N, H, hd), the arithmetic of ``attention_qkv_reference`` with
+    every key a real one."""
+    return _attention_plain(q, k, v, scale, q.shape[1])
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v for every head of separate (B, N, H, hd)
+    q, k and v -> (B, N, H, hd).
+
+    CPU tensors: the plain version.  CUDA tensors: the kernel, which takes
+    contiguous bf16 of one shape with head_dim 32 or 64 and raises on
+    anything else."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k and v must share one (B, N, H, hd) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.device.type == "cpu":
+        return fused_attention_reference(q, k, v, scale=scale)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_cuda_tensor(t, name, torch.bfloat16, q.device)
+    B, N, H, hd = q.shape
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"attention kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {hd}")
+    out = torch.empty_like(q)
+    lib = _kernel_lib()
+    fn = lib.attention_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+            + [ctypes.c_float, ctypes.c_void_p]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             B, N, H, hd, N, scale, launch_stream(q))
+    if err:
+        raise RuntimeError(f"fused_attention launch failed: CUDA error {err}")
+    fused_attention.launches += 1
+    return out
+
+
+fused_attention.launches = 0

@@ -1,19 +1,21 @@
-"""Product quantization, inference path.
+"""Product quantization: inference and the param-codebook training path.
 
-Counterpart of the inference subset of ``equss_tpu/ops/quantizer.py``:
-``PQConfig``, ``pq_init``, ``normalize_vectors``, ``pairwise_sqdist``,
-``_gather_codewords`` and ``pq_forward(training=False)``.  Parameters and
+Counterpart of ``equss_tpu/ops/quantizer.py``: ``PQConfig``, ``pq_init``,
+``normalize_vectors``, ``pairwise_sqdist``, ``_gather_codewords``,
+``_usage_aux``, ``_pallas_assign_ste`` and ``pq_forward``.  Parameters and
 state are plain dicts of tensors, as in the JAX package, so the two are
-held against each other like for like.  The training branches (EMA
-updates, restart, split, dropout, Gumbel, usage statistics) and the
-weighted-sum output belong to a later slice and raise here.
+held against each other like for like; ``pq_forward`` returns the new
+state and leaves the caller's untouched.  Training covers param
+codebooks (``vq_type="param"``); EMA codebooks, restart, split, dropout,
+Gumbel and the weighted-sum output belong to a later slice and raise.
 
 Routing keeps the JAX package's rule: the fused kernel
 (``ops/pq_assign.py``) runs whenever the eligibility predicate holds and
 ``use_pallas`` is ``True``, or ``"auto"`` on a CUDA device (the TPU rule
 was keyed on the TPU backend).  On the CPU ``"auto"`` takes the torch
 counterpart of the XLA path unless its (n, M, K) distance tensor would
-exceed ``pallas_auto_bytes``.
+exceed ``pallas_auto_bytes``.  Training takes the kernel only under an
+explicit ``use_pallas`` and ``train_route_ok``, through ``AssignSTE``.
 """
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ class PQConfig:
     normalize: str = "l2"            # none | l2 | z_norm | z_trainable
     use_weighted_sum: bool = False
     use_gumbel: bool = False
+    use_restart: bool = False
+    use_split: bool = False
     need_initialized: str = "none"   # none | uni | normal here
     pq_dropout: float = 0.0
     use_pallas: Any = "auto"         # "auto" | True | False: the fused kernel
@@ -119,9 +123,94 @@ def _gather_codewords(codebook: torch.Tensor, indices: torch.Tensor) -> torch.Te
     return codebook[m, indices.long()]
 
 
-def _kernel_eligible(cfg: PQConfig, n: int, device: torch.device) -> bool:
-    """The JAX package's eligibility predicate (quantizer.py:496-543),
-    inference branch, with the TPU backend test read as CUDA."""
+def _usage_aux(count: torch.Tensor, K: int) -> Dict[str, torch.Tensor]:
+    """Codebook health from (M, K) usage counts: the live-codeword ratio
+    and the fraction of codewords covering 10/50/90% of the assignments,
+    averaged over subspaces."""
+    aux = {"codebook-usage": ((count > 0).float().sum(-1) / K).mean()}
+    prob = count / (count.sum(-1, keepdim=True) + 1.0)
+    c_sum = prob.sort(-1, descending=True).values.cumsum(-1)
+    for q in (10, 50, 90):
+        idx_q = (c_sum >= q / 100.0).float().argmax(-1)    # first True, else 0
+        aux[f"current-p{q}"] = (idx_q.float() / K).mean()
+    return aux
+
+
+class AssignSTE(torch.autograd.Function):
+    """The fused assignment (``pq_assign``: the kernel on CUDA, its plain
+    version on the CPU) under the analytic backward of the JAX package's
+    ``_pallas_assign_ste`` (quantizer.py:307-358), for training param
+    codebooks:
+
+    * d z: the indices are piecewise constant, so z's gradient flows only
+      through the z_norm output: the VJP of ``normalize_vectors``
+      recomputed at the saved z;
+    * d codebook: the transpose of the codeword gather, a scatter-add of
+      the z_q cotangent at the indices (``index_add_``; the bf16 codeword
+      rounding of the fast mode counts as identity);
+    * d codebook_norm: zero, it feeds only the argmin.
+
+    ``apply(z (n, M, d) f32, codebook, codebook_norm, normalize, exact)``
+    returns ``(indices, z_norm, z_q)``."""
+
+    @staticmethod
+    def forward(ctx, z, codebook, codebook_norm, normalize, exact):
+        indices, zn, zq = pq_assign(
+            z.contiguous(), codebook_norm.contiguous(), codebook.contiguous(),
+            normalize=normalize, exact=exact)
+        ctx.save_for_backward(z, indices)
+        ctx.normalize = normalize
+        ctx.codebook_shape = codebook.shape
+        ctx.mark_non_differentiable(indices)
+        return indices, zn, zq
+
+    @staticmethod
+    def backward(ctx, _d_idx, d_zn, d_zq):
+        z, indices = ctx.saved_tensors
+        M, K, d = ctx.codebook_shape
+        if ctx.normalize == "none":
+            d_z = d_zn
+        else:
+            with torch.enable_grad():
+                zs = z.detach().requires_grad_()
+                (d_z,) = torch.autograd.grad(
+                    normalize_vectors(zs, ctx.normalize), zs, d_zn)
+        flat = (indices.long()
+                + K * torch.arange(M, device=indices.device)).reshape(-1)
+        d_c = torch.zeros((M * K, d), dtype=d_zq.dtype, device=d_zq.device)
+        d_c.index_add_(0, flat, d_zq.reshape(-1, d))
+        return d_z, d_c.reshape(M, K, d), None, None, None
+
+
+def _train_route_ok(cfg: PQConfig) -> bool:
+    """``train_route_ok`` of the JAX package (quantizer.py:527-533): the
+    kernel trains only under an explicit ``use_pallas``, a param codebook,
+    no restart or split, and a normalisation free of running statistics."""
+    return (cfg.use_pallas != "auto"
+            and cfg.vq_type == "param"
+            and not cfg.use_restart
+            and not cfg.use_split
+            and cfg.normalize != "z_trainable")
+
+
+def _check_training_supported(cfg: PQConfig) -> None:
+    later = [name for name, on in (
+        ("vq_type='ema'", cfg.vq_type != "param"),
+        ("use_restart", cfg.use_restart),
+        ("use_split", cfg.use_split),
+        ("pq_dropout", cfg.pq_dropout > 0.0),
+        ("use_gumbel", cfg.use_gumbel),
+        ("use_weighted_sum", cfg.use_weighted_sum)) if on]
+    if later:
+        raise NotImplementedError(
+            "pq_forward(training=True) is ported for param codebooks only; "
+            f"{', '.join(later)} belong to a later slice of the port")
+
+
+def _kernel_eligible(cfg: PQConfig, n: int, device: torch.device,
+                     training: bool = False) -> bool:
+    """The JAX package's eligibility predicate (quantizer.py:496-543)
+    with the TPU backend test read as CUDA."""
     if cfg.use_pallas == "auto":
         if device.type == "cuda":
             want = True
@@ -133,6 +222,7 @@ def _kernel_eligible(cfg: PQConfig, n: int, device: torch.device) -> bool:
     else:
         want = bool(cfg.use_pallas)
     return (want
+            and (not training or _train_route_ok(cfg))
             and not cfg.use_weighted_sum
             and not cfg.use_gumbel
             and cfg.pq_dropout == 0.0
@@ -150,12 +240,14 @@ def pq_forward(
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Quantize (..., D) features in all M subspaces.
 
-    Returns ``(z_q, indices, aux, state)``: z_q (..., D) is
-    ``z_norm + (z_q - z_norm)`` in f32, indices (..., M) int32, aux holds
-    ``vq-loss`` and ``codebook-sum``.  Inference only."""
+    Returns ``(z_q, indices, aux, new_state)``: z_q (..., D) is the
+    straight-through value ``z_norm + (z_q - z_norm).detach()`` in f32,
+    indices (..., M) int32, aux holds ``vq-loss`` and ``codebook-sum`` and,
+    in training, the usage telemetry of this batch (``codebook-usage``,
+    ``current-p10/50/90``).  In training ``new_state["vq_count"]`` adds
+    this batch's counts; the caller's ``state`` is not modified."""
     if training:
-        raise NotImplementedError(
-            "pq_forward(training=True) belongs to the training slice of the port")
+        _check_training_supported(cfg)
     if cfg.use_weighted_sum:
         raise NotImplementedError(
             "the weighted-sum quantizer output is not ported yet")
@@ -175,27 +267,45 @@ def pq_forward(
     else:
         codebook_norm = normalize_vectors(codebook, cfg.normalize)
 
-    if _kernel_eligible(cfg, n, zf.device):
-        indices, z_norm, z_q = pq_assign(
-            zf.contiguous(), codebook_norm.contiguous(), codebook.contiguous(),
-            normalize=cfg.normalize, z_mean=z_mean, z_std=z_std,
-            exact=cfg.assign_precision != "bf16")
+    exact = cfg.assign_precision != "bf16"
+    if _kernel_eligible(cfg, n, zf.device, training):
+        if training:
+            indices, z_norm, z_q = AssignSTE.apply(
+                zf, codebook, codebook_norm, cfg.normalize, exact)
+        else:
+            indices, z_norm, z_q = pq_assign(
+                zf.contiguous(), codebook_norm.contiguous(), codebook.contiguous(),
+                normalize=cfg.normalize, z_mean=z_mean, z_std=z_std, exact=exact)
     else:
         z_norm = normalize_vectors(zf, cfg.normalize, z_mean, z_std)
-        dist = pairwise_sqdist(z_norm, codebook_norm, precision=cfg.assign_precision)
-        indices = dist.argmin(-1).to(torch.int32)
-        if cfg.assign_precision == "bf16":
-            z_q = _gather_codewords(codebook.to(torch.bfloat16), indices).float()
-        else:
-            z_q = _gather_codewords(codebook.float(), indices)
+        with torch.no_grad():
+            dist = pairwise_sqdist(z_norm, codebook_norm, precision=cfg.assign_precision)
+            indices = dist.argmin(-1).to(torch.int32)
+            del dist
+        # bf16: the codeword rounds to bf16; its gradient is the f32
+        # scatter-add, rounded to bf16 on its way back through the cast,
+        # as XLA differentiates the one-hot einsum of bf16 operands
+        source = codebook.to(torch.bfloat16).float() if not exact else codebook.float()
+        z_q = _gather_codewords(source, indices)
 
-    commitment = torch.mean((z_norm - z_q) ** 2)
     aux: Dict[str, torch.Tensor] = {}
+    new_state = dict(state)
+    commitment = torch.mean((z_norm - z_q.detach()) ** 2)
     if cfg.vq_type == "param":
-        aux["vq-loss"] = cfg.book * torch.mean((z_q - z_norm) ** 2) + cfg.beta * commitment
+        codebook_loss = torch.mean((z_q - z_norm.detach()) ** 2)
+        aux["vq-loss"] = cfg.book * codebook_loss + cfg.beta * commitment
     else:
         aux["vq-loss"] = cfg.beta * commitment
     aux["codebook-sum"] = codebook.abs().sum() / M
-    z_q = z_norm + (z_q - z_norm)          # the straight-through value
+    if training:
+        with torch.no_grad():
+            flat = (indices.long() + K * torch.arange(M, device=indices.device)).reshape(-1)
+            # index_add_, not bincount: bincount reads its input's max back
+            # to the host, which stalls the step on CUDA
+            count = torch.zeros(M * K, device=indices.device).index_add_(
+                0, flat, torch.ones(flat.shape, device=indices.device)).reshape(M, K)
+            new_state["vq_count"] = state["vq_count"] + count
+            aux.update(_usage_aux(count, K))
+    z_q = z_norm + (z_q - z_norm).detach()          # the straight-through value
     return (z_q.reshape(*lead_shape, M * d), indices.reshape(*lead_shape, M),
-            aux, dict(state))
+            aux, new_state)

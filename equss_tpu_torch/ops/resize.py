@@ -65,6 +65,21 @@ def _cubic_matrix(in_size: int, out_size: int, align_corners: bool = False,
     return mat.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=256)
+def _matrix(method: str, in_size: int, out_size: int, align_corners: bool,
+            scale_factor: Optional[float], device: torch.device) -> torch.Tensor:
+    """One interpolation matrix as a tensor on ``device``, built and
+    copied once: a copy from pageable host memory waits for the device's
+    queue, which would stall every call on CUDA."""
+    if method == "bilinear":
+        mat = _linear_matrix(in_size, out_size, align_corners)
+    elif method == "bicubic":
+        mat = _cubic_matrix(in_size, out_size, align_corners, scale_factor)
+    else:
+        raise ValueError(f"Unsupported resize method {method}")
+    return torch.from_numpy(mat).to(device)
+
+
 def resize2d(x: torch.Tensor, size: Tuple[int, int], method: str = "bilinear",
              align_corners: bool = False,
              scale_factor: Optional[Tuple[float, float]] = None) -> torch.Tensor:
@@ -74,15 +89,9 @@ def resize2d(x: torch.Tensor, size: Tuple[int, int], method: str = "bilinear",
     out_h, out_w = size
     sf_h, sf_w = scale_factor if scale_factor is not None else (None, None)
     if method == "bilinear":
-        mh = _linear_matrix(H, out_h, align_corners)
-        mw = _linear_matrix(W, out_w, align_corners)
-    elif method == "bicubic":
-        mh = _cubic_matrix(H, out_h, align_corners, sf_h)
-        mw = _cubic_matrix(W, out_w, align_corners, sf_w)
-    else:
-        raise ValueError(f"Unsupported resize method {method}")
+        sf_h = sf_w = None
     x = x.float()
-    mh = torch.from_numpy(mh).to(x.device)
-    mw = torch.from_numpy(mw).to(x.device)
+    mh = _matrix(method, H, out_h, align_corners, sf_h, x.device)
+    mw = _matrix(method, W, out_w, align_corners, sf_w, x.device)
     out = torch.einsum("oh,nhwc->nowc", mh, x)
     return torch.einsum("ow,nhwc->nhoc", mw, out)

@@ -1,0 +1,131 @@
+"""Optimizers and learning-rate schedules.
+
+Counterpart of ``equss_tpu/train/optim.py``, which builds optax chains:
+
+* adam takes the learning rate only (no weight decay);
+* adamw decays every parameter with ndim > 1 outside the quantizer
+  (``pq``) and ``club_enc`` subtrees (``wd_mask``);
+* sgd with momentum 0.9 by default, weight decay added to the gradient
+  under the same mask;
+* constant and cosine schedules, the cosine one over
+  ``max_epochs * (iter_per_epoch // num_accum)`` updates;
+* ``clip_grad``: optax's ``clip_by_global_norm``, which scales the
+  gradients by max / norm only when norm exceeds max (unlike
+  ``torch.nn.utils.clip_grad_norm_``, which divides by norm + 1e-6).
+
+The update rules are ``torch.optim``'s Adam, AdamW and SGD, the same
+formulas as optax's adam (eps outside the square root), adamw and sgd
+(trace momentum).  Gradient accumulation (``num_accum > 1``) belongs to a
+later slice and raises.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+
+import torch
+
+NO_WD_SUBTREES = ("pq", "club_enc")
+
+NamedParams = Iterable[Tuple[str, torch.nn.Parameter]]
+
+
+def wd_mask(name: str, param: torch.Tensor) -> bool:
+    """True where weight decay applies: ndim > 1 and no dotted part of the
+    name is a quantizer or CLUB-encoder subtree."""
+    return param.ndim > 1 and not any(part in NO_WD_SUBTREES for part in name.split("."))
+
+
+def build_schedule(sched_cfg: Dict[str, Any], base_lr: float, iter_per_epoch: int,
+                   max_epochs: int, num_accum: int = 1) -> Callable[[int], float]:
+    """The learning rate of update ``count`` (0 for the first update)."""
+    name = sched_cfg.get("name", "constant").lower()
+    if name == "constant":
+        lr = base_lr * sched_cfg.get("factor", 1.0)
+        return lambda count: lr
+    if name in ("cos", "cosine"):
+        t_max = max(max_epochs * (iter_per_epoch // max(num_accum, 1)), 1)
+        alpha = sched_cfg.get("min_lr", 0.0) / max(base_lr, 1e-12)
+
+        def cosine(count: int) -> float:
+            c = min(count, t_max)
+            decayed = (1 - alpha) * 0.5 * (1 + math.cos(math.pi * c / t_max)) + alpha
+            return base_lr * decayed
+        return cosine
+    raise ValueError(f"Unsupported scheduler type {name}")
+
+
+def global_grad_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient present (f32)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return torch.zeros(())
+    return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+
+
+class Optimizer:
+    """One optax-style transform over a set of named parameters: optional
+    global-norm clipping, then the update rule at the scheduled rate."""
+
+    def __init__(self, named_params: NamedParams, opt_cfg: Dict[str, Any],
+                 sched_cfg: Optional[Dict[str, Any]] = None, *,
+                 iter_per_epoch: int = 1, max_epochs: int = 1,
+                 num_accum: int = 1, clip_grad: Optional[float] = None):
+        if num_accum > 1:
+            raise NotImplementedError(
+                "gradient accumulation belongs to a later slice of the port")
+        named = list(named_params)
+        self.params: List[torch.nn.Parameter] = [p for _, p in named]
+        self.schedule = build_schedule(sched_cfg or {}, opt_cfg["lr"],
+                                       iter_per_epoch, max_epochs, num_accum)
+        self.clip_grad = clip_grad if clip_grad is not None and clip_grad > 0 else None
+        self.count = 0
+        name = opt_cfg["name"].lower()
+        lr = self.schedule(0)
+        wd = opt_cfg.get("weight_decay", 0.0)
+        decay = [p for n, p in named if wd_mask(n, p)]
+        rest = [p for n, p in named if not wd_mask(n, p)]
+        groups = [{"params": g, "weight_decay": w}
+                  for g, w in ((decay, wd), (rest, 0.0)) if g]
+        if name == "adam":
+            self.opt = torch.optim.Adam(self.params, lr=lr)
+        elif name == "adamw":
+            betas = tuple(opt_cfg.get("betas", (0.9, 0.999)))
+            self.opt = torch.optim.AdamW(groups, lr=lr, betas=betas)
+        elif name == "sgd":
+            self.opt = torch.optim.SGD(groups, lr=lr,
+                                       momentum=opt_cfg.get("momentum", 0.9))
+        else:
+            raise ValueError(f"Unsupported optimizer type {name}")
+
+    def zero_grad(self) -> None:
+        self.opt.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self, norm: Optional[torch.Tensor] = None) -> None:
+        """Clip (if configured), set the scheduled rate, update.  ``norm``
+        is the global gradient norm of this optimizer's parameters where
+        the caller has it already.  The clip is a select on the device, as
+        optax's, so the step reads nothing back to the host."""
+        if self.clip_grad is not None:
+            if norm is None:
+                norm = global_grad_norm(self.params)
+            keep = norm < self.clip_grad
+            for p in self.params:
+                if p.grad is not None:
+                    p.grad.copy_(torch.where(keep, p.grad,
+                                             p.grad / norm * self.clip_grad))
+        lr = self.schedule(self.count)
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+        self.opt.step()
+        self.count += 1
+
+
+def build_optimizer(named_params: NamedParams, opt_cfg: Dict[str, Any],
+                    sched_cfg: Optional[Dict[str, Any]] = None, *,
+                    iter_per_epoch: int = 1, max_epochs: int = 1,
+                    num_accum: int = 1, clip_grad: Optional[float] = None) -> Optimizer:
+    """cfg['optimizer'][x] + cfg['scheduler'][x] -> ``Optimizer``."""
+    return Optimizer(named_params, opt_cfg, sched_cfg, iter_per_epoch=iter_per_epoch,
+                     max_epochs=max_epochs, num_accum=num_accum, clip_grad=clip_grad)

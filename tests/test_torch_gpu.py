@@ -8,7 +8,19 @@ imports no JAX, so it also runs on a machine that has only PyTorch:
 import pytest
 import torch
 
-from equss_tpu_torch.ops.attention import attention_qkv, attention_qkv_reference
+from equss_tpu_torch.ops import quantizer as tq
+from equss_tpu_torch.ops.attention import (
+    attention_qkv,
+    attention_qkv_reference,
+    fused_attention,
+    fused_attention_reference,
+)
+from equss_tpu_torch.ops.layernorm import (
+    add_layernorm_reference,
+    fused_add_layernorm,
+    fused_layernorm,
+    layernorm_reference,
+)
 from equss_tpu_torch.ops.pq_assign import pq_assign, pq_assign_reference
 from equss_tpu_torch.ops.quantizer import normalize_vectors
 
@@ -61,3 +73,88 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         pq_assign(z, torch.zeros((2, 128, 12), device=cuda),
                   torch.zeros((2, 128, 12), device=cuda))   # d = 12
+
+
+@pytest.mark.parametrize("rows,C", [(25120, 384), (1000, 768), (37, 32), (5, 200)])
+def test_layernorm_kernels_match_plain(cuda, rows, C):
+    """At most 0.1% of elements differ, each by one bf16 ulp of
+    max(|out|, |bias|); the add kernel's bf16 sum bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    x = (3 * torch.randn((rows, C), generator=g, device=cuda) + 1).to(torch.bfloat16)
+    y = torch.randn((rows, C), generator=g, device=cuda).to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn(C, generator=g, device=cuda)
+    bias = 0.1 * torch.randn(C, generator=g, device=cuda)
+    before = fused_layernorm.launches, fused_add_layernorm.launches
+    out = fused_layernorm(x, scale, bias)
+    s, out2 = fused_add_layernorm(x, y, scale, bias)
+    assert (fused_layernorm.launches, fused_add_layernorm.launches) == \
+        (before[0] + 1, before[1] + 1)
+    s_ref, ref2 = add_layernorm_reference(x, y, scale, bias)
+    assert torch.equal(s, s_ref)
+    for o, r in ((out, layernorm_reference(x, scale, bias)), (out2, ref2)):
+        diff = (o.float() - r.float()).abs()
+        mag = torch.maximum(r.float().abs(), bias.abs().expand_as(diff))
+        ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+        assert (diff <= ulp).all()
+        assert (diff > 0).float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("B,N,H,hd", [(2, 785, 6, 64), (1, 1601, 2, 64), (1, 5, 2, 64),
+                                      (2, 128, 1, 32)])
+def test_fused_attention_kernel_matches_plain(cuda, B, N, H, hd):
+    g = torch.Generator(device=cuda).manual_seed(N)
+    q, k, v = (torch.randn((B, N, H, hd), generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    before = fused_attention.launches
+    out = fused_attention(q, k, v, scale=hd ** -0.5)
+    assert fused_attention.launches == before + 1
+    ref = fused_attention_reference(q, k, v, scale=hd ** -0.5).float()
+    ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().max())).item() - 7)
+    assert (out.float() - ref).abs().max().item() <= ulp     # 1 bf16 ulp
+
+
+def test_new_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros((1, 8, 2, 48), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fused_attention(q, q, q, scale=0.1)                   # head_dim 48
+    x = torch.zeros((4, 12), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fused_layernorm(x, torch.ones(12, device=cuda), torch.zeros(12, device=cuda))
+    with pytest.raises(TypeError):
+        fused_layernorm(x.float(), torch.ones(12, device=cuda), torch.zeros(12, device=cuda))
+
+
+def test_ste_route_backward_matches_cpu(cuda):
+    """One loss.backward() through the PQ kernel's training route on the
+    card against the same on the CPU (plain version): the assignments
+    agree on >= 99.5% of rows (fast mode, as the kernel tests), and the
+    gradients of z and the codebook, taken where every assignment agrees,
+    within 1e-5 of their largest magnitude."""
+    cfg = tq.PQConfig(num_pq=8, num_codebook=256, embed_dim=128, normalize="l2",
+                      use_pallas=True, assign_precision="bf16")
+    g = torch.Generator().manual_seed(5)
+    z0 = torch.randn((4, 30, 30, 128), generator=g)
+    cb0 = torch.randn((8, 256, 16), generator=g)
+    w = torch.randn((4, 30, 30, 128), generator=g)
+    runs = {}
+    for dev in ("cpu", cuda):
+        z = z0.to(dev).detach().requires_grad_()            # a leaf on each side
+        params = {"codebook": cb0.to(dev).detach().requires_grad_()}
+        state = {"vq_count": torch.zeros((8, 256), device=dev)}
+        before = pq_assign.launches
+        zq, idx, aux, _ = tq.pq_forward(z, params, state, cfg, training=True)
+        (aux["vq-loss"] + (zq * w.to(dev)).sum()).backward()
+        assert pq_assign.launches == before + (0 if dev == "cpu" else 1)
+        runs[str(dev)] = (idx.cpu(), z.grad.cpu(), params["codebook"].grad.cpu())
+    (idx_c, gz_c, gc_c), (idx_g, gz_g, gc_g) = runs["cpu"], runs[str(cuda)]
+    same = idx_c == idx_g
+    assert same.float().mean().item() >= 0.995
+    rows = same.reshape(-1, 8)
+    torch.testing.assert_close(gz_g.reshape(-1, 8, 16)[rows], gz_c.reshape(-1, 8, 16)[rows],
+                               rtol=0, atol=1e-5 * gz_c.abs().max().item())
+    touched = torch.zeros((8, 256), dtype=torch.bool)
+    for n, m in (~rows).nonzero().tolist():
+        touched[m, idx_c.reshape(-1, 8)[n, m]] = True
+        touched[m, idx_g.reshape(-1, 8)[n, m]] = True
+    torch.testing.assert_close(gc_g[~touched], gc_c[~touched], rtol=0,
+                               atol=1e-5 * gc_c.abs().max().item())

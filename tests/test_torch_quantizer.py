@@ -109,6 +109,12 @@ def test_pq_forward_routing_and_inference_only():
                 dict(pq_dropout=0.1)):
         c = dataclasses.replace(cfg, use_pallas=True, **bad)
         assert not tq._kernel_eligible(c, 10, torch.device("cuda"))
-    params, state = tq.pq_init(torch.Generator().manual_seed(0), cfg)
+    # training takes the kernel only under an explicit use_pallas
+    # (train_route_ok); branches of a later slice raise
+    assert not tq._kernel_eligible(cfg, 10, torch.device("cuda"), training=True)
+    assert tq._kernel_eligible(dataclasses.replace(cfg, use_pallas=True), 10,
+                               torch.device("cuda"), training=True)
+    ema = dataclasses.replace(cfg, vq_type="ema")
+    params, state = tq.pq_init(torch.Generator().manual_seed(0), ema)
     with pytest.raises(NotImplementedError):
-        tq.pq_forward(torch.zeros(3, 64), params, state, cfg, training=True)
+        tq.pq_forward(torch.zeros(3, 64), params, state, ema, training=True)
