@@ -12,11 +12,16 @@ Phases, each printing JSON lines on stdout:
             and cuDNN;
 2. build    nvcc builds every kernel of ``equss_tpu_torch/csrc`` into
             ``equss_tpu_torch/_build`` (full compiler log:
-            ``equss_tpu_torch/_build/build.log``);
+            ``equss_tpu_torch/_build/build.log``): registers, spills (none
+            allowed), ptxas's wgmma serialization warnings (none allowed
+            for attention) and the wgmma and TMA instructions in the
+            attention library's SASS;
 3. kernels  each kernel against its plain PyTorch version on the card at
-            the main paths' shapes and a few more, with its time, the
-            plain version's, one PyTorch library call's (a yardstick the
-            port never calls) and the bound the card's peak rates set;
+            the main paths' shapes and a few more (for attention also a
+            late row max and a NaN neighbour), with its time, the plain
+            version's, one PyTorch library call's (a yardstick the port
+            never calls) and the bound the card's peak rates set (for
+            attention also the exponential unit's);
 4. main     serving: the ViT-S/8 224^2 bf16 -> head -> PQ 64x256 forward
             on raw uint8 requests at b = 1, 8 and 128 with seeded weights:
             launch counts (12 attention and 1 PQ per forward), ms per
@@ -61,6 +66,7 @@ PEAK_F32_FLOPS = 67e12        # CUDA cores, no tensor cores
 PEAK_BYTES = 3.35e12
 
 FAILURES: list = []
+SM_CLOCK_MAX_MHZ = 0.0       # nvidia-smi's clocks.max.sm, read in phase 1
 
 # configs/pqgo_cocostuff27.yaml as a dict (the card machine has no YAML
 # reader); tests/test_torch_trainer.py holds it against the file
@@ -219,14 +225,19 @@ def phase_device() -> str:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on a CUDA card", file=sys.stderr)
         sys.exit(2)
+    global SM_CLOCK_MAX_MHZ
     smi = nvidia_smi()
     print(smi, flush=True)
+    # an idle card's clocks.sm reads low; the exponential bound takes the maximum
+    SM_CLOCK_MAX_MHZ = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
     check(not torch.backends.cuda.matmul.allow_tf32,
           "torch.backends.cuda.matmul.allow_tf32 must be False")
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
-          "nvidia_smi": smi, "torch": torch.__version__,
+          "nvidia_smi": smi, "sm_clock_max_mhz": SM_CLOCK_MAX_MHZ, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32})
     return kind
@@ -247,49 +258,118 @@ def phase_build() -> None:
             for name, text in log.items()}
     spills = {name: sum(map(int, re.findall(r"(\d+) bytes spill", text)))
               for name, text in log.items()}
+    check(all(v == 0 for v in spills.values()), f"build: spills {spills}")
+    # ptxas C7515: wgmma instructions serialized
+    serialized = {name: text.count("C7515") for name, text in log.items()}
+    check(serialized.get("attention_qkv", 0) == 0,
+          "build: ptxas serialized the attention kernel's wgmma instructions")
+    sass = attention_sass()
+    if sass.get("cuobjdump"):
+        check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
+              f"build: attention SASS lacks wgmma or TMA loads: {sass}")
     emit({"phase": "build", "seconds": seconds, "built": sorted(log),
-          "max_registers": regs, "spill_bytes": spills})
+          "max_registers": regs, "spill_bytes": spills, "wgmma_serialized": serialized,
+          "attention_sass": sass})
+
+
+def attention_sass() -> dict:
+    """Counts of wgmma (HGMMA) and TMA load (UTMALDG) instructions in the
+    attention library's SASS, by ``cuobjdump -sass`` from the toolkit or
+    from Triton's package; ``cuobjdump: null`` where neither has one."""
+    import shutil
+    from pathlib import Path
+
+    from equss_tpu_torch.ops import _build
+
+    tools = [str(Path(_build.nvcc_path()).parent / "cuobjdump"), shutil.which("cuobjdump")]
+    try:
+        import triton
+
+        tools.append(str(Path(triton.__file__).parent / "backends" / "nvidia" / "bin"
+                         / "cuobjdump"))
+    except ImportError:
+        pass
+    tool = next((t for t in tools if t and Path(t).is_file()), None)
+    if tool is None:
+        return {"cuobjdump": None}
+    sass = subprocess.run([tool, "-sass", str(_build.library_path("attention_qkv"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    return {"cuobjdump": tool, "HGMMA": sass.count("HGMMA"), "UTMALDG": sass.count("UTMALDG")}
+
+
+def attention_input(B: int, N: int, H: int, hd: int, g, kind: str = "randn",
+                    n_real: int = 0) -> torch.Tensor:
+    """(B, N, 3, H, hd) bf16 q | k | v on the card, of the input kind
+    ``kind`` (``equss_tpu_torch.ops.attention.attention_test_input``)."""
+    from equss_tpu_torch.ops.attention import attention_test_input
+
+    return attention_test_input(torch.randn((B, N, 3, H, hd), generator=g, device="cuda"),
+                                kind, n_real)
+
+
+def exp_bound_ms(exps: float) -> float:
+    """The exponential unit's bound: 16 per clock per SM on 132 SMs at the
+    card's maximum SM clock."""
+    return 1e3 * exps / (16 * 132 * SM_CLOCK_MAX_MHZ * 1e6)
+
+
+def attention_row(kernel: str, name: str, out, ref, items: int, fn, plain, library,
+                  flops: float, nbytes: float, exps: float) -> dict:
+    """Check ``out`` against ``ref`` on the first ``items`` batch items
+    (finite, within 1 bf16 ulp of the output's scale), time the kernel,
+    its plain version and the library call, and return the row."""
+    o, r = out[:items].float(), ref[:items].float()
+    err = (o - r).abs().max().item()
+    ulp = bf16_ulp(r)
+    check(bool(torch.isfinite(o).all()) and err <= ulp,
+          f"{kernel} {name}: max abs err {err} > 1 bf16 ulp {ulp}")
+    bnd, by = bound_ms(flops, PEAK_BF16_FLOPS, nbytes)
+    return {"phase": "kernel", "kernel": kernel, "case": name, "max_abs_err": err,
+            "tolerance": ulp, "items_checked": items,
+            "ms": cuda_ms(fn, iters=10), "plain_ms": cuda_ms(plain, iters=3),
+            "library_ms": cuda_ms(library, iters=10),
+            "bound_ms": bnd, "bound_by": by, "exp_bound_ms": exp_bound_ms(exps)}
 
 
 def phase_attention(results: dict) -> None:
+    """The packed attention kernel against its plain version at the main
+    paths' shapes, ViT-B's width, the 320^2 validation length, a padded
+    token stream (N > n_real), both late-max inputs and a NaN neighbour;
+    tolerance one bf16 ulp of the output's scale.  Library yardstick:
+    ``F.scaled_dot_product_attention`` over the real keys."""
     import torch.nn.functional as F
 
     from equss_tpu_torch.ops.attention import attention_qkv, attention_qkv_reference
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    cases = [  # name, B, N, H, n_real
-        ("vit_s_224", 128, 785, 6, 785),      # the serving path's shape
-        ("vit_s_224_train", 32, 785, 6, 785),  # the train step's [img; img_pos]
-        ("vit_s_224_padded", 128, 896, 6, 785),
-        ("vit_b_224", 32, 785, 12, 785),
-        ("vit_s_320", 32, 1601, 6, 1601),
+    cases = [  # name, B, N, H, n_real, input kind
+        ("vit_s_224", 128, 785, 6, 785, "randn"),        # the serving path's shape
+        ("vit_s_224_train", 32, 785, 6, 785, "randn"),   # the train step's [img; img_pos]
+        ("vit_s_224_padded", 128, 896, 6, 785, "randn"),
+        ("vit_b_224", 32, 785, 12, 785, "randn"),
+        ("vit_s_320", 32, 1601, 6, 1601, "randn"),
+        ("late_max", 32, 785, 6, 785, "late_max"),
+        ("late_max_near", 32, 785, 6, 785, "late_max_near"),
+        ("nan_neighbour", 2, 785, 6, 785, "nan_neighbour"),
     ]
-    for name, B, N, H, n_real in cases:
+    for name, B, N, H, n_real, kind in cases:
         hd, C = 64, 64 * H
         scale = hd ** -0.5
-        qkv = torch.randn((B, N, 3 * C), generator=g, device="cuda").to(torch.bfloat16)
-        out = attention_qkv(qkv, H, scale, n_real)
-        ref = attention_qkv_reference(qkv, H, scale, n_real)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        ulp = bf16_ulp(ref.float())
-        check(bool(torch.isfinite(out).all()) and err <= ulp,
-              f"attention {name}: max abs err {err} > 1 bf16 ulp {ulp}")
-        ms = cuda_ms(lambda: attention_qkv(qkv, H, scale, n_real), iters=10)
-        plain = cuda_ms(lambda: attention_qkv_reference(qkv, H, scale, n_real), iters=3)
-        q, k, v = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k[:, :, :n_real], v[:, :, :n_real], scale=scale), iters=10)
-        bnd, by = bound_ms(4.0 * B * H * N * n_real * hd, PEAK_BF16_FLOPS,
-                           2.0 * B * N * (3 * C + C))
-        row = {"phase": "kernel", "kernel": "attention_qkv", "case": name,
-               "shape": [B, N, 3 * C], "heads": H, "n_real": n_real,
-               "max_abs_err": err, "tolerance": ulp,
-               "ms": ms, "plain_ms": plain, "library_ms": lib,
-               "bound_ms": bnd, "bound_by": by}
-        emit(row)
+        x = attention_input(B, N, H, hd, g, kind, n_real)
+        qkv = x.reshape(B, N, 3 * C)
+        q, k, v = x.permute(2, 0, 3, 1, 4)
+        row = attention_row(
+            "attention_qkv", name, attention_qkv(qkv, H, scale, n_real),
+            attention_qkv_reference(qkv, H, scale, n_real),
+            1 if kind == "nan_neighbour" else B,
+            lambda: attention_qkv(qkv, H, scale, n_real),
+            lambda: attention_qkv_reference(qkv, H, scale, n_real),
+            lambda: F.scaled_dot_product_attention(
+                q, k[:, :, :n_real], v[:, :, :n_real], scale=scale),
+            4.0 * B * H * N * n_real * hd, 2.0 * B * N * (3 * C + C), 1.0 * B * H * N * n_real)
+        emit({**row, "shape": [B, N, 3 * C], "heads": H, "n_real": n_real, "input": kind})
         results.setdefault("attention_qkv", row)
-        del qkv, out, ref, q, k, v
+        del x, qkv, q, k, v
         torch.cuda.empty_cache()
 
 
@@ -431,40 +511,37 @@ def phase_layernorm(results: dict) -> None:
 
 def phase_fused_attention(results: dict) -> None:
     """The separate-q/k/v attention kernel against its plain version at
-    the JAX package's test shapes and at the ViT-S b = 128 shape (the
-    timing case); tolerance one bf16 ulp of the output's scale.  Library
-    yardstick: ``F.scaled_dot_product_attention`` on the same tensors."""
+    the JAX package's test shapes, hd = 32, both late-max inputs, a NaN
+    neighbour and the ViT-S b = 128 shape (the timing case); tolerance
+    one bf16 ulp of the output's scale.  Library yardstick:
+    ``F.scaled_dot_product_attention`` on the same tensors."""
     import torch.nn.functional as F
 
     from equss_tpu_torch.ops.attention import fused_attention, fused_attention_reference
 
     g = torch.Generator(device="cuda").manual_seed(4)
-    for name, B, N, H, hd in (("jax_test_785", 2, 785, 6, 64), ("jax_test_1601", 1, 1601, 2, 64),
-                              ("jax_test_5", 1, 5, 2, 64), ("hd32", 2, 128, 1, 32),
-                              ("vit_s_224", 128, 785, 6, 64)):
-        q, k, v = (torch.randn((B, N, H, hd), generator=g, device="cuda").to(torch.bfloat16)
-                   for _ in range(3))
+    for name, B, N, H, hd, kind in (
+            ("jax_test_785", 2, 785, 6, 64, "randn"), ("jax_test_1601", 1, 1601, 2, 64, "randn"),
+            ("jax_test_5", 1, 5, 2, 64, "randn"), ("hd32", 2, 128, 1, 32, "randn"),
+            ("late_max", 2, 785, 6, 64, "late_max"), ("late_max_hd32", 2, 785, 2, 32, "late_max"),
+            ("late_max_near", 2, 785, 6, 64, "late_max_near"),
+            ("nan_neighbour", 2, 785, 6, 64, "nan_neighbour"),
+            ("vit_s_224", 128, 785, 6, 64, "randn")):
+        q, k, v = (t.contiguous() for t in attention_input(B, N, H, hd, g, kind, N).unbind(2))
         scale = hd ** -0.5
-        out = fused_attention(q, k, v, scale=scale)
-        ref = fused_attention_reference(q, k, v, scale=scale)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        ulp = bf16_ulp(ref.float())
-        check(bool(torch.isfinite(out.float()).all()) and err <= ulp,
-              f"attention {name}: max abs err {err} > 1 bf16 ulp {ulp}")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        bnd, by = bound_ms(4.0 * B * H * N * N * hd, PEAK_BF16_FLOPS, 8.0 * B * N * H * hd)
-        row = {"phase": "kernel", "kernel": "attention", "case": name, "shape": [B, N, H, hd],
-               "max_abs_err": err, "tolerance": ulp,
-               "ms": cuda_ms(lambda: fused_attention(q, k, v, scale=scale), iters=10),
-               "plain_ms": cuda_ms(lambda: fused_attention_reference(q, k, v, scale=scale),
-                                   iters=3),
-               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, scale=scale), iters=10),
-               "bound_ms": bnd, "bound_by": by}
-        emit(row)
-        results["attention"] = row          # the last case, the timing one
-        del q, k, v, out, ref
+        row = attention_row(
+            "attention", name, fused_attention(q, k, v, scale=scale),
+            fused_attention_reference(q, k, v, scale=scale),
+            1 if kind == "nan_neighbour" else B,
+            lambda: fused_attention(q, k, v, scale=scale),
+            lambda: fused_attention_reference(q, k, v, scale=scale),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale),
+            4.0 * B * H * N * N * hd, 8.0 * B * N * H * hd, 1.0 * B * H * N * N)
+        emit({**row, "shape": [B, N, H, hd], "input": kind})
+        if name == "vit_s_224":
+            results["attention"] = row          # the timing case
+        del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
 
 

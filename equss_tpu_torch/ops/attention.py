@@ -61,6 +61,24 @@ def _attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).to(dtype, memory_format=torch.contiguous_format)
 
 
+_LAUNCH_ERRORS = {-1: "libcuda has no cuTensorMapEncodeTiled",
+                  -2: "libcuda refused the tensor map"}
+
+
+def _check_launch(name: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           + _LAUNCH_ERRORS.get(err, f"CUDA error {err}"))
+
+
+def _check_scale(scale: float) -> None:
+    """The kernel takes its running row max on unscaled logits, which is
+    the max of the scaled ones only for scale > 0 (every caller passes
+    head_dim ** -0.5)."""
+    if not scale > 0:
+        raise ValueError(f"attention kernel takes scale > 0, got {scale}")
+
+
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("attention_qkv")
     fn = lib.attention_qkv_launch
@@ -78,7 +96,10 @@ def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
     qkv tensor -> (B, N, C); keys at index >= ``n_real`` are masked.
 
     CPU tensor: the plain version.  CUDA tensor: the kernel, which takes
-    contiguous bf16 with head_dim 64 and raises on anything else."""
+    contiguous, 16-byte aligned bf16 with head_dim 64 and scale > 0 and
+    raises on anything else.  That is all its TMA loads need: the kernel
+    builds the token and batch strides from the shape, and with head_dim
+    64 they are multiples of 16 bytes."""
     B, N, C, hd, n_real = _split_heads(qkv, num_heads, n_real)
     if qkv.device.type == "cpu":
         return attention_qkv_reference(qkv, num_heads, scale, n_real)
@@ -86,12 +107,12 @@ def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
     if hd != KERNEL_HEAD_DIM:
         raise ValueError(
             f"attention kernel takes head_dim {KERNEL_HEAD_DIM}, got {hd}")
+    _check_scale(scale)
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     err = _kernel_lib().attention_qkv_launch(
         qkv.data_ptr(), out.data_ptr(), B, N, num_heads, n_real, scale,
         launch_stream(qkv))
-    if err:
-        raise RuntimeError(f"attention_qkv launch failed: CUDA error {err}")
+    _check_launch("attention_qkv", err)
     attention_qkv.launches += 1
     return out
 
@@ -113,8 +134,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k and v -> (B, N, H, hd).
 
     CPU tensors: the plain version.  CUDA tensors: the kernel, which takes
-    contiguous bf16 of one shape with head_dim 32 or 64 and raises on
-    anything else."""
+    contiguous, 16-byte aligned bf16 of one shape with head_dim 32 or 64
+    and scale > 0 and raises on anything else (which covers its TMA
+    loads, as for ``attention_qkv``)."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k and v must share one (B, N, H, hd) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -126,6 +148,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(
             f"attention kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {hd}")
+    _check_scale(scale)
     out = torch.empty_like(q)
     lib = _kernel_lib()
     fn = lib.attention_launch
@@ -135,10 +158,40 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             + [ctypes.c_float, ctypes.c_void_p]
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              B, N, H, hd, N, scale, launch_stream(q))
-    if err:
-        raise RuntimeError(f"fused_attention launch failed: CUDA error {err}")
+    _check_launch("fused_attention", err)
     fused_attention.launches += 1
     return out
 
 
 fused_attention.launches = 0
+
+
+ATTENTION_INPUTS = ("randn", "late_max", "late_max_near", "nan_neighbour")
+
+
+def attention_test_input(x: torch.Tensor, kind: str, n_real: int) -> torch.Tensor:
+    """Inputs that hold the kernels to their plain versions where the
+    one-pass softmax departs from them, made from a standard-normal f32
+    ``x`` of shape (B, N, 3, H, hd), q | k | v, which is changed in place;
+    returned as bf16.  With scale = head_dim ** -0.5:
+
+    * ``randn``: ``x`` as it is;
+    * ``late_max``: q's entries 1 + N(0, 0.25), the key at ``n_real - 1``
+      (in the last, ragged key tile for n_real = 785) all 12 / sqrt(hd),
+      so every row's largest logit (~12) sits there, ~8 above the rest:
+      every earlier tile's bf16(p) is taken against a running max far
+      below the final one, and a missing rescale shows;
+    * ``late_max_near``: the same with that logit ~6.5, ~3 above the
+      rest: the earlier tiles carry most of the output, so their bf16(p)
+      rounding shows against the bar;
+    * ``nan_neighbour``: every batch item after the first all NaN: the
+      first item's rows past N must never be read from the second."""
+    hd = x.shape[-1]
+    if kind in ("late_max", "late_max_near"):
+        x[:, :, 0] = 1 + 0.5 * x[:, :, 0]
+        x[:, n_real - 1, 1] = (12.0 if kind == "late_max" else 6.5) / hd ** 0.5
+    elif kind == "nan_neighbour":
+        x[1:] = float("nan")
+    elif kind != "randn":
+        raise ValueError(f"attention input kind {kind!r} not in {ATTENTION_INPUTS}")
+    return x.to(torch.bfloat16)

@@ -19,28 +19,40 @@ import torch
 import jax.numpy as jnp
 
 from equss_tpu.ops.attention import fused_attention_qkv
-from equss_tpu_torch.ops.attention import attention_qkv, attention_qkv_reference
+from equss_tpu_torch.ops.attention import (
+    attention_qkv,
+    attention_qkv_reference,
+    attention_test_input,
+)
 
 
 def _bf16_ulp(ref: np.ndarray) -> float:
     return 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
 
 
-def _inputs(B, N, H, hd, seed):
-    rng = np.random.RandomState(seed)
-    x = rng.randn(B, N, 3 * H * hd).astype(np.float32)
-    return (jnp.asarray(x, jnp.bfloat16),
-            torch.from_numpy(x).to(torch.bfloat16))
+def _inputs(B, N, H, hd, seed, kind="randn"):
+    """(B, N, 3*H*hd) bf16 inputs for both frameworks, of the input kind
+    ``kind`` (``attention_test_input``): the late-max kinds put every
+    row's largest logit at the last key, where the CUDA kernel's one-pass
+    softmax has rounded bf16(p) of every earlier tile against a running
+    max below the final one."""
+    x = np.random.RandomState(seed).randn(B, N, 3, H, hd).astype(np.float32)
+    x_t = attention_test_input(torch.from_numpy(x), kind, N).reshape(B, N, 3 * H * hd)
+    return jnp.asarray(x_t.float().numpy(), jnp.bfloat16), x_t
 
 
-@pytest.mark.parametrize("shape,n_real", [
-    ((2, 785, 6, 64), None),        # ViT-S/8 at 224^2
-    ((1, 5, 2, 64), None),          # shorter than any tile
-    ((2, 200, 2, 64), 130),         # keys >= n_real masked
+@pytest.mark.parametrize("shape,n_real,kind", [
+    pytest.param((2, 785, 6, 64), None, "randn", id="shape0-None"),   # ViT-S/8 at 224^2
+    pytest.param((1, 5, 2, 64), None, "randn", id="shape1-None"),     # shorter than any tile
+    pytest.param((2, 200, 2, 64), 130, "randn", id="shape2-130"),     # keys >= n_real masked
+    # every row's max at key 784, in the last 64-key tile of 785 keys,
+    # ~8 above the rest and ~3 above the rest
+    pytest.param((1, 785, 2, 64), None, "late_max", id="late_max"),
+    pytest.param((1, 785, 2, 64), None, "late_max_near", id="late_max_near"),
 ])
-def test_attention_qkv_reference_matches_jax_kernel(shape, n_real):
+def test_attention_qkv_reference_matches_jax_kernel(shape, n_real, kind):
     B, N, H, hd = shape
-    qkv_j, qkv_t = _inputs(B, N, H, hd, seed=sum(shape))
+    qkv_j, qkv_t = _inputs(B, N, H, hd, seed=sum(shape), kind=kind)
     scale = hd ** -0.5
     ref = np.asarray(fused_attention_qkv(qkv_j, num_heads=H, scale=scale,
                                          n_real=n_real), np.float32)

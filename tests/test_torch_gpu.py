@@ -12,6 +12,7 @@ from equss_tpu_torch.ops import quantizer as tq
 from equss_tpu_torch.ops.attention import (
     attention_qkv,
     attention_qkv_reference,
+    attention_test_input,
     fused_attention,
     fused_attention_reference,
 )
@@ -34,17 +35,37 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,N,H,n_real", [(2, 785, 6, 785), (1, 70, 2, 33),
-                                          (3, 130, 12, 129)])
-def test_attention_kernel_matches_plain(cuda, B, N, H, n_real):
+def _attention_input(B, N, H, hd, g, kind, n_real):
+    """(B, N, 3, H, hd) bf16 of the input kind ``kind``
+    (``attention_test_input``)."""
+    return attention_test_input(torch.randn((B, N, 3, H, hd), generator=g, device=g.device),
+                                kind, n_real)
+
+
+def _check_1ulp(out, ref, items):
+    """The first ``items`` batch items finite and within one bf16 ulp of
+    the output's scale."""
+    out, ref = out[:items].float(), ref[:items].float()
+    ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().max())).item() - 7)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= ulp
+
+
+@pytest.mark.parametrize("B,N,H,n_real,kind", [
+    (2, 785, 6, 785, "randn"), (1, 70, 2, 33, "randn"), (3, 130, 12, 129, "randn"),
+    (2, 896, 6, 785, "randn"),            # padded stream, ragged last real tile
+    (2, 785, 6, 785, "late_max"), (2, 896, 6, 785, "late_max"),
+    (2, 785, 6, 785, "late_max_near"),
+    (2, 785, 6, 785, "nan_neighbour"),    # rows past N never read from item 1
+])
+def test_attention_kernel_matches_plain(cuda, B, N, H, n_real, kind):
     g = torch.Generator(device=cuda).manual_seed(B * N)
-    qkv = torch.randn((B, N, 3 * 64 * H), generator=g, device=cuda).to(torch.bfloat16)
+    qkv = _attention_input(B, N, H, 64, g, kind, n_real).reshape(B, N, 3 * 64 * H)
     before = attention_qkv.launches
     out = attention_qkv(qkv, H, 0.125, n_real)
     assert attention_qkv.launches == before + 1
-    ref = attention_qkv_reference(qkv, H, 0.125, n_real).float()
-    ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().max())).item() - 7)
-    assert (out.float() - ref).abs().max().item() <= ulp     # 1 bf16 ulp
+    ref = attention_qkv_reference(qkv, H, 0.125, n_real)
+    _check_1ulp(out, ref, 1 if kind == "nan_neighbour" else B)
 
 
 @pytest.mark.parametrize("mode", ["none", "l2", "z_norm"])
@@ -99,24 +120,32 @@ def test_layernorm_kernels_match_plain(cuda, rows, C):
         assert (diff > 0).float().mean().item() <= 1e-3
 
 
-@pytest.mark.parametrize("B,N,H,hd", [(2, 785, 6, 64), (1, 1601, 2, 64), (1, 5, 2, 64),
-                                      (2, 128, 1, 32)])
-def test_fused_attention_kernel_matches_plain(cuda, B, N, H, hd):
+@pytest.mark.parametrize("B,N,H,hd,kind", [
+    (2, 785, 6, 64, "randn"), (1, 1601, 2, 64, "randn"), (1, 5, 2, 64, "randn"),
+    (2, 128, 1, 32, "randn"), (2, 785, 6, 64, "late_max"), (2, 785, 2, 32, "late_max"),
+    (2, 785, 6, 64, "late_max_near"),
+    (2, 785, 6, 64, "nan_neighbour"),
+])
+def test_fused_attention_kernel_matches_plain(cuda, B, N, H, hd, kind):
     g = torch.Generator(device=cuda).manual_seed(N)
-    q, k, v = (torch.randn((B, N, H, hd), generator=g, device=cuda).to(torch.bfloat16)
-               for _ in range(3))
+    q, k, v = (t.contiguous() for t in _attention_input(B, N, H, hd, g, kind, N).unbind(2))
     before = fused_attention.launches
     out = fused_attention(q, k, v, scale=hd ** -0.5)
     assert fused_attention.launches == before + 1
-    ref = fused_attention_reference(q, k, v, scale=hd ** -0.5).float()
-    ulp = 2.0 ** (torch.floor(torch.log2(ref.abs().max())).item() - 7)
-    assert (out.float() - ref).abs().max().item() <= ulp     # 1 bf16 ulp
+    ref = fused_attention_reference(q, k, v, scale=hd ** -0.5)
+    _check_1ulp(out, ref, 1 if kind == "nan_neighbour" else B)
 
 
 def test_new_kernels_reject_what_they_do_not_take(cuda):
     q = torch.zeros((1, 8, 2, 48), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fused_attention(q, q, q, scale=0.1)                   # head_dim 48
+    q = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fused_attention(q, q, q, scale=0.0)                   # scale not > 0
+    unaligned = torch.zeros(8 * 2 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError):                           # base not 16-byte aligned
+        fused_attention(unaligned.view(1, 8, 2, 64), q, q, scale=0.1)
     x = torch.zeros((4, 12), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fused_layernorm(x, torch.ones(12, device=cuda), torch.zeros(12, device=cuda))
