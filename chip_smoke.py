@@ -14,8 +14,9 @@ Phases, each printing JSON lines on stdout:
             ``equss_tpu_torch/_build`` (full compiler log:
             ``equss_tpu_torch/_build/build.log``): registers, spills (none
             allowed), ptxas's wgmma serialization warnings (none allowed
-            for attention) and the wgmma and TMA instructions in the
-            attention library's SASS;
+            for attention), the wgmma and TMA instructions in the
+            attention library's SASS and the tensor-core instructions in
+            the PQ library's;
 3. kernels  each kernel against its plain PyTorch version on the card at
             the main paths' shapes and a few more (for attention also a
             late row max and a NaN neighbour), with its time, the plain
@@ -162,6 +163,19 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(fns: dict, iters: int, rounds: int = 3) -> dict:
+    """Median device ms of each of ``fns`` (name: callable), timed with
+    ``cuda_ms`` in turns (a, b, b, a, ``rounds`` times: six each for two)."""
+    import statistics
+
+    names = list(fns)
+    times = {k: [] for k in names}
+    for _ in range(rounds):
+        for k in names + names[::-1]:
+            times[k].append(cuda_ms(fns[k], iters=iters))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
 def bound_ms(flops: float, flop_rate: float, nbytes: float):
     t_ops, t_bytes = flops / flop_rate, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -263,19 +277,25 @@ def phase_build() -> None:
     serialized = {name: text.count("C7515") for name, text in log.items()}
     check(serialized.get("attention_qkv", 0) == 0,
           "build: ptxas serialized the attention kernel's wgmma instructions")
-    sass = attention_sass()
+    sass = library_sass("attention_qkv", ("HGMMA", "UTMALDG"))
     if sass.get("cuobjdump"):
         check(sass["HGMMA"] > 0 and sass["UTMALDG"] > 0,
               f"build: attention SASS lacks wgmma or TMA loads: {sass}")
+    pq_sass = library_sass("pq_assign", ("HGMMA", "HMMA"))
+    if pq_sass.get("cuobjdump"):
+        check(pq_sass["HGMMA"] + pq_sass["HMMA"] > 0,
+              f"build: PQ SASS lacks tensor-core instructions: {pq_sass}")
     emit({"phase": "build", "seconds": seconds, "built": sorted(log),
           "max_registers": regs, "spill_bytes": spills, "wgmma_serialized": serialized,
-          "attention_sass": sass})
+          "attention_sass": sass, "pq_assign_sass": pq_sass})
 
 
-def attention_sass() -> dict:
-    """Counts of wgmma (HGMMA) and TMA load (UTMALDG) instructions in the
-    attention library's SASS, by ``cuobjdump -sass`` from the toolkit or
-    from Triton's package; ``cuobjdump: null`` where neither has one."""
+def library_sass(name: str, opcodes) -> dict:
+    """Counts of the instructions ``opcodes`` in the SASS of the library of
+    ``csrc/<name>.cu``, by ``cuobjdump -sass`` from the toolkit or from
+    Triton's package; ``cuobjdump: null`` where neither has one.  An
+    opcode counts where it starts an instruction (``HMMA`` does not count
+    ``HGMMA``)."""
     import shutil
     from pathlib import Path
 
@@ -292,9 +312,10 @@ def attention_sass() -> dict:
     tool = next((t for t in tools if t and Path(t).is_file()), None)
     if tool is None:
         return {"cuobjdump": None}
-    sass = subprocess.run([tool, "-sass", str(_build.library_path("attention_qkv"))],
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, check=True, timeout=120).stdout
-    return {"cuobjdump": tool, "HGMMA": sass.count("HGMMA"), "UTMALDG": sass.count("UTMALDG")}
+    return {"cuobjdump": tool,
+            **{op: len(re.findall(rf"\b{op}\b", sass)) for op in opcodes}}
 
 
 def attention_input(B: int, N: int, H: int, hd: int, g, kind: str = "randn",
@@ -374,33 +395,30 @@ def phase_attention(results: dict) -> None:
 
 
 def phase_pq(results: dict) -> None:
-    from equss_tpu_torch.ops.pq_assign import (
-        normalize_vectors,
-        pq_assign,
-        pq_assign_reference,
-    )
+    """The PQ kernel against its plain version at the serving and train
+    calls, exact mode, the other normalisations, K = 512 (the fast mode's
+    (value, index) minimum over many codeword tiles) and a ragged n (a
+    last row tile of 5 rows).  Bars: >= 99.99% of indices equal in exact
+    mode, >= 99.5% in fast mode, indices in range, z_q the codeword at the
+    kernel's own index bit for bit.  Library yardstick: normalise +
+    ``torch.cdist`` + ``argmin`` + gather."""
+    from equss_tpu_torch.ops.pq_assign import pq_assign, pq_assign_reference
+    from equss_tpu_torch.tools.pq_ab import case_inputs, library_call
 
     g = torch.Generator(device="cuda").manual_seed(1)
-    M, K, d = 64, 256, 16
+    M, d = 64, 16
     n_bench = 128 * 28 * 28
-    cases = [  # name, n, normalize, exact
-        ("bench_fast_l2", n_bench, "l2", False),   # the serving path's call
-        ("train_fast_l2", 16 * 28 * 28, "l2", False),   # the train step's
-        ("bench_exact_l2", n_bench, "l2", True),
-        ("z_norm_exact", 16384, "z_norm", True),
-        ("z_trainable_fast", 16384, "z_trainable", False),
+    cases = [  # name, n, K, normalize, exact
+        ("bench_fast_l2", n_bench, 256, "l2", False),   # the serving path's call
+        ("train_fast_l2", 16 * 28 * 28, 256, "l2", False),   # the train step's
+        ("bench_exact_l2", n_bench, 256, "l2", True),
+        ("z_norm_exact", 16384, 256, "z_norm", True),
+        ("z_trainable_fast", 16384, 256, "z_trainable", False),
+        ("k512_fast_l2", 16384, 512, "l2", False),
+        ("train_fast_l2_ragged", 16 * 28 * 28 + 37, 256, "l2", False),
     ]
-    for name, n, mode, exact in cases:
-        z = 3.0 * torch.randn((n, M, d), generator=g, device="cuda")
-        cb = torch.randn((M, K, d), generator=g, device="cuda")
-        zm = zs = None
-        if mode == "z_trainable":
-            zm = 0.1 * torch.randn((M, d), generator=g, device="cuda")
-            zs = torch.exp(0.1 * torch.randn((M, d), generator=g, device="cuda"))
-            mu = cb.mean(1, keepdim=True)
-            cn = (cb - mu) / (torch.sqrt(((cb - mu) ** 2).sum(1, keepdim=True) / (K - 1)) + 1e-5)
-        else:
-            cn = normalize_vectors(cb, mode).contiguous()
+    for name, n, K, mode, exact in cases:
+        z, cn, cb, zm, zs = case_inputs(n, M, K, d, mode, g)
         kw = dict(normalize=mode, z_mean=zm, z_std=zs, exact=exact)
         idx, zn, zq = pq_assign(z, cn, cb, **kw)
         idx_r, zn_r, zq_r = pq_assign_reference(z, cn, cb, **kw)
@@ -419,12 +437,7 @@ def phase_pq(results: dict) -> None:
         ms = cuda_ms(lambda: pq_assign(z, cn, cb, **kw), iters=10)
         plain = cuda_ms(lambda: pq_assign_reference(z, cn, cb, **kw), iters=3)
 
-        def library():
-            zl = normalize_vectors(z, mode, zm, zs).transpose(0, 1)   # (M, n, d)
-            i = torch.cdist(zl, cn).argmin(-1)                          # (M, n)
-            return torch.gather(cb, 1, i[..., None].expand(-1, -1, d))
-
-        lib = cuda_ms(library, iters=3)
+        lib = cuda_ms(lambda: library_call(z, cn, cb, mode, zm, zs), iters=3)
         nbytes = 4.0 * (n * M * d + 2 * M * K * d + n * M + 2 * n * M * d
                         + (2 * M * d if zm is not None else 0))
         bnd, by = bound_ms(2.0 * n * M * K * d,
@@ -451,7 +464,9 @@ def phase_layernorm(results: dict) -> None:
     bf16 sum bit-equal.  Library yardstick: ``F.layer_norm`` on the bf16
     rows with a bf16-cast affine (after ``x + y`` for the add kernel),
     which is not the same function: its statistics and affine are not
-    those of the kernel."""
+    those of the kernel.  Kernel and library are timed in turns (medians
+    of six 20-launch runs); ``fits_l2_50mb`` says whether the bytes one
+    launch moves could stay in the card's 50 MB L2 between launches."""
     import torch.nn.functional as F
 
     from equss_tpu_torch.ops.layernorm import (
@@ -495,11 +510,13 @@ def phase_layernorm(results: dict) -> None:
                   f"{kernel} {name}: {frac} of elements differ, max err {err}, "
                   f"beyond 1 ulp {int((diff > ulp).sum())}, sum equal {sum_equal}")
             bnd, by = bound_ms(flops, PEAK_F32_FLOPS, nbytes)
+            turns = in_turns({"kernel": fn, "library": lib}, iters=20)
             row = {"phase": "kernel", "kernel": kernel, "case": name, "rows": rows, "C": C,
                    "max_abs_err": err, "frac_elements_differing": frac,
                    "tolerance": "1 bf16 ulp of max(|out|, |bias|) on <= 0.1% of elements",
-                   "ms": cuda_ms(fn, iters=20), "plain_ms": cuda_ms(plain, iters=5),
-                   "library_ms": cuda_ms(lib, iters=20),
+                   "ms": turns["kernel"], "plain_ms": cuda_ms(plain, iters=5),
+                   "library_ms": turns["library"],
+                   "bytes_moved": nbytes, "fits_l2_50mb": nbytes <= 50e6,
                    "library": "F.layer_norm, bf16 affine" + (" after x + y" if kernel ==
                                                              "add_layernorm" else ""),
                    "bound_ms": bnd, "bound_by": by}
@@ -791,7 +808,7 @@ def phase_train(results: dict) -> None:
         cycle = iter(batches * 2)
         emit({"phase": "profile", "what": f"train_{kind}", "batch": 16, "steps": 2,
               **device_profile(lambda: tr.train_step(next(cycle)), 2,
-                               pick=("index", "layernorm", "pq_assign", "bmm", "Memcpy"))})
+                               pick=("index", "layernorm", "pq_", "bmm", "Memcpy"))})
         del tr
         torch.cuda.empty_cache()
 

@@ -5,6 +5,13 @@
 // (kernel body _pq_kernel).  The (n, M, K) distance tensor is never
 // written: each row keeps a running minimum in registers.
 //
+// Takes d in {8, 16, 32} and any K >= 1 whose codebooks for one subspace
+// fit a block's 227 KB of shared memory: (8d + 4) * K bytes in exact mode
+// (K <= 1761 at d = 16); (4d + 4) * roundup(K, 256 / d) bytes beside the
+// 43 008 bytes of staging tiles in fast mode (K <= 2784 at d = 16).
+// ops/pq_assign.py::kernel_domain_error states the same domain for the
+// wrapper and the eligibility predicate.
+//
 // Arithmetic kept from the TPU kernel:
 //   normalisation   none | l2: z / max(sqrt(sum z^2), 1e-12)
 //                   | z_norm: (z - mean) / (sqrt(unbiased var) + 1e-5)
@@ -16,39 +23,59 @@
 //   fast mode       zn and c_norm rounded to bf16, products summed in f32;
 //                   l2 with K <= 256: dist = 1 - cross, else the full form;
 //                   K <= 256: argmin over (bits(dist) & ~0xFF) | k as int32,
-//                   sub-ulp negatives included; z_q is the bf16-rounded
-//                   codeword
+//                   sub-ulp negatives included; K > 256: strict-< first
+//                   minimum; z_q is the bf16-rounded codeword
 // The TPU's block-diagonal group dots, 0/1 segment matrices and 3-way bf16
-// codebook split existed to feed its matrix unit; a direct f32 load from
-// shared memory is exact, so none of them is carried over.
-//
-// Design: one block per (tile of ROWS_PER_BLOCK rows, subspace m).  The
-// subspace's distance codebook (K x d f32), its squared norms and the raw
-// codebook it gathers from sit in shared memory (33 KB at K = 256,
-// d = 16).  One thread per row: it loads its d floats, normalises them,
-// walks the K codewords (broadcast reads from shared memory) and writes
-// idx, z_norm and z_q.
+// codebook split existed to feed its matrix unit; none is carried over.
 //
 // Bound on an H100 SXM at n = 100 352, M = 64, K = 256, d = 16: 0.41 GB of
-// z read and 0.82 GB of z_norm and z_q written plus 26 MB of idx, 0.37 ms
-// at 3.35 TB/s; the distances are 2*n*M*K*d = 53 GFLOP, 0.79 ms on the
-// 67 TFLOP/s f32 CUDA cores in exact mode (bf16 inputs in fast mode could
-// use the tensor cores, which this version does not).
+// z read and 0.82 GB of z_norm and z_q written plus 26 MB of idx, 0.376 ms
+// at 3.35 TB/s.  The distances are 2*n*M*K*d = 53 GFLOP: 0.79 ms on the
+// 67 TFLOP/s f32 CUDA cores (exact mode, operations-bound), 0.05 ms on the
+// bf16 tensor cores (fast mode, bytes-bound).  In fast mode the argmin
+// epilogue, 1.64 G (row, codeword) elements of three float and integer
+// operations each, is the work that has to hide under the bytes.
+//
+// Fast mode (pq_fast_kernel).  A block owns a group of G = 32 / d
+// neighbouring subspaces (128 bytes of each row: one cache line) and a run
+// of at least MIN_ROWS rows; WAVES blocks per resident slot balance the
+// SMs.  It loads the group's codebooks into shared memory once: c_norm as
+// bf16 in mma fragment order (one 16-byte load per lane per chunk of
+// codewords), the raw codeword as bf16 for the gather, and the f32 squared
+// norms where the distance needs them.  A warp takes 16-row tiles in turn:
+// it reads the tile's lines into its staging tile with 16-byte loads
+// (the next tile's loads are issued before the current one is worked on)
+// and works through the group's subspaces one after the other.  Each lane
+// of a quad holds d/4 of a row's values in the mma A layout: the
+// normalisation is f32 work on those with two quad shuffles per sum, and
+// z_norm goes back into the staging tile; the rounded values are the A
+// fragment, kept in registers.  The distances are mma.sync m16n8k16
+// (m16n8k8 at d = 8) with f32 accumulators, and the epilogue reduces each
+// 16 x 8 tile straight into the running minimum: the packed integer
+// minimum where it applies (one mask-or and one integer min per element),
+// else (value, index) with strict <.  The quad then agrees on the row's
+// minimum by shuffles; the gather writes z_q into a second staging tile.
+// z_norm and z_q leave as whole lines, idx as one vector per row.
+//
+// Exact mode (pq_exact_kernel) keeps the f32 CUDA-core body bit for bit:
+// one thread per row, the subspace's f32 codebook and squared norms in
+// shared memory, dot<D> in a fixed fmaf order.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <climits>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int ROWS_PER_BLOCK = 1024;
+constexpr int SMEM_MAX = 232448;    // bytes of shared memory a block can use
 
 enum Mode { NONE = 0, L2 = 1, Z_NORM = 2, Z_TRAINABLE = 3 };
 
-__device__ __forceinline__ float bf16_round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-}
+// ------------------------------------------------------------ exact mode
+
+constexpr int THREADS = 256;
+constexpr int ROWS_PER_BLOCK = 1024;
 
 template <int D>
 __device__ __forceinline__ float dot(const float (&v)[D], const float* c) {
@@ -64,14 +91,14 @@ __device__ __forceinline__ float dot(const float (&v)[D], const float* c) {
     return acc;
 }
 
-template <int D, int MODE, bool EXACT>
+template <int D, int MODE>
 __global__ void __launch_bounds__(THREADS)
-pq_assign_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
-                 const float* __restrict__ c_raw,
-                 const float* __restrict__ z_mean,
-                 const float* __restrict__ z_std, int n, int M, int K,
-                 int* __restrict__ idx, float* __restrict__ zn_out,
-                 float* __restrict__ zq_out) {
+pq_exact_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
+                const float* __restrict__ c_raw,
+                const float* __restrict__ z_mean,
+                const float* __restrict__ z_std, int n, int M, int K,
+                int* __restrict__ idx, float* __restrict__ zn_out,
+                float* __restrict__ zq_out) {
     extern __shared__ __align__(16) float smem[];
     float* s_c = smem;                  // K x D distance codebook
     float* s_raw = smem + K * D;        // K x D gather source
@@ -80,8 +107,8 @@ pq_assign_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
     const float* cn = c_norm + static_cast<size_t>(m) * K * D;
     const float* cr = c_raw + static_cast<size_t>(m) * K * D;
     for (int i = threadIdx.x; i < K * D; i += THREADS) {
-        s_c[i] = EXACT ? cn[i] : bf16_round(cn[i]);
-        s_raw[i] = EXACT ? cr[i] : bf16_round(cr[i]);
+        s_c[i] = cn[i];
+        s_raw[i] = cr[i];
     }
     for (int k = threadIdx.x; k < K; k += THREADS) {
         float acc = 0.f;
@@ -127,7 +154,7 @@ pq_assign_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
                 v[j] = v[j] - mu;
                 var += v[j] * v[j];
             }
-            var = var / (D > 1 ? D - 1 : 1);
+            var = var / (D - 1);
             const float denom = sqrtf(var) + 1e-5f;
 #pragma unroll
             for (int j = 0; j < D; ++j) v[j] = v[j] / denom;
@@ -145,36 +172,10 @@ pq_assign_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
         for (int j = 0; j < D; ++j) z_sq += v[j] * v[j];
 
         int best = 0;
-        if (EXACT) {
-            float best_d = INFINITY;
-            for (int k = 0; k < K; ++k) {
-                const float dist = (z_sq + s_csq[k]) - 2.f * dot<D>(v, s_c + k * D);
-                if (dist < best_d) { best_d = dist; best = k; }
-            }
-        } else {
-            float vb[D];
-#pragma unroll
-            for (int j = 0; j < D; ++j) vb[j] = bf16_round(v[j]);
-            const bool l2_short = MODE == L2 && K <= 256;
-            if (K <= 256) {
-                // low 8 mantissa bits carry the index: one int min gives
-                // the minimum with first-index tie-break
-                int best_p = INT_MAX;
-                for (int k = 0; k < K; ++k) {
-                    const float cross = dot<D>(vb, s_c + k * D);
-                    const float dist = l2_short ? 1.f - cross
-                                                : (z_sq + s_csq[k]) - 2.f * cross;
-                    best_p = min(best_p, (__float_as_int(dist) & ~0xFF) | k);
-                }
-                best = best_p & 0xFF;
-            } else {
-                float best_d = INFINITY;
-                for (int k = 0; k < K; ++k) {
-                    const float dist =
-                        (z_sq + s_csq[k]) - 2.f * dot<D>(vb, s_c + k * D);
-                    if (dist < best_d) { best_d = dist; best = k; }
-                }
-            }
+        float best_d = INFINITY;
+        for (int k = 0; k < K; ++k) {
+            const float dist = (z_sq + s_csq[k]) - 2.f * dot<D>(v, s_c + k * D);
+            if (dist < best_d) { best_d = dist; best = k; }
         }
         idx[static_cast<size_t>(r) * M + m] = best;
 #pragma unroll
@@ -184,12 +185,13 @@ pq_assign_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
     }
 }
 
-template <int D, int MODE, bool EXACT>
-int launch(const float* z, const float* c_norm, const float* c_raw,
-           const float* z_mean, const float* z_std, int* idx, float* zn,
-           float* zq, int n, int M, int K, cudaStream_t stream) {
-    auto kernel = pq_assign_kernel<D, MODE, EXACT>;
+template <int D, int MODE>
+int launch_exact(const float* z, const float* c_norm, const float* c_raw,
+                 const float* z_mean, const float* z_std, int* idx, float* zn,
+                 float* zq, int n, int M, int K, cudaStream_t stream) {
+    auto kernel = pq_exact_kernel<D, MODE>;
     const size_t smem = (2 * static_cast<size_t>(K) * D + K) * sizeof(float);
+    if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -202,13 +204,351 @@ int launch(const float* z, const float* c_norm, const float* c_raw,
     return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------- fast mode
+
+constexpr int FAST_WARPS = 8;
+constexpr int FAST_THREADS = 32 * FAST_WARPS;
+constexpr int FAST_MIN_BLOCKS = 3;  // resident blocks per SM the registers allow
+constexpr int WAVES = 4;            // blocks per resident slot, for balance
+constexpr int MIN_ROWS = 1024;      // rows that pay for a block's codebook load
+
+// two f32 -> one register of two bf16 (round to nearest even), lo first
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void mma_k16(float (&c)[4], uint32_t a0, uint32_t a1,
+                                        uint32_t a2, uint32_t a3, uint32_t b0,
+                                        uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_k8(float (&c)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t b0) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(b0));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Lane (g = lane / 4, t = lane % 4) of a warp holds, of each of its two
+// rows g and g + 8 of a 16-row tile, the P = D / 8 column pairs
+// 8p + 2t, 8p + 2t + 1: the mma A layout.  B per 8-codeword n-tile is one
+// register per pair (codeword 8j + g, the same columns); a lane's 16-byte
+// chunk word w holds n-tile w / P, pair w % P, so a chunk covers
+// CW = 256 / D codewords.
+//
+// z, z_norm and z_q move between device memory and a per-warp staging
+// tile of 16 rows x STAGE_STRIDE floats, as whole 128-byte lines (a lane
+// per 16 bytes, eight lanes per row); the stride of 40 floats keeps the
+// fragment reads and writes free of bank conflicts.
+constexpr int STAGE_STRIDE = 40;
+constexpr int STAGE_BYTES = FAST_WARPS * (2 * 16 * STAGE_STRIDE * 4 + 16 * 4 * 4);
+
+template <int D, int MODE, bool PACKED>
+__global__ void __launch_bounds__(FAST_THREADS, D == 32 ? 2 : FAST_MIN_BLOCKS)
+pq_fast_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
+               const float* __restrict__ c_raw, const float* __restrict__ z_mean,
+               const float* __restrict__ z_std, int n, int M, int K, int G,
+               int rows_per_block, int* __restrict__ idx,
+               float* __restrict__ zn_out, float* __restrict__ zq_out) {
+    constexpr int P = D / 8;
+    constexpr int TPC = 4 / P;          // n-tiles per chunk
+    constexpr int CW = 8 * TPC;         // codewords per chunk
+    constexpr bool L2_SHORT = MODE == L2 && PACKED;
+    extern __shared__ __align__(16) unsigned char fast_smem[];
+    const int m0 = blockIdx.x * G;
+    const int gs = min(G, M - m0);
+    const int chunks = (K + CW - 1) / CW;
+    const int k_pad = chunks * CW;
+    uint4* s_b = reinterpret_cast<uint4*>(fast_smem);                        // [gs][chunks][32]
+    uint32_t* s_raw = reinterpret_cast<uint32_t*>(s_b + gs * chunks * 32);  // [gs][K][D / 2]
+    float* s_csq = reinterpret_cast<float*>(s_raw + gs * K * (D / 2));      // [gs][k_pad]
+    float* s_stage = s_csq + (L2_SHORT ? 0 : gs * k_pad);
+
+    const int tid = threadIdx.x;
+    for (int s = 0; s < gs; ++s) {
+        const float* cn = c_norm + static_cast<size_t>(m0 + s) * K * D;
+        const float* cr = c_raw + static_cast<size_t>(m0 + s) * K * D;
+        uint32_t* sb = reinterpret_cast<uint32_t*>(s_b + s * chunks * 32);
+        for (int i = tid; i < chunks * 128; i += FAST_THREADS) {
+            const int lane = (i >> 2) & 31, w = i & 3;
+            const int k = (i >> 7) * CW + 8 * (w / P) + (lane >> 2);
+            const int col = 8 * (w % P) + 2 * (lane & 3);
+            sb[i] = k < K ? pack_bf16(cn[k * D + col], cn[k * D + col + 1]) : 0u;
+        }
+        uint32_t* sr = s_raw + s * K * (D / 2);
+        for (int i = tid; i < K * D / 2; i += FAST_THREADS)
+            sr[i] = pack_bf16(cr[2 * i], cr[2 * i + 1]);
+        if (!L2_SHORT) {
+            for (int k = tid; k < k_pad; k += FAST_THREADS) {
+                float acc = 0.f;
+                if (k < K) {
+#pragma unroll
+                    for (int j = 0; j < D; ++j) acc += cn[k * D + j] * cn[k * D + j];
+                }
+                s_csq[s * k_pad + k] = acc;
+            }
+        }
+    }
+    __syncthreads();
+
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    float* s_zn = s_stage + warp * 2 * 16 * STAGE_STRIDE;   // z, then z_norm
+    float* s_zq = s_zn + 16 * STAGE_STRIDE;
+    int* s_idx = reinterpret_cast<int*>(s_stage + FAST_WARPS * 2 * 16 * STAGE_STRIDE)
+                 + warp * 16 * 4;                         // [16][gs]
+    const int row_begin = blockIdx.y * rows_per_block;
+    const int row_end = min(n, row_begin + rows_per_block);
+    const int tiles = (row_end - row_begin + 15) / 16;
+    const size_t row_stride = static_cast<size_t>(M) * D;
+    const int width4 = gs * D / 4;      // 16-byte pieces of a row's group
+    // this lane's four pieces of a tile: row q / 8 (+ 4 i), piece q % 8
+    const int q_row = lane >> 3, q_col = lane & 7;
+
+    auto load = [&](int tile, float4 (&buf)[4]) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int row = (row_begin + tile * 16) + q_row + 4 * i;
+            buf[i] = tile < tiles && row < row_end && q_col < width4
+                         ? __ldcs(reinterpret_cast<const float4*>(
+                               z + static_cast<size_t>(row) * row_stride + m0 * D) + q_col)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+    };
+
+    float4 pre[4];
+    load(warp, pre);
+    for (int tile = warp; tile < tiles; tile += FAST_WARPS) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+            *reinterpret_cast<float4*>(s_zn + (q_row + 4 * i) * STAGE_STRIDE + 4 * q_col) = pre[i];
+        __syncwarp();
+        load(tile + FAST_WARPS, pre);
+
+#pragma unroll 1
+        for (int sub = 0; sub < gs; ++sub) {
+            const int m = m0 + sub;
+            float2 v[2][P];
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+                for (int p = 0; p < P; ++p)
+                    v[r][p] = *reinterpret_cast<const float2*>(
+                        s_zn + (g + 8 * r) * STAGE_STRIDE + sub * D + 8 * p + 2 * t);
+            float2 mu[P], sd[P];
+            if (MODE == Z_TRAINABLE) {
+#pragma unroll
+                for (int p = 0; p < P; ++p) {
+                    mu[p] = *reinterpret_cast<const float2*>(z_mean + m * D + 8 * p + 2 * t);
+                    const float2 s2 = *reinterpret_cast<const float2*>(z_std + m * D + 8 * p + 2 * t);
+                    sd[p] = make_float2(s2.x + 1e-5f, s2.y + 1e-5f);
+                }
+            }
+            float z_sq[2];
+            uint32_t a[2][P];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                if (MODE == L2) {
+                    float ss = 0.f;
+#pragma unroll
+                    for (int p = 0; p < P; ++p) ss += v[r][p].x * v[r][p].x + v[r][p].y * v[r][p].y;
+                    const float denom = fmaxf(sqrtf(quad_sum(ss)), 1e-12f);
+#pragma unroll
+                    for (int p = 0; p < P; ++p)
+                        v[r][p] = make_float2(v[r][p].x / denom, v[r][p].y / denom);
+                } else if (MODE == Z_NORM) {
+                    float s1 = 0.f;
+#pragma unroll
+                    for (int p = 0; p < P; ++p) s1 += v[r][p].x + v[r][p].y;
+                    const float mean = quad_sum(s1) / D;
+                    float s2 = 0.f;
+#pragma unroll
+                    for (int p = 0; p < P; ++p) {
+                        v[r][p] = make_float2(v[r][p].x - mean, v[r][p].y - mean);
+                        s2 += v[r][p].x * v[r][p].x + v[r][p].y * v[r][p].y;
+                    }
+                    const float denom = sqrtf(quad_sum(s2) / (D - 1)) + 1e-5f;
+#pragma unroll
+                    for (int p = 0; p < P; ++p)
+                        v[r][p] = make_float2(v[r][p].x / denom, v[r][p].y / denom);
+                } else if (MODE == Z_TRAINABLE) {
+#pragma unroll
+                    for (int p = 0; p < P; ++p)
+                        v[r][p] = make_float2((v[r][p].x - mu[p].x) / sd[p].x,
+                                              (v[r][p].y - mu[p].y) / sd[p].y);
+                }
+#pragma unroll
+                for (int p = 0; p < P; ++p)
+                    *reinterpret_cast<float2*>(s_zn + (g + 8 * r) * STAGE_STRIDE + sub * D
+                                               + 8 * p + 2 * t) = v[r][p];
+                if (!L2_SHORT) {
+                    float s2 = 0.f;
+#pragma unroll
+                    for (int p = 0; p < P; ++p) s2 += v[r][p].x * v[r][p].x + v[r][p].y * v[r][p].y;
+                    z_sq[r] = quad_sum(s2);
+                }
+#pragma unroll
+                for (int p = 0; p < P; ++p) a[r][p] = pack_bf16(v[r][p].x, v[r][p].y);
+            }
+
+            // running minima per (row r, column parity c): packed keys carry
+            // the even column k0 of their tile; column 1's index is k0 + 1
+            int best_p[2][2] = {{INT_MAX, INT_MAX}, {INT_MAX, INT_MAX}};
+            float best_d[2] = {INFINITY, INFINITY};
+            int best_k[2] = {0, 0};
+            const uint4* sb = s_b + sub * chunks * 32 + lane;
+            const float2* csq2 = reinterpret_cast<const float2*>(s_csq + sub * k_pad);
+            auto chunk = [&](int c, auto masked) {
+                const uint4 bw = sb[c * 32];
+                const uint32_t w[4] = {bw.x, bw.y, bw.z, bw.w};
+#pragma unroll
+                for (int jj = 0; jj < TPC; ++jj) {
+                    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+                    if constexpr (D == 8) {
+                        mma_k8(acc, a[0][0], a[1][0], w[jj]);
+                    } else {
+#pragma unroll
+                        for (int s = 0; s < P / 2; ++s)
+                            mma_k16(acc, a[0][2 * s], a[1][2 * s], a[0][2 * s + 1],
+                                    a[1][2 * s + 1], w[jj * P + 2 * s], w[jj * P + 2 * s + 1]);
+                    }
+                    const int k0 = c * CW + 8 * jj + 2 * t;
+                    float2 cs = make_float2(0.f, 0.f);
+                    if (!L2_SHORT) cs = csq2[k0 / 2];
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int r = e >> 1, par = e & 1;
+                        if constexpr (decltype(masked)::value) {
+                            if (k0 + par >= K) continue;
+                        }
+                        const float dist = L2_SHORT ? 1.f - acc[e]
+                                                    : (z_sq[r] + (par ? cs.y : cs.x)) - 2.f * acc[e];
+                        if (PACKED) {
+                            best_p[r][par] = min(best_p[r][par], (__float_as_int(dist) & ~0xFF) | k0);
+                        } else if (dist < best_d[r]) {
+                            best_d[r] = dist;
+                            best_k[r] = k0 + par;
+                        }
+                    }
+                }
+            };
+            const int full = K / CW;
+#pragma unroll 4
+            for (int c = 0; c < full; ++c) chunk(c, std::false_type{});
+            if (full < chunks) chunk(full, std::true_type{});
+
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                int best;
+                if (PACKED) {
+                    // column 1's keys carry k0; k0 + 1 <= 255 keeps them in the byte
+                    int key = min(best_p[r][0],
+                                  best_p[r][1] == INT_MAX ? INT_MAX : best_p[r][1] + 1);
+                    key = min(key, __shfl_xor_sync(0xffffffffu, key, 1));
+                    key = min(key, __shfl_xor_sync(0xffffffffu, key, 2));
+                    best = key & 0xFF;
+                } else {
+                    float bd = best_d[r];
+                    best = best_k[r];
+#pragma unroll
+                    for (int off = 1; off <= 2; off <<= 1) {
+                        const float od = __shfl_xor_sync(0xffffffffu, bd, off);
+                        const int ok = __shfl_xor_sync(0xffffffffu, best, off);
+                        if (od < bd || (od == bd && ok < best)) { bd = od; best = ok; }
+                    }
+                }
+                if (t == 0) s_idx[(g + 8 * r) * gs + sub] = best;
+                const uint32_t* cw = s_raw + (sub * K + best) * (D / 2) + t;
+#pragma unroll
+                for (int p = 0; p < P; ++p) {
+                    const uint32_t wv = cw[4 * p];
+                    *reinterpret_cast<float2*>(s_zq + (g + 8 * r) * STAGE_STRIDE + sub * D
+                                               + 8 * p + 2 * t) =
+                        make_float2(__uint_as_float(wv << 16), __uint_as_float(wv & 0xFFFF0000u));
+                }
+            }
+        }
+        __syncwarp();
+
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int row = (row_begin + tile * 16) + q_row + 4 * i;
+            if (row < row_end && q_col < width4) {
+                const size_t off = static_cast<size_t>(row) * row_stride + m0 * D + 4 * q_col;
+                const int so = (q_row + 4 * i) * STAGE_STRIDE + 4 * q_col;
+                __stcs(reinterpret_cast<float4*>(zn_out + off),
+                       *reinterpret_cast<const float4*>(s_zn + so));
+                __stcs(reinterpret_cast<float4*>(zq_out + off),
+                       *reinterpret_cast<const float4*>(s_zq + so));
+            }
+        }
+        if (lane < 16 && (row_begin + tile * 16) + lane < row_end) {
+            int* dst = idx + static_cast<size_t>((row_begin + tile * 16) + lane) * M + m0;
+            const int* src = s_idx + lane * gs;
+            if (D == 16 && gs == 2 && M % 2 == 0)       // row * M + m0 is even
+                *reinterpret_cast<int2*>(dst) = make_int2(src[0], src[1]);
+            else if (D == 8 && gs == 4 && M % 4 == 0)
+                *reinterpret_cast<int4*>(dst) = make_int4(src[0], src[1], src[2], src[3]);
+            else
+                for (int s = 0; s < gs; ++s) dst[s] = src[s];
+        }
+        __syncwarp();
+    }
+}
+
+template <int D, int MODE, bool PACKED>
+int launch_fast(const float* z, const float* c_norm, const float* c_raw,
+                const float* z_mean, const float* z_std, int* idx, float* zn,
+                float* zq, int n, int M, int K, cudaStream_t stream) {
+    auto kernel = pq_fast_kernel<D, MODE, PACKED>;
+    constexpr int CW = 256 / D;
+    const size_t k_pad = (static_cast<size_t>(K) + CW - 1) / CW * CW;
+    const size_t per_sub = k_pad * D * 2 + static_cast<size_t>(K) * D * 2
+                           + (MODE == L2 && PACKED ? 0 : k_pad * 4);
+    int G = min(32 / D, M);             // 128 bytes of each row
+    while (G > 1 && G * per_sub + STAGE_BYTES > SMEM_MAX) --G;
+    const size_t smem = G * per_sub + STAGE_BYTES;
+    if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int device = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, FAST_THREADS,
+                                                             smem)) != cudaSuccess)
+        return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    // WAVES waves of resident blocks, each of at least MIN_ROWS rows
+    const int groups = (M + G - 1) / G;
+    const int row_runs = max(1, min(WAVES * sms * per_sm / groups, n / MIN_ROWS));
+    const int rows = ((n + row_runs - 1) / row_runs + 15) / 16 * 16;
+    const dim3 grid(groups, (n + rows - 1) / rows);
+    kernel<<<grid, FAST_THREADS, smem, stream>>>(z, c_norm, c_raw, z_mean, z_std, n, M,
+                                                 K, G, rows, idx, zn, zq);
+    return static_cast<int>(cudaGetLastError());
+}
+
 template <int D, int MODE>
-int launch_exact(bool exact, const float* z, const float* c_norm,
-                 const float* c_raw, const float* z_mean, const float* z_std,
-                 int* idx, float* zn, float* zq, int n, int M, int K,
-                 cudaStream_t s) {
-    return exact ? launch<D, MODE, true>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s)
-                 : launch<D, MODE, false>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
+int launch_precision(bool exact, const float* z, const float* c_norm,
+                     const float* c_raw, const float* z_mean, const float* z_std,
+                     int* idx, float* zn, float* zq, int n, int M, int K,
+                     cudaStream_t s) {
+    if (exact)
+        return launch_exact<D, MODE>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
+    if (K <= 256)
+        return launch_fast<D, MODE, true>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
+    return launch_fast<D, MODE, false>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
 }
 
 template <int D>
@@ -217,10 +557,10 @@ int launch_mode(int mode, bool exact, const float* z, const float* c_norm,
                 int* idx, float* zn, float* zq, int n, int M, int K,
                 cudaStream_t s) {
     switch (mode) {
-        case NONE: return launch_exact<D, NONE>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
-        case L2: return launch_exact<D, L2>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
-        case Z_NORM: return launch_exact<D, Z_NORM>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
-        case Z_TRAINABLE: return launch_exact<D, Z_TRAINABLE>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
+        case NONE: return launch_precision<D, NONE>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
+        case L2: return launch_precision<D, L2>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
+        case Z_NORM: return launch_precision<D, Z_NORM>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
+        case Z_TRAINABLE: return launch_precision<D, Z_TRAINABLE>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -228,15 +568,17 @@ int launch_mode(int mode, bool exact, const float* z, const float* c_norm,
 }  // namespace
 
 // z (n, M, d), c_norm and c_raw (M, K, d), z_mean and z_std (M, d) or null,
-// all f32 contiguous -> idx (n, M) int32, z_norm and z_q (n, M, d) f32, on
-// `stream`.  mode: 0 none, 1 l2, 2 z_norm, 3 z_trainable; d in {8, 16, 32}.
-// Returns the cudaError_t of the launch (0 = success).
+// all f32 contiguous and 16-byte aligned -> idx (n, M) int32, z_norm and
+// z_q (n, M, d) f32, on `stream`.  mode: 0 none, 1 l2, 2 z_norm,
+// 3 z_trainable; d in {8, 16, 32}; K as the header states.  Returns the
+// cudaError_t of the launch (0 = success).
 extern "C" int pq_assign_launch(const void* z, const void* c_norm,
                                 const void* c_raw, const void* z_mean,
                                 const void* z_std, void* idx, void* zn,
                                 void* zq, int n, int M, int K, int d, int mode,
                                 int exact, void* stream) {
     if (n == 0) return 0;
+    if (K < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
     const auto s = static_cast<cudaStream_t>(stream);
     const auto* zf = static_cast<const float*>(z);
     const auto* cn = static_cast<const float*>(c_norm);

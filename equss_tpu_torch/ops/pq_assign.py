@@ -19,6 +19,28 @@ from equss_tpu_torch.ops import _build
 
 MODES = ("none", "l2", "z_norm", "z_trainable")
 KERNEL_SUB_DIMS = (8, 16, 32)
+KERNEL_SMEM_BYTES = 232448        # shared memory one block can use on sm_90
+KERNEL_STAGE_BYTES = 43008        # the fast kernel's staging tiles
+
+
+def kernel_domain_error(d: int, K: int, exact: bool) -> Optional[str]:
+    """Why the CUDA kernel does not take subspaces of width ``d`` with
+    ``K`` codewords, or None where it does (the domain stated in
+    ``csrc/pq_assign.cu``'s header): d in (8, 16, 32) and one subspace's
+    codebooks within a block's shared memory, (8d + 4) K bytes in exact
+    mode, (4d + 4) roundup(K, 256 / d) bytes beside 43 008 bytes of
+    staging tiles in fast mode."""
+    if d not in KERNEL_SUB_DIMS:
+        return f"PQ kernel takes d in {KERNEL_SUB_DIMS}, got {d}"
+    if K < 1:
+        return f"PQ kernel needs K >= 1, got {K}"
+    chunk = 256 // d
+    need = (8 * d + 4) * K if exact \
+        else (4 * d + 4) * (-(-K // chunk) * chunk) + KERNEL_STAGE_BYTES
+    if need > KERNEL_SMEM_BYTES:
+        return (f"PQ kernel: K = {K} codewords of d = {d} need {need} bytes of "
+                f"shared memory, more than {KERNEL_SMEM_BYTES}")
+    return None
 
 
 def normalize_vectors(z: torch.Tensor, mode: str,
@@ -115,8 +137,8 @@ def pq_assign(
     int32, z_norm (n, M, d) f32, z_q (n, M, d) f32)``.
 
     CPU tensors: the plain version.  CUDA tensors: the kernel, which
-    takes contiguous f32 with d in (8, 16, 32) and raises on anything
-    else."""
+    takes contiguous f32 inside ``kernel_domain_error``'s domain and
+    raises on anything else."""
     if normalize not in MODES:
         raise ValueError(f"Unsupported normalize mode {normalize}")
     if normalize == "z_trainable" and (z_mean is None or z_std is None):
@@ -139,8 +161,9 @@ def pq_assign(
             if t.shape != (M, d):
                 raise ValueError(f"{name} must be ({M}, {d})")
         stats = (z_mean.data_ptr(), z_std.data_ptr())
-    if d not in KERNEL_SUB_DIMS:
-        raise ValueError(f"PQ kernel takes d in {KERNEL_SUB_DIMS}, got {d}")
+    why = kernel_domain_error(d, K, exact)
+    if why:
+        raise ValueError(why)
     idx = torch.empty((n, M), dtype=torch.int32, device=z.device)
     zn = torch.empty_like(z)
     zq = torch.empty_like(z)

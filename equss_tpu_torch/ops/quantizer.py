@@ -25,7 +25,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from equss_tpu_torch.ops.pq_assign import normalize_vectors, pq_assign
+from equss_tpu_torch.ops.pq_assign import kernel_domain_error, normalize_vectors, pq_assign
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,7 +210,11 @@ def _check_training_supported(cfg: PQConfig) -> None:
 def _kernel_eligible(cfg: PQConfig, n: int, device: torch.device,
                      training: bool = False) -> bool:
     """The JAX package's eligibility predicate (quantizer.py:496-543)
-    with the TPU backend test read as CUDA."""
+    with the TPU backend test read as CUDA.  Its shape rule is the TPU
+    kernel's layout (``sub_dim % 8 == 0`` and ``num_codebook % 128 ==
+    0``) for tensors on the CPU, so that the plain version stands where
+    the JAX kernel would; on CUDA it is the CUDA kernel's own domain
+    (``pq_assign.kernel_domain_error``)."""
     if cfg.use_pallas == "auto":
         if device.type == "cuda":
             want = True
@@ -226,8 +230,14 @@ def _kernel_eligible(cfg: PQConfig, n: int, device: torch.device,
             and not cfg.use_weighted_sum
             and not cfg.use_gumbel
             and cfg.pq_dropout == 0.0
-            and cfg.sub_dim % 8 == 0
-            and cfg.num_codebook % 128 == 0)
+            and _kernel_shape_ok(cfg, device))
+
+
+def _kernel_shape_ok(cfg: PQConfig, device: torch.device) -> bool:
+    if device.type == "cuda":
+        return kernel_domain_error(cfg.sub_dim, cfg.num_codebook,
+                                   cfg.assign_precision != "bf16") is None
+    return cfg.sub_dim % 8 == 0 and cfg.num_codebook % 128 == 0
 
 
 def pq_forward(

@@ -1,0 +1,188 @@
+"""Two builds of the PQ assignment kernel, side by side on one card.
+
+    python3 -m equss_tpu_torch.tools.pq_ab OLD.cu
+
+``OLD.cu`` is an earlier version of ``csrc/pq_assign.cu`` with the same
+``pq_assign_launch`` C entry.  Both sources are compiled with the port's
+nvcc flags (in parallel, into ``_build/ab/``); each build's ptxas
+register and spill lines are printed.  At every case of
+``chip_smoke.py``'s PQ phase (serve and train fast l2, serve exact l2,
+z_norm exact, z_trainable fast) and at K = 512, d = 8 and d = 32, both
+builds run on the same input.  Each build is held to the plain version
+(``pq_assign_reference``) with the kernel's bar: >= 99.99% of indices
+equal in exact mode, >= 99.5% in fast mode, indices in range, z_q the
+codeword at the build's own index bit for bit, z_norm within 1e-6 + 1e-6
+|z_norm| (f32 sums in another order); ``identical_indices`` says whether
+the two builds agree everywhere.  Then old, new and the library call
+(normalise + ``torch.cdist`` + ``argmin`` + gather, a yardstick the port
+never calls) are timed in turns (old, new, library, library, new, old,
+three times: medians of six) with CUDA events over back-to-back launches;
+one launch moves at least 150 MB at every case, more than the 50 MB L2,
+so z comes from device memory, as on the serving path.  Prints the card's
+name and power limit, one JSON line per build and per case, and exits
+non-zero if a build or a launch fails or a bar is missed.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import re
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from equss_tpu_torch.ops import _build
+from equss_tpu_torch.ops.pq_assign import MODES, normalize_vectors, pq_assign_reference
+from equss_tpu_torch.tools.attention_ab import _time_ms
+
+CASES = (  # name, n, M, K, d, normalize, exact
+    ("serve_fast_l2", 128 * 28 * 28, 64, 256, 16, "l2", False),
+    ("train_fast_l2", 16 * 28 * 28, 64, 256, 16, "l2", False),
+    ("serve_exact_l2", 128 * 28 * 28, 64, 256, 16, "l2", True),
+    ("z_norm_exact", 16384, 64, 256, 16, "z_norm", True),
+    ("z_trainable_fast", 16384, 64, 256, 16, "z_trainable", False),
+    ("k512_fast_l2", 16384, 64, 512, 16, "l2", False),
+    ("d8_fast_l2", 16384, 128, 256, 8, "l2", False),
+    ("d32_fast_l2", 16384, 32, 256, 32, "l2", False),
+)
+PEAK_BYTES = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+
+
+def _compile(sources):
+    out_dir = _build.BUILD_DIR / "ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in sources.items():
+        lib = out_dir / f"libpq_{name}.so"
+        procs[name] = (lib, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        log = proc.communicate()[0]
+        ptxas = [ln.strip() for ln in log.splitlines() if re.search(r"registers|spill", ln)]
+        spills = sum(map(int, re.findall(r"(\d+) bytes spill", log)))
+        print(json.dumps({"build": name, "rc": proc.returncode, "spill_bytes": spills,
+                          "max_registers": max(map(int, re.findall(r"Used (\d+) registers",
+                                                                  log)), default=None),
+                          "ptxas": ptxas}), flush=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        fn = ctypes.CDLL(str(lib)).pq_assign_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        libs[name] = fn
+    return libs
+
+
+def case_inputs(n, M, K, d, mode, g):
+    """z (n, M, d), the normalised codebook, the raw one and, for
+    z_trainable, (M, d) statistics, on the card from generator ``g``: the
+    PQ inputs of this tool and of ``chip_smoke.py``."""
+    z = 3.0 * torch.randn((n, M, d), generator=g, device="cuda")
+    cb = torch.randn((M, K, d), generator=g, device="cuda")
+    zm = zs = None
+    if mode == "z_trainable":
+        zm = 0.1 * torch.randn((M, d), generator=g, device="cuda")
+        zs = torch.exp(0.1 * torch.randn((M, d), generator=g, device="cuda"))
+        mu = cb.mean(1, keepdim=True)
+        cn = (cb - mu) / (torch.sqrt(((cb - mu) ** 2).sum(1, keepdim=True) / (K - 1)) + 1e-5)
+    else:
+        cn = normalize_vectors(cb, mode)
+    return z, cn.contiguous(), cb, zm, zs
+
+
+def library_call(z, cn, cb, mode, zm=None, zs=None):
+    """The same assignment in library calls (normalise, ``torch.cdist``,
+    ``argmin``, gather): the yardstick, which the port never calls."""
+    zl = normalize_vectors(z, mode, zm, zs).transpose(0, 1)        # (M, n, d)
+    i = torch.cdist(zl, cn).argmin(-1)                               # (M, n)
+    return torch.gather(cb, 1, i[..., None].expand(-1, -1, z.shape[-1]))
+
+
+def main(argv) -> int:
+    if len(argv) != 1 or not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    libs = _compile({"old": Path(argv[0]).resolve(),
+                     "new": _build.CSRC_DIR / "pq_assign.cu"})
+    g = torch.Generator(device="cuda").manual_seed(1)
+    stream = torch.cuda.current_stream().cuda_stream
+    ok = True
+    for name, n, M, K, d, mode, exact in CASES:
+        z, cn, cb, zm, zs = case_inputs(n, M, K, d, mode, g)
+        outs = {b: (torch.empty((n, M), dtype=torch.int32, device="cuda"),
+                    torch.empty_like(z), torch.empty_like(z)) for b in libs}
+
+        def run(b):
+            idx, zn, zq = outs[b]
+            err = libs[b](z.data_ptr(), cn.data_ptr(), cb.data_ptr(),
+                          None if zm is None else zm.data_ptr(),
+                          None if zs is None else zs.data_ptr(),
+                          idx.data_ptr(), zn.data_ptr(), zq.data_ptr(), n, M, K, d,
+                          MODES.index(mode), int(exact), stream)
+            if err:
+                raise RuntimeError(f"{b} launch failed: CUDA error {err}")
+
+        for b in libs:
+            run(b)
+        torch.cuda.synchronize()
+        idx_r, zn_r, _ = pq_assign_reference(z, cn, cb, normalize=mode, z_mean=zm,
+                                             z_std=zs, exact=exact)
+        need = 0.9999 if exact else 0.995
+        src = cb if exact else cb.to(torch.bfloat16).float()
+        m = torch.arange(M, device="cuda")
+        checks = {}
+        for b, (idx, zn, zq) in outs.items():
+            agree = (idx == idx_r).float().mean().item()
+            in_range = bool(((idx >= 0) & (idx < K)).all())
+            zq_own = in_range and torch.equal(zq, src[m, idx.long()])
+            zn_err = (zn - zn_r).abs().max().item()
+            zn_ok = bool(((zn - zn_r).abs() <= 1e-6 + 1e-6 * zn_r.abs()).all())
+            passed = agree >= need and in_range and zq_own and zn_ok
+            ok &= passed
+            checks[b] = {"index_agreement": agree, "zq_codeword_at_own_index": zq_own,
+                         "zn_max_abs_err": zn_err, "zn_within_1e-6": zn_ok,
+                         "passed": passed}
+        identical = torch.equal(outs["old"][0], outs["new"][0])
+        del idx_r, zn_r
+
+        def library():
+            library_call(z, cn, cb, mode, zm, zs)
+
+        times = {b: [] for b in ("old", "new", "library")}
+        for _ in range(3):
+            for b in ("old", "new", "library", "library", "new", "old"):
+                times[b].append(_time_ms(library if b == "library" else (lambda: run(b)),
+                                         iters=10))
+        nbytes = 4.0 * (3 * n * M * d + 2 * M * K * d + n * M
+                        + (2 * M * d if zm is not None else 0))
+        flops = 2.0 * n * M * K * d
+        t_bytes, t_ops = nbytes / PEAK_BYTES, flops / (PEAK_F32_FLOPS if exact
+                                                       else PEAK_BF16_FLOPS)
+        med = {b: statistics.median(v) for b, v in times.items()}
+        print(json.dumps({
+            "case": name, "n": n, "M": M, "K": K, "d": d, "normalize": mode,
+            "exact": exact, "required_agreement": need, "checks": checks,
+            "identical_indices": identical, "median_ms": med,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "share_of_bound_new": 1e3 * max(t_bytes, t_ops) / med["new"],
+            "new_over_old": med["new"] / med["old"], "ms": times,
+            "nvidia_smi": smi}), flush=True)
+        del z, cn, cb, zm, zs, outs
+        torch.cuda.empty_cache()
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

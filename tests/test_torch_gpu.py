@@ -70,18 +70,29 @@ def test_attention_kernel_matches_plain(cuda, B, N, H, n_real, kind):
 
 @pytest.mark.parametrize("mode", ["none", "l2", "z_norm"])
 @pytest.mark.parametrize("exact", [True, False])
-def test_pq_kernel_matches_plain(cuda, mode, exact):
+@pytest.mark.parametrize("d,K", [(d, K) for d in (8, 16, 32) for K in (100, 128, 256, 300, 512)])
+def test_pq_kernel_matches_plain(cuda, mode, exact, d, K):
+    """n = 1000 leaves a ragged last row tile; K > 256 takes the fast
+    mode's (value, index) minimum, K <= 256 its packed one.  K = 100 and
+    300 leave a ragged last chunk of codewords and run with M = 5
+    subspaces, so that the last group of subspaces is a partial one."""
+    M = 8 if K % 128 == 0 else 5
     g = torch.Generator(device=cuda).manual_seed(3)
-    z = 3.0 * torch.randn((1000, 8, 16), generator=g, device=cuda)
-    cb = torch.randn((8, 256, 16), generator=g, device=cuda)
+    z = 3.0 * torch.randn((1000, M, d), generator=g, device=cuda)
+    cb = torch.randn((M, K, d), generator=g, device=cuda)
     cn = normalize_vectors(cb, mode).contiguous()
+    before = pq_assign.launches
     idx, zn, zq = pq_assign(z, cn, cb, normalize=mode, exact=exact)
+    assert pq_assign.launches == before + 1
     idx_r, zn_r, zq_r = pq_assign_reference(z, cn, cb, normalize=mode, exact=exact)
     agree = (idx == idx_r).float().mean().item()
     assert agree >= (0.9999 if exact else 0.995)
+    assert bool(((idx >= 0) & (idx < K)).all())
     torch.testing.assert_close(zn, zn_r, rtol=1e-6, atol=1e-6)
     same = idx == idx_r
     assert torch.equal(zq[same], zq_r[same])
+    src = cb if exact else cb.to(torch.bfloat16).float()
+    assert torch.equal(zq, src[torch.arange(M, device=cuda), idx.long()])
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
@@ -94,6 +105,10 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         pq_assign(z, torch.zeros((2, 128, 12), device=cuda),
                   torch.zeros((2, 128, 12), device=cuda))   # d = 12
+    z = torch.zeros((4, 2, 16), device=cuda)
+    big = torch.zeros((2, 2800, 16), device=cuda)           # past shared memory
+    with pytest.raises(ValueError):
+        pq_assign(z, big, big, exact=False)
 
 
 @pytest.mark.parametrize("rows,C", [(25120, 384), (1000, 768), (37, 32), (5, 200)])

@@ -50,9 +50,17 @@ def _run_both(z, cn, cb, mode, exact, zm=None, zs=None):
     return [np.asarray(a) for a in jx], [a.numpy() for a in pt]
 
 
-@pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
-@pytest.mark.parametrize("mode", MODES)
-def test_pq_assign_reference_matches_jax_kernel(mode, exact):
+# (K, d) beyond the base case: K = 256 puts index 255 in all 8 packed
+# bits, K = 512 takes the fast mode's (value, index) minimum, d = 8 and
+# d = 32 the kernel's other widths
+SHAPES = ((K, D), (256, D), (512, D), (K, 8), (K, 32))
+CASES = [pytest.param(mode, exact, k, d, id=f"{mode}-{'exact' if exact else 'fast'}"
+                      + ("" if (k, d) == (K, D) else f"-K{k}-d{d}"))
+         for k, d in SHAPES for mode in MODES for exact in (True, False)]
+
+
+@pytest.mark.parametrize("mode,exact,K,D", CASES)
+def test_pq_assign_reference_matches_jax_kernel(mode, exact, K, D):
     rng = np.random.RandomState(MODES.index(mode))
     z = (3.0 * rng.randn(N, M, D)).astype(np.float32)
     cb = rng.randn(M, K, D).astype(np.float32)
@@ -64,6 +72,7 @@ def test_pq_assign_reference_matches_jax_kernel(mode, exact):
     (idx_j, zn_j, zq_j), (idx_t, zn_t, zq_t) = _run_both(z, cn, cb, mode, exact, zm, zs)
 
     assert idx_t.dtype == np.int32 and idx_t.shape == (N, M)
+    assert idx_t.min() >= 0 and idx_t.max() < K
     np.testing.assert_allclose(zn_t, zn_j, rtol=1e-6, atol=1e-6)
     if exact:
         np.testing.assert_array_equal(idx_t, idx_j)
