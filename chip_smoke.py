@@ -40,7 +40,21 @@ Phases, each printing JSON lines on stdout:
 6. profile  device time by kernel and the device's busy share (torch
             profiler) of two serving forwards at b = 1 and b = 128, with
             and without ``fused_ln``, and of two train steps of each
-            configuration.
+            configuration; every kernel of the port is picked out with
+            its device ms per launch in the path;
+7. valid    ``Trainer.validate`` of both train configurations over 4
+            synthetic batches of b = 8 at 320^2 (40 x 40 patches, 1601
+            tokens, labels in [-1, 27)): the returned metrics, launch
+            counts per valid step (12 attention and 1 PQ; ``kernel`` adds
+            1 LayerNorm and 24 add + LayerNorm), the valid step's median
+            ms and a profile of two valid steps; then one valid step at
+            b = 2 on the card against the same on the CPU (indices >= 95%
+            equal; z_q and predictions held where the indices agree;
+            both confusion matrices printed);
+8. fit      ``Trainer.fit`` of the preset for one epoch of 4 train steps
+            at b = 16, validating every 2 steps and at the epoch's end
+            on 2 batches of b = 8 at 320^2: the logged steps, the best
+            result and the wall time.
 
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failed check exits non-zero without the ok line; without
@@ -123,6 +137,9 @@ PQGO_COCOSTUFF27 = {
 # the kernels each driven path must launch, per forward or per step
 SERVE_KERNELS = {"attention_qkv": 12, "pq_assign": 1}
 FUSED_LN_KERNELS = {"attention_qkv": 12, "layernorm": 1, "add_layernorm": 24, "pq_assign": 1}
+STOCK_TRAIN_KERNELS = {"attention_qkv": 12}
+# the port's kernels as the profiler names them
+KERNEL_PICK = ("attention_kernel", "layernorm_kernel", "pq_fast", "pq_exact")
 
 
 def train_config(kind: str) -> dict:
@@ -217,7 +234,7 @@ def device_profile(fn, calls: int, pick=()) -> dict:
     total = sum(e.self_device_time_total for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:14]
     row = lambda e: {"name": e.key[:80], "ms": e.self_device_time_total / 1e3,  # noqa: E731
-                     "calls": e.count}
+                     "calls": e.count, "ms_per_call": e.self_device_time_total / 1e3 / e.count}
     return {"calls": calls, "wall_ms": 1e3 * wall, "device_ms": total / 1e3,
             "device_busy_share": total / 1e3 / (1e3 * wall),
             "kernel_launches": sum(e.count for e in events),
@@ -337,18 +354,20 @@ def exp_bound_ms(exps: float) -> float:
 def attention_row(kernel: str, name: str, out, ref, items: int, fn, plain, library,
                   flops: float, nbytes: float, exps: float) -> dict:
     """Check ``out`` against ``ref`` on the first ``items`` batch items
-    (finite, within 1 bf16 ulp of the output's scale), time the kernel,
-    its plain version and the library call, and return the row."""
+    (finite, within 1 bf16 ulp of the output's scale), time the kernel
+    and the library call in turns (``in_turns``, 10 launches a run) and
+    the plain version, and return the row."""
     o, r = out[:items].float(), ref[:items].float()
     err = (o - r).abs().max().item()
     ulp = bf16_ulp(r)
     check(bool(torch.isfinite(o).all()) and err <= ulp,
           f"{kernel} {name}: max abs err {err} > 1 bf16 ulp {ulp}")
     bnd, by = bound_ms(flops, PEAK_BF16_FLOPS, nbytes)
+    turns = in_turns({"kernel": fn, "library": library}, iters=10)
     return {"phase": "kernel", "kernel": kernel, "case": name, "max_abs_err": err,
             "tolerance": ulp, "items_checked": items,
-            "ms": cuda_ms(fn, iters=10), "plain_ms": cuda_ms(plain, iters=3),
-            "library_ms": cuda_ms(library, iters=10),
+            "ms": turns["kernel"], "plain_ms": cuda_ms(plain, iters=3),
+            "library_ms": turns["library"],
             "bound_ms": bnd, "bound_by": by, "exp_bound_ms": exp_bound_ms(exps)}
 
 
@@ -369,6 +388,7 @@ def phase_attention(results: dict) -> None:
         ("vit_s_224_padded", 128, 896, 6, 785, "randn"),
         ("vit_b_224", 32, 785, 12, 785, "randn"),
         ("vit_s_320", 32, 1601, 6, 1601, "randn"),
+        ("vit_s_320_valid", 8, 1601, 6, 1601, "randn"),  # the valid step's shape
         ("late_max", 32, 785, 6, 785, "late_max"),
         ("late_max_near", 32, 785, 6, 785, "late_max_near"),
         ("nan_neighbour", 2, 785, 6, 785, "nan_neighbour"),
@@ -395,10 +415,10 @@ def phase_attention(results: dict) -> None:
 
 
 def phase_pq(results: dict) -> None:
-    """The PQ kernel against its plain version at the serving and train
-    calls, exact mode, the other normalisations, K = 512 (the fast mode's
-    (value, index) minimum over many codeword tiles) and a ragged n (a
-    last row tile of 5 rows).  Bars: >= 99.99% of indices equal in exact
+    """The PQ kernel against its plain version at the serving, train and
+    valid calls, exact mode, the other normalisations, K = 512 (the fast
+    mode's (value, index) minimum over many codeword tiles) and a ragged
+    n (a last row tile of 5 rows).  Bars: >= 99.99% of indices equal in exact
     mode, >= 99.5% in fast mode, indices in range, z_q the codeword at the
     kernel's own index bit for bit.  Library yardstick: normalise +
     ``torch.cdist`` + ``argmin`` + gather."""
@@ -411,6 +431,7 @@ def phase_pq(results: dict) -> None:
     cases = [  # name, n, K, normalize, exact
         ("bench_fast_l2", n_bench, 256, "l2", False),   # the serving path's call
         ("train_fast_l2", 16 * 28 * 28, 256, "l2", False),   # the train step's
+        ("valid_fast_l2", 8 * 40 * 40, 256, "l2", False),    # the valid step's
         ("bench_exact_l2", n_bench, 256, "l2", True),
         ("z_norm_exact", 16384, 256, "z_norm", True),
         ("z_trainable_fast", 16384, 256, "z_trainable", False),
@@ -456,7 +477,8 @@ def phase_pq(results: dict) -> None:
 
 def phase_layernorm(results: dict) -> None:
     """Both LayerNorm kernels against their plain versions at the train
-    step's rows (32 * 785), the b = 128 serving rows and ViT-B's width.
+    step's rows (32 * 785), the b = 128 serving rows, the b = 8 valid
+    step's rows at 320^2 (8 * 1601) and ViT-B's width.
     Tolerance: at most 0.1% of elements differ, each by at most one bf16
     ulp of max(|out|, |bias|) (rsqrtf is not correctly rounded and the f32
     sums run in another order; where the affine terms cancel the output is
@@ -479,7 +501,7 @@ def phase_layernorm(results: dict) -> None:
     g = torch.Generator(device="cuda").manual_seed(2)
     eps = 1e-6
     for name, rows, C in (("train_vit_s", 32 * 785, 384), ("serve_vit_s", 128 * 785, 384),
-                          ("train_vit_b", 32 * 785, 768)):
+                          ("valid_vit_s", 8 * 1601, 384), ("train_vit_b", 32 * 785, 768)):
         x = (3 * torch.randn((rows, C), generator=g, device="cuda") + 1).to(torch.bfloat16)
         y = torch.randn((rows, C), generator=g, device="cuda").to(torch.bfloat16)
         scale = 1 + 0.1 * torch.randn(C, generator=g, device="cuda")
@@ -715,7 +737,7 @@ def phase_profile(model) -> None:
     for batch in (1, 128):
         img = normalize_images(requests(batch, 1, seed=3)[0].to("cuda"))
         emit({"phase": "profile", "what": "serve", "batch": batch, "forwards": 2,
-              **device_profile(lambda: model(img), 2)})
+              **device_profile(lambda: model(img), 2, pick=KERNEL_PICK)})
 
 
 def phase_serve_fused_ln(model, cfg, results: dict) -> None:
@@ -756,16 +778,18 @@ def phase_serve_fused_ln(model, cfg, results: dict) -> None:
     emit(row)
     img = normalize_images(reqs[0].to("cuda"))
     emit({"phase": "profile", "what": "serve_fused_ln", "batch": 128, "forwards": 2,
-          **device_profile(lambda: fused(img), 2)})
+          **device_profile(lambda: fused(img), 2, pick=KERNEL_PICK)})
 
 
-def train_model(kind: str, device: str = "cuda", dropout: bool = True):
-    """(config, Trainer) of one train configuration, weights from seed 0."""
+def train_model(kind: str, device: str = "cuda", dropout: bool = True, **train):
+    """(config, Trainer) of one train configuration, weights from seed 0;
+    ``train`` overrides keys of its ``train`` section."""
     from equss_tpu_torch.models.equss import EQUSS, EQUSSConfig
     from equss_tpu_torch.train.trainer import Trainer
 
     cfg = train_config(kind)
     cfg["model"]["pretrained"]["dropout"] = dropout
+    cfg["train"].update(train)
     mcfg = dataclasses.replace(EQUSSConfig.from_config(cfg), fused_ln=kind == "kernel")
     return cfg, Trainer(cfg, device=device, model=EQUSS(mcfg, device=device, seed=0))
 
@@ -781,7 +805,7 @@ def phase_train(results: dict) -> None:
 
     warm, timed = 3, 20
     batches = list(synthetic_batches(0, warm + timed, 16, res=224, num_classes=27))
-    for kind, per_step in (("kernel", FUSED_LN_KERNELS), ("stock", {"attention_qkv": 12})):
+    for kind, per_step in (("kernel", FUSED_LN_KERNELS), ("stock", STOCK_TRAIN_KERNELS)):
         torch.cuda.reset_peak_memory_stats()
         _, tr = train_model(kind)
         times, metrics = [], []
@@ -808,7 +832,7 @@ def phase_train(results: dict) -> None:
         cycle = iter(batches * 2)
         emit({"phase": "profile", "what": f"train_{kind}", "batch": 16, "steps": 2,
               **device_profile(lambda: tr.train_step(next(cycle)), 2,
-                               pick=("index", "layernorm", "pq_", "bmm", "Memcpy"))})
+                               pick=KERNEL_PICK + ("index", "bmm", "Memcpy"))})
         del tr
         torch.cuda.empty_cache()
 
@@ -848,6 +872,205 @@ def phase_train_reference() -> None:
           "card": {k: m_g[k] for k in terms}, "cpu": {k: m_c[k] for k in terms}})
 
 
+def valid_batches(n: int, batch: int, seed: int) -> list:
+    """``n`` synthetic host batches of ``batch`` 320^2 images without
+    positives; 10% of the labels set to -1 (ignored, as unlabelled pixels
+    are)."""
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for b in synthetic_batches(seed, n, batch, res=320, num_classes=27, with_pos=False):
+        b["label"][rng.rand(*b["label"].shape) < 0.1] = -1
+        out.append(b)
+    return out
+
+
+VALID_METRICS = ("Linear_mIoU", "Linear_Accuracy", "Cluster_mIoU", "Cluster_Accuracy")
+
+
+def check_valid_metrics(val: dict, what: str) -> None:
+    check(all(np.isfinite(val[k]) and 0.0 <= val[k] <= 100.0 for k in VALID_METRICS)
+          and all(np.isfinite(val[k]) for k in ("val_linear_loss", "val_cluster_loss")),
+          f"{what}: metrics {val}")
+
+
+def phase_valid(results: dict) -> None:
+    """``Trainer.validate`` of both train configurations (seeded weights)
+    over 4 batches of b = 8 at 320^2, counted from 0: exact launches per
+    valid step, every metric finite and in [0, 100]; then each valid step
+    timed alone on the same batches (host clock to a synchronised end,
+    after 2 warm-up steps) and a profile of two valid steps."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+
+    warm, steps = 2, 4
+    batches = valid_batches(warm + steps, 8, seed=320)
+    for kind, per_step in (("stock", SERVE_KERNELS), ("kernel", FUSED_LN_KERNELS)):
+        _, tr = train_model(kind)
+        for b in batches[:warm]:
+            tr.valid_step(b)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        val = tr.validate(batches[warm:])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        results["launches"][f"valid_{kind}"] = counts
+        check(counts == expected(per_step, steps), f"valid {kind}: launches {counts}")
+        check_valid_metrics(val, f"valid {kind}")
+        times = []
+        for b in batches[warm:]:
+            t0 = time.perf_counter()
+            res = tr.valid_step(b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        check(tuple(res["linear_preds"].shape) == (8, 320, 320)
+              and tuple(res["pq_indices"].shape) == (8, 40, 40, 64),
+              f"valid {kind}: shapes")
+        t = sorted(times)
+        emit({"phase": "valid", "config": kind, "batch": 8, "res": 320, "batches": steps,
+              "validate_seconds": seconds, "ms_per_valid_step_median": 1e3 * t[steps // 2],
+              "ms_per_valid_step_min": 1e3 * t[0],
+              "launches_per_valid_step": {k: v / steps for k, v in counts.items()}, **val})
+        cycle = iter(batches * 2)
+        emit({"phase": "profile", "what": f"valid_{kind}", "batch": 8, "res": 320, "steps": 2,
+              **device_profile(lambda: tr.valid_step(next(cycle)), 2,
+                               pick=KERNEL_PICK + ("indexFunc", "Memcpy"))})
+        del tr
+        torch.cuda.empty_cache()
+
+
+def phase_valid_reference() -> None:
+    """One valid step of the preset at b = 2, 320^2, on the card and on
+    the CPU (plain kernel versions, the PQ kernel's) from the same seeded
+    weights.  With random weights a prediction is a 27-way argmax over
+    64 subspaces' codewords, and one flipped codeword of 64 flips it
+    often, so the predictions are held where the codewords agree:
+    * end to end: PQ indices >= 95% equal (the end-to-end class of the
+      serving reference);
+    * z_q on every feature pixel whose 64 indices all agree: card and
+      CPU within 4 f32 ulps of max(1, |z_q|) (z_q is the straight-through
+      value z_norm + (c - z_norm) of the bf16-rounded codeword c, with
+      |z_norm| <= 1 under l2: two roundings a side, within 1.5 ulps);
+    * predictions on every label pixel whose bilinear taps (the probes'
+      resize) all fall on such feature pixels, at least 500 of them:
+      >= 99.9% equal (f32 probes on both sides; only sums in another
+      order);
+    * the CPU's probes on the card's own z_q: >= 99.9% of predictions
+      equal to the card's.
+    Agreement on all pixels and the three sets of confusion matrices
+    are printed beside."""
+    from equss_tpu_torch.data.transforms import normalize_images
+    from equss_tpu_torch.eval.metrics import confusion_update
+    from equss_tpu_torch.ops.resize import resize2d
+
+    batch = valid_batches(1, 2, seed=321)[0]
+    _, tr_g = train_model("stock")
+    _, tr_c = train_model("stock", device="cpu")
+    tr_c.model.cfg = dataclasses.replace(
+        tr_c.model.cfg, pq=dataclasses.replace(tr_c.model.cfg.pq, use_pallas=True))
+    g = {k: v.cpu() for k, v in tr_g.valid_step(batch).items()}
+    c = {k: v.cpu() for k, v in tr_c.valid_step(batch).items()}
+    idx_g, idx_c = g["pq_indices"], c["pq_indices"]
+    index_agree = (idx_g == idx_c).float().mean().item()
+    same_px = (idx_g == idx_c).all(-1)                          # (b, 40, 40)
+    e2e = {k: (g[k] == c[k]).float().mean().item() for k in ("linear_preds", "cluster_preds")}
+    check(index_agree >= 0.95, f"valid reference: end-to-end index agreement {index_agree}")
+
+    label = torch.from_numpy(batch["label"]).long()
+    img = normalize_images(torch.from_numpy(batch["img"]))
+    with torch.no_grad():
+        z_q = tr_g.model(img.cuda())["z_q"].cpu()
+        z_q_c = tr_c.model(img)["z_q"]
+        ev = tr_c.evaluator(z_q, label)
+    zq_err = (z_q - z_q_c).abs()[same_px].max().item()
+    zq_tol = 4 * 2.0 ** (math.floor(math.log2(max(1.0, z_q_c.abs().max().item()))) - 23)
+    check(zq_err <= zq_tol, f"valid reference: z_q where all indices agree, max err "
+                            f"{zq_err} > {zq_tol}")
+    # a label pixel is clean where the bilinear resize of the probes'
+    # logits (non-negative weights) takes no feature pixel that disagrees
+    taps_differ = resize2d((~same_px).float()[..., None], tuple(label.shape[-2:]), "bilinear")
+    clean = taps_differ[..., 0] == 0
+    n_clean = int(clean.sum())
+    on_clean = {k: (g[k] == c[k])[clean].float().mean().item() if n_clean else 0.0
+                for k in ("linear_preds", "cluster_preds")}
+    check(n_clean >= 500 and all(v >= 0.999 for v in on_clean.values()),
+          f"valid reference: predictions on {n_clean} clean pixels, agreement {on_clean}")
+    stage = {k: (g[k] == ev[k]).float().mean().item() for k in ("linear_preds", "cluster_preds")}
+    check(all(v >= 0.999 for v in stage.values()),
+          f"valid reference: probes on the card's z_q, agreement {stage}")
+    emit({"phase": "valid_reference_cpu", "config": "stock", "batch": 2, "res": 320,
+          "end_to_end_index_agreement": index_agree,
+          "end_to_end_pixels_all_indices_equal": same_px.float().mean().item(),
+          "z_q_max_err_where_indices_equal": zq_err, "z_q_tolerance": zq_tol,
+          "clean_label_pixels": n_clean,
+          "prediction_agreement_on_clean_pixels": on_clean,
+          "end_to_end_prediction_agreement": e2e,
+          "probes_on_card_z_q_prediction_agreement": stage,
+          "linear_loss": {"card": g["linear_loss"].item(), "cpu": c["linear_loss"].item(),
+                          "cpu_on_card_z_q": ev["linear_loss"].item()},
+          "cluster_loss": {"card": g["cluster_loss"].item(), "cpu": c["cluster_loss"].item(),
+                           "cpu_on_card_z_q": ev["cluster_loss"].item()},
+          "linear_conf": {"card": g["linear_conf"].tolist(), "cpu": c["linear_conf"].tolist(),
+                          "cpu_on_card_z_q": confusion_update(
+                              ev["linear_preds"], label, 27).tolist()},
+          "cluster_conf": {"card": g["cluster_conf"].tolist(),
+                           "cpu": c["cluster_conf"].tolist(),
+                           "cpu_on_card_z_q": confusion_update(
+                               ev["cluster_preds"], label, 27).tolist()}})
+
+
+class Recorder:
+    """A logger for ``Trainer.fit`` that keeps every ``log`` call."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, metrics, step):
+        self.records.append((step, dict(metrics)))
+
+    def banner(self, msg):
+        pass
+
+
+def phase_fit(results: dict) -> None:
+    """``Trainer.fit`` of the preset: one epoch of 4 train steps at b = 16
+    (224^2), a log every step, validation every 2 steps and at the
+    epoch's end on 2 batches of b = 8 at 320^2; launches counted from 0
+    over the whole run."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+
+    train = list(synthetic_batches(16, 4, 16, res=224, num_classes=27))
+    val = valid_batches(2, 8, seed=322)
+    _, tr = train_model("stock", max_epochs=1, iter_per_epoch=4, print_interval_iters=1,
+                        valid_interval_iters=2)
+    logger = Recorder()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = tr.fit(lambda epoch: train, lambda: val, logger=logger)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    results["launches"]["fit"] = counts
+    train_launches = expected(STOCK_TRAIN_KERNELS, 4)
+    valid_launches = expected(SERVE_KERNELS, 3 * len(val))
+    want = {k: train_launches[k] + valid_launches[k] for k in counts}
+    check(counts == want, f"fit: launches {counts}, expected {want}")
+    steps = [s for s, _ in logger.records]
+    best = out["best"]
+    check(steps == [1, 2, 2, 3, 4, 4, 4], f"fit: logged steps {steps}")
+    check((best.get("epoch"), best.get("iter")) in ((0, 2), (0, 4)), f"fit: best {best}")
+    check_valid_metrics(best, "fit best")
+    check(all(np.isfinite(v) for _, m in logger.records for v in m.values())
+          and not any(m.get("skipped") for _, m in logger.records), "fit: non-finite log")
+    emit({"phase": "fit", "config": "stock", "train_steps": 4, "train_batch": 16,
+          "valid_batches": len(val), "valid_batch": 8, "wall_seconds": seconds,
+          "logged_steps": steps, "best": best,
+          "iter_time": [m["iter_time"] for _, m in logger.records if "iter_time" in m]})
+
+
 KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     "attention_qkv": ("equss_tpu_torch/csrc/attention_qkv.cu", "equss_tpu/ops/attention.py:198"),
     "attention": ("equss_tpu_torch/csrc/attention_qkv.cu", "equss_tpu/ops/attention.py:91"),
@@ -872,10 +1095,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train(results)
     phase_train_reference()
+    phase_valid(results)
+    phase_valid_reference()
+    phase_fit(results)
 
     # launches: every main-path run (serving, serving with fused_ln, both
-    # train configurations), each counted from 0; ``attention`` has no
-    # caller on any path and is launched by its kernel phase only
+    # train configurations, both valid configurations, fit), each counted
+    # from 0; ``attention`` has no caller on any path and is launched by
+    # its kernel phase only
     by_path = results["launches"]
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():

@@ -22,6 +22,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def on_device(t: torch.Tensor) -> torch.cuda.device:
+    """A context that makes ``t``'s CUDA device the current one.  Every
+    kernel launch runs inside it: the libraries do their per-device setup
+    (shared-memory attributes, SM counts, occupancy) on the current
+    device, which must be the one the operands live on."""
+    return torch.cuda.device(t.device)
+
+
 def launch_stream(t: torch.Tensor) -> int:
     """The raw handle of the current CUDA stream on ``t``'s device, as a
     kernel launch takes it."""

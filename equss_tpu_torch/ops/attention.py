@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from equss_tpu_torch.device import check_cuda_tensor, launch_stream
+from equss_tpu_torch.device import check_cuda_tensor, launch_stream, on_device
 from equss_tpu_torch.ops import _build
 
 KERNEL_HEAD_DIM = 64                 # the packed entry
@@ -109,9 +109,10 @@ def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
             f"attention kernel takes head_dim {KERNEL_HEAD_DIM}, got {hd}")
     _check_scale(scale)
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
-    err = _kernel_lib().attention_qkv_launch(
-        qkv.data_ptr(), out.data_ptr(), B, N, num_heads, n_real, scale,
-        launch_stream(qkv))
+    with on_device(qkv):
+        err = _kernel_lib().attention_qkv_launch(
+            qkv.data_ptr(), out.data_ptr(), B, N, num_heads, n_real, scale,
+            launch_stream(qkv))
     _check_launch("attention_qkv", err)
     attention_qkv.launches += 1
     return out
@@ -156,8 +157,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
             + [ctypes.c_float, ctypes.c_void_p]
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             B, N, H, hd, N, scale, launch_stream(q))
+    with on_device(q):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, N, H, hd, N, scale, launch_stream(q))
     _check_launch("fused_attention", err)
     fused_attention.launches += 1
     return out

@@ -21,7 +21,7 @@ from typing import Tuple
 
 import torch
 
-from equss_tpu_torch.device import check_cuda_tensor, launch_stream
+from equss_tpu_torch.device import check_cuda_tensor, launch_stream, on_device
 from equss_tpu_torch.ops import _build
 
 KERNEL_MAX_C = 1024
@@ -84,9 +84,10 @@ def _layernorm_forward(x, scale, bias, eps):
         return layernorm_reference(x, scale, bias, eps)
     C = _check_kernel_operands(x, scale, bias)
     out = torch.empty_like(x)
-    err = _kernel_lib().layernorm_launch(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        x.numel() // C, C, eps, launch_stream(x))
+    with on_device(x):
+        err = _kernel_lib().layernorm_launch(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            x.numel() // C, C, eps, launch_stream(x))
     if err:
         raise RuntimeError(f"layernorm launch failed: CUDA error {err}")
     fused_layernorm.launches += 1
@@ -99,9 +100,10 @@ def _add_layernorm_forward(x, y, scale, bias, eps):
     C = _check_kernel_operands(x, scale, bias, y)
     s = torch.empty_like(x)
     out = torch.empty_like(x)
-    err = _kernel_lib().add_layernorm_launch(
-        x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        s.data_ptr(), out.data_ptr(), x.numel() // C, C, eps, launch_stream(x))
+    with on_device(x):
+        err = _kernel_lib().add_layernorm_launch(
+            x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            s.data_ptr(), out.data_ptr(), x.numel() // C, C, eps, launch_stream(x))
     if err:
         raise RuntimeError(f"add_layernorm launch failed: CUDA error {err}")
     fused_add_layernorm.launches += 1

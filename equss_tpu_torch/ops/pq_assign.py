@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from equss_tpu_torch.device import check_cuda_tensor, launch_stream
+from equss_tpu_torch.device import check_cuda_tensor, launch_stream, on_device
 from equss_tpu_torch.ops import _build
 
 MODES = ("none", "l2", "z_norm", "z_trainable")
@@ -167,10 +167,11 @@ def pq_assign(
     idx = torch.empty((n, M), dtype=torch.int32, device=z.device)
     zn = torch.empty_like(z)
     zq = torch.empty_like(z)
-    err = _kernel_lib().pq_assign_launch(
-        z.data_ptr(), c_norm.data_ptr(), c_raw.data_ptr(), *stats,
-        idx.data_ptr(), zn.data_ptr(), zq.data_ptr(), n, M, K, d,
-        MODES.index(normalize), int(exact), launch_stream(z))
+    with on_device(z):
+        err = _kernel_lib().pq_assign_launch(
+            z.data_ptr(), c_norm.data_ptr(), c_raw.data_ptr(), *stats,
+            idx.data_ptr(), zn.data_ptr(), zq.data_ptr(), n, M, K, d,
+            MODES.index(normalize), int(exact), launch_stream(z))
     if err:
         raise RuntimeError(f"pq_assign launch failed: CUDA error {err}")
     pq_assign.launches += 1

@@ -1,9 +1,10 @@
-"""EQUSS trainer: the train step.
+"""EQUSS trainer: the train step, the valid step and the epoch loop.
 
 Counterpart of ``equss_tpu/train/trainer.py`` (``TrainConfig``,
 ``LOSS_WEIGHT_MAP``, ``Trainer.__init__``, ``_model_loss``,
-``_select_out``, ``_trainable``, ``_normalize_batch`` and
-``_train_step_impl``).  One step runs the model's training forward, the
+``_select_out``, ``_trainable``, ``_normalize_batch``,
+``_train_step_impl``, ``_valid_step_impl``, ``validate`` and ``fit``).
+One step runs the model's training forward, the
 weighted loss, the probe losses on detached features, one backward, and
 three optimizers: the model's (head and codebook; the frozen backbone is
 never trained), clipped at ``clip_grad``, and the two probes', unclipped.
@@ -12,19 +13,28 @@ optimizer state and no quantizer count (``train.skip_nonfinite``): the
 quantizer's new ``vq_count`` is computed in the forward and applied only
 after that check.
 
-The valid step, ``fit``, data-dependent codebook init and checkpoints
-belong to a later slice of the port.
+The valid step runs the eval forward at the batch's resolution and both
+probes, and counts each probe's confusion matrix on the device;
+``validate`` sums them over a loader and reports the Hungarian-matched
+Cluster mIoU / Accuracy and the Linear ones.  ``fit`` is the epoch loop
+of a fresh run: print-interval logging, the non-finite streak, periodic
+validation and the best result keyed on ``Cluster_mIoU``.  Checkpoints,
+resume, data-dependent codebook init, ``validate_crf`` and the
+prediction dumps of ``visualize_to`` belong to later slices of the port.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional
+import time
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
 
+from equss_tpu_torch.core.logging import MetricsLogger
 from equss_tpu_torch.data.transforms import normalize_images
 from equss_tpu_torch.device import DeviceLike, resolve_device
+from equss_tpu_torch.eval.metrics import UnSegMetrics, confusion_update
 from equss_tpu_torch.eval.probes import Evaluator, EvaluatorConfig
 from equss_tpu_torch.models.equss import EQUSS, EQUSSConfig
 from equss_tpu_torch.train.optim import build_optimizer, global_grad_norm
@@ -35,11 +45,17 @@ class TrainConfig:
     max_epochs: int = 15
     num_accum: int = 1
     clip_grad: float = 10.0
+    print_interval_iters: int = 25
+    valid_interval_iters: int = 75
     seed: int = 10
     output_type: str = "vq0"     # 'feat' | 'vq0'
     num_classes: int = 27
     extra_classes: int = 0
+    # skip the update of a step whose loss or gradients are not finite;
+    # fit raises after ``nonfinite_patience`` consecutive print-interval
+    # samples of skipped steps
     skip_nonfinite: bool = True
+    nonfinite_patience: int = 3
 
     @staticmethod
     def from_config(cfg: Dict[str, Any]) -> "TrainConfig":
@@ -48,11 +64,14 @@ class TrainConfig:
             max_epochs=t.get("max_epochs", 15),
             num_accum=t.get("num_accum", 1),
             clip_grad=t.get("clip_grad", 10.0),
+            print_interval_iters=t.get("print_interval_iters", 25),
+            valid_interval_iters=t.get("valid_interval_iters", 75),
             seed=cfg.get("seed", 10),
             output_type=cfg.get("eval", {}).get("output_type", "vq0"),
             num_classes=cfg["num_classes"],
             extra_classes=cfg.get("eval", {}).get("extra_classes", 0),
             skip_nonfinite=bool(t.get("skip_nonfinite", True)),
+            nonfinite_patience=int(t.get("nonfinite_patience", 3)),
         )
 
 
@@ -79,7 +98,11 @@ class Trainer:
     when None), the probes and the three optimizers; ``model`` takes an
     ``EQUSS`` built by the caller instead.  ``device=None`` means CUDA,
     which must then be present; pass ``device='cpu'`` to run on the CPU.
-    ``train_step(batch)`` runs one step and returns its metrics."""
+    ``train_step(batch)`` runs one step and returns its metrics,
+    ``valid_step(batch)`` one eval step and ``validate(batches)`` the
+    metrics over a loader; ``fit`` runs the epoch loop.  The train state
+    (model, probes, optimizers) lives in the trainer itself;
+    ``state_dict()`` reads the weights out."""
 
     def __init__(self, cfg: Dict[str, Any], *, device: DeviceLike = None,
                  seed: Optional[int] = None, model: Optional[EQUSS] = None):
@@ -133,6 +156,12 @@ class Trainer:
                                     if not k.startswith("probes.")})
         self.evaluator.load_state_dict(probes)
 
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state dict plus the probes' under ``probes.``: what
+        ``load_state_dict`` takes."""
+        return {**self.model.state_dict(),
+                **{f"probes.{k}": v for k, v in self.evaluator.state_dict().items()}}
+
     # -------------------------------------------------------------- step
     def _model_loss(self, aux: Dict[str, torch.Tensor]) -> torch.Tensor:
         missing = sorted(k for k in self.loss_weights if k not in aux)
@@ -147,13 +176,17 @@ class Trainer:
         sel = out["z_q"] if self.tc.output_type.startswith("vq") else out["code"]
         return sel.detach()
 
-    def _batch(self, batch: Mapping[str, Any]) -> Dict[str, Any]:
-        """Host batch (numpy or tensors) -> tensors on the device: images
-        normalised, labels int64, the STEGO override keys as given."""
+    _TRAIN_KEYS = ("img", "img_pos", "feat", "feat_pos", "label",
+                   "stego_coords1", "stego_coords2", "stego_perms")
+
+    def _batch(self, batch: Mapping[str, Any],
+               keys: Iterable[str] = _TRAIN_KEYS) -> Dict[str, Any]:
+        """Host batch (numpy or tensors) -> the tensors of ``keys`` on the
+        device: images normalised, labels int64, the STEGO override keys
+        as given."""
         out: Dict[str, Any] = {}
         for k, v in batch.items():
-            if v is None or k not in ("img", "img_pos", "feat", "feat_pos", "label",
-                                      "stego_coords1", "stego_coords2", "stego_perms"):
+            if v is None or k not in keys:
                 continue
             t = torch.from_numpy(np.asarray(v)) if not torch.is_tensor(v) else v
             out[k] = t.to(self.device, non_blocking=True)
@@ -211,3 +244,130 @@ class Trainer:
                 for name, t in out["pq_state"].items():
                     getattr(self.model.pq_state, name).copy_(t)
         return result
+
+    # -------------------------------------------------------- validation
+    def valid_step(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        """One eval step on a host batch (``img``, ``label``) at its own
+        resolution: the inference forward and both probes, without
+        autograd.  Returns device tensors: ``linear_conf`` (num_classes,
+        num_classes) and, with the cluster probe, ``cluster_conf``
+        (num_classes + extra_classes, num_classes), both int64 with rows
+        = predictions; ``linear_loss`` / ``cluster_loss``;
+        ``linear_preds`` / ``cluster_preds`` (b, H, W) int32; and
+        ``pq_indices`` (b, gh, gw, M)."""
+        b = self._batch(batch, keys=("img", "label"))
+        with torch.no_grad():
+            out = self.model(b["img"], training=False)
+            ev = self.evaluator(self._select_out(out), b["label"])
+        n, e = self.tc.num_classes, self.tc.extra_classes
+        res = {"linear_conf": confusion_update(ev["linear_preds"], b["label"], n, 0),
+               "linear_loss": ev["linear_loss"],
+               "linear_preds": ev["linear_preds"]}
+        if "cluster_preds" in ev:
+            res["cluster_conf"] = confusion_update(ev["cluster_preds"], b["label"], n, e)
+            res["cluster_loss"] = ev["cluster_loss"]
+            res["cluster_preds"] = ev["cluster_preds"]
+        if "indices" in out:
+            res["pq_indices"] = out["indices"]
+        return res
+
+    def validate(self, val_iter: Iterable[Mapping[str, Any]], *,
+                 visualize_to: Optional[str] = None) -> Dict[str, float]:
+        """``valid_step`` over every batch of ``val_iter``: Linear_mIoU,
+        Linear_Accuracy, Cluster_mIoU and Cluster_Accuracy (Hungarian
+        matched) in percent from the summed confusion matrices, and the
+        mean probe losses ``val_linear_loss`` / ``val_cluster_loss``.
+        Without a cluster probe the Cluster keys repeat the Linear ones.
+        The sums stay on the device until the end."""
+        if visualize_to is not None:
+            raise NotImplementedError("visualize_to (utils/visualize.py) is not ported yet")
+        n, e = self.tc.num_classes, self.tc.extra_classes
+        cluster_m = UnSegMetrics(n, e, compute_hungarian=True)
+        linear_m = UnSegMetrics(n, 0, compute_hungarian=False)
+        sums: Dict[str, Any] = {}
+        batches = 0
+        has_cluster = True
+        for batch in val_iter:
+            res = self.valid_step(batch)
+            has_cluster = "cluster_conf" in res
+            for k in ("linear_conf", "cluster_conf", "linear_loss", "cluster_loss"):
+                if k in res:
+                    sums[k] = sums.get(k, 0) + res[k]
+            batches += 1
+        sums = {k: v.cpu() for k, v in sums.items()}
+        if "linear_conf" in sums:
+            linear_m.update_confusion(sums["linear_conf"])
+        linear = linear_m.compute()
+        out = {
+            "Linear_mIoU": linear["iou"],
+            "Linear_Accuracy": linear["accuracy"],
+            "val_linear_loss": float(sums.get("linear_loss", 0.0)) / max(batches, 1),
+            "val_cluster_loss": float(sums.get("cluster_loss", 0.0)) / max(batches, 1),
+        }
+        if has_cluster:
+            if "cluster_conf" in sums:
+                cluster_m.update_confusion(sums["cluster_conf"])
+            cluster = cluster_m.compute()
+            out["Cluster_mIoU"] = cluster["iou"]
+            out["Cluster_Accuracy"] = cluster["accuracy"]
+        else:
+            # keeps fit's best-result key defined without a cluster probe
+            out["Cluster_mIoU"] = linear["iou"]
+            out["Cluster_Accuracy"] = linear["accuracy"]
+        return out
+
+    # -------------------------------------------------------------- fit
+    def fit(self, train_batches: Callable[[int], Iterable[Mapping[str, Any]]],
+            val_batches: Callable[[], Iterable[Mapping[str, Any]]], *,
+            logger: Optional[MetricsLogger] = None) -> Dict[str, Any]:
+        """The epoch loop of a fresh run, from the trainer's current
+        weights.  ``train_batches(epoch)`` and ``val_batches()`` give host
+        batches.  Every ``print_interval_iters`` steps the step's metrics
+        and ``iter_time`` (seconds per step since the last log) go to
+        ``logger``; a run of ``nonfinite_patience`` such samples whose
+        step was skipped as non-finite raises.  ``validate`` runs every
+        ``valid_interval_iters`` steps and at each epoch's end, and its
+        metrics are logged; the best by ``Cluster_mIoU`` is kept with its
+        ``epoch`` and ``iter``.
+
+        Returns ``{"state": self.state_dict(), "best": best}``: the
+        weights after the last step (the trainer holds the optimizers
+        too).  No checkpoint is written and no run is resumed."""
+        logger = logger or MetricsLogger()
+        tc = self.tc
+        logger.banner(
+            f"params: {sum(p.numel() for p in self.model.parameters())} "
+            f"(head+pq trainable), probes: "
+            f"{sum(p.numel() for p in self.evaluator.parameters())}")
+        best: Dict[str, Any] = {"Cluster_mIoU": -1.0}
+
+        def validate_and_keep_best(epoch: int, it: int) -> None:
+            nonlocal best
+            val = self.validate(val_batches())
+            logger.log(val, step=it)
+            if val["Cluster_mIoU"] > best["Cluster_mIoU"]:
+                best = dict(val, epoch=epoch, iter=it)
+
+        it = 0
+        nonfinite_streak = 0
+        for epoch in range(tc.max_epochs):
+            t0 = time.time()
+            for batch in train_batches(epoch):
+                metrics = self.train_step(batch)
+                it += 1
+                if it % tc.print_interval_iters == 0:
+                    metrics["iter_time"] = (time.time() - t0) / tc.print_interval_iters
+                    t0 = time.time()
+                    logger.log(metrics, step=it)
+                    if metrics["skipped"] >= 1.0:
+                        nonfinite_streak += 1
+                        if nonfinite_streak >= tc.nonfinite_patience:
+                            raise RuntimeError(
+                                f"training diverged: non-finite loss/grads for "
+                                f"{nonfinite_streak} consecutive sampled steps (iter {it})")
+                    else:
+                        nonfinite_streak = 0
+                if it % tc.valid_interval_iters == 0:
+                    validate_and_keep_best(epoch, it)
+            validate_and_keep_best(epoch, it)          # end of epoch
+        return {"state": self.state_dict(), "best": best}

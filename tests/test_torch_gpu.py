@@ -202,3 +202,64 @@ def test_ste_route_backward_matches_cpu(cuda):
         touched[m, idx_g.reshape(-1, 8)[n, m]] = True
     torch.testing.assert_close(gc_g[~touched], gc_c[~touched], rtol=0,
                                atol=1e-5 * gc_c.abs().max().item())
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: an operand on cuda:1 while cuda:0 is current")
+    return torch.device("cuda:0"), torch.device("cuda:1")
+
+
+def test_kernels_launch_on_the_operands_device(two_cards):
+    """Each of the five wrappers on tensors of cuda:1 while cuda:0 is the
+    current device: the launch and the library's per-device setup take
+    the operand's device, and the output matches the plain version."""
+    current, other = two_cards
+    g = torch.Generator(device=other).manual_seed(6)
+    with torch.cuda.device(current):
+        qkv = _attention_input(2, 130, 2, 64, g, "randn", 130).reshape(2, 130, 3 * 128)
+        out = attention_qkv(qkv, 2, 0.125)
+        assert out.device == other
+        _check_1ulp(out, attention_qkv_reference(qkv, 2, 0.125), 2)
+
+        q, k, v = (t.contiguous() for t in _attention_input(2, 130, 2, 64, g, "randn",
+                                                             130).unbind(2))
+        out = fused_attention(q, k, v, scale=0.125)
+        _check_1ulp(out, fused_attention_reference(q, k, v, scale=0.125), 2)
+
+        x = torch.randn((300, 384), generator=g, device=other).to(torch.bfloat16)
+        y = torch.randn((300, 384), generator=g, device=other).to(torch.bfloat16)
+        scale = torch.ones(384, device=other)
+        bias = torch.zeros(384, device=other)
+        for o, r in ((fused_layernorm(x, scale, bias), layernorm_reference(x, scale, bias)),
+                     (fused_add_layernorm(x, y, scale, bias)[1],
+                      add_layernorm_reference(x, y, scale, bias)[1])):
+            assert o.device == other
+            diff = (o.float() - r.float()).abs()
+            ulp = torch.exp2(torch.floor(torch.log2(r.float().abs().clamp_min(1e-30))) - 7)
+            assert (diff <= ulp).all() and (diff > 0).float().mean().item() <= 1e-3
+
+        z = torch.randn((1000, 8, 16), generator=g, device=other)
+        cb = torch.randn((8, 256, 16), generator=g, device=other)
+        cn = normalize_vectors(cb, "l2").contiguous()
+        for exact in (True, False):
+            idx, _, zq = pq_assign(z, cn, cb, normalize="l2", exact=exact)
+            idx_r, _, _ = pq_assign_reference(z, cn, cb, normalize="l2", exact=exact)
+            assert idx.device == other
+            assert (idx == idx_r).float().mean().item() >= (0.9999 if exact else 0.995)
+        torch.cuda.synchronize(other)
+        assert torch.cuda.current_device() == current.index
+
+
+def test_confusion_update_on_cuda_equals_cpu(cuda):
+    from equss_tpu_torch.eval.metrics import confusion_update
+
+    g = torch.Generator().manual_seed(7)
+    preds = torch.randint(-1, 31, (8, 320, 320), generator=g, dtype=torch.int32)
+    label = torch.randint(-1, 28, (8, 320, 320), generator=g, dtype=torch.int32)
+    for extra in (0, 3):
+        want = confusion_update(preds, label, 27, extra)
+        got = confusion_update(preds.to(cuda), label.to(cuda), 27, extra)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
