@@ -54,7 +54,22 @@ Phases, each printing JSON lines on stdout:
 8. fit      ``Trainer.fit`` of the preset for one epoch of 4 train steps
             at b = 16, validating every 2 steps and at the epoch's end
             on 2 batches of b = 8 at 320^2: the logged steps, the best
-            result and the wall time.
+            result and the wall time;
+9. crf      the dense CRF (``ops/crf.py``): on the card against the same
+            call on the CPU (60 x 76, C = 27, 10 iterations); at 320^2 the
+            bf16-message refinement against the f32-message one; the ms
+            of one bilateral pass at 320^2, C = 27, beside its bounds;
+10. cli     ``equss_tpu_torch.cli.run`` on the preset with synthetic data
+            (4 train steps at b = 16, one val batch of b = 8 at 320^2,
+            validation every 2 steps, checkpoints): the logged and saved
+            steps, ``final_*`` and ``final_crf_*``, the final CRF
+            evaluation's wall time and its launches per valid CRF step
+            (12 attention, 1 PQ); then the same run resumed for
+            evaluation only (``final_Cluster_mIoU`` and
+            ``final_crf_Cluster_mIoU`` equal within 1e-6) and resumed for
+            training from its step-2 checkpoint, without the final CRF
+            (each logged loss within rtol 1e-3 of the uninterrupted run's;
+            the largest difference of the final weights printed).
 
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failed check exits non-zero without the ok line; without
@@ -66,9 +81,12 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -83,8 +101,8 @@ PEAK_BYTES = 3.35e12
 FAILURES: list = []
 SM_CLOCK_MAX_MHZ = 0.0       # nvidia-smi's clocks.max.sm, read in phase 1
 
-# configs/pqgo_cocostuff27.yaml as a dict (the card machine has no YAML
-# reader); tests/test_torch_trainer.py holds it against the file
+# configs/pqgo_cocostuff27.yaml as a dict, so the script needs no YAML
+# reader; tests/test_torch_trainer.py holds it against the file
 PQGO_COCOSTUFF27 = {
     "save_dir": "output",
     "wandb": {"project": "equss_tpu", "mode": "offline", "name": "pqgo_cocostuff27"},
@@ -1071,6 +1089,221 @@ def phase_fit(results: dict) -> None:
           "iter_time": [m["iter_time"] for _, m in logger.records if "iter_time" in m]})
 
 
+def crf_inputs(H: int, W: int, C: int, seed: int):
+    """A normalised (H, W, 3) image of flat 12 x 12 colour cells with a
+    little noise, and (H, W, C) log-probabilities smooth over 4 x 4 cells
+    with noise, on the host: the image and unaries a probe gives the CRF."""
+    from equss_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+
+    rng = np.random.RandomState(seed)
+    cells = rng.rand(H // 12 + 1, W // 12 + 1, 3)
+    img01 = np.repeat(np.repeat(cells, 12, 0), 12, 1)[:H, :W] + 0.03 * rng.randn(H, W, 3)
+    img = (np.clip(img01, 0, 1) - np.asarray(IMAGENET_MEAN)) / np.asarray(IMAGENET_STD)
+    lg = np.repeat(np.repeat(rng.randn(H // 4 + 1, W // 4 + 1, C), 4, 0), 4, 1)[:H, :W]
+    lg = lg + 0.5 * rng.randn(H, W, C)
+    log_p = torch.log_softmax(torch.from_numpy(lg.astype(np.float32)), -1)
+    return torch.from_numpy(img.astype(np.float32)), log_p
+
+
+def phase_crf() -> None:
+    """The dense CRF on the card (no TPU kernel: plain ops in both packages).
+    * 60 x 76 (N = 4 560, so the 512-row blocks leave a remainder), C = 27,
+      10 iterations, card against CPU: argmax >= 99.9% equal and >= 99.9%
+      of the probabilities within 1e-3.  Not all of them: the distance of
+      two bright pixels rounds at an ulp of 2 |f|^2 (~0.004), so another
+      order of the f32 sums (the card's GEMM and reductions) moves a few
+      kernel weights by ~0.2% and, through the mean field, a few
+      probabilities by more than 1e-3.  The largest difference is printed.
+    * 320^2, one image: the bf16-message refinement against the f32-message
+      one, argmax agreement >= 99% (printed).
+    * ms of one bilateral pass at 320^2, C = 27 (CUDA events), with its
+      bounds: N^2 exponentials at 16 per clock per SM, the message product
+      on the tensor cores (bf16; the f32 product's CUDA-core bound is
+      printed beside it), the distances on the CUDA cores; the pass's
+      bound is the largest of these; and the passes per image of the final CRF
+      evaluation (2 probes x (1 + 10))."""
+    from equss_tpu_torch.data.transforms import unnormalize_images
+    from equss_tpu_torch.ops import crf
+
+    cfg = crf.CRFConfig()
+    img, log_p = crf_inputs(60, 76, 27, seed=60)
+    t0 = time.perf_counter()
+    card = crf.dense_crf(img.cuda(), log_p.cuda(), cfg)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = crf.dense_crf(img, log_p, cfg)
+    diff = (card.cpu() - cpu).abs()
+    small = dict(max_abs_diff=diff.max().item(),
+                 frac_within_1e3=(diff <= 1e-3).float().mean().item(),
+                 argmax_agreement=(card.cpu().argmax(-1) == cpu.argmax(-1)).float().mean().item())
+    check(small["argmax_agreement"] >= 0.999 and small["frac_within_1e3"] >= 0.999
+          and bool(torch.isfinite(card).all()), f"crf card vs cpu: {small}")
+
+    img, log_p = (t.cuda() for t in crf_inputs(320, 320, 27, seed=320))
+    t0 = time.perf_counter()
+    q16 = crf.dense_crf(img, log_p, cfg)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    q32 = crf.dense_crf(img, log_p, cfg, message_dtype=torch.float32)
+    agree = (q16.argmax(-1) == q32.argmax(-1)).float().mean().item()
+    check(agree >= 0.99 and bool(torch.isfinite(q16).all()),
+          f"crf 320^2 bf16 vs f32 messages: argmax agreement {agree}")
+
+    n, C = img.shape[0] * img.shape[1], log_p.shape[-1]
+    rgb = unnormalize_images(img).clamp(0, 1) * 255
+    feats = crf._bilateral_features(rgb, cfg)
+    vals = torch.softmax(log_p.reshape(n, C), -1)
+    ms = {f"{name}_block{block}": cuda_ms(
+              lambda: crf._blocked_kernel_apply(feats, vals, block, dtype), iters=3, warmup=1)
+          for name, dtype, block in (("bf16", torch.bfloat16, 512), ("f32", torch.float32, 512),
+                                     ("bf16", torch.bfloat16, 2048))}
+    exp_ms = exp_bound_ms(float(n) * n)
+    product_bf16_ms = 1e3 * 2.0 * n * n * C / PEAK_BF16_FLOPS
+    product_f32_ms = 1e3 * 2.0 * n * n * C / PEAK_F32_FLOPS
+    dist_ms = 1e3 * 2.0 * n * n * 5 / PEAK_F32_FLOPS
+    bytes_ms = 1e3 * (n * 5 * 4 + n * C * 2 + n * C * 4) / PEAK_BYTES
+    bound = max(exp_ms, dist_ms, bytes_ms, product_bf16_ms)
+    emit({"phase": "crf", "card_vs_cpu_60x76": small, "card_60x76_seconds": card_s,
+          "tolerance": "argmax >= 99.9%, >= 99.9% of probabilities within 1e-3",
+          "bf16_vs_f32_messages_320_argmax_agreement": agree,
+          "dense_crf_320_seconds": full_s,
+          "pass_ms_320_c27": ms, "bound_ms": bound, "exp_bound_ms": exp_ms,
+          "product_bf16_bound_ms": product_bf16_ms, "product_f32_bound_ms": product_f32_ms,
+          "distance_f32_bound_ms": dist_ms, "bytes_bound_ms": bytes_ms,
+          "passes_per_image_final_crf": 2 * (1 + cfg.max_iter)})
+
+
+def read_metrics(run_dir: str) -> list:
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def with_overrides(cfg: dict, overrides: dict) -> dict:
+    """A copy of ``cfg`` with each dotted key of ``overrides`` set to its
+    value (what ``a.b=c`` overrides do, without a YAML reader)."""
+    cfg = copy.deepcopy(cfg)
+    for dotted, value in overrides.items():
+        *path, last = dotted.split(".")
+        node = cfg
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = value
+    return cfg
+
+
+def phase_cli(results: dict) -> None:
+    """``cli.run`` on the preset (a dict config, its ``${...}`` resolved by
+    the port's loader), synthetic data, 4 train steps at b = 16 and one
+    val batch of b = 8 at 320^2, a log every step, validation every 2
+    steps: train, checkpoint on each new best, reload the best, final and
+    final CRF evaluation.  Each valid CRF step's launches are counted (12
+    attention and 1 PQ) and timed; every run's launches are counted from
+    0.  Then an eval-only resume of the run's checkpoints
+    (``final_Cluster_mIoU`` and ``final_crf_Cluster_mIoU`` within 1e-6)
+    and a train resume from its step-2 checkpoint without the final CRF
+    (losses of steps 3 and 4 within rtol 1e-3; the card's backward adds
+    with atomics, so not bit for bit)."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+    from equss_tpu_torch.cli import run
+    from equss_tpu_torch.core.config import resolve_config
+    from equss_tpu_torch.train.trainer import Trainer
+
+    root = tempfile.mkdtemp(prefix="equss_cli_")
+    crf_steps = []
+    plain_step = Trainer.valid_crf_step
+
+    def counted_step(self, batch):
+        torch.cuda.synchronize()
+        before, t0 = launch_counts(), time.perf_counter()
+        out = plain_step(self, batch)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        crf_steps.append(({k: after[k] - before[k] for k in after},
+                          time.perf_counter() - t0))
+        return out
+
+    def cli_run(name, overrides=None):
+        cfg = resolve_config(with_overrides(PQGO_COCOSTUFF27, {
+            "dataset.synthetic": True, "dataset.synthetic_batches": 4, "train.max_epochs": 1,
+            "train.valid_interval_iters": 2, "train.print_interval_iters": 1,
+            "save_dir": f"{root}/{name}", **(overrides or {})}))
+        cfg["debug"] = True
+        crf_steps.clear()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run(cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        results["launches"][f"cli_{name}"] = launch_counts()
+        (run_dir,) = [os.path.join(root, name, d) for d in os.listdir(os.path.join(root, name))]
+        return out, run_dir, seconds, list(crf_steps)
+
+    Trainer.valid_crf_step = counted_step
+    try:
+        full, run_dir, seconds, steps = cli_run("train")
+        records = read_metrics(run_dir)
+        saved = sorted(int(d) for d in os.listdir(os.path.join(run_dir, "ckpt")))
+        final = next(r for r in records if "final_Cluster_mIoU" in r)
+        final_crf = next((r for r in records if "final_crf_Cluster_mIoU" in r), {})
+        logged = [r["step"] for r in records if "final_Cluster_mIoU" not in r
+                  and "final_crf_Cluster_mIoU" not in r]
+        check(logged == [1, 2, 2, 3, 4, 4, 4], f"cli: logged steps {logged}")
+        check(bool(saved) and saved[0] == 2 and final["step"] == saved[-1],
+              f"cli: checkpoints {saved}, final eval at step {final['step']}")
+        crf_keys = ("Cluster_mIoU", "Cluster_Accuracy", "Linear_mIoU", "Linear_Accuracy")
+        check(all(0.0 <= final_crf.get(f"final_crf_{k}", -1.0) <= 100.0 for k in crf_keys),
+              f"cli: final CRF metrics {final_crf}")
+        check(len(steps) == 1 and steps[0][0] == expected(SERVE_KERNELS, 1),
+              f"cli: launches per valid CRF step {[c for c, _ in steps]}")
+        train_launches, valid_launches = (expected(STOCK_TRAIN_KERNELS, 4),
+                                          expected(SERVE_KERNELS, 5))
+        want = {k: train_launches[k] + valid_launches[k] for k in train_launches}
+        check(results["launches"]["cli_train"] == want,
+              f"cli: launches {results['launches']['cli_train']}, expected {want}")
+        losses = {r["step"]: r["loss"] for r in records if "loss" in r}
+        emit({"phase": "cli", "run": "train", "wall_seconds": seconds, "logged_steps": logged,
+              "checkpoint_steps": saved, "best": full["best"],
+              "final": {k: v for k, v in final.items() if k != "step"}, "final_step": final["step"],
+              "final_crf": {k: v for k, v in final_crf.items() if k != "step"},
+              "final_crf_seconds": sum(t for _, t in steps),
+              "valid_crf_step_seconds": [t for _, t in steps],
+              "launches_per_valid_crf_step": [c for c, _ in steps],
+              "launches": results["launches"]["cli_train"], "losses": losses})
+
+        ckpt_dir = os.path.join(run_dir, "ckpt")
+        evald, _, seconds, steps = cli_run("eval", {"resume.checkpoint": ckpt_dir,
+                                                    "resume.mode": "eval"})
+        diff = abs(evald["best"]["Cluster_mIoU"] - final["final_Cluster_mIoU"])
+        crf_diff = abs(evald["best"].get("crf_Cluster_mIoU", -1.0)
+                       - final_crf.get("final_crf_Cluster_mIoU", -2.0))
+        check(diff <= 1e-6 and crf_diff <= 1e-6,
+              f"cli eval-only resume: final_Cluster_mIoU differs by {diff}, "
+              f"final_crf_Cluster_mIoU by {crf_diff}")
+        emit({"phase": "cli", "run": "resume_eval", "wall_seconds": seconds,
+              "final_Cluster_mIoU": evald["best"]["Cluster_mIoU"], "difference": diff,
+              "final_crf_Cluster_mIoU": evald["best"].get("crf_Cluster_mIoU"),
+              "crf_difference": crf_diff,
+              "launches_per_valid_crf_step": [c for c, _ in steps]})
+
+        step2 = os.path.join(root, "from_step2")
+        shutil.copytree(os.path.join(ckpt_dir, "2"), os.path.join(step2, "2"))
+        resumed, run_dir2, seconds, steps = cli_run("resume", {
+            "resume.checkpoint": step2, "resume.mode": "train", "eval.final_crf": False})
+        check(not steps, f"cli train resume: {len(steps)} valid CRF steps with final_crf off")
+        losses2 = {r["step"]: r["loss"] for r in read_metrics(run_dir2) if "loss" in r}
+        rel = {s: abs(losses2[s] - losses[s]) / abs(losses[s]) for s in losses2}
+        check(sorted(losses2) == [3, 4] and all(v <= 1e-3 for v in rel.values()),
+              f"cli train resume: losses {losses2} vs {losses}")
+        param_diff = max((resumed["state"][k].float() - v.float()).abs().max().item()
+                         for k, v in full["state"].items() if not k.startswith("backbone."))
+        emit({"phase": "cli", "run": "resume_train", "wall_seconds": seconds,
+              "losses": losses2, "loss_rel_diff": rel,
+              "max_param_abs_diff_vs_uninterrupted": param_diff})
+    finally:
+        Trainer.valid_crf_step = plain_step
+        shutil.rmtree(root, ignore_errors=True)
+
+
 KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     "attention_qkv": ("equss_tpu_torch/csrc/attention_qkv.cu", "equss_tpu/ops/attention.py:198"),
     "attention": ("equss_tpu_torch/csrc/attention_qkv.cu", "equss_tpu/ops/attention.py:91"),
@@ -1098,11 +1331,13 @@ def main() -> int:
     phase_valid(results)
     phase_valid_reference()
     phase_fit(results)
+    phase_crf()
+    phase_cli(results)
 
     # launches: every main-path run (serving, serving with fused_ln, both
-    # train configurations, both valid configurations, fit), each counted
-    # from 0; ``attention`` has no caller on any path and is launched by
-    # its kernel phase only
+    # train configurations, both valid configurations, fit, the three CLI
+    # runs), each counted from 0; ``attention`` has no caller on any path
+    # and is launched by its kernel phase only
     by_path = results["launches"]
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():

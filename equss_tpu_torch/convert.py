@@ -4,6 +4,10 @@
   package's ``EQUSS.init`` (numpy-valued) onto ``EQUSS.state_dict()``
   names, and the Trainer's probe parameters onto ``Evaluator`` names
   under ``probes.``, so both packages compute with the same numbers.
+* ``train_state_from_jax`` turns a whole JAX train state (weights, the
+  three optax Adam states, the step) into ``Trainer.load_train_state``'s
+  format, so a run can continue in the port where the JAX package left
+  it.
 * ``load_dino_state_dict`` reads a local DINO ``.pth`` (the torch key
   names ``equss_tpu.models.vit.convert_dino_torch_state`` consumes) into
   the port's ``VisionTransformer`` names.
@@ -14,7 +18,7 @@ in)``; the flax patch conv ``(kh, kw, in, out)`` and the torch patch conv
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -91,6 +95,67 @@ def params_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
     if probe_params is not None:
         sd.update({f"probes.{k}": v for k, v in probes_from_flax(probe_params).items()})
     return sd
+
+
+def _adam_state(opt_state: Any) -> Tuple[Any, int]:
+    """The ``ScaleByAdamState`` (``mu``, ``nu``, ``count``) of an optax
+    chain's state and the ``ScaleByScheduleState`` count beside it."""
+    adam, sched = None, None
+    stack = [opt_state]
+    while stack:
+        node = stack.pop()
+        if hasattr(node, "mu") and hasattr(node, "nu"):
+            adam = adam or node
+        elif type(node).__name__ == "ScaleByScheduleState":
+            sched = sched if sched is not None else node
+        elif isinstance(node, (tuple, list)):
+            stack.extend(reversed(node))
+    if adam is None:
+        raise NotImplementedError("only adam and adamw optimizer states convert")
+    count = int(np.asarray(sched.count if sched is not None else adam.count))
+    return adam, count
+
+
+def _opt_from_jax(opt_state: Any, flat: Callable[[Any], Dict[str, torch.Tensor]]
+                  ) -> Dict[str, Any]:
+    """One optax Adam state -> ``Optimizer.state_dict()``: ``flat`` maps
+    a moment tree onto the port's parameter names (and layouts)."""
+    adam, count = _adam_state(opt_state)
+    step = torch.tensor(float(np.asarray(adam.count)))
+    mu, nu = flat(adam.mu), flat(adam.nu)
+    return {"count": count,
+            "state": {n: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                      for n in mu}}
+
+
+def train_state_from_jax(host_ts: Mapping[str, Any], cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """A JAX ``Trainer`` state as ``jax.device_get(ts)`` gives it -> the
+    port's ``Trainer.train_state()`` format: the weights (``params``,
+    ``model_state``, ``probe_params``), each optimizer's moments by the
+    port's parameter names (a flax kernel's moments transposed with it)
+    with Adam's count and the schedule position, and ``step``.  JAX's
+    PRNG key has no torch counterpart, so the state carries no generator
+    and ``load_train_state`` keeps the trainer's own."""
+    ecfg = EQUSSConfig.from_config(cfg)
+    opt = host_ts["opt"]
+
+    def model_flat(tree):
+        out = {f"head.{k}": v for k, v in head_from_flax(tree["head"]).items()}
+        out.update({f"pq.{k}": _t(v) for k, v in tree["pq"].items()})
+        return out
+
+    return {
+        "model": params_from_jax(host_ts["params"], host_ts["model_state"], ecfg),
+        "probes": probes_from_flax(host_ts["probe_params"]),
+        "opt": {"model": _opt_from_jax(opt["model"], model_flat),
+                "cluster": _opt_from_jax(opt["cluster"],
+                                         lambda t: {"clusters": _t(t["clusters"])}),
+                "linear": _opt_from_jax(opt["linear"],
+                                        lambda t: _dense(t["linear"], "linear"))},
+        "step": int(np.asarray(host_ts["step"])),
+        "generator": None,
+        "generator_device": None,
+    }
 
 
 def dino_to_port(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

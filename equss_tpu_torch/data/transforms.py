@@ -1,8 +1,9 @@
-"""Image normalisation in front of the model.
+"""Image normalisation in front of the model, and its inverse.
 
 Counterpart of ``equss_tpu/data/transforms.py::normalize_images``
 (ToTensor + ImageNet Normalize), so a request can be raw uint8 or
-[0, 1] float RGB.
+[0, 1] float RGB, and of ``unnormalize_images``, which gives the dense
+CRF its colours back.
 """
 from __future__ import annotations
 
@@ -28,3 +29,9 @@ def normalize_images(img: torch.Tensor) -> torch.Tensor:
         img = img.float() / 255.0
     mean, std = _stats(img.device)
     return (img - mean) / std
+
+
+def unnormalize_images(img: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``normalize_images`` on f32 images: ``img * std + mean``."""
+    mean, std = _stats(img.device)
+    return img * std + mean

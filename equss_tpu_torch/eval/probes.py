@@ -91,10 +91,15 @@ class Evaluator(nn.Module):
             ClusterProbe(cfg.num_classes + cfg.extra_classes, cfg.embed_dim, generator)
             if cfg.with_cluster else None)
 
-    def forward(self, out: torch.Tensor, label: torch.Tensor) -> Dict[str, Any]:
+    def forward(self, out: torch.Tensor, label: torch.Tensor, *,
+                want_log_probs: bool = False) -> Dict[str, Any]:
         """out (b, h, w, D) features, label (b, H, W) int -> dict with
         ``linear_loss``, ``linear_preds`` and, with the cluster probe,
-        ``cluster_loss`` and ``cluster_preds`` (int32, at (H, W))."""
+        ``cluster_loss`` and ``cluster_preds`` (int32, at (H, W)).
+        ``want_log_probs`` adds the CRF's unaries at (H, W):
+        ``linear_log_probs`` (log-softmax of the linear logits) and
+        ``cluster_log_probs`` (log-softmax of the inner products times 2,
+        whatever ``alpha`` the training loss uses)."""
         cfg = self.cfg
         label_hw = tuple(label.shape[-2:])
         if cfg.probe_res == "label" and tuple(out.shape[1:3]) != label_hw:
@@ -115,4 +120,8 @@ class Evaluator(nn.Module):
         if cluster_inner is not None:
             result["cluster_loss"] = cluster_loss
             result["cluster_preds"] = cluster_inner.argmax(-1).to(torch.int32)
+        if want_log_probs:
+            result["linear_log_probs"] = torch.log_softmax(linear_logits, dim=-1)
+            if cluster_inner is not None:
+                result["cluster_log_probs"] = torch.log_softmax(cluster_inner * 2.0, dim=-1)
         return result

@@ -76,6 +76,7 @@ class Optimizer:
                 "gradient accumulation belongs to a later slice of the port")
         named = list(named_params)
         self.params: List[torch.nn.Parameter] = [p for _, p in named]
+        self._names = {id(p): n for n, p in named}
         self.schedule = build_schedule(sched_cfg or {}, opt_cfg["lr"],
                                        iter_per_epoch, max_epochs, num_accum)
         self.clip_grad = clip_grad if clip_grad is not None and clip_grad > 0 else None
@@ -120,6 +121,30 @@ class Optimizer:
             group["lr"] = lr
         self.opt.step()
         self.count += 1
+
+    def _index_names(self) -> List[str]:
+        """Parameter names in the order ``torch.optim`` numbers them."""
+        return [self._names[id(p)] for g in self.opt.param_groups for p in g["params"]]
+
+    def state_dict(self) -> Dict[str, Any]:
+        """``count`` (the schedule position: updates made) and ``state``,
+        each parameter's moments (and Adam's ``step``) by parameter name."""
+        names = self._index_names()
+        inner = self.opt.state_dict()["state"]
+        return {"count": self.count,
+                "state": {names[i]: dict(s) for i, s in inner.items()}}
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        """Load what ``state_dict`` gave, on any device: torch moves each
+        moment to its parameter's device."""
+        index = {n: i for i, n in enumerate(self._index_names())}
+        unknown = sorted(set(sd["state"]) - set(index))
+        if unknown:
+            raise KeyError(f"optimizer state for unknown parameters {unknown}")
+        full = self.opt.state_dict()
+        full["state"] = {index[n]: dict(s) for n, s in sd["state"].items()}
+        self.opt.load_state_dict(full)
+        self.count = int(sd["count"])
 
 
 def build_optimizer(named_params: NamedParams, opt_cfg: Dict[str, Any],

@@ -1,32 +1,42 @@
-"""EQUSS trainer: the train step, the valid step and the epoch loop.
+"""EQUSS trainer: the train step, the valid steps and the epoch loop.
 
 Counterpart of ``equss_tpu/train/trainer.py`` (``TrainConfig``,
 ``LOSS_WEIGHT_MAP``, ``Trainer.__init__``, ``_model_loss``,
 ``_select_out``, ``_trainable``, ``_normalize_batch``,
-``_train_step_impl``, ``_valid_step_impl``, ``validate`` and ``fit``).
-One step runs the model's training forward, the
-weighted loss, the probe losses on detached features, one backward, and
-three optimizers: the model's (head and codebook; the frozen backbone is
-never trained), clipped at ``clip_grad``, and the two probes', unclipped.
-A step whose loss or gradients are not finite changes no parameter, no
-optimizer state and no quantizer count (``train.skip_nonfinite``): the
-quantizer's new ``vq_count`` is computed in the forward and applied only
-after that check.
+``_train_step_impl``, ``_valid_step_impl``, ``_valid_crf_step_impl``,
+``validate``, ``validate_crf`` and ``fit``).  One step runs the model's
+training forward, the weighted loss, the probe losses on detached
+features, one backward, and three optimizers: the model's (head and
+codebook; the frozen backbone is never trained), clipped at
+``clip_grad``, and the two probes', unclipped.  A step whose loss or
+gradients are not finite changes no parameter, no optimizer state and no
+quantizer count (``train.skip_nonfinite``): the quantizer's new
+``vq_count`` is computed in the forward and applied only after that
+check.  The step counter advances either way, as the JAX step's does.
+
+The train state lives in the trainer: the weights, the optimizers, the
+step and ``generator``, which draws the dropout masks and STEGO's
+samples.  ``train_state()`` reads it out and ``load_train_state`` puts
+one back, which is what ``core/checkpoint.py`` saves and restores.
 
 The valid step runs the eval forward at the batch's resolution and both
 probes, and counts each probe's confusion matrix on the device;
 ``validate`` sums them over a loader and reports the Hungarian-matched
-Cluster mIoU / Accuracy and the Linear ones.  ``fit`` is the epoch loop
-of a fresh run: print-interval logging, the non-finite streak, periodic
-validation and the best result keyed on ``Cluster_mIoU``.  Checkpoints,
-resume, data-dependent codebook init, ``validate_crf`` and the
-prediction dumps of ``visualize_to`` belong to later slices of the port.
+Cluster mIoU / Accuracy and the Linear ones.  ``validate_crf`` does the
+same after refining each probe's log-probabilities with the dense CRF
+(``ops/crf.py``), the final evaluation of a run with ``eval.final_crf``.
+``fit`` is the epoch loop: print-interval logging, the non-finite
+streak, periodic validation, the best result keyed on ``Cluster_mIoU``
+with a checkpoint on each new best, and an exact resume from the middle
+of an epoch.  Data-dependent codebook init and the prediction dumps of
+``visualize_to`` belong to later slices of the port.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
-from typing import Any, Callable, Dict, Iterable, Mapping, Optional
+from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +47,7 @@ from equss_tpu_torch.device import DeviceLike, resolve_device
 from equss_tpu_torch.eval.metrics import UnSegMetrics, confusion_update
 from equss_tpu_torch.eval.probes import Evaluator, EvaluatorConfig
 from equss_tpu_torch.models.equss import EQUSS, EQUSSConfig
+from equss_tpu_torch.ops.crf import CRFConfig, batched_crf
 from equss_tpu_torch.train.optim import build_optimizer, global_grad_norm
 
 
@@ -100,9 +111,10 @@ class Trainer:
     which must then be present; pass ``device='cpu'`` to run on the CPU.
     ``train_step(batch)`` runs one step and returns its metrics,
     ``valid_step(batch)`` one eval step and ``validate(batches)`` the
-    metrics over a loader; ``fit`` runs the epoch loop.  The train state
-    (model, probes, optimizers) lives in the trainer itself;
-    ``state_dict()`` reads the weights out."""
+    metrics over a loader (``validate_crf`` with the CRF); ``fit`` runs
+    the epoch loop.  The train state (model, probes, optimizers, step,
+    generator) lives in the trainer itself; ``state_dict()`` reads the
+    weights out, ``train_state()`` all of it."""
 
     def __init__(self, cfg: Dict[str, Any], *, device: DeviceLike = None,
                  seed: Optional[int] = None, model: Optional[EQUSS] = None):
@@ -133,7 +145,10 @@ class Trainer:
 
         opt_cfg, sch_cfg = cfg["optimizer"], cfg.get("scheduler", {})
         ipe = cfg.get("train", {}).get("iter_per_epoch", cfg.get("_iter_per_epoch", 100))
-        common = dict(iter_per_epoch=max(int(ipe), 1), max_epochs=self.tc.max_epochs,
+        # one value for the schedules and fit's resume epoch
+        self.iter_per_epoch = max(int(ipe), 1)
+        self.step = 0
+        common = dict(iter_per_epoch=self.iter_per_epoch, max_epochs=self.tc.max_epochs,
                       num_accum=self.tc.num_accum)
         self.model_params = [(n, p) for n, p in self.model.named_parameters()
                              if not n.startswith("backbone.")]
@@ -161,6 +176,49 @@ class Trainer:
         ``load_state_dict`` takes."""
         return {**self.model.state_dict(),
                 **{f"probes.{k}": v for k, v in self.evaluator.state_dict().items()}}
+
+    def _optimizers(self):
+        return {"model": self.tx_model, "cluster": self.tx_cluster, "linear": self.tx_linear}
+
+    def train_state(self) -> Dict[str, Any]:
+        """Everything a resumed run needs, as the JAX train state holds it:
+        ``model`` (the model's state dict: parameters and the quantizer's
+        ``pq_state`` buffers), ``probes``, ``opt`` (each optimizer's
+        ``state_dict``), ``step``, and ``generator`` with
+        ``generator_device`` (its state and device type).  The tensors
+        are the live ones: copy before training on
+        (``CheckpointManager.save`` does)."""
+        return {"model": self.model.state_dict(),
+                "probes": self.evaluator.state_dict(),
+                "opt": {k: tx.state_dict() for k, tx in self._optimizers().items()},
+                "step": self.step,
+                "generator": self.generator.get_state(),
+                "generator_device": self.device.type}
+
+    def load_train_state(self, state: Mapping[str, Any], *,
+                         resume_training: bool = True) -> None:
+        """Load a ``train_state()`` (from any device) into this trainer:
+        weights, optimizers and step always; with ``resume_training``
+        also the generator, so the run continues with the draws it would
+        have made.  A generator's state restores only into a generator of
+        its own device type, so continuing training from another device
+        type's checkpoint raises; an eval-only restore
+        (``resume_training=False``) keeps this trainer's generator.  A
+        state without a generator (``convert.train_state_from_jax``)
+        keeps it too."""
+        saved = state.get("generator_device")
+        if resume_training and saved is not None and saved != self.device.type:
+            raise ValueError(
+                f"cannot continue training on {self.device.type} from a checkpoint "
+                f"whose generator is a {saved} generator; restore it for "
+                f"evaluation only (resume.mode: eval) or train on {saved}")
+        self.model.load_state_dict(state["model"])
+        self.evaluator.load_state_dict(state["probes"])
+        for name, tx in self._optimizers().items():
+            tx.load_state_dict(state["opt"][name])
+        self.step = int(state["step"])
+        if resume_training and state.get("generator") is not None:
+            self.generator.set_state(state["generator"])
 
     # -------------------------------------------------------------- step
     def _model_loss(self, aux: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -236,6 +294,7 @@ class Trainer:
         result = dict(zip(names, values))
         ok = all(np.isfinite(result[k]) for k in ("loss", "grad-norm", "probe-grad-norm"))
         result["skipped"] = 0.0 if ok or not self.tc.skip_nonfinite else 1.0
+        self.step += 1
         if result["skipped"] == 0.0:
             self.tx_model.step(metrics["grad-norm"])
             self.tx_cluster.step()
@@ -316,25 +375,91 @@ class Trainer:
             out["Cluster_Accuracy"] = linear["accuracy"]
         return out
 
+    # ---------------------------------------------------------- CRF eval
+    def valid_crf_step(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        """The final evaluation's step with CRF refinement: the inference
+        forward, both probes' label-resolution log-probabilities, the
+        dense CRF (``CRFConfig(**cfg['eval']['crf'])``) on each image of
+        each, and the argmax.  Returns ``cluster_conf``, ``linear_conf``,
+        ``linear_preds`` and ``cluster_preds`` on the device, as
+        ``valid_step`` does."""
+        b = self._batch(batch, keys=("img", "label"))
+        crf_cfg = CRFConfig(**(self.cfg.get("eval", {}).get("crf", {}) or {}))
+        with torch.no_grad():
+            out = self.model(b["img"], training=False)
+            ev = self.evaluator(self._select_out(out), b["label"], want_log_probs=True)
+            linear_preds = batched_crf(b["img"], ev["linear_log_probs"], crf_cfg
+                                       ).argmax(-1).to(torch.int32)
+            cluster_preds = batched_crf(b["img"], ev["cluster_log_probs"], crf_cfg
+                                        ).argmax(-1).to(torch.int32)
+        n, e = self.tc.num_classes, self.tc.extra_classes
+        return {"cluster_conf": confusion_update(cluster_preds, b["label"], n, e),
+                "linear_conf": confusion_update(linear_preds, b["label"], n, 0),
+                "linear_preds": linear_preds,
+                "cluster_preds": cluster_preds}
+
+    def validate_crf(self, val_iter: Iterable[Mapping[str, Any]], *,
+                     visualize_to: Optional[str] = None) -> Dict[str, float]:
+        """``valid_crf_step`` over every batch of ``val_iter``:
+        Cluster_mIoU / Cluster_Accuracy (Hungarian matched) and
+        Linear_mIoU / Linear_Accuracy in percent from the summed confusion
+        matrices, which stay on the device until the end."""
+        if visualize_to is not None:
+            raise NotImplementedError("visualize_to (utils/visualize.py) is not ported yet")
+        sums: Dict[str, torch.Tensor] = {}
+        for batch in val_iter:
+            res = self.valid_crf_step(batch)
+            for k in ("cluster_conf", "linear_conf"):
+                sums[k] = sums[k] + res[k] if k in sums else res[k]
+        n, e = self.tc.num_classes, self.tc.extra_classes
+        cluster_m = UnSegMetrics(n, e, compute_hungarian=True)
+        linear_m = UnSegMetrics(n, 0, compute_hungarian=False)
+        if sums:
+            cluster_m.update_confusion(sums["cluster_conf"].cpu())
+            linear_m.update_confusion(sums["linear_conf"].cpu())
+        cluster, linear = cluster_m.compute(), linear_m.compute()
+        return {"Cluster_mIoU": cluster["iou"], "Cluster_Accuracy": cluster["accuracy"],
+                "Linear_mIoU": linear["iou"], "Linear_Accuracy": linear["accuracy"]}
+
     # -------------------------------------------------------------- fit
     def fit(self, train_batches: Callable[[int], Iterable[Mapping[str, Any]]],
             val_batches: Callable[[], Iterable[Mapping[str, Any]]], *,
-            logger: Optional[MetricsLogger] = None) -> Dict[str, Any]:
-        """The epoch loop of a fresh run, from the trainer's current
-        weights.  ``train_batches(epoch)`` and ``val_batches()`` give host
-        batches.  Every ``print_interval_iters`` steps the step's metrics
-        and ``iter_time`` (seconds per step since the last log) go to
-        ``logger``; a run of ``nonfinite_patience`` such samples whose
-        step was skipped as non-finite raises.  ``validate`` runs every
+            logger: Optional[MetricsLogger] = None, checkpointer=None,
+            img_hw: Tuple[int, int] = (224, 224),
+            state: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:
+        """The epoch loop.  ``train_batches(epoch)`` and ``val_batches()``
+        give host batches.  Every ``print_interval_iters`` steps the
+        step's metrics and ``iter_time`` (seconds per step since the last
+        log) go to ``logger``; a run of ``nonfinite_patience`` such
+        samples whose step was skipped as non-finite raises, naming the
+        last checkpoint saved.  ``validate`` runs every
         ``valid_interval_iters`` steps and at each epoch's end, and its
         metrics are logged; the best by ``Cluster_mIoU`` is kept with its
-        ``epoch`` and ``iter``.
+        ``epoch`` and ``iter``, and with a ``checkpointer``
+        (``core.checkpoint.CheckpointManager``) each new best saves
+        ``train_state()`` at its step with ``metadata={"best": best}``.
 
-        Returns ``{"state": self.state_dict(), "best": best}``: the
-        weights after the last step (the trainer holds the optimizers
-        too).  No checkpoint is written and no run is resumed."""
+        Without ``state`` the run is fresh: from the trainer's current
+        weights and optimizers, with ``self.step`` reset to 0, so a
+        checkpoint's step is its place in this run (the optimizers' counts
+        carry any earlier ``train_step``).  ``state`` (a ``train_state()``,
+        as a checkpoint restores it) resumes: it is loaded, and the run
+        continues at its step, in epoch ``step // iter_per_epoch``, after
+        skipping the epoch's first ``step % iter_per_epoch`` batches; an
+        epoch's batches are a function of the epoch alone, so no batch is
+        trained twice.  ``img_hw`` is the JAX signature's (its state is
+        built at that size); the port's weights do not depend on it.
+
+        Returns ``{"state": ..., "best": best}``: a copy of
+        ``self.state_dict()`` after the last step, which a later load
+        into the trainer (the CLI's reload of the best checkpoint) leaves
+        as it is; the trainer holds the rest of the train state."""
         logger = logger or MetricsLogger()
         tc = self.tc
+        if state is not None:
+            self.load_train_state(state)
+        else:
+            self.step = 0
         logger.banner(
             f"params: {sum(p.numel() for p in self.model.parameters())} "
             f"(head+pq trainable), probes: "
@@ -347,12 +472,18 @@ class Trainer:
             logger.log(val, step=it)
             if val["Cluster_mIoU"] > best["Cluster_mIoU"]:
                 best = dict(val, epoch=epoch, iter=it)
+                if checkpointer is not None:
+                    checkpointer.save(it, self.train_state(), metadata={"best": best})
 
-        it = 0
+        it = self.step
+        start_epoch, skip_batches = divmod(it, self.iter_per_epoch)
         nonfinite_streak = 0
-        for epoch in range(tc.max_epochs):
+        for epoch in range(start_epoch, tc.max_epochs):
             t0 = time.time()
-            for batch in train_batches(epoch):
+            epoch_iter = iter(train_batches(epoch))
+            if epoch == start_epoch and skip_batches:
+                epoch_iter = itertools.islice(epoch_iter, skip_batches, None)
+            for batch in epoch_iter:
                 metrics = self.train_step(batch)
                 it += 1
                 if it % tc.print_interval_iters == 0:
@@ -362,12 +493,16 @@ class Trainer:
                     if metrics["skipped"] >= 1.0:
                         nonfinite_streak += 1
                         if nonfinite_streak >= tc.nonfinite_patience:
+                            saved = (f"; last saved checkpoint: iter {best['iter']}"
+                                     if checkpointer is not None and "iter" in best else "")
                             raise RuntimeError(
                                 f"training diverged: non-finite loss/grads for "
-                                f"{nonfinite_streak} consecutive sampled steps (iter {it})")
+                                f"{nonfinite_streak} consecutive sampled steps (iter {it})"
+                                f"{saved}")
                     else:
                         nonfinite_streak = 0
                 if it % tc.valid_interval_iters == 0:
                     validate_and_keep_best(epoch, it)
             validate_and_keep_best(epoch, it)          # end of epoch
-        return {"state": self.state_dict(), "best": best}
+        return {"state": {k: v.detach().clone() for k, v in self.state_dict().items()},
+                "best": best}
