@@ -70,6 +70,34 @@ Phases, each printing JSON lines on stdout:
             training from its step-2 checkpoint, without the final CRF
             (each logged loss within rtol 1e-3 of the uninterrupted run's;
             the largest difference of the final weights printed).
+11. custom_op_ab  serving latency at b = 1 and 8 with the kernels as
+            custom ops against plain ctypes wrappers
+            (``equss_tpu_torch/tools/ctypes_ab.py``), in turns;
+12. data    the own-data path on a miniature COCO-Stuff corpus written
+            into a temporary directory (64 train and 16 val 480 x 640 JPEG
+            images of flat colour cells, PNG labels with an ignore band):
+            the ``crop`` job through ``cli.main`` (320 five-crops);
+13. knn     the ``knn`` job through ``cli.main`` at 224^2, b = 32: 10
+            feature batches and 120 attention launches at (32, 785,
+            1152), every crop its own first neighbour; the pooled features
+            card vs CPU on the first batch (mean relative error <= 2e-2),
+            the top-k against ``torch.topk`` on the CPU over the card's
+            features where neighbours are more than 1e-3 apart; wall and
+            device-only rates;
+14. data    the ``pack`` job (both splits): the first two batches of each
+            split from the pack equal to those decoded from the files;
+            the host pipeline's img/s by decode path (PIL, pack, and the
+            native loader where its library builds; why not, where not);
+15. train_files  ``cli.run`` on the corpus: 20 train steps at b = 16 with
+            kNN positives, validation at 320^2, b = 8, no final CRF: the
+            decode path that ran, logged steps, ``final_Cluster_mIoU``,
+            launches per step, the step's median beside the synthetic one;
+16. export  the ``export`` job from that run's checkpoint at 320^2, b = 8,
+            pinned and symbolic: the graph's ``equss::`` ops, each artifact
+            from ``load_predictor`` against the live predictor (>= 99.99%
+            of pixels equal; b = 1 and 8 for the symbolic one), 12 + 1
+            launches per request, the artifact in a process that imports
+            nothing of the model, ms per b = 8 request artifact vs live.
 
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failed check exits non-zero without the ok line; without
@@ -98,6 +126,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12        # CUDA cores, no tensor cores
 PEAK_BYTES = 3.35e12
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 FAILURES: list = []
 SM_CLOCK_MAX_MHZ = 0.0       # nvidia-smi's clocks.max.sm, read in phase 1
 
@@ -840,6 +869,7 @@ def phase_train(results: dict) -> None:
         check(all(np.isfinite(v) for m in metrics for v in m.values())
               and not any(m["skipped"] for m in metrics), f"train {kind}: non-finite step")
         t = sorted(times[warm:])
+        results[f"{kind}_step_ms_median"] = 1e3 * t[timed // 2]
         emit({"phase": "train", "config": kind, "batch": 16, "steps_timed": timed,
               "ms_per_step_median": 1e3 * t[timed // 2], "ms_per_step_min": 1e3 * t[0],
               "ms_per_step_mean": 1e3 * sum(t) / timed, "first_step_ms": 1e3 * times[0],
@@ -1304,6 +1334,556 @@ def phase_cli(results: dict) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------- the own-data path
+
+CORPUS_SPLITS = (("train2017", 64), ("val2017", 16))
+CORPUS_HW = (480, 640)          # COCO's usual image size
+KNN_BATCH = 32                  # precompute_knns' batch, at the preset's 224^2
+
+
+def write_corpus(root: str, seed: int = 0) -> None:
+    """A miniature COCO-Stuff corpus in its on-disk layout (``images/``,
+    ``annotations/`` and the ``curated/`` file lists of train2017 and
+    val2017): 480 x 640 JPEG images of flat colour cells, each image with
+    its own cell size and colours from ``seed``, and PNG fine labels
+    constant per cell with an ignore band (255)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    H, W = CORPUS_HW
+    for split, n in CORPUS_SPLITS:
+        for sub in ("images", "annotations", "curated"):
+            os.makedirs(os.path.join(root, sub, split))
+        ids = []
+        for i in range(n):
+            img_id = f"{split[:-4]}_{i:06d}"
+            ids.append(img_id)
+            ch, cw = (int(v) for v in rng.randint(24, 121, size=2))
+            gh, gw = -(-H // ch), -(-W // cw)
+            cells = lambda a: np.repeat(np.repeat(a, ch, 0), cw, 1)[:H, :W]  # noqa: E731
+            img = cells(rng.randint(0, 256, (gh, gw, 3)).astype(np.uint8))
+            label = np.ascontiguousarray(cells(rng.randint(0, 182, (gh, gw)).astype(np.uint8)))
+            top = rng.randint(0, H - 48)
+            label[top:top + 48] = 255
+            Image.fromarray(np.ascontiguousarray(img)).save(
+                os.path.join(root, "images", split, img_id + ".jpg"), quality=90)
+            Image.fromarray(label).save(os.path.join(root, "annotations", split, img_id + ".png"))
+        for name in ("Coco164kFull_Stuff_Coarse.txt", "Coco164kFull_Stuff_Coarse_7.txt",
+                     "Coco164kFew_Stuff_6.txt"):
+            with open(os.path.join(root, "curated", split, name), "w") as f:
+                f.write("\n".join(ids) + "\n")
+
+
+def corpus_args(root: str) -> list:
+    """``cli.main``'s arguments for the preset on the corpus at ``root``."""
+    return ["--config", os.path.join(REPO, "configs", "pqgo_cocostuff27.yaml"), "--debug",
+            f"data_dir={root}", f"save_dir={os.path.join(root, 'runs')}"]
+
+
+def corpus_config(root: str, *overrides: str) -> dict:
+    from equss_tpu_torch.core.config import prepare_config
+
+    return prepare_config([*corpus_args(root), *overrides])[0]
+
+
+def batches_equal(a: dict, b: dict) -> bool:
+    """Two host batches hold the same keys, arrays of one dtype and equal
+    elements, and equal lists."""
+    if sorted(a) != sorted(b):
+        return False
+    for k, x in a.items():
+        y = b[k]
+        if isinstance(x, np.ndarray):
+            if not (isinstance(y, np.ndarray) and x.dtype == y.dtype and np.array_equal(x, y)):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def phase_crop(root: str) -> None:
+    """The corpus, then the crop job through ``cli.main``: 5 crops of half
+    the height and width of each of the 64 train images."""
+    import PIL
+    from PIL import Image
+
+    from equss_tpu_torch.cli import main as cli_main
+
+    t0 = time.perf_counter()
+    write_corpus(root)
+    corpus_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = cli_main(["crop", *corpus_args(root)])
+    crop_s = time.perf_counter() - t0
+    n_img = len(os.listdir(os.path.join(out, "img", "train")))
+    n_label = len(os.listdir(os.path.join(out, "label", "train")))
+    with Image.open(os.path.join(out, "img", "train", "0.jpg")) as im:
+        size = im.size
+    want = 5 * CORPUS_SPLITS[0][1]
+    check(n_img == n_label == want and size == (CORPUS_HW[1] // 2, CORPUS_HW[0] // 2),
+          f"crop: {n_img} images and {n_label} labels of size {size}, expected {want}")
+    emit({"phase": "data", "job": "crop", "pil": PIL.__version__,
+          "corpus": {s: n for s, n in CORPUS_SPLITS}, "image_hw": CORPUS_HW,
+          "corpus_seconds": corpus_s, "crop_seconds": crop_s, "crops": n_img,
+          "crop_wh": list(size)})
+
+
+def phase_knn(results: dict, root: str) -> None:
+    """The kNN job through ``cli.main`` on the 320 crops at 224^2, b = 32:
+    10 feature batches and 120 attention launches at (32, 785, 1152),
+    counted from 0; every crop its own first neighbour.  Then the same
+    model's pooled features again on the card (their wall and device-only
+    rates), against the CPU's on the first batch (mean relative error
+    <= 2e-2, the serving class), and the job's top-k against ``torch.topk``
+    on the CPU over the card's own features wherever neighbouring
+    similarities are more than 1e-3 apart."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+    from equss_tpu_torch.cli import main as cli_main
+    from equss_tpu_torch.data import jobs
+    from equss_tpu_torch.data.pipeline import UnSegData
+    from equss_tpu_torch.data.transforms import normalize_images
+    from equss_tpu_torch.models import vit
+    from equss_tpu_torch.models.equss import EQUSS, EQUSSConfig
+
+    batches, shapes = [], []
+    plain_features, plain_attention = EQUSS.features, vit.attention_qkv
+
+    def features(self, img):
+        batches.append(int(img.shape[0]))
+        return plain_features(self, img)
+
+    def attention(qkv, *args, **kwargs):
+        shapes.append(tuple(qkv.shape))
+        return plain_attention(qkv, *args, **kwargs)
+
+    EQUSS.features, vit.attention_qkv = features, attention
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        path = cli_main(["knn", *corpus_args(root)])
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        EQUSS.features, vit.attention_qkv = plain_features, plain_attention
+    results["launches"]["knn"] = counts
+    n = 5 * CORPUS_SPLITS[0][1]
+    n_batches = -(-n // KNN_BATCH)
+    check(batches == [KNN_BATCH] * n_batches and counts == expected({"attention_qkv": 12},
+                                                                    n_batches)
+          and set(shapes) == {(KNN_BATCH, 785, 1152)},
+          f"knn: feature batches {batches}, launches {counts}, shapes {set(shapes)}")
+    nns = np.load(path)["nns"]
+    check(nns.shape == (n, 30) and bool((nns[:, 0] == np.arange(n)).all()),
+          f"knn: nns {nns.shape}, own first neighbour for {(nns[:, 0] == np.arange(n)).sum()}")
+
+    cfg = corpus_config(root)
+    d = cfg["dataset"]["train"]
+    data = UnSegData(mode="train", data_dir=d["data_dir"], dataset_name=d["dataset_name"],
+                     model_type=d["model_type"], crop_type=d["crop_type"],
+                     crop_ratio=d["crop_ratio"], loader_crop_type=d["loader_crop_type"],
+                     res=d["res"], pos_images=False, seed=cfg["seed"])
+    model = EQUSS(EQUSSConfig.from_config(cfg), device="cuda", seed=cfg["seed"])
+    t0 = time.perf_counter()
+    feats = jobs.extract_pooled_features(model, data, batch_size=KNN_BATCH)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    img = normalize_images(torch.from_numpy(
+        next(data.batches(KNN_BATCH, shuffle=False, drop_last=False))["img"]).cuda())
+    with torch.no_grad():
+        device_ms = cuda_ms(lambda: model.features(img).mean(dim=(1, 2)), iters=5)
+    model_c = EQUSS(EQUSSConfig.from_config(cfg), device="cpu", seed=cfg["seed"])
+    t0 = time.perf_counter()
+    feats_c = jobs.extract_pooled_features(model_c, data, batch_size=KNN_BATCH,
+                                           max_items=KNN_BATCH)
+    cpu_s = time.perf_counter() - t0
+    f = feats.cpu()
+    rel = ((f[:KNN_BATCH] - feats_c).abs().mean() / feats_c.abs().mean()).item()
+    check(rel <= 2e-2, f"knn: pooled features card vs CPU, mean rel err {rel}")
+
+    nns_cpu = jobs.topk_neighbors(f, 30)
+    sim = torch.sort(f @ f.T, dim=1, descending=True).values[:, :31]
+    gaps = (sim[:, :-1] - sim[:, 1:]).numpy()                    # rank r to r + 1
+    decided = (np.concatenate([np.full((n, 1), np.inf), gaps[:, :-1]], 1) > 1e-3) & (gaps > 1e-3)
+    topk_equal = bool((nns[decided] == nns_cpu[decided]).all())
+    check(decided.any() and topk_equal,
+          f"knn: top-k against the CPU's on {int(decided.sum())} decided ranks: {topk_equal}")
+    emit({"phase": "knn", "items": n, "batch": KNN_BATCH, "res": d["res"],
+          "feature_batches": len(batches), "attention_shapes": sorted(set(shapes)),
+          "launches": counts, "job_wall_seconds": wall,
+          "extract_seconds": extract_s, "extract_img_per_s": n / extract_s,
+          "features_device_ms_per_batch": device_ms,
+          "features_img_per_s_device": KNN_BATCH * 1e3 / device_ms,
+          "feat_mean_rel_err_vs_cpu": rel, "cpu_first_batch_seconds": cpu_s,
+          "ranks_decided": float(decided.mean()), "topk_equal_where_decided": topk_equal,
+          "job_equals_recomputed_topk": bool((jobs.topk_neighbors(feats, 30) == nns).all()),
+          "own_first_neighbour": bool((nns[:, 0] == np.arange(n)).all())})
+
+
+def pipeline_rate(data, batch: int, seed: int) -> dict:
+    """One epoch of ``data``'s batches on the host: seconds and images per
+    second (positives counted)."""
+    t0 = time.perf_counter()
+    count = n = 0
+    for b in data.batches(batch, seed=seed):
+        count += 1
+        n += len(b["img"]) + len(b.get("img_pos", ()))
+    seconds = time.perf_counter() - t0
+    return {"batches": count, "images": n, "seconds": seconds, "img_per_s": n / seconds}
+
+
+def phase_pack(root: str) -> None:
+    """The pack job through ``cli.main`` (both splits); the first two
+    batches of each split from the pack equal to those decoded from the
+    files (train with its kNN positives); then the host pipeline's rate
+    over one train epoch by decode path: PIL, the pack and, where its
+    library builds, the native loader."""
+    from equss_tpu_torch.cli import main as cli_main
+    from equss_tpu_torch.data import native_loader
+    from equss_tpu_torch.data.pipeline import build_data
+
+    t0 = time.perf_counter()
+    packs = cli_main(["pack", *corpus_args(root)])
+    pack_s = time.perf_counter() - t0
+    check(len(packs) == 2, f"pack: wrote {packs}")
+    cfg = corpus_config(root)
+    seed = cfg["seed"]
+
+    def data(mode, path):
+        c = with_overrides(cfg, {f"dataloader.{mode}.pack": "on" if path == "pack" else "off",
+                                 f"dataloader.{mode}.native": "on" if path == "native" else "off"})
+        return build_data(c, mode, seed=seed)
+
+    equal = {}
+    for mode, bs, kw in (("train", 16, {"seed": seed}),
+                         ("val", 8, {"shuffle": False, "drop_last": False})):
+        packed, files = data(mode, "pack"), data(mode, "PIL")
+        check(packed._fast_batch_kind() == "pack", f"pack: {mode} does not read the pack")
+        a = [b for _, b in zip(range(2), packed.batches(bs, **kw))]
+        b = [b for _, b in zip(range(2), files.batches(bs, **kw))]
+        equal[mode] = len(a) == len(b) > 0 and all(map(batches_equal, a, b))
+        check(equal[mode], f"pack: the {mode} batches from the pack differ from the files'")
+    rates = {path: pipeline_rate(data("train", path), 16, seed) for path in ("PIL", "pack")}
+    native = {"available": native_loader.available()}
+    if native["available"]:
+        rates["native"] = pipeline_rate(data("train", "native"), 16, seed)
+    else:
+        native["why"] = str(native_loader._load_error).strip().splitlines()[-1][:200]
+    emit({"phase": "data", "job": "pack", "pack_seconds": pack_s,
+          "packs": [os.path.basename(p) for p in packs],
+          "first_two_batches_equal_files": equal, "decode_threads": data("train", "PIL").num_workers,
+          "train_epoch_by_decode_path": rates, "native": native})
+
+
+def run_dir_of(save_dir: str) -> str:
+    (name,) = os.listdir(save_dir)
+    return os.path.join(save_dir, name)
+
+
+def phase_train_files(results: dict, root: str) -> str:
+    """``cli.run`` on the corpus: the preset for one epoch of the 320 crops
+    (20 steps at b = 16 with kNN positives), a log every step, validation
+    every 10 steps on the 16 val images at 320^2, b = 8, no final CRF.
+    Train and valid steps and the decode paths are recorded as they run,
+    each train step timed as the train phase times one (host clock between
+    synchronisations; ``iter_time``, the logged time per step, adds the
+    wait for the batch and the validations); launches counted from 0 (12
+    attention per train step, 12 + 1 per valid step).  Returns the run's
+    checkpoint directory."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+    from equss_tpu_torch.cli import run
+    from equss_tpu_torch.data.pipeline import UnSegData
+    from equss_tpu_torch.train.trainer import Trainer
+
+    cfg = corpus_config(root, "train.max_epochs=1", "train.valid_interval_iters=10",
+                        "train.print_interval_iters=1", "eval.final_crf=false")
+    calls = {"train": 0, "valid": 0}
+    decode, step_times = {}, []
+    plain = Trainer.train_step, Trainer.valid_step, UnSegData._fast_batch_kind
+
+    def train_step(self, batch):
+        calls["train"] += 1
+        check("img_pos" in batch, "train_files: a train batch without kNN positives")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain[0](self, batch)
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter() - t0)
+        return out
+
+    def valid_step(self, batch):
+        calls["valid"] += 1
+        return plain[1](self, batch)
+
+    def fast_batch_kind(self):
+        kind = plain[2](self)
+        decode[self.mode] = kind or "PIL"
+        return kind
+
+    Trainer.train_step, Trainer.valid_step, UnSegData._fast_batch_kind = (
+        train_step, valid_step, fast_batch_kind)
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        Trainer.train_step, Trainer.valid_step, UnSegData._fast_batch_kind = plain
+    results["launches"]["train_files"] = counts
+    run_dir = run_dir_of(cfg["save_dir"])
+    records = read_metrics(run_dir)
+    steps = [r["step"] for r in records if "loss" in r]
+    final = next((r for r in records if "final_Cluster_mIoU" in r), {})
+    iter_times = sorted(r["iter_time"] for r in records if "iter_time" in r)
+    train_l, valid_l = (expected(STOCK_TRAIN_KERNELS, calls["train"]),
+                        expected(SERVE_KERNELS, calls["valid"]))
+    want = {k: train_l[k] + valid_l[k] for k in counts}
+    check(calls["train"] == 20 and steps == list(range(1, 21)) and counts == want,
+          f"train_files: {calls} steps, logged {steps}, launches {counts}, expected {want}")
+    check(0.0 <= final.get("final_Cluster_mIoU", -1.0) <= 100.0
+          and all(np.isfinite(r["loss"]) for r in records if "loss" in r),
+          f"train_files: final {final}")
+    emit({"phase": "train_files", "train_steps": calls["train"], "valid_steps": calls["valid"],
+          "decode": decode, "logged_steps": steps, "wall_seconds": wall,
+          "step_ms_median": 1e3 * sorted(step_times)[len(step_times) // 2],
+          "step_ms_min": 1e3 * min(step_times),
+          "iter_time_ms_median": 1e3 * iter_times[len(iter_times) // 2],
+          "synthetic_stock_step_ms_median": results.get("stock_step_ms_median"),
+          "launches": counts,
+          "launches_per_train_step": {k: v / calls["train"] for k, v in train_l.items()},
+          "final_Cluster_mIoU": final.get("final_Cluster_mIoU"),
+          "final_Linear_mIoU": final.get("final_Linear_mIoU"), "best": out["best"]})
+    return os.path.join(run_dir, "ckpt")
+
+
+_LOAD_ONLY = """
+import json, sys, torch
+from equss_tpu_torch.serve import load_predictor
+from equss_tpu_torch.ops import launch_counts
+predict = load_predictor(sys.argv[1])
+out = predict(torch.load(sys.argv[2]))
+torch.cuda.synchronize()
+torch.save({k: v.cpu() for k, v in out.items()}, sys.argv[3])
+print(json.dumps({"launches": launch_counts(), "model_modules": [
+    m for m in sys.modules if m.startswith(("equss_tpu_torch.models", "equss_tpu_torch.train"))]}))
+"""
+
+
+def phase_export(results: dict, root: str, ckpt: str) -> None:
+    """The export job through ``cli.main`` from the run's checkpoint at
+    320^2, batch 8: pinned (``symbolic_batch=off``) and symbolic.  Each
+    artifact's graph calls ``equss::attention_qkv`` 12 times and
+    ``equss::pq_assign`` once; loaded with ``load_predictor``, it predicts
+    as the live predictor of the same checkpoint on 8 val images (>= 99.99%
+    of pixels equal; the symbolic one also at b = 1), 12 + 1 launches per
+    request; the symbolic artifact also in a process that imports nothing
+    of the model.  Then ms per b = 8 request, artifact and live in turns,
+    and two requests of each profiled."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts, serve
+    from equss_tpu_torch.cli import main as cli_main
+    from equss_tpu_torch.core.checkpoint import CheckpointManager
+    from equss_tpu_torch.data.pipeline import build_data
+    from equss_tpu_torch.train.trainer import Trainer
+
+    cfg = corpus_config(root)
+    trainer = Trainer(cfg, device="cuda")
+    trainer.load_train_state(CheckpointManager(ckpt).restore(), resume_training=False)
+    live = serve.build_predict_fn(trainer)
+    val = next(build_data(cfg, "val").batches(8, shuffle=False, drop_last=False))["img"]
+    requests_launches = {k: 0 for k in launch_counts()}
+    rows = {}
+    for name, symbolic in (("pinned", "off"), ("symbolic", "auto")):
+        path = os.path.join(root, f"{name}.pt2")
+        t0 = time.perf_counter()
+        cli_main(["export", *corpus_args(root), f"resume.checkpoint={ckpt}", "export.res=320",
+                  "export.batch_size=8", f"export.symbolic_batch={symbolic}",
+                  f"export.path={path}"])
+        export_s = time.perf_counter() - t0
+        graph = torch.export.load(path).graph
+        targets = [str(n.target) for n in graph.nodes if n.op == "call_function"]
+        ops = {op: targets.count(f"equss.{op}.default") for op in ("attention_qkv", "pq_assign")}
+        batch_dim = [n for n in graph.nodes if n.op == "placeholder"][-1].meta["val"].shape[0]
+        is_symbolic = not isinstance(batch_dim, int)
+        check(ops == {"attention_qkv": 12, "pq_assign": 1} and is_symbolic == (name == "symbolic"),
+              f"export {name}: ops {ops}, batch {batch_dim}")
+        predict = serve.load_predictor(path)
+        agreement = {}
+        for b in ((1, 8) if is_symbolic else (8,)):
+            x = val[:b]
+            reset_launch_counts()
+            out = predict(x)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            requests_launches = {k: v + counts[k] for k, v in requests_launches.items()}
+            reset_launch_counts()
+            ref = live(torch.from_numpy(x).cuda())
+            live_counts = launch_counts()
+            agreement[b] = {k: (out[k] == ref[k]).float().mean().item() for k in ref}
+            check(counts == live_counts == expected(SERVE_KERNELS, 1)
+                  and set(out) == set(ref) == {"cluster_preds", "linear_preds"}
+                  and all(out[k].dtype == torch.int32 and tuple(out[k].shape) == (b, 320, 320)
+                          for k in out)
+                  and all(v >= 0.9999 for v in agreement[b].values()),
+                  f"export {name} b={b}: launches {counts} (live {live_counts}), "
+                  f"agreement {agreement[b]}")
+        rows[name] = {"export_seconds": export_s, "bytes": os.path.getsize(path),
+                      "graph_ops": ops, "batch_dim": str(batch_dim),
+                      "pixel_agreement_vs_live": agreement}
+    results["launches"]["export_requests"] = requests_launches
+
+    torch.save(torch.from_numpy(val), os.path.join(root, "val.pt"))
+    proc = subprocess.run([sys.executable, "-c", _LOAD_ONLY, os.path.join(root, "symbolic.pt2"),
+                           os.path.join(root, "val.pt"), os.path.join(root, "out.pt")],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    loaded_alone = {"rc": proc.returncode, "stderr": proc.stderr[-600:]}
+    if proc.returncode == 0:
+        loaded_alone = json.loads(proc.stdout.strip().splitlines()[-1])
+        alone = torch.load(os.path.join(root, "out.pt"))
+        ref = live(torch.from_numpy(val).cuda())
+        loaded_alone["equal_to_live"] = all(torch.equal(alone[k], ref[k].cpu()) for k in ref)
+    check(loaded_alone.get("equal_to_live") is True and loaded_alone["model_modules"] == []
+          and loaded_alone["launches"] == expected(SERVE_KERNELS, 1),
+          f"export: the artifact alone in a process without the model: {loaded_alone}")
+
+    xf = torch.from_numpy(val).cuda().float() / 255.0
+    artifact = serve.load_predictor(os.path.join(root, "symbolic.pt2"))
+    turns = in_turns({"artifact": lambda: artifact(xf), "live": lambda: live(xf)}, iters=10)
+    profiles = {}
+    for name, fn in (("artifact", lambda: artifact(xf)), ("live", lambda: live(xf))):
+        prof = device_profile(fn, 2)
+        profiles[name] = {k: prof[k] for k in ("wall_ms", "device_ms", "device_busy_share",
+                                                "kernel_launches")}
+    emit({"phase": "export", "res": 320, **rows, "loaded_without_model": loaded_alone,
+          "request_launches": requests_launches,
+          "ms_per_b8_request": turns, "artifact_over_live": turns["artifact"] / turns["live"],
+          "profile_two_b8_requests": profiles})
+
+
+def phase_own_data(results: dict) -> None:
+    """crop -> knn -> pack -> train on the files -> export, on a corpus
+    written into a temporary directory, removed at the end."""
+    root = tempfile.mkdtemp(prefix="equss_corpus_")
+    try:
+        phase_crop(root)
+        phase_knn(results, root)
+        phase_pack(root)
+        ckpt = phase_train_files(results, root)
+        phase_export(results, root, ckpt)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_custom_op_ab(results: dict) -> None:
+    """Request latency of the serving forward (224^2, seeded weights) at
+    b = 1 and b = 8 with the kernels called as the custom ops ``equss::``
+    against the same kernels called through plain ctypes wrappers
+    (``tools/ctypes_ab.py``, the wrappers before the custom ops), in turns
+    (custom, ctypes, ctypes, custom; 3 rounds of 20 requests after 3
+    warm-up ones): host clock to the synchronised result; medians.  Both
+    give bit-equal outputs; each side's launches counted.  Then one
+    request of each side profiled (device ms, busy share, kernels) and
+    the host µs of one call of each wrapper, custom op and ctypes, at the
+    b = 1 request's attention and PQ shapes (200 calls back to back, in
+    turns)."""
+    import contextlib
+    import statistics
+
+    from equss_tpu_torch import EQUSS, launch_counts, reset_launch_counts
+    from equss_tpu_torch.data.transforms import normalize_images
+    from equss_tpu_torch.ops.attention import attention_qkv
+    from equss_tpu_torch.ops.pq_assign import normalize_vectors, pq_assign
+    from equss_tpu_torch.tools import ctypes_ab
+
+    model = EQUSS(main_config("bf16"), device="cuda", seed=0)
+    ctypes_fns = (ctypes_ab.attention_qkv_ctypes, ctypes_ab.pq_assign_ctypes)
+    reset_launch_counts()
+    row = {"phase": "custom_op_ab", "res": 224, "requests_per_turn": 20, "rounds": 3}
+    for batch in (1, 8):
+        img = normalize_images(requests(batch, 1, seed=900 + batch)[0].cuda())
+
+        def timed(n):
+            times = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                out = model(img)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            return times, out
+
+        times, outs = {"custom_op": [], "ctypes": []}, {}
+        for _ in range(3):
+            for name in ("custom_op", "ctypes", "ctypes", "custom_op"):
+                before_c = launch_counts()
+                before_t = [f.launches for f in ctypes_fns]
+                if name == "ctypes":
+                    with ctypes_ab.ctypes_wrappers():
+                        timed(3)
+                        t, outs[name] = timed(20)
+                else:
+                    timed(3)
+                    t, outs[name] = timed(20)
+                times[name] += t
+                made_c = {k: v - before_c[k] for k, v in launch_counts().items()}
+                made_t = [f.launches - b for f, b in zip(ctypes_fns, before_t)]
+                want = [12 * 23, 23] if name == "ctypes" else [0, 0]
+                check(made_t == want and made_c == expected(
+                          SERVE_KERNELS, 0 if name == "ctypes" else 23),
+                      f"custom_op_ab {name} b={batch}: custom-op launches {made_c}, "
+                      f"ctypes launches {made_t}")
+        same = all(torch.equal(outs["custom_op"][k], outs["ctypes"][k]) for k in ("indices", "z_q"))
+        check(same, f"custom_op_ab b={batch}: outputs differ between the two wrappers")
+        med = {k: 1e3 * statistics.median(v) for k, v in times.items()}
+        row[f"b{batch}"] = {"custom_op_ms_median": med["custom_op"], "ctypes_ms_median": med["ctypes"],
+                            "difference_ms": med["custom_op"] - med["ctypes"],
+                            "relative": med["custom_op"] / med["ctypes"] - 1.0,
+                            "custom_op_ms_min": 1e3 * min(times["custom_op"]),
+                            "ctypes_ms_min": 1e3 * min(times["ctypes"]), "outputs_equal": same}
+    results["launches"]["custom_op_ab"] = launch_counts()
+
+    # where the difference goes: one request of each side profiled, and
+    # the host cost of one call of each wrapper at the b = 1 request's
+    # shapes (kernels of a few µs, so back-to-back calls wait on the host)
+    for batch in (1, 8):
+        img = normalize_images(requests(batch, 1, seed=900 + batch)[0].cuda())
+        for name in ("custom_op", "ctypes"):
+            with ctypes_ab.ctypes_wrappers() if name == "ctypes" else contextlib.nullcontext():
+                prof = device_profile(lambda: model(img), 2)
+            row[f"b{batch}"][f"{name}_profile"] = {
+                k: prof[k] for k in ("wall_ms", "device_ms", "device_busy_share", "kernel_launches")}
+    g = torch.Generator(device="cuda").manual_seed(9)
+    qkv = torch.randn((1, 785, 1152), generator=g, device="cuda").to(torch.bfloat16)
+    z = torch.randn((28 * 28, 64, 16), generator=g, device="cuda")
+    cb = torch.randn((64, 256, 16), generator=g, device="cuda")
+    cn = normalize_vectors(cb, "l2").contiguous()
+    calls = {
+        "attention_qkv": {"custom_op": lambda: attention_qkv(qkv, 6, 0.125),
+                          "ctypes": lambda: ctypes_ab.attention_qkv_ctypes(qkv, 6, 0.125)},
+        "pq_assign": {"custom_op": lambda: pq_assign(z, cn, cb, normalize="l2", exact=False),
+                      "ctypes": lambda: ctypes_ab.pq_assign_ctypes(z, cn, cb, normalize="l2",
+                                                                   exact=False)},
+    }
+
+    def us_per_call(fn, n=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t0) / n
+
+    row["us_per_call_back_to_back"] = {}
+    for op, fns in calls.items():
+        us = {k: [] for k in fns}
+        for _ in range(3):
+            for name in ("custom_op", "ctypes", "ctypes", "custom_op"):
+                us[name].append(us_per_call(fns[name]))
+        row["us_per_call_back_to_back"][op] = {k: statistics.median(v) for k, v in us.items()}
+    emit(row)
+
+
 KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     "attention_qkv": ("equss_tpu_torch/csrc/attention_qkv.cu", "equss_tpu/ops/attention.py:198"),
     "attention": ("equss_tpu_torch/csrc/attention_qkv.cu", "equss_tpu/ops/attention.py:91"),
@@ -1333,11 +1913,15 @@ def main() -> int:
     phase_fit(results)
     phase_crf()
     phase_cli(results)
+    phase_custom_op_ab(results)
+    phase_own_data(results)
 
     # launches: every main-path run (serving, serving with fused_ln, both
     # train configurations, both valid configurations, fit, the three CLI
-    # runs), each counted from 0; ``attention`` has no caller on any path
-    # and is launched by its kernel phase only
+    # runs, the kNN job, the train job on files, the exported artifact's
+    # requests and the custom-op side of the A/B), each counted from 0;
+    # ``attention`` has no caller on any path and is launched by its
+    # kernel phase only
     by_path = results["launches"]
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():

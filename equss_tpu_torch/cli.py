@@ -1,21 +1,35 @@
-"""CLI trainer: ``python -m equss_tpu_torch.cli --config configs/X.yaml [a.b=c ...]``.
+"""CLI: ``python -m equss_tpu_torch.cli [train|crop|knn|pack|export]
+--config configs/X.yaml [a.b=c ...]``.
 
-The port's counterpart of ``equss_tpu/cli.py``'s train job: config ->
-seed -> data -> trainer -> epoch loop with periodic validation and a
-checkpoint on each new best -> the best checkpoint reloaded -> the final
-evaluation, and with ``eval.final_crf`` the CRF-refined one.  Metrics go
-to ``<save_dir>/<wandb.name>_<time>/metrics.jsonl`` and checkpoints to
-its ``ckpt/``.
+The port's counterpart of ``equss_tpu/cli.py``.  Jobs:
 
-``resume.checkpoint=<ckpt dir>`` restores the latest checkpoint there:
-``resume.mode=eval`` (the default) runs the final evaluation on it and
-stops; ``resume.mode=train`` continues the run from its step.
+* ``train`` (the default): config -> seed -> data -> trainer -> epoch
+  loop with periodic validation and a checkpoint on each new best -> the
+  best checkpoint reloaded -> the final evaluation, and with
+  ``eval.final_crf`` the CRF-refined one.  Metrics go to
+  ``<save_dir>/<wandb.name>_<time>/metrics.jsonl`` and checkpoints to its
+  ``ckpt/``.  The data are the corpus of ``dataset.train`` / ``.val``
+  (``data/pipeline.py``; the train split's kNN positives from the
+  ``knn`` job's cache), or synthetic batches with ``dataset.synthetic``.
+  ``resume.checkpoint=<ckpt dir>`` restores the latest checkpoint there:
+  ``resume.mode=eval`` (the default) runs the final evaluation on it and
+  stops; ``resume.mode=train`` continues the run from its step.
+* ``crop``: the five-crop corpus of the train split
+  (``data/jobs.py::materialize_crops``).
+* ``knn``: the kNN-positive cache of the train split
+  (``data/jobs.py::precompute_knns``), at
+  ``<data_dir>/nns/nns_<model_type>_<dataset>_train_<crop_type>_224.npz``.
+* ``pack``: the packed decoded corpus of each split (``data/cache.py``),
+  which ``dataloader.<split>.pack: auto`` then reads.
+* ``export``: the predictor of ``resume.checkpoint`` as a
+  ``torch.export`` artifact (``serve.py``) at ``export.path`` (default
+  ``model.pt2``).
 
-The run takes the CUDA card unless ``device`` says otherwise
-(``run(cfg, device="cpu")``, or the override ``device=cpu``).  Only
-synthetic data (``dataset.synthetic: true``) is ported; the ``crop``,
-``pack``, ``knn`` and ``export`` jobs, real datasets, multi-process runs
-and ``train.profile_dir`` raise ``NotImplementedError``.
+The jobs that run a model (train, knn, export) take the CUDA card unless
+``device`` says otherwise (``run(cfg, device="cpu")``, or the override
+``device=cpu``; ``export.platforms`` names the export's device); crop and
+pack are host work.  Multi-process runs and ``train.profile_dir`` raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,31 +57,44 @@ def _load_backbone(cfg: Dict[str, Any]) -> Optional[Dict[str, torch.Tensor]]:
 
 
 def _make_batch_fns(cfg: Dict[str, Any]):
-    """``(train_batches(epoch), val_batches(), res)``: synthetic batches
-    with the JAX package's seeds and counts; sets ``cfg['_iter_per_epoch']``
-    (the cosine schedules' horizon and the resume epoch)."""
+    """``(train_batches(epoch), val_batches(), res)``: the corpus's
+    batches (``build_data``; an epoch's order from ``seed + epoch``), or
+    synthetic ones under ``dataset.synthetic``, with the JAX package's
+    seeds and counts; sets ``cfg['_iter_per_epoch']`` (the cosine
+    schedules' horizon and the resume epoch)."""
     seed = cfg.get("seed", 0)
-    if not cfg.get("dataset", {}).get("synthetic"):
-        raise NotImplementedError(
-            "real datasets (equss_tpu/data/pipeline.py) are not ported yet; "
-            "set dataset.synthetic=true")
-    from equss_tpu_torch.data.synthetic import synthetic_batches
-
-    res = cfg["dataset"]["train"]["res"]
-    vres = cfg["dataset"]["val"]["res"]
     bs = cfg["dataloader"]["train"]["batch_size"]
     vbs = cfg["dataloader"]["val"]["batch_size"]
-    nb = cfg["dataset"].get("synthetic_batches", 16)
-    ncls = cfg["num_classes"]
+    res = cfg["dataset"]["train"]["res"]
+    if cfg.get("dataset", {}).get("synthetic"):
+        from equss_tpu_torch.data.synthetic import synthetic_batches
+
+        vres = cfg["dataset"]["val"]["res"]
+        nb = cfg["dataset"].get("synthetic_batches", 16)
+        ncls = cfg["num_classes"]
+
+        def train_batches(epoch: int):
+            return synthetic_batches(seed + epoch, nb, bs, res, ncls)
+
+        def val_batches():
+            return synthetic_batches(seed + 10_000, max(nb // 4, 1), vbs, vres, ncls,
+                                     with_pos=False)
+
+        cfg["_iter_per_epoch"] = nb
+        return train_batches, val_batches, res
+
+    from equss_tpu_torch.data.pipeline import build_data
+
+    train_data = build_data(cfg, "train", seed=seed)
+    val_data = build_data(cfg, "val", seed=seed)
 
     def train_batches(epoch: int):
-        return synthetic_batches(seed + epoch, nb, bs, res, ncls)
+        return train_data.batches(bs, seed=seed + epoch)
 
     def val_batches():
-        return synthetic_batches(seed + 10_000, max(nb // 4, 1), vbs, vres, ncls,
-                                 with_pos=False)
+        return val_data.batches(vbs, shuffle=False, drop_last=False)
 
-    cfg["_iter_per_epoch"] = nb
+    cfg["_iter_per_epoch"] = max(len(train_data) // bs, 1)
     return train_batches, val_batches, res
 
 
@@ -163,6 +190,126 @@ def run(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     return result
 
 
+def run_crop_job(cfg: Dict[str, Any]) -> str:
+    """The five-crop corpus of ``dataset.train`` (``crop_type``, default
+    five; ``crop_ratio``, default 0.5) under its ``data_dir``."""
+    from equss_tpu_torch.data.jobs import materialize_crops
+
+    d = cfg["dataset"]["train"]
+    out = materialize_crops(d["dataset_name"], d["data_dir"], mode="train",
+                            crop_type=d.get("crop_type", "five"),
+                            crop_ratio=d.get("crop_ratio", 0.5))
+    print(f"cropped corpus written to {out}")
+    return out
+
+
+def run_pack_job(cfg: Dict[str, Any]) -> List[str]:
+    """The packed decoded corpus of each split of ``dataset`` at
+    ``default_pack_base``: one decode pass, after which an epoch reads
+    memmap slices (``dataloader.<split>.pack: auto`` finds the pack).  A
+    split whose corpus is missing or has no file list is skipped, and
+    said so.  Returns the ``.bin`` paths written."""
+    from equss_tpu_torch.data.cache import default_pack_base, pack_dataset
+    from equss_tpu_torch.data.datasets import build_base_dataset
+
+    written = []
+    for mode in ("train", "val"):
+        d = (cfg.get("dataset", {}) or {}).get(mode)
+        if not d:
+            continue
+        try:
+            ds = build_base_dataset(d["dataset_name"], mode, d["data_dir"], d["res"],
+                                    d.get("crop_type"), d.get("crop_ratio", 0.5),
+                                    d.get("loader_crop_type", "center"), cfg.get("seed", 0))
+        except OSError as e:
+            print(f"pack: {mode} corpus not found ({e}); skipped")
+            continue
+        if not hasattr(ds, "image_files"):
+            print(f"pack: {mode} dataset has no file list; skipped")
+            continue
+        out = pack_dataset(ds, default_pack_base(d["data_dir"], d["dataset_name"], mode,
+                                                 d.get("crop_type"), d["res"],
+                                                 d.get("crop_ratio", 0.5)))
+        print(f"packed {mode} corpus -> {out}")
+        written.append(out)
+    return written
+
+
+def run_knn_job(cfg: Dict[str, Any], device: DeviceLike = None) -> str:
+    """The kNN-positive cache of ``dataset.train``: the model of the
+    config (``EQUSS``, weights from ``seed``, the DINO backbone of
+    ``model.pretrained.pretrained_weights`` when given) on ``device``
+    (default ``cfg['device']``, else CUDA), 30 neighbours per image.
+    Returns the cache's path."""
+    from equss_tpu_torch.data.jobs import precompute_knns
+    from equss_tpu_torch.data.pipeline import UnSegData
+    from equss_tpu_torch.models.equss import EQUSS, EQUSSConfig
+
+    dev = resolve_device(device if device is not None else cfg.get("device"))
+    model = EQUSS(EQUSSConfig.from_config(cfg), device=dev, seed=cfg.get("seed", 0))
+    backbone = _load_backbone(cfg)
+    if backbone is not None:
+        model.backbone.load_state_dict(backbone)
+    d = cfg["dataset"]["train"]
+    # no positives here: this job makes the cache they are drawn from
+    data = UnSegData(mode="train", data_dir=d["data_dir"], dataset_name=d["dataset_name"],
+                     model_type=d.get("model_type", "vit_small"),
+                     crop_type=d.get("crop_type"), crop_ratio=d.get("crop_ratio", 0.5),
+                     loader_crop_type=d.get("loader_crop_type", "center"), res=d["res"],
+                     pos_images=False, seed=cfg.get("seed", 0))
+    # the name UnSegData looks for under <data_dir>/nns
+    out_path = os.path.join(d["data_dir"], "nns",
+                            f"nns_{d.get('model_type', 'vit_small')}_{d['dataset_name']}_train_"
+                            f"{d.get('crop_type')}_224.npz")
+    out = precompute_knns(model, data, out_path, k=30)
+    print("->", out)
+    return out
+
+
+def run_export_job(cfg: Dict[str, Any], device: DeviceLike = None) -> str:
+    """The predictor of ``resume.checkpoint`` (its latest checkpoint) as
+    a ``torch.export`` artifact at ``export.path`` (default
+    ``model.pt2``): input ``export.res`` (default ``dataset.val.res``)
+    square, batch ``export.batch_size`` (default 1) symbolic unless
+    ``export.symbolic_batch`` is ``off``, ImageNet normalisation inside
+    unless ``export.normalize`` is false, on the device of
+    ``export.platforms`` (else ``device``, ``cfg['device']``, CUDA).
+
+        python -m equss_tpu_torch.cli export --config X.yaml \
+            resume.checkpoint=<run>/ckpt export.path=model.pt2"""
+    from equss_tpu_torch import serve
+    from equss_tpu_torch.core.checkpoint import CheckpointManager
+    from equss_tpu_torch.train.trainer import Trainer
+
+    exp_cfg = cfg.get("export", {}) or {}
+    ckpt_path = (cfg.get("resume", {}) or {}).get("checkpoint")
+    out_path = exp_cfg.get("path", serve.DEFAULT_PATH)
+    res = int(exp_cfg.get("res", cfg["dataset"]["val"]["res"]))
+    platform = serve.export_device(exp_cfg.get("platforms"))
+    dev = resolve_device(platform or (device if device is not None else cfg.get("device")))
+    trainer = Trainer(cfg, device=dev)
+    backbone = _load_backbone(cfg)
+    if backbone is not None:
+        trainer.model.backbone.load_state_dict(backbone)
+    if ckpt_path:
+        trainer.load_train_state(CheckpointManager(ckpt_path).restore(),
+                                 resume_training=False)
+    else:
+        print("export: no resume.checkpoint given; exporting the freshly "
+              "initialised model (smoke use only)")
+    symbolic = exp_cfg.get("symbolic_batch", "auto")
+    exported = serve.export_predictor(
+        trainer, (res, res), batch_size=int(exp_cfg.get("batch_size", 1)),
+        normalize=bool(exp_cfg.get("normalize", True)), platforms=platform,
+        # the override reader parses a bare `off` as False
+        symbolic_batch={False: "off", True: "auto"}.get(symbolic, str(symbolic)))
+    serve.save_predictor(exported, out_path)
+    img = [n for n in exported.graph.nodes if n.op == "placeholder"][-1].meta["val"]
+    print(f"-> {out_path} ({os.path.getsize(out_path)} bytes; input "
+          f"{tuple(str(s) for s in img.shape)} on {dev})")
+    return out_path
+
+
 def main(argv: Optional[List[str]] = None):
     from equss_tpu_torch.core.config import prepare_config
     from equss_tpu_torch.core.random import set_seed
@@ -173,8 +320,14 @@ def main(argv: Optional[List[str]] = None):
         job = argv.pop(0)
     cfg, _ = prepare_config(argv)
     set_seed(cfg.get("seed", 0))
-    if job != "train":
-        raise NotImplementedError(f"the {job} job is not ported yet (equss_tpu/cli.py)")
+    if job == "crop":
+        return run_crop_job(cfg)
+    if job == "pack":
+        return run_pack_job(cfg)
+    if job == "knn":
+        return run_knn_job(cfg)
+    if job == "export":
+        return run_export_job(cfg)
     return run(cfg)
 
 

@@ -6,8 +6,15 @@ Counterparts of ``equss_tpu/ops/attention.py::fused_attention_qkv`` and
 ``csrc/attention_qkv.cu`` (CUDA C++ for sm_90a);
 ``attention_qkv_reference`` and ``fused_attention_reference`` are their
 plain PyTorch versions, the same arithmetic written with whole-tensor
-ops.  The wrappers take the plain version for tensors on the CPU and the
-kernel for tensors on CUDA; they never fall back from one to the other.
+ops.
+
+Each is a PyTorch custom op (``equss::attention_qkv``,
+``equss::attention``): the plain version is its CPU implementation, the
+kernel its CUDA one, and a fake implementation gives the output's shape,
+so that ``torch.export`` records the op itself in a graph and an
+exported artifact launches the kernel.  The wrappers take the plain
+version for tensors on the CPU and the kernel for tensors on CUDA; they
+never fall back from one to the other.
 """
 from __future__ import annotations
 
@@ -90,19 +97,16 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
-                  n_real: Optional[int] = None) -> torch.Tensor:
-    """softmax(q k^T * scale) v for every head of the packed (B, N, 3C)
-    qkv tensor -> (B, N, C); keys at index >= ``n_real`` are masked.
+@torch.library.custom_op("equss::attention_qkv", mutates_args=(), device_types="cpu")
+def _attention_qkv_op(qkv: torch.Tensor, num_heads: int, scale: float,
+                      n_real: int) -> torch.Tensor:
+    return attention_qkv_reference(qkv, num_heads, scale, n_real)
 
-    CPU tensor: the plain version.  CUDA tensor: the kernel, which takes
-    contiguous, 16-byte aligned bf16 with head_dim 64 and scale > 0 and
-    raises on anything else.  That is all its TMA loads need: the kernel
-    builds the token and batch strides from the shape, and with head_dim
-    64 they are multiples of 16 bytes."""
+
+@_attention_qkv_op.register_kernel("cuda")
+def _attention_qkv_cuda(qkv: torch.Tensor, num_heads: int, scale: float,
+                        n_real: int) -> torch.Tensor:
     B, N, C, hd, n_real = _split_heads(qkv, num_heads, n_real)
-    if qkv.device.type == "cpu":
-        return attention_qkv_reference(qkv, num_heads, scale, n_real)
     check_cuda_tensor(qkv, "qkv", torch.bfloat16)
     if hd != KERNEL_HEAD_DIM:
         raise ValueError(
@@ -118,6 +122,28 @@ def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
     return out
 
 
+@_attention_qkv_op.register_fake
+def _attention_qkv_fake(qkv: torch.Tensor, num_heads: int, scale: float,
+                        n_real: int) -> torch.Tensor:
+    B, N, C3 = qkv.shape
+    return qkv.new_empty((B, N, C3 // 3))
+
+
+def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
+                  n_real: Optional[int] = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v for every head of the packed (B, N, 3C)
+    qkv tensor -> (B, N, C); keys at index >= ``n_real`` are masked.
+    The op ``equss::attention_qkv``.
+
+    CPU tensor: the plain version.  CUDA tensor: the kernel, which takes
+    contiguous, 16-byte aligned bf16 with head_dim 64 and scale > 0 and
+    raises on anything else.  That is all its TMA loads need: the kernel
+    builds the token and batch strides from the shape, and with head_dim
+    64 they are multiples of 16 bytes."""
+    n_real = _split_heads(qkv, num_heads, n_real)[-1]
+    return _attention_qkv_op(qkv, num_heads, scale, n_real)
+
+
 attention_qkv.launches = 0
 
 
@@ -129,20 +155,15 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _attention_plain(q, k, v, scale, q.shape[1])
 
 
-def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float) -> torch.Tensor:
-    """softmax(q k^T * scale) v for every head of separate (B, N, H, hd)
-    q, k and v -> (B, N, H, hd).
+@torch.library.custom_op("equss::attention", mutates_args=(), device_types="cpu")
+def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    return fused_attention_reference(q, k, v, scale=scale)
 
-    CPU tensors: the plain version.  CUDA tensors: the kernel, which takes
-    contiguous, 16-byte aligned bf16 of one shape with head_dim 32 or 64
-    and scale > 0 and raises on anything else (which covers its TMA
-    loads, as for ``attention_qkv``)."""
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k and v must share one (B, N, H, hd) shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if q.device.type == "cpu":
-        return fused_attention_reference(q, k, v, scale=scale)
+
+@_attention_op.register_kernel("cuda")
+def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_cuda_tensor(t, name, torch.bfloat16, q.device)
     B, N, H, hd = q.shape
@@ -163,6 +184,27 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_launch("fused_attention", err)
     fused_attention.launches += 1
     return out
+
+
+@_attention_op.register_fake
+def _attention_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    return torch.empty_like(q)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v for every head of separate (B, N, H, hd)
+    q, k and v -> (B, N, H, hd).  The op ``equss::attention``.
+
+    CPU tensors: the plain version.  CUDA tensors: the kernel, which takes
+    contiguous, 16-byte aligned bf16 of one shape with head_dim 32 or 64
+    and scale > 0 and raises on anything else (which covers its TMA
+    loads, as for ``attention_qkv``)."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k and v must share one (B, N, H, hd) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    return _attention_op(q, k, v, scale)
 
 
 fused_attention.launches = 0

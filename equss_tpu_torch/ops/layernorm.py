@@ -4,15 +4,20 @@ statistics.
 Counterparts of ``equss_tpu/ops/layernorm.py::fused_layernorm`` and
 ``::fused_add_layernorm``.  The kernels are ``csrc/layernorm.cu`` (CUDA
 C++ for sm_90a); ``layernorm_reference`` and ``add_layernorm_reference``
-are their plain PyTorch versions.  The wrappers take the plain version for
+are their plain PyTorch versions.
+
+Each is a PyTorch custom op (``equss::layernorm``,
+``equss::add_layernorm``): the plain version is its CPU implementation,
+the kernel its CUDA one, and a fake implementation gives the outputs'
+shapes for ``torch.export``.  The wrappers take the plain version for
 tensors on the CPU and the kernel for tensors on CUDA; they never fall
 back from one to the other.
 
-Both are ``torch.autograd.Function``s.  As in the JAX package, whose
-custom VJP differentiates the reference formula with XLA ops, the
-backward recomputes the plain version under autograd: the TPU kernels
-have no backward kernel, and the frozen backbone never takes this
-backward on the training path.
+As in the JAX package, whose custom VJP differentiates the reference
+formula with XLA ops, each op's backward (``register_autograd``)
+recomputes the plain version under autograd: the TPU kernels have no
+backward kernel, and the frozen backbone never takes this backward on
+the training path.
 """
 from __future__ import annotations
 
@@ -79,9 +84,15 @@ def _check_kernel_operands(x: torch.Tensor, scale: torch.Tensor,
     return C
 
 
-def _layernorm_forward(x, scale, bias, eps):
-    if x.device.type == "cpu":
-        return layernorm_reference(x, scale, bias, eps)
+@torch.library.custom_op("equss::layernorm", mutates_args=(), device_types="cpu")
+def _layernorm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    return layernorm_reference(x, scale, bias, eps)
+
+
+@_layernorm_op.register_kernel("cuda")
+def _layernorm_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    eps: float) -> torch.Tensor:
     C = _check_kernel_operands(x, scale, bias)
     out = torch.empty_like(x)
     with on_device(x):
@@ -94,9 +105,20 @@ def _layernorm_forward(x, scale, bias, eps):
     return out
 
 
-def _add_layernorm_forward(x, y, scale, bias, eps):
-    if x.device.type == "cpu":
-        return add_layernorm_reference(x, y, scale, bias, eps)
+@_layernorm_op.register_fake
+def _layernorm_fake(x, scale, bias, eps):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("equss::add_layernorm", mutates_args=(), device_types="cpu")
+def _add_layernorm_op(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return add_layernorm_reference(x, y, scale, bias, eps)
+
+
+@_add_layernorm_op.register_kernel("cuda")
+def _add_layernorm_cuda(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     C = _check_kernel_operands(x, scale, bias, y)
     s = torch.empty_like(x)
     out = torch.empty_like(x)
@@ -110,6 +132,11 @@ def _add_layernorm_forward(x, y, scale, bias, eps):
     return s, out
 
 
+@_add_layernorm_op.register_fake
+def _add_layernorm_fake(x, y, scale, bias, eps):
+    return torch.empty_like(x), torch.empty_like(x)
+
+
 def _reference_grads(fn, inputs, grads):
     """Gradients of the plain version ``fn`` at ``inputs`` (recomputed)."""
     with torch.enable_grad():
@@ -119,55 +146,51 @@ def _reference_grads(fn, inputs, grads):
         return torch.autograd.grad(outs, leaves, grads)
 
 
-class _LayerNorm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, scale, bias, eps):
-        ctx.save_for_backward(x, scale, bias)
-        ctx.eps = eps
-        return _layernorm_forward(x, scale, bias, eps)
-
-    @staticmethod
-    def backward(ctx, g):
-        eps = ctx.eps
-        grads = _reference_grads(
-            lambda a, s, b: layernorm_reference(a, s, b, eps), ctx.saved_tensors, (g,))
-        return (*grads, None)
+def _save_operands(ctx, inputs, output):
+    *tensors, eps = inputs
+    ctx.save_for_backward(*tensors)
+    ctx.eps = eps
 
 
-class _AddLayerNorm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, y, scale, bias, eps):
-        ctx.save_for_backward(x, y, scale, bias)
-        ctx.eps = eps
-        return _add_layernorm_forward(x, y, scale, bias, eps)
+def _layernorm_backward(ctx, g):
+    eps = ctx.eps
+    grads = _reference_grads(
+        lambda a, s, b: layernorm_reference(a, s, b, eps), ctx.saved_tensors, (g,))
+    return (*grads, None)
 
-    @staticmethod
-    def backward(ctx, g_sum, g_ln):
-        eps = ctx.eps
-        grads = _reference_grads(
-            lambda a, b, s, bb: add_layernorm_reference(a, b, s, bb, eps),
-            ctx.saved_tensors, (g_sum, g_ln))
-        return (*grads, None)
+
+def _add_layernorm_backward(ctx, g_sum, g_ln):
+    eps = ctx.eps
+    grads = _reference_grads(
+        lambda a, b, s, bb: add_layernorm_reference(a, b, s, bb, eps),
+        ctx.saved_tensors, (g_sum, g_ln))
+    return (*grads, None)
+
+
+_layernorm_op.register_autograd(_layernorm_backward, setup_context=_save_operands)
+_add_layernorm_op.register_autograd(_add_layernorm_backward, setup_context=_save_operands)
 
 
 def fused_layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis; x (..., C), scale and bias (C,) f32.
+    The op ``equss::layernorm``.
 
     CPU tensors: the plain version.  CUDA tensors: the kernel, which takes
     contiguous bf16 rows with C a multiple of 8 up to 1024 and raises on
     anything else."""
-    return _LayerNorm.apply(x, scale, bias, eps)
+    return _layernorm_op(x, scale, bias, eps)
 
 
 def fused_add_layernorm(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
                         bias: torch.Tensor, eps: float = 1e-6
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(x, y) -> (x + y, LayerNorm(x + y)); x and y (..., C) of one dtype.
+    The op ``equss::add_layernorm``.
 
     CPU tensors: the plain version.  CUDA tensors: the kernel, on the
     operands ``fused_layernorm``'s kernel takes."""
-    return _AddLayerNorm.apply(x, y, scale, bias, eps)
+    return _add_layernorm_op(x, y, scale, bias, eps)
 
 
 fused_layernorm.launches = 0

@@ -3,9 +3,12 @@ first-minimum argmin -> codeword gather, for all M subspaces at once.
 
 Counterpart of ``equss_tpu/ops/pq_pallas.py::pq_assign_pallas``.  The
 kernel is ``csrc/pq_assign.cu`` (CUDA C++ for sm_90a);
-``pq_assign_reference`` is its plain PyTorch version.  ``pq_assign``
-takes the plain version for tensors on the CPU and the kernel for
-tensors on CUDA; it never falls back from one to the other.
+``pq_assign_reference`` is its plain PyTorch version.  It is the PyTorch
+custom op ``equss::pq_assign``: the plain version is its CPU
+implementation, the kernel its CUDA one, and a fake implementation gives
+the outputs' shapes for ``torch.export``.  ``pq_assign`` takes the plain
+version for tensors on the CPU and the kernel for tensors on CUDA; it
+never falls back from one to the other.
 """
 from __future__ import annotations
 
@@ -124,33 +127,25 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-def pq_assign(
-    z: torch.Tensor, c_norm: torch.Tensor, c_raw: torch.Tensor, *,
-    normalize: str = "none", z_mean: Optional[torch.Tensor] = None,
-    z_std: Optional[torch.Tensor] = None, exact: bool = True,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fused normalise + assign + gather.
+@torch.library.custom_op("equss::pq_assign", mutates_args=(), device_types="cpu")
+def _pq_assign_op(z: torch.Tensor, c_norm: torch.Tensor, c_raw: torch.Tensor,
+                  z_mean: Optional[torch.Tensor], z_std: Optional[torch.Tensor],
+                  normalize: str, exact: bool
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    idx, zn, zq = pq_assign_reference(z, c_norm, c_raw, normalize=normalize,
+                                      z_mean=z_mean, z_std=z_std, exact=exact)
+    # an op's outputs never alias its inputs: without a normalisation the
+    # plain version hands an f32 z back as z_norm
+    return idx, (zn.clone() if normalize == "none" else zn), zq
 
-    z (n, M, d) raw or pre-normalised; c_norm (M, K, d) the normalised
-    codebook the distances use; c_raw (M, K, d) the codebook gathered
-    from; z_mean/z_std (M, d) for ``z_trainable``.  Returns ``(idx (n, M)
-    int32, z_norm (n, M, d) f32, z_q (n, M, d) f32)``.
 
-    CPU tensors: the plain version.  CUDA tensors: the kernel, which
-    takes contiguous f32 inside ``kernel_domain_error``'s domain and
-    raises on anything else."""
-    if normalize not in MODES:
-        raise ValueError(f"Unsupported normalize mode {normalize}")
-    if normalize == "z_trainable" and (z_mean is None or z_std is None):
-        raise ValueError("z_trainable requires z_mean and z_std")
+@_pq_assign_op.register_kernel("cuda")
+def _pq_assign_cuda(z: torch.Tensor, c_norm: torch.Tensor, c_raw: torch.Tensor,
+                    z_mean: Optional[torch.Tensor], z_std: Optional[torch.Tensor],
+                    normalize: str, exact: bool
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     n, M, d = z.shape
     K = c_norm.shape[1]
-    if c_norm.shape != (M, K, d) or c_raw.shape != (M, K, d):
-        raise ValueError(f"codebooks must be ({M}, K, {d}), got "
-                         f"{tuple(c_norm.shape)} and {tuple(c_raw.shape)}")
-    if z.device.type == "cpu":
-        return pq_assign_reference(z, c_norm, c_raw, normalize=normalize,
-                                   z_mean=z_mean, z_std=z_std, exact=exact)
     check_cuda_tensor(z, "z", torch.float32)
     for name, t in (("c_norm", c_norm), ("c_raw", c_raw)):
         check_cuda_tensor(t, name, torch.float32, z.device)
@@ -176,6 +171,42 @@ def pq_assign(
         raise RuntimeError(f"pq_assign launch failed: CUDA error {err}")
     pq_assign.launches += 1
     return idx, zn, zq
+
+
+@_pq_assign_op.register_fake
+def _pq_assign_fake(z, c_norm, c_raw, z_mean, z_std, normalize, exact):
+    n, M, d = z.shape
+    return (z.new_empty((n, M), dtype=torch.int32), z.new_empty((n, M, d), dtype=torch.float32),
+            z.new_empty((n, M, d), dtype=torch.float32))
+
+
+def pq_assign(
+    z: torch.Tensor, c_norm: torch.Tensor, c_raw: torch.Tensor, *,
+    normalize: str = "none", z_mean: Optional[torch.Tensor] = None,
+    z_std: Optional[torch.Tensor] = None, exact: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused normalise + assign + gather; the op ``equss::pq_assign``.
+
+    z (n, M, d) raw or pre-normalised; c_norm (M, K, d) the normalised
+    codebook the distances use; c_raw (M, K, d) the codebook gathered
+    from; z_mean/z_std (M, d) for ``z_trainable``.  Returns ``(idx (n, M)
+    int32, z_norm (n, M, d) f32, z_q (n, M, d) f32)``.
+
+    CPU tensors: the plain version.  CUDA tensors: the kernel, which
+    takes contiguous f32 inside ``kernel_domain_error``'s domain and
+    raises on anything else."""
+    if normalize not in MODES:
+        raise ValueError(f"Unsupported normalize mode {normalize}")
+    if normalize == "z_trainable" and (z_mean is None or z_std is None):
+        raise ValueError("z_trainable requires z_mean and z_std")
+    n, M, d = z.shape
+    K = c_norm.shape[1]
+    if c_norm.shape != (M, K, d) or c_raw.shape != (M, K, d):
+        raise ValueError(f"codebooks must be ({M}, K, {d}), got "
+                         f"{tuple(c_norm.shape)} and {tuple(c_raw.shape)}")
+    if normalize != "z_trainable":
+        z_mean = z_std = None
+    return _pq_assign_op(z, c_norm, c_raw, z_mean, z_std, normalize, exact)
 
 
 pq_assign.launches = 0

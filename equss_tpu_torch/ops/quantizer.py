@@ -218,6 +218,11 @@ def _kernel_eligible(cfg: PQConfig, n: int, device: torch.device,
     if cfg.use_pallas == "auto":
         if device.type == "cuda":
             want = True
+        elif not isinstance(n, int):
+            # a symbolic n (torch.export with a symbolic batch) cannot be
+            # size-gated: the plain route, as in the JAX package's symbolic
+            # trace
+            want = False
         else:
             elt = 2 if cfg.assign_precision == "bf16" else 4
             per_chip = n * cfg.num_pq * cfg.num_codebook * elt \

@@ -15,8 +15,17 @@
   train`` run from the step-2 checkpoint logs exactly what the
   uninterrupted run logged after step 2 and returns the same final
   weights.
-* Without ``device`` the job takes CUDA and raises without it; the jobs
-  and data that are not ported raise ``NotImplementedError``.
+* The own-data path through ``cli.main`` on the CPU, vit_micro on a
+  miniature COCO-Stuff corpus: ``crop`` (five-crops) -> ``knn`` (the
+  neighbour cache the train split's positives come from) -> ``pack``
+  (both splits) -> ``train`` on the files (from the pack) -> ``export``
+  of the run's checkpoint -> ``load_predictor``, whose predictions equal
+  the live predictor's on that checkpoint.  The train job's first
+  batches (train with positives, val) equal the JAX package's
+  ``_make_batch_fns`` on the same corpus and seed.
+* Without ``device`` the jobs that run a model take CUDA and raise
+  without it; multi-process runs, ``train.profile_dir`` and
+  ``build_sharded_predict_fn`` raise ``NotImplementedError``.
 """
 import builtins
 import glob
@@ -24,6 +33,7 @@ import json
 import os
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -139,12 +149,82 @@ def test_cli_train_checkpoint_final_crf_and_resume(tmp_path):
 
 
 def test_cli_defaults_to_cuda_and_raises_on_what_is_not_ported(tmp_path, monkeypatch):
+    from equss_tpu_torch import serve
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     base = ["--config", "configs/smoke_synthetic.yaml", "--debug", f"save_dir={tmp_path}"]
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli.main(base)
-    for job in ("crop", "pack", "knn", "export"):
-        with pytest.raises(NotImplementedError, match=job):
-            cli.main([job, *base])
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        cli.main([*base, "device=cpu", "dataset.synthetic=false"])
+    for job in ("train", "knn", "export"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main([job, *base, f"export.path={tmp_path / 'm.pt2'}"])
+    with pytest.raises(NotImplementedError, match="multi-process"):
+        cli.main([*base, "device=cpu", "dist.num_processes=2"])
+    with pytest.raises(NotImplementedError, match="profile_dir"):
+        cli.main([*base, "device=cpu", f"train.profile_dir={tmp_path / 'prof'}"])
+    with pytest.raises(NotImplementedError, match="build_sharded_predict_fn"):
+        serve.build_sharded_predict_fn(None)
+
+
+def _corpus_args(root, tmp_path):
+    """vit_micro on the COCO-Stuff corpus at ``root``: the train split the
+    five-crop corpus at 16^2 with 3 neighbours, val the val images."""
+    return ["--config", "configs/smoke_synthetic.yaml", "--debug", "device=cpu",
+            "dataset.synthetic=false", f"data_dir={root}", f"save_dir={tmp_path / 'runs'}",
+            "dataset.train={model_type: vit_micro, crop_type: five, crop_ratio: 0.5, res: 16, "
+            "num_neighbors: 3}",
+            "dataset.train.data_dir=${data_dir}", "dataset.train.dataset_name=${dataset_name}",
+            "dataset.val={model_type: vit_micro, crop_type: null, res: 16}",
+            "dataset.val.data_dir=${data_dir}", "dataset.val.dataset_name=${dataset_name}",
+            "dataloader.train={batch_size: 4, num_workers: 0}",
+            "dataloader.val={batch_size: 2, num_workers: 0}",
+            "train.print_interval_iters=1", "train.valid_interval_iters=4"]
+
+
+def test_cli_own_data_path_end_to_end(tmp_path):
+    from equss_tpu import cli as jcli
+    from equss_tpu_torch import serve
+    from equss_tpu_torch.core.checkpoint import CheckpointManager
+    from equss_tpu_torch.train.trainer import Trainer
+    from test_torch_data import assert_items_equal, write_coco
+
+    root = write_coco(tmp_path / "coco", n_train=6, n_val=4)
+    args = _corpus_args(root, tmp_path)
+    crops = cli.main(["crop", *args])
+    assert len(os.listdir(os.path.join(crops, "img", "train"))) == 30
+    nns_path = cli.main(["knn", *args])
+    assert os.path.basename(nns_path) == "nns_vit_micro_cocostuff27_train_five_224.npz"
+    nns = np.load(nns_path)["nns"]
+    assert nns.shape == (30, 30)
+    np.testing.assert_array_equal(nns[:, 0], np.arange(30))
+    packs = cli.main(["pack", *args])
+    assert [os.path.basename(p) for p in packs] == [
+        "pack_cocostuff27_train_five_0.5_16.bin", "pack_cocostuff27_val_None_16.bin"]
+
+    cfg, _ = config.prepare_config(args)
+    train_b, val_b, res = cli._make_batch_fns(cfg)
+    assert cfg["_iter_per_epoch"] == 7 and res == 16
+    jcfg, _ = jconfig.prepare_config(args)
+    jtrain_b, jval_b, _ = jcli._make_batch_fns(jcfg)
+    assert_items_equal(next(iter(train_b(0))), next(iter(jtrain_b(0))))
+    assert_items_equal(next(iter(val_b())), next(iter(jval_b())))
+    assert "img_pos" in next(iter(train_b(0)))
+
+    result = cli.main(args)
+    (run_dir,) = glob.glob(str(tmp_path / "runs" / "*"))
+    records = _records(run_dir)
+    assert [r["step"] for r in records if "loss" in r] == list(range(1, 8))
+    assert any("final_Cluster_mIoU" in r for r in records)
+    ckpt = os.path.join(run_dir, "ckpt")
+    assert result["best"]["iter"] in (4, 7)
+
+    out = cli.main(["export", *args, f"resume.checkpoint={ckpt}",
+                    f"export.path={tmp_path / 'model.pt2'}", "export.batch_size=2",
+                    "export.platforms=cpu"])
+    predict = serve.load_predictor(out)
+    tr = Trainer(cfg, device="cpu")
+    tr.load_train_state(CheckpointManager(ckpt).restore(), resume_training=False)
+    live = serve.build_predict_fn(tr)
+    img = next(iter(val_b()))["img"]
+    got, want = predict(img), live(torch.from_numpy(img))
+    assert set(got) == {"cluster_preds", "linear_preds"}
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

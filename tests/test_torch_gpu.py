@@ -263,3 +263,100 @@ def test_confusion_update_on_cuda_equals_cpu(cuda):
         got = confusion_update(preds.to(cuda), label.to(cuda), 27, extra)
         assert got.device.type == "cuda"
         assert torch.equal(got.cpu(), want)
+
+
+def _op_cases(device):
+    """(name, op, args, plain version) of each custom op on card operands
+    the kernels take."""
+    from equss_tpu_torch.ops.pq_assign import pq_assign_reference
+
+    g = torch.Generator(device=device).manual_seed(11)
+    qkv = _attention_input(2, 785, 6, 64, g, "randn", 785).reshape(2, 785, 3 * 384)
+    q, k, v = (t.contiguous() for t in _attention_input(2, 130, 2, 64, g, "randn",
+                                                         130).unbind(2))
+    x = torch.randn((1000, 384), generator=g, device=device).to(torch.bfloat16)
+    y = torch.randn((1000, 384), generator=g, device=device).to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn(384, generator=g, device=device)
+    bias = 0.1 * torch.randn(384, generator=g, device=device)
+    z = torch.randn((1000, 8, 16), generator=g, device=device)
+    cb = torch.randn((8, 256, 16), generator=g, device=device)
+    cn = normalize_vectors(cb, "l2").contiguous()
+    ops = torch.ops.equss
+    return [
+        ("attention_qkv", ops.attention_qkv.default, (qkv, 6, 0.125, 785),
+         lambda: attention_qkv_reference(qkv, 6, 0.125, 785)),
+        ("attention", ops.attention.default, (q, k, v, 0.125),
+         lambda: fused_attention_reference(q, k, v, scale=0.125)),
+        ("layernorm", ops.layernorm.default, (x, scale, bias, 1e-6),
+         lambda: layernorm_reference(x, scale, bias)),
+        ("add_layernorm", ops.add_layernorm.default, (x, y, scale, bias, 1e-6),
+         lambda: add_layernorm_reference(x, y, scale, bias)),
+        ("pq_assign", ops.pq_assign.default, (z, cn, cb, None, None, "l2", True),
+         lambda: pq_assign_reference(z, cn, cb, normalize="l2", exact=True)),
+    ]
+
+
+def test_custom_ops_on_cuda_launch_the_kernels(cuda):
+    """Each ``equss::`` op on CUDA tensors runs its kernel (one launch
+    counted per call), agrees with its plain version at the kernel phases'
+    bars, and passes ``torch.library.opcheck`` (its fake implementation
+    against the kernel's outputs)."""
+    from equss_tpu_torch.ops import KERNEL_WRAPPERS
+
+    for name, op, args, plain in _op_cases(cuda):
+        before = KERNEL_WRAPPERS[name].launches
+        out, ref = op(*args), plain()
+        assert KERNEL_WRAPPERS[name].launches == before + 1, name
+        if name in ("attention_qkv", "attention"):
+            _check_1ulp(out, ref, 2)
+        elif name == "pq_assign":
+            assert (out[0] == ref[0]).float().mean().item() >= 0.9999
+        else:
+            o = out if name == "layernorm" else out[1]
+            r = ref if name == "layernorm" else ref[1]
+            if name == "add_layernorm":
+                assert torch.equal(out[0], ref[0])
+            diff = (o.float() - r.float()).abs()
+            mag = torch.maximum(r.float().abs(), args[-2].abs().expand_as(diff))
+            ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+            assert (diff <= ulp).all() and (diff > 0).float().mean().item() <= 1e-3, name
+        torch.library.opcheck(op, args)
+
+
+def test_export_round_trip_on_cuda(cuda, tmp_path):
+    """ViT-S/8 (2 blocks kept) in bf16 at 184^2 (530 tokens, over the
+    attention kernel's 512) with ``use_pallas``, exported on the card:
+    the artifact calls ``equss::attention_qkv`` and ``equss::pq_assign``,
+    launches 2 + 1 kernels per request and predicts as the live model."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts, serve
+    from equss_tpu_torch.models.equss import EQUSS, EQUSSConfig
+    from equss_tpu_torch.train.trainer import Trainer
+
+    cfg = {"seed": 0, "num_classes": 5,
+           "model": {"name": "pqgo",
+                     "pretrained": {"model_type": "vit_small", "dino_patch_size": 8,
+                                    "dropout": False, "precision": "bf16"},
+                     "vq": {"vq_type": "param", "num_codebooks": [128], "embed_dims": [64],
+                            "normalize": "l2", "num_pq": [4], "need_initialized": "uni",
+                            "assign_precision": "bf16", "use_pallas": True}},
+           "loss": {"stego_weight": 1.0, "vq_weight": 1.0, "stego": {}},
+           "optimizer": {k: {"name": "adam", "lr": 1e-3} for k in ("model", "cluster", "linear")},
+           "eval": {"output_type": "vq0"}, "train": {}}
+    model = EQUSS(EQUSSConfig.from_config(cfg), device=cuda, seed=0)
+    del model.backbone.blocks[2:]
+    tr = Trainer(cfg, device=cuda, model=model)
+    exported = serve.export_predictor(tr, (184, 184), batch_size=2)
+    targets = [str(n.target) for n in exported.graph.nodes if n.op == "call_function"]
+    assert targets.count("equss.attention_qkv.default") == 2
+    assert targets.count("equss.pq_assign.default") == 1
+    predict = serve.load_predictor(serve.save_predictor(exported, str(tmp_path / "m.pt2")))
+    live = serve.build_predict_fn(tr)
+    for b in (1, 3):
+        img = torch.rand((b, 184, 184, 3), generator=torch.Generator().manual_seed(b))
+        reset_launch_counts()
+        out = predict(img)
+        counts = launch_counts()
+        assert counts["attention_qkv"] == 2 and counts["pq_assign"] == 1, counts
+        ref = live(img.to(cuda))
+        for k in ref:
+            assert out[k].device.type == "cuda" and torch.equal(out[k], ref[k]), k
