@@ -19,10 +19,14 @@ Phases, each printing JSON lines on stdout:
             the PQ library's;
 3. kernels  each kernel against its plain PyTorch version on the card at
             the main paths' shapes and a few more (for attention also a
-            late row max and a NaN neighbour), with its time, the plain
-            version's, one PyTorch library call's (a yardstick the port
-            never calls) and the bound the card's peak rates set (for
-            attention also the exponential unit's);
+            late row max, a NaN neighbour and ViT-B/8's train and valid
+            shapes), with its time, the plain version's, one PyTorch
+            library call's (a yardstick the port never calls) and the
+            bound the card's peak rates set (for attention also the
+            exponential unit's); ``pq_wide``: the PQ kernel's wide body
+            at the VQ baseline's calls (M = 1, K = 256, d = 1024 at
+            n = 12 800 and 100 352) and at every other config's quantizer
+            outside the pqgo family, both modes;
 4. main     serving: the ViT-S/8 224^2 bf16 -> head -> PQ 64x256 forward
             on raw uint8 requests at b = 1, 8 and 128 with seeded weights:
             launch counts (12 attention and 1 PQ per forward), ms per
@@ -98,6 +102,23 @@ Phases, each printing JSON lines on stdout:
             of pixels equal; b = 1 and 8 for the symbolic one), 12 + 1
             launches per request, the artifact in a process that imports
             nothing of the model, ms per b = 8 request artifact vs live.
+
+17. vq      ``configs/vq_cocostuff27.yaml`` (the EMA VQ baseline) at full
+            width: train steps at b = 16 (EMA state moved; ``jsd``,
+            ``entropy``, ``vq-loss`` finite; 12 attention launches), a
+            valid step at b = 8, 320^2 (12 attention + 1 wide PQ), the
+            predictor at b = 128 (12 + 1), profiles, and a b = 2 train step
+            card vs CPU;
+18. stego   ``stego_cocostuff27`` (ViT-S/8) and ``stego_pascal`` (ViT-B/8 at
+            b = 64, valid at b = 32) train and valid steps with 12
+            attention launches each, and a b = 2 STEGO step card vs CPU;
+19. baselines  ``cluster_baseline`` (probes on frozen features) and
+            ``sl_cocostuff27`` (supervised) train steps and ``validate``;
+20. cli     ``cli.run`` on ``stego_cocostuff27`` and ``vq_cocostuff27`` with
+            synthetic data, launches counted, and the STEGO run's predictor
+            exported, loaded and held against the live one.
+The configurations of 17-20 are ``preset(name)``: the preset with the
+changes of ``PRESET_CHANGES``, which the tests hold against ``configs/``.
 
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failed check exits non-zero without the ok line; without
@@ -181,12 +202,58 @@ PQGO_COCOSTUFF27 = {
               "clip_grad": 10.0, "num_accum": 1},
 }
 
+_STEGO = {"model.name": "stego", "model.pretrained.dim": 70, "eval.output_type": "feat",
+          "model.vq": None, "loss.vq_weight": None}
+# the baselines' configs as changes to the preset (dotted key: value; None
+# drops the key); tests/test_torch_baselines.py holds each against its
+# YAML file
+PRESET_CHANGES = {
+    "vq_cocostuff27": {"model.vq.vq_type": "ema", "model.vq.normalize": "none",
+                       "model.vq.need_initialized": "none", "model.vq.num_pq": [1],
+                       "optimizer.model.name": "adamw", "optimizer.model.weight_decay": 1e-6},
+    "stego_cocostuff27": _STEGO,
+    "stego_potsdam": {**_STEGO, "num_classes": 3, "dataset_name": "potsdam",
+                      "data_dir": "../Datasets/potsdam", "loss.stego.neg_inter_shift": 0.26,
+                      "loss.stego.pos_inter_shift": 0.12, "loss.stego.pos_intra_shift": 0.21},
+    "stego_pascal": {**_STEGO, "num_classes": 20, "dataset_name": "pascal",
+                     "data_dir": "../Datasets/pascal", "model.pretrained.model_type": "vit_base",
+                     "loss.stego.neg_inter_weight": 1.0, "loss.stego.pos_inter_weight": 1.0,
+                     "loss.stego.pos_intra_weight": 1.0, "loss.stego.neg_inter_shift": 0.5,
+                     "loss.stego.pos_inter_shift": 0.1, "loss.stego.pos_intra_shift": 0.13,
+                     "dataset.train.crop_type": "none", "dataset.train.loader_crop_type": "none",
+                     "dataset.val.crop_type": "none", "dataset.val.loader_crop_type": "none",
+                     "dataloader.train.batch_size": 64, "dataloader.val.batch_size": 32,
+                     "train.max_epochs": 100, "train.print_interval_iters": 10,
+                     "train.valid_interval_iters": 20},
+    "cluster_baseline": {"model.name": "probe", "model.vq": None, "loss": {},
+                         "optimizer.model.name": "adamw", "eval.output_type": "feat",
+                         "eval.final_crf": False, "train.max_epochs": 1},
+    "sl_cocostuff27": {"model.name": "sl", "model.pretrained.dim": 70,
+                       "model.vq.assign_precision": None, "loss": {},
+                       "eval.output_type": "feat", "train.supervised": True},
+}
+
+
+def preset(name: str) -> dict:
+    """``configs/<name>.yaml`` as a dict: the preset with the changes of
+    ``PRESET_CHANGES``."""
+    cfg = with_overrides(PQGO_COCOSTUFF27, {"wandb.name": name, **PRESET_CHANGES[name]})
+    for dotted, value in PRESET_CHANGES[name].items():
+        if value is None:
+            *path, last = dotted.split(".")
+            node = cfg
+            for key in path:
+                node = node[key]
+            del node[last]
+    return cfg
+
+
 # the kernels each driven path must launch, per forward or per step
 SERVE_KERNELS = {"attention_qkv": 12, "pq_assign": 1}
 FUSED_LN_KERNELS = {"attention_qkv": 12, "layernorm": 1, "add_layernorm": 24, "pq_assign": 1}
 STOCK_TRAIN_KERNELS = {"attention_qkv": 12}
 # the port's kernels as the profiler names them
-KERNEL_PICK = ("attention_kernel", "layernorm_kernel", "pq_fast", "pq_exact")
+KERNEL_PICK = ("attention_kernel", "layernorm_kernel", "pq_fast", "pq_exact", "pq_wide")
 
 
 def train_config(kind: str) -> dict:
@@ -434,6 +501,8 @@ def phase_attention(results: dict) -> None:
         ("vit_s_224_train", 32, 785, 6, 785, "randn"),   # the train step's [img; img_pos]
         ("vit_s_224_padded", 128, 896, 6, 785, "randn"),
         ("vit_b_224", 32, 785, 12, 785, "randn"),
+        ("vit_b_224_train", 128, 785, 12, 785, "randn"),  # stego_pascal's step, b = 64
+        ("vit_b_320_valid", 32, 1601, 12, 1601, "randn"),  # its valid step, b = 32
         ("vit_s_320", 32, 1601, 6, 1601, "randn"),
         ("vit_s_320_valid", 8, 1601, 6, 1601, "randn"),  # the valid step's shape
         ("late_max", 32, 785, 6, 785, "late_max"),
@@ -461,19 +530,58 @@ def phase_attention(results: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def phase_pq(results: dict) -> None:
-    """The PQ kernel against its plain version at the serving, train and
-    valid calls, exact mode, the other normalisations, K = 512 (the fast
-    mode's (value, index) minimum over many codeword tiles) and a ragged
-    n (a last row tile of 5 rows).  Bars: >= 99.99% of indices equal in exact
-    mode, >= 99.5% in fast mode, indices in range, z_q the codeword at the
-    kernel's own index bit for bit.  Library yardstick: normalise +
-    ``torch.cdist`` + ``argmin`` + gather."""
-    from equss_tpu_torch.ops.pq_assign import pq_assign, pq_assign_reference
+def pq_row(name: str, n: int, M: int, K: int, d: int, mode: str, exact: bool, g) -> dict:
+    """One PQ kernel case against its plain version: bars >= 99.99% of
+    indices equal in exact mode, >= 99.5% in fast mode, indices in range,
+    z_q the codeword at the kernel's own index bit for bit; the kernel's,
+    the plain version's and the library yardstick's times (normalise +
+    ``torch.cdist`` + ``argmin`` + gather) and the bound."""
+    from equss_tpu_torch.ops.pq_assign import kernel_body, pq_assign, pq_assign_reference
     from equss_tpu_torch.tools.pq_ab import case_inputs, library_call
 
+    z, cn, cb, zm, zs = case_inputs(n, M, K, d, mode, g)
+    kw = dict(normalize=mode, z_mean=zm, z_std=zs, exact=exact)
+    idx, zn, zq = pq_assign(z, cn, cb, **kw)
+    idx_r, zn_r, zq_r = pq_assign_reference(z, cn, cb, **kw)
+    torch.cuda.synchronize()
+    same = idx == idx_r
+    agree = same.float().mean().item()
+    zn_err = (zn - zn_r).abs().max().item()
+    zq_err_same = (zq - zq_r).abs()[same].max().item()
+    src = cb if exact else cb.to(torch.bfloat16).float()
+    zq_own = torch.equal(zq, src[torch.arange(M, device="cuda"), idx.long()])
+    need = 0.9999 if exact else 0.995
+    check(agree >= need, f"pq {name}: index agreement {agree} < {need}")
+    check(zq_err_same == 0.0 and zq_own,
+          f"pq {name}: z_q not the codeword at its index (err {zq_err_same})")
+    check(bool(((idx >= 0) & (idx < K)).all()), f"pq {name}: index out of range")
+    del idx, zn, zq, idx_r, zn_r, zq_r
+    ms = cuda_ms(lambda: pq_assign(z, cn, cb, **kw), iters=10)
+    plain = cuda_ms(lambda: pq_assign_reference(z, cn, cb, **kw), iters=3)
+    lib = cuda_ms(lambda: library_call(z, cn, cb, mode, zm, zs), iters=3)
+    nbytes = 4.0 * (n * M * d + 2 * M * K * d + n * M + 2 * n * M * d
+                    + (2 * M * d if zm is not None else 0))
+    bnd, by = bound_ms(2.0 * n * M * K * d, PEAK_F32_FLOPS if exact else PEAK_BF16_FLOPS,
+                       nbytes)
+    row = {"phase": "kernel", "kernel": "pq_assign", "case": name,
+           "body": kernel_body(d, K, exact), "n": n, "M": M, "K": K, "d": d,
+           "normalize": mode, "exact": exact, "index_agreement": agree, "required": need,
+           "max_abs_err": zn_err, "zq_err_where_equal": zq_err_same,
+           "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd, "bound_by": by,
+           "f32_ops_bound_ms": 1e3 * 2.0 * n * M * K * d / PEAK_F32_FLOPS}
+    emit(row)
+    del z, cb, cn
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_pq(results: dict) -> None:
+    """The PQ kernel's narrow bodies (M = 64, d = 16) against their plain
+    version at the serving, train and valid calls, exact mode, the other
+    normalisations, K = 512 (the fast mode's (value, index) minimum over
+    many codeword tiles) and a ragged n (a last row tile of 5 rows); the
+    bars and yardstick of ``pq_row``."""
     g = torch.Generator(device="cuda").manual_seed(1)
-    M, d = 64, 16
     n_bench = 128 * 28 * 28
     cases = [  # name, n, K, normalize, exact
         ("bench_fast_l2", n_bench, 256, "l2", False),   # the serving path's call
@@ -486,40 +594,34 @@ def phase_pq(results: dict) -> None:
         ("train_fast_l2_ragged", 16 * 28 * 28 + 37, 256, "l2", False),
     ]
     for name, n, K, mode, exact in cases:
-        z, cn, cb, zm, zs = case_inputs(n, M, K, d, mode, g)
-        kw = dict(normalize=mode, z_mean=zm, z_std=zs, exact=exact)
-        idx, zn, zq = pq_assign(z, cn, cb, **kw)
-        idx_r, zn_r, zq_r = pq_assign_reference(z, cn, cb, **kw)
-        torch.cuda.synchronize()
-        same = idx == idx_r
-        agree = same.float().mean().item()
-        zn_err = (zn - zn_r).abs().max().item()
-        zq_err_same = (zq - zq_r).abs()[same].max().item()
-        src = cb if exact else cb.to(torch.bfloat16).float()
-        zq_own = torch.equal(zq, src[torch.arange(M, device="cuda"), idx.long()])
-        need = 0.9999 if exact else 0.995
-        check(agree >= need, f"pq {name}: index agreement {agree} < {need}")
-        check(zq_err_same == 0.0 and zq_own,
-              f"pq {name}: z_q not the codeword at its index (err {zq_err_same})")
-        check(bool(((idx >= 0) & (idx < K)).all()), f"pq {name}: index out of range")
-        ms = cuda_ms(lambda: pq_assign(z, cn, cb, **kw), iters=10)
-        plain = cuda_ms(lambda: pq_assign_reference(z, cn, cb, **kw), iters=3)
+        results.setdefault("pq_assign", pq_row(name, n, 64, K, 16, mode, exact, g))
 
-        lib = cuda_ms(lambda: library_call(z, cn, cb, mode, zm, zs), iters=3)
-        nbytes = 4.0 * (n * M * d + 2 * M * K * d + n * M + 2 * n * M * d
-                        + (2 * M * d if zm is not None else 0))
-        bnd, by = bound_ms(2.0 * n * M * K * d,
-                           PEAK_F32_FLOPS if exact else PEAK_BF16_FLOPS, nbytes)
-        row = {"phase": "kernel", "kernel": "pq_assign", "case": name,
-               "n": n, "M": M, "K": K, "d": d, "normalize": mode, "exact": exact,
-               "index_agreement": agree, "required": need,
-               "max_abs_err": zn_err, "zq_err_where_equal": zq_err_same,
-               "ms": ms, "plain_ms": plain, "library_ms": lib,
-               "bound_ms": bnd, "bound_by": by}
-        emit(row)
-        results.setdefault("pq_assign", row)
-        del z, cb, cn, idx, zn, zq, idx_r, zn_r, zq_r
-        torch.cuda.empty_cache()
+
+# the quantizers of the configs outside the pqgo family (M, K, d, normalize)
+WIDE_PQ = [("vq", 1, 256, 1024, "none"), ("new_vq_spq", 8, 2048, 64, "none"),
+           ("contra_4", 4, 1024, 128, "l2"), ("contra_16", 16, 1024, 32, "l2"),
+           ("unseg", 1, 2048, 384, "none"), ("vae", 1, 1024, 256, "none")]
+
+
+def phase_pq_wide(results: dict) -> None:
+    """The PQ kernel's wide body against its plain version: the VQ
+    baseline's call in its valid step (n = 12 800, b = 8 at 320^2) and its
+    b = 128 serving forward (n = 100 352), then each quantizer of the
+    configs outside the pqgo family at the valid step's n, every one in
+    both modes (``contra_16`` in fast mode is the narrow body's); the bars
+    and yardstick of ``pq_row``."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for name, M, K, d, mode in WIDE_PQ:
+        ns = (8 * 40 * 40, 128 * 28 * 28) if name == "vq" else (8 * 40 * 40,)
+        for n in ns:
+            for exact in (False, True):
+                tag = f"{name}_n{n}_{'exact' if exact else 'fast'}"
+                rows.append(pq_row(tag, n, M, K, d, mode, exact, g))
+    # the kernels line's wide row: the VQ valid step's call
+    results["pq_assign_wide"] = rows[0]
+    check(all(r["body"] == "wide" for r in rows if r["case"] != "contra_16_n12800_fast"),
+          "pq_wide: a case left the wide body")
 
 
 def phase_layernorm(results: dict) -> None:
@@ -885,42 +987,104 @@ def phase_train(results: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def phase_train_reference() -> None:
-    """One ``kernel`` train step at b = 2, dropout off, the same STEGO
-    samples, on the card and on the CPU (plain kernel versions) from the
-    same seeded weights; TF32 is off on the card (phase 1).  Bars: each
-    loss term within 5e-2 relative, the cosine similarity of the head's
-    and the codebook's gradients >= 0.98, indices >= 95% equal (the
-    end-to-end class of the serving reference)."""
-    from equss_tpu_torch.data.synthetic import synthetic_batches
+def stego_samples(batch: dict, seed: int, feature_samples: int = 11) -> dict:
+    """``batch`` with STEGO's coordinates and permutations fixed from
+    ``seed`` (the batch keys ``stego_coords1/2``, ``stego_perms``), so that
+    two runs of a step draw the same samples."""
+    rng = np.random.RandomState(seed)
+    b = len(batch["img"])
+    shape = (b, feature_samples, feature_samples, 2)
+    return dict(batch, stego_coords1=rng.uniform(-1, 1, shape).astype(np.float32),
+                stego_coords2=rng.uniform(-1, 1, shape).astype(np.float32),
+                stego_perms=np.stack([rng.permutation(b) for _ in range(5)]).astype(np.int32))
 
-    batch = next(synthetic_batches(7, 1, 2, res=224, num_classes=27))
-    rng = np.random.RandomState(7)
-    batch["stego_coords1"] = rng.uniform(-1, 1, (2, 11, 11, 2)).astype(np.float32)
-    batch["stego_coords2"] = rng.uniform(-1, 1, (2, 11, 11, 2)).astype(np.float32)
-    batch["stego_perms"] = np.stack([rng.permutation(2) for _ in range(5)]).astype(np.int32)
+
+def tied_minimum_share(tr, code: torch.Tensor) -> float:
+    """The share of (pixel, subspace) pairs whose smallest distance, in
+    the quantizer's own arithmetic on the CPU, is shared by more than one
+    codeword: there the first index wins, whatever the inputs' last bits."""
+    from equss_tpu_torch.ops.pq_assign import normalize_vectors
+    from equss_tpu_torch.ops.quantizer import pairwise_sqdist
+
+    cfg = tr.model.cfg.pq
+    codebook = (tr.model.pq["codebook"] if cfg.vq_type == "param"
+                else tr.model.pq_state.ema_weight).detach()
+    zf = code.reshape(-1, cfg.num_pq, cfg.sub_dim)
+    with torch.no_grad():
+        d = pairwise_sqdist(normalize_vectors(zf, cfg.normalize),
+                            normalize_vectors(codebook, cfg.normalize),
+                            precision=cfg.assign_precision).float()
+        return ((d == d.amin(-1, keepdim=True)).sum(-1) > 1).float().mean().item()
+
+
+def reference_step(make_trainer, batch: dict, grads: dict, what: str,
+                   e2e_bar: bool = True) -> dict:
+    """One training forward and backward of ``make_trainer(device)`` on the
+    card and on the CPU (plain kernel versions) from the same seeded
+    weights and batch; TF32 is off on the card (phase 1).  Bars: each loss
+    term within 5e-2 relative, the cosine similarity of each gradient of
+    ``grads`` (name: parameter-name prefix) >= 0.98, and where the model
+    quantizes, the CPU's quantizer on the card's own code >= 99.5% of
+    indices equal (the fast mode's class) and, with ``e2e_bar``, the
+    end-to-end indices >= 95% equal (the serving reference's class);
+    without it the end-to-end agreement is printed beside the share of
+    tied minima (``tied_minimum_share``) that explains it.  Returns the
+    row."""
+    from equss_tpu_torch.ops.quantizer import pq_forward
+
     runs = {}
     for device in ("cuda", "cpu"):
-        _, tr = train_model("kernel", device=device, dropout=False)
+        tr = make_trainer(device)
         metrics, out = tr.forward_backward(batch)
-        head = torch.cat([p.grad.flatten() for n, p in tr.model_params if n.startswith("head.")])
-        runs[device] = ({k: v.detach().item() for k, v in metrics.items()}, head.cpu(),
-                        tr.model.pq["codebook"].grad.flatten().cpu(), out["indices"].cpu())
-    (m_g, head_g, cb_g, idx_g), (m_c, head_c, cb_c, idx_c) = runs["cuda"], runs["cpu"]
-    terms = ("loss", "stego-loss", "vq-loss", "linear-loss", "cluster-loss")
+        flat = {name: torch.cat([p.grad.flatten() for n, p in tr.model_params
+                                 if n.startswith(prefix)]).cpu()
+                for name, prefix in grads.items()}
+        runs[device] = ({k: v.detach().item() for k, v in metrics.items()}, flat,
+                        out.get("indices"), out["code"].detach().cpu(), tr)
+    (m_g, g_g, idx_g, code_g, _), (m_c, g_c, idx_c, code_c, tr_c) = runs["cuda"], runs["cpu"]
+    terms = [k for k in ("loss", "stego-loss", "vq-loss", "linear-loss", "cluster-loss")
+             if k in m_c]
     rel = {k: abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in terms}
-    cos = {name: torch.nn.functional.cosine_similarity(a, b, dim=0).item()
-           for name, a, b in (("head", head_g, head_c), ("codebook", cb_g, cb_c))}
-    agree = (idx_g == idx_c).float().mean().item()
-    check(all(v <= 5e-2 for v in rel.values()), f"train reference: loss rel errors {rel}")
-    check(all(v >= 0.98 for v in cos.values()), f"train reference: gradient cosines {cos}")
-    check(agree >= 0.95, f"train reference: index agreement {agree}")
-    emit({"phase": "train_reference_cpu", "config": "kernel", "batch": 2, "tf32": False,
-          "loss_rel_err": rel, "grad_cosine": cos, "index_agreement": agree,
-          "card": {k: m_g[k] for k in terms}, "cpu": {k: m_c[k] for k in terms}})
+    cos = {k: torch.nn.functional.cosine_similarity(g_g[k], g_c[k], dim=0).item() for k in grads}
+    check(all(v <= 5e-2 for v in rel.values()), f"{what}: loss rel errors {rel}")
+    check(all(v >= 0.98 for v in cos.values()), f"{what}: gradient cosines {cos}")
+    row = {"batch": len(batch["img"]), "tf32": False, "loss_rel_err": rel, "grad_cosine": cos,
+           "card": {k: m_g[k] for k in terms}, "cpu": {k: m_c[k] for k in terms}}
+    if idx_c is not None:
+        m = tr_c.model
+        with torch.no_grad():
+            _, idx_s, _, _ = pq_forward(code_g, dict(m.pq), m.pq_state.as_dict(), m.cfg.pq,
+                                        training=True)
+        same = (idx_g.cpu() == idx_c).reshape(-1, m.cfg.pq.num_pq)
+        row["quantizer_on_card_code_agreement"] = (idx_s == idx_g.cpu()).float().mean().item()
+        row["index_agreement"] = same.float().mean().item()
+        check(row["quantizer_on_card_code_agreement"] >= 0.995,
+              f"{what}: quantizer on the card's code, agreement "
+              f"{row['quantizer_on_card_code_agreement']}")
+        if e2e_bar:
+            check(row["index_agreement"] >= 0.95,
+                  f"{what}: end-to-end index agreement {row['index_agreement']}")
+        else:
+            row["cpu_tied_minimum_share"] = tied_minimum_share(tr_c, code_c)
+    for k in ("jsd", "entropy"):
+        if k in m_c:
+            row[f"{k}_rel_err"] = abs(m_g[k] - m_c[k]) / abs(m_c[k])
+    return row
 
 
-def valid_batches(n: int, batch: int, seed: int) -> list:
+def phase_train_reference() -> None:
+    """One ``kernel`` train step at b = 2, dropout off, the same STEGO
+    samples, on the card against the CPU (``reference_step``; gradients of
+    the head and the codebook)."""
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+
+    batch = stego_samples(next(synthetic_batches(7, 1, 2, res=224, num_classes=27)), 7)
+    row = reference_step(lambda device: train_model("kernel", device=device, dropout=False)[1],
+                         batch, {"head": "head.", "codebook": "pq.codebook"}, "train reference")
+    emit({"phase": "train_reference_cpu", "config": "kernel", **row})
+
+
+def valid_batches(n: int, batch: int, seed: int, num_classes: int = 27) -> list:
     """``n`` synthetic host batches of ``batch`` 320^2 images without
     positives; 10% of the labels set to -1 (ignored, as unlabelled pixels
     are)."""
@@ -928,7 +1092,8 @@ def valid_batches(n: int, batch: int, seed: int) -> list:
 
     rng = np.random.RandomState(seed)
     out = []
-    for b in synthetic_batches(seed, n, batch, res=320, num_classes=27, with_pos=False):
+    for b in synthetic_batches(seed, n, batch, res=320, num_classes=num_classes,
+                               with_pos=False):
         b["label"][rng.rand(*b["label"].shape) < 0.1] = -1
         out.append(b)
     return out
@@ -1331,6 +1496,332 @@ def phase_cli(results: dict) -> None:
               "max_param_abs_diff_vs_uninterrupted": param_diff})
     finally:
         Trainer.valid_crf_step = plain_step
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ------------------------------------------------ the registry's baselines
+
+def preset_trainer(name: str, device: str = "cuda", dropout: bool = True):
+    """(config, Trainer) of ``preset(name)``, built through the registry,
+    weights from seed 0."""
+    from equss_tpu_torch.train.trainer import Trainer
+
+    cfg = preset(name)
+    cfg["model"]["pretrained"]["dropout"] = dropout
+    return cfg, Trainer(cfg, device=device, seed=0)
+
+
+def timed_train(tr, batches: list, warm: int, per_step: dict, path: str,
+                results: dict) -> tuple:
+    """Train steps on ``batches``: ``warm`` untimed, the rest timed (host
+    clock to the synchronised end, the batch's copy included) with every
+    launch counted from 0 and held to ``per_step`` per step; every metric
+    finite and no step skipped.  Returns (metrics, timing row)."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+
+    times, metrics = [], []
+    for i, batch in enumerate(batches):
+        if i == warm:
+            reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics.append(tr.train_step(batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    timed = len(batches) - warm
+    results["launches"][path] = counts
+    check(counts == expected(per_step, timed), f"{path}: launches {counts}")
+    check(all(np.isfinite(v) for m in metrics for v in m.values())
+          and not any(m["skipped"] for m in metrics), f"{path}: non-finite step")
+    t = sorted(times[warm:])
+    return metrics, {"steps_timed": timed, "ms_per_step_median": 1e3 * t[timed // 2],
+                     "ms_per_step_min": 1e3 * t[0],
+                     "launches_per_step": {k: v / timed for k, v in counts.items()}}
+
+
+def timed_validate(tr, batches: list, warm: int, per_step: dict, path: str,
+                   results: dict) -> tuple:
+    """``Trainer.validate`` over ``batches[warm:]`` after ``warm`` valid
+    steps, launches counted from 0 and held to ``per_step`` per valid step,
+    the metrics finite and in [0, 100]; then each valid step timed alone.
+    Returns (metrics, the last step's result, timing row)."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+
+    for b in batches[:warm]:
+        tr.valid_step(b)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    val = tr.validate(batches[warm:])
+    counts = launch_counts()
+    steps = len(batches) - warm
+    results["launches"][path] = counts
+    check(counts == expected(per_step, steps), f"{path}: launches {counts}")
+    check_valid_metrics(val, path)
+    times = []
+    for b in batches[warm:]:
+        t0 = time.perf_counter()
+        res = tr.valid_step(b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t = sorted(times)
+    return val, res, {"batches": steps, "ms_per_valid_step_median": 1e3 * t[steps // 2],
+                      "ms_per_valid_step_min": 1e3 * t[0],
+                      "launches_per_valid_step": {k: v / steps for k, v in counts.items()}}
+
+
+def phase_vq(results: dict) -> None:
+    """``configs/vq_cocostuff27.yaml`` at full width (ViT-S/8, bf16, head
+    to 1024, an EMA codebook of K = 256 words of d = 1024, fast
+    assignments): 8 train steps at b = 16 (+16 positives) on 224^2 after
+    2 warm-up ones (12 attention launches each: EMA training takes the
+    distance softmax's route, as in JAX), the EMA state moved and ``jsd``,
+    ``entropy`` and ``vq-loss`` finite; ``validate`` over 4 batches of
+    b = 8 at 320^2 (12 attention and 1 PQ launch per valid step, the PQ
+    kernel's wide body at n = 12 800); the predictor at b = 128 on 224^2
+    (12 + 1 launches per request, the wide body at n = 100 352); profiles;
+    and one train step at b = 2 on the card against the CPU
+    (``reference_step``)."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+    from equss_tpu_torch import serve as port_serve
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+
+    _, tr = preset_trainer("vq_cocostuff27")
+    before = {k: v.clone() for k, v in tr.model.pq_state.as_dict().items()}
+    batches = list(synthetic_batches(11, 10, 16, res=224, num_classes=27))
+    metrics, timing = timed_train(tr, batches, 2, STOCK_TRAIN_KERNELS, "vq_train", results)
+    after = tr.model.pq_state.as_dict()
+    moved = {k: (after[k] - v).abs().max().item() for k, v in before.items()}
+    check(all(v > 0 for v in moved.values()), f"vq train: EMA state did not move {moved}")
+    check(all(np.isfinite(m[k]) for m in metrics for k in ("jsd", "entropy", "vq-loss")),
+          "vq train: jsd, entropy or vq-loss not finite")
+    emit({"phase": "vq", "what": "train", "batch": 16, **timing, "ema_state_max_change": moved,
+          **{f"{k}_per_step": [m[k] for m in metrics]
+             for k in ("loss", "stego-loss", "vq-loss", "jsd", "entropy", "codebook-usage")}})
+    cycle = iter(batches * 2)
+    emit({"phase": "profile", "what": "vq_train", "batch": 16, "steps": 2,
+          **device_profile(lambda: tr.train_step(next(cycle)), 2,
+                           pick=KERNEL_PICK + ("index", "softmax"))})
+
+    vb = valid_batches(6, 8, seed=330)
+    val, res, timing = timed_validate(tr, vb, 2, SERVE_KERNELS, "vq_valid", results)
+    check(tuple(res["pq_indices"].shape) == (8, 40, 40, 1), "vq valid: index shape")
+    emit({"phase": "vq", "what": "valid", "batch": 8, "res": 320, **timing, **val})
+    cycle = iter(vb * 2)
+    emit({"phase": "profile", "what": "vq_valid", "batch": 8, "res": 320, "steps": 2,
+          **device_profile(lambda: tr.valid_step(next(cycle)), 2, pick=KERNEL_PICK)})
+
+    predict = port_serve.build_predict_fn(tr)
+    reqs = requests(128, 5, seed=1282)
+    reset_launch_counts()
+    times = []
+    for req in reqs:
+        t0 = time.perf_counter()
+        out = predict(req.to("cuda"))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(all(tuple(v.shape) == (128, 224, 224) and v.dtype == torch.int32
+                  and bool(((v >= 0) & (v < 27)).all()) for v in out.values()),
+              "vq serve: predictions")
+    counts = launch_counts()
+    results["launches"]["vq_serve"] = counts
+    check(counts == expected(SERVE_KERNELS, len(reqs)), f"vq serve: launches {counts}")
+    t = sorted(times[2:])
+    emit({"phase": "vq", "what": "serve", "batch": 128, "requests_timed": len(t),
+          "ms_per_request_median": 1e3 * t[len(t) // 2], "img_per_s": 128 / t[len(t) // 2],
+          "launches_per_request": {k: v / len(reqs) for k, v in counts.items()}})
+    img = reqs[0].to("cuda")
+    emit({"phase": "profile", "what": "vq_serve", "batch": 128, "forwards": 2,
+          **device_profile(lambda: predict(img), 2, pick=KERNEL_PICK)})
+    del tr, predict
+    torch.cuda.empty_cache()
+
+    batch = stego_samples(next(synthetic_batches(8, 1, 2, res=224, num_classes=27)), 8)
+    # at the preset's initial codebook (uniform in +-1/256) the bf16
+    # distances of d = 1024 codes (|z|^2 ~ 1.6e3, one bf16 ulp 8) to the
+    # 256 codewords tie at the minimum in nearly every pixel, and the first
+    # tied index wins: the end-to-end agreement follows the bf16 rounding
+    # of |z|^2, not the port, so it is printed with the tie share and the
+    # quantizer is held on the card's own code
+    row = reference_step(lambda device: preset_trainer("vq_cocostuff27", device, False)[1],
+                         batch, {"head": "head."}, "vq train reference", e2e_bar=False)
+    emit({"phase": "train_reference_cpu", "config": "vq_cocostuff27", **row})
+
+
+def phase_stego(results: dict) -> None:
+    """STEGO at the presets' widths: ``stego_cocostuff27`` (ViT-S/8, head
+    to 70) with 6 train steps at b = 16 (+16) on 224^2 after 2 warm-up and
+    ``validate`` over 4 batches of b = 8 at 320^2; ``stego_pascal`` (ViT-B/8,
+    attention at (128, 785, 2304) in a step) with 4 train steps at b = 64
+    (+64) after 2 and ``validate`` over 2 batches of b = 32 at 320^2
+    ((32, 1601, 2304)); 12 attention launches per step and per valid
+    step; profiles of the Pascal steps; then one stego_cocostuff27 train
+    step at b = 2 on the card against the CPU (``reference_step``)."""
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+
+    for name, bs, vbs, timed, vsteps in (("stego_cocostuff27", 16, 8, 6, 4),
+                                         ("stego_pascal", 64, 32, 4, 2)):
+        cfg, tr = preset_trainer(name)
+        ncls = cfg["num_classes"]
+        torch.cuda.reset_peak_memory_stats()
+        batches = list(synthetic_batches(12, 2 + timed, bs, res=224, num_classes=ncls))
+        metrics, timing = timed_train(tr, batches, 2, STOCK_TRAIN_KERNELS,
+                                      f"{name}_train", results)
+        emit({"phase": "stego", "config": name, "what": "train", "batch": bs, **timing,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+              **{f"{k}_per_step": [m[k] for m in metrics]
+                 for k in ("loss", "stego-loss", "linear-loss", "cluster-loss")}})
+        vb = valid_batches(2 + vsteps, vbs, seed=340, num_classes=ncls)
+        val, res, timing = timed_validate(tr, vb, 2, STOCK_TRAIN_KERNELS, f"{name}_valid",
+                                          results)
+        check(tuple(res["linear_preds"].shape) == (vbs, 320, 320), f"{name} valid: shapes")
+        emit({"phase": "stego", "config": name, "what": "valid", "batch": vbs, "res": 320,
+              **timing, **val})
+        if name == "stego_pascal":
+            cycle = iter(batches * 2)
+            emit({"phase": "profile", "what": "stego_pascal_train", "batch": bs, "steps": 2,
+                  **device_profile(lambda: tr.train_step(next(cycle)), 2, pick=KERNEL_PICK)})
+            vcycle = iter(vb * 2)
+            emit({"phase": "profile", "what": "stego_pascal_valid", "batch": vbs, "res": 320,
+                  "steps": 2,
+                  **device_profile(lambda: tr.valid_step(next(vcycle)), 2, pick=KERNEL_PICK)})
+        del tr
+        torch.cuda.empty_cache()
+
+    batch = stego_samples(next(synthetic_batches(9, 1, 2, res=224, num_classes=27)), 9)
+    row = reference_step(lambda device: preset_trainer("stego_cocostuff27", device, False)[1],
+                         batch, {"head": "head."}, "stego train reference")
+    emit({"phase": "train_reference_cpu", "config": "stego_cocostuff27", **row})
+
+
+def phase_baselines(results: dict) -> None:
+    """``cluster_baseline`` (probes on the frozen ViT-S/8 features: no
+    trainable model parameter, a zero gradient norm) and ``sl_cocostuff27``
+    (supervised: the linear probe's cross-entropy trains the head, no
+    cluster probe, the Cluster keys repeating the Linear ones): 4 train
+    steps at b = 16 after 2 and ``validate`` over 2 batches of b = 8 at
+    320^2, 12 attention launches per step and per valid step."""
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+
+    for name in ("cluster_baseline", "sl_cocostuff27"):
+        _, tr = preset_trainer(name)
+        batches = list(synthetic_batches(13, 6, 16, res=224, num_classes=27))
+        metrics, timing = timed_train(tr, batches, 2, STOCK_TRAIN_KERNELS, f"{name}_train",
+                                      results)
+        val, _, vtiming = timed_validate(tr, valid_batches(4, 8, seed=350), 2,
+                                         STOCK_TRAIN_KERNELS, f"{name}_valid", results)
+        if name == "cluster_baseline":
+            check(not tr.model_params and all(m["grad-norm"] == 0.0 for m in metrics),
+                  "cluster_baseline: trainable model parameters")
+        else:
+            check(tr.evaluator.cluster_probe is None
+                  and not any("cluster-loss" in m for m in metrics)
+                  and all(m["grad-norm"] > 0.0 for m in metrics)
+                  and val["Cluster_mIoU"] == val["Linear_mIoU"],
+                  f"sl: supervised run {metrics[-1]}, {val}")
+        emit({"phase": "baselines", "config": name, "batch": 16, **timing,
+              "valid": {**vtiming, **val},
+              **{f"{k}_per_step": [m[k] for m in metrics]
+                 for k in ("loss", "linear-loss", "grad-norm")}})
+        del tr
+        torch.cuda.empty_cache()
+
+
+def phase_cli_baselines(results: dict) -> None:
+    """``cli.run`` on ``stego_cocostuff27`` and ``vq_cocostuff27`` (dict
+    configs), synthetic data, 4 train steps at b = 16, one val batch of
+    b = 8 at 320^2, validation every 2 steps, a final CRF of one mean-field
+    iteration (the preset's CLI phase runs the full one): logged steps,
+    checkpoints, ``final_*`` and ``final_crf_*`` in [0, 100], and the
+    launches of each run counted from 0 (STEGO 12 attention per step and
+    per valid step; VQ adds 1 PQ per valid step).  Then the STEGO run's
+    checkpoint exported as a pinned b = 8 artifact at 320^2
+    (``serve.export_predictor``), loaded with ``load_predictor`` and held
+    against the live predictor (>= 99.99% of pixels equal, 12 attention
+    launches per request; ms per request artifact vs live in turns)."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+    from equss_tpu_torch import serve as port_serve
+    from equss_tpu_torch.cli import run
+    from equss_tpu_torch.core.checkpoint import CheckpointManager
+    from equss_tpu_torch.core.config import resolve_config
+
+    root = tempfile.mkdtemp(prefix="equss_cli_baselines_")
+    try:
+        ckpts = {}
+        for name, per_valid in (("stego_cocostuff27", STOCK_TRAIN_KERNELS),
+                                ("vq_cocostuff27", SERVE_KERNELS)):
+            cfg = resolve_config(with_overrides(preset(name), {
+                "dataset.synthetic": True, "dataset.synthetic_batches": 4,
+                "train.max_epochs": 1, "train.valid_interval_iters": 2,
+                "train.print_interval_iters": 1, "eval.crf": {"max_iter": 1},
+                "save_dir": f"{root}/{name}"}))
+            cfg["debug"] = True
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = run(cfg)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = launch_counts()
+            path = f"cli_{name.split('_')[0]}"
+            results["launches"][path] = counts
+            (run_dir,) = [os.path.join(root, name, d) for d in os.listdir(os.path.join(root, name))]
+            records = read_metrics(run_dir)
+            logged = [r["step"] for r in records if "final_Cluster_mIoU" not in r
+                      and "final_crf_Cluster_mIoU" not in r]
+            final = next(r for r in records if "final_Cluster_mIoU" in r)
+            final_crf = next((r for r in records if "final_crf_Cluster_mIoU" in r), {})
+            ckpts[name] = os.path.join(run_dir, "ckpt")
+            saved = sorted(int(d) for d in os.listdir(ckpts[name]))
+            check(logged == [1, 2, 2, 3, 4, 4, 4], f"{path}: logged steps {logged}")
+            check(bool(saved) and final["step"] == saved[-1],
+                  f"{path}: checkpoints {saved}, final eval at step {final['step']}")
+            keys = ("Cluster_mIoU", "Cluster_Accuracy", "Linear_mIoU", "Linear_Accuracy")
+            check(all(0.0 <= final.get(f"final_{k}", -1.0) <= 100.0
+                      and 0.0 <= final_crf.get(f"final_crf_{k}", -1.0) <= 100.0 for k in keys),
+                  f"{path}: final metrics {final} {final_crf}")
+            train_l, valid_l = expected(STOCK_TRAIN_KERNELS, 4), expected(per_valid, 5)
+            want = {k: train_l[k] + valid_l[k] for k in train_l}
+            check(counts == want, f"{path}: launches {counts}, expected {want}")
+            steps = [r for r in records if "loss" in r]
+            emit({"phase": "cli", "run": name, "wall_seconds": seconds, "logged_steps": logged,
+                  "checkpoint_steps": saved, "best": out["best"], "launches": counts,
+                  "final": {k: v for k, v in final.items() if k != "step"},
+                  "final_crf": {k: v for k, v in final_crf.items() if k != "step"},
+                  "losses": {r["step"]: r["loss"] for r in steps}})
+            check(all(np.isfinite(r["loss"]) for r in steps), f"{path}: non-finite loss")
+
+        _, tr = preset_trainer("stego_cocostuff27")
+        tr.load_train_state(CheckpointManager(ckpts["stego_cocostuff27"]).restore(),
+                            resume_training=False)
+        t0 = time.perf_counter()
+        exported = port_serve.export_predictor(tr, (320, 320), batch_size=8,
+                                               symbolic_batch="off")
+        art = port_serve.save_predictor(exported, os.path.join(root, "stego.pt2"))
+        export_seconds = time.perf_counter() - t0
+        artifact = port_serve.load_predictor(art)
+        live = port_serve.build_predict_fn(tr)
+        img = valid_batches(1, 8, seed=360)[0]["img"]
+        x = torch.from_numpy(img).cuda().float() / 255.0
+        reset_launch_counts()
+        got = artifact(x)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        results["launches"]["export_stego"] = counts
+        ref = live(x)
+        agree = min((got[k] == ref[k]).float().mean().item() for k in ref)
+        check(set(got) == set(ref) and agree >= 0.9999, f"export stego: agreement {agree}")
+        check(counts == expected(STOCK_TRAIN_KERNELS, 1), f"export stego: launches {counts}")
+        times = {"artifact": [], "live": []}
+        for name in ("artifact", "live") * 2 + ("live", "artifact") * 2:
+            fn = artifact if name == "artifact" else live
+            t0 = time.perf_counter()
+            fn(x)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+        emit({"phase": "export", "config": "stego_cocostuff27", "batch": 8, "res": 320,
+              "export_seconds": export_seconds, "artifact_bytes": os.path.getsize(art),
+              "pixel_agreement": agree, "launches_per_request": counts,
+              **{f"{k}_ms_median": 1e3 * sorted(v)[len(v) // 2] for k, v in times.items()}})
+    finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -1890,7 +2381,11 @@ KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     "layernorm": ("equss_tpu_torch/csrc/layernorm.cu", "equss_tpu/ops/layernorm.py:74"),
     "add_layernorm": ("equss_tpu_torch/csrc/layernorm.cu", "equss_tpu/ops/layernorm.py:112"),
     "pq_assign": ("equss_tpu_torch/csrc/pq_assign.cu", "equss_tpu/ops/pq_pallas.py:443"),
+    # the wide body (pq_wide_kernel) of the same wrapper: its launches are
+    # the PQ launches of the VQ baseline's paths, all at d = 1024
+    "pq_assign_wide": ("equss_tpu_torch/csrc/pq_assign.cu", "equss_tpu/ops/pq_pallas.py:443"),
 }
+WIDE_PATHS = ("vq_", "cli_vq")
 
 
 def main() -> int:
@@ -1899,6 +2394,7 @@ def main() -> int:
     results: dict = {"launches": {}}
     phase_attention(results)
     phase_pq(results)
+    phase_pq_wide(results)
     phase_layernorm(results)
     phase_fused_attention(results)
     model, cfg = phase_main(results)
@@ -1915,6 +2411,10 @@ def main() -> int:
     phase_cli(results)
     phase_custom_op_ab(results)
     phase_own_data(results)
+    phase_vq(results)
+    phase_stego(results)
+    phase_baselines(results)
+    phase_cli_baselines(results)
 
     # launches: every main-path run (serving, serving with fused_ln, both
     # train configurations, both valid configurations, fit, the three CLI
@@ -1926,9 +2426,11 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         r = results[name]
+        wrapper = "pq_assign" if name == "pq_assign_wide" else name
+        paths = {p: c[wrapper] for p, c in by_path.items()
+                 if name != "pq_assign_wide" or p.startswith(WIDE_PATHS)}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": sum(c[name] for c in by_path.values()),
-                        "launches_by_path": {p: c[name] for p, c in by_path.items()},
+                        "launches": sum(paths.values()), "launches_by_path": paths,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

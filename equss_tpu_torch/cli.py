@@ -25,7 +25,9 @@ The port's counterpart of ``equss_tpu/cli.py``.  Jobs:
   ``torch.export`` artifact (``serve.py``) at ``export.path`` (default
   ``model.pt2``).
 
-The jobs that run a model (train, knn, export) take the CUDA card unless
+The jobs that run a model (train, knn, export) build it through
+``models/registry.py`` (every model the registry builds: ``pqgo`` and
+``vq``, ``stego``, ``probe``, ``sl``) and take the CUDA card unless
 ``device`` says otherwise (``run(cfg, device="cpu")``, or the override
 ``device=cpu``; ``export.platforms`` names the export's device); crop and
 pack are host work.  Multi-process runs and ``train.profile_dir`` raise
@@ -237,16 +239,16 @@ def run_pack_job(cfg: Dict[str, Any]) -> List[str]:
 
 def run_knn_job(cfg: Dict[str, Any], device: DeviceLike = None) -> str:
     """The kNN-positive cache of ``dataset.train``: the model of the
-    config (``EQUSS``, weights from ``seed``, the DINO backbone of
+    config (``build_model``, weights from ``seed``, the DINO backbone of
     ``model.pretrained.pretrained_weights`` when given) on ``device``
-    (default ``cfg['device']``, else CUDA), 30 neighbours per image.
-    Returns the cache's path."""
+    (default ``cfg['device']``, else CUDA), 30 neighbours per image by its
+    frozen backbone's pooled features.  Returns the cache's path."""
     from equss_tpu_torch.data.jobs import precompute_knns
     from equss_tpu_torch.data.pipeline import UnSegData
-    from equss_tpu_torch.models.equss import EQUSS, EQUSSConfig
+    from equss_tpu_torch.models.registry import build_model
 
     dev = resolve_device(device if device is not None else cfg.get("device"))
-    model = EQUSS(EQUSSConfig.from_config(cfg), device=dev, seed=cfg.get("seed", 0))
+    model = build_model(cfg, device=dev, seed=cfg.get("seed", 0))
     backbone = _load_backbone(cfg)
     if backbone is not None:
         model.backbone.load_state_dict(backbone)

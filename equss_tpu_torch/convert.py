@@ -1,9 +1,12 @@
 """Weight bridge: JAX pytrees and DINO checkpoints -> the port's state dict.
 
-* ``params_from_jax`` maps the ``(params, state)`` pytrees of the JAX
-  package's ``EQUSS.init`` (numpy-valued) onto ``EQUSS.state_dict()``
-  names, and the Trainer's probe parameters onto ``Evaluator`` names
-  under ``probes.``, so both packages compute with the same numbers.
+* ``params_from_jax`` maps the ``(params, state)`` pytrees of a JAX
+  registry model's ``init`` (numpy-valued: EQUSS's backbone, head, PQ
+  parameters and quantizer state, param or EMA; STEGO's backbone and
+  head; the probe-only model's backbone) onto the port model's
+  ``state_dict()`` names, and the Trainer's probe parameters onto
+  ``Evaluator`` names under ``probes.``, so both packages compute with the
+  same numbers.
 * ``train_state_from_jax`` turns a whole JAX train state (weights, the
   three optax Adam states, the step) into ``Trainer.load_train_state``'s
   format, so a run can continue in the port where the JAX package left
@@ -18,12 +21,12 @@ in)``; the flax patch conv ``(kh, kw, in, out)`` and the torch patch conv
 """
 from __future__ import annotations
 
+import types
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from equss_tpu_torch.models.equss import EQUSSConfig
 from equss_tpu_torch.models.vit import VIT_PRESETS
 
 
@@ -79,19 +82,29 @@ def probes_from_flax(probes: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _trainable_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The trainable subtrees a model has (``head``, ``pq``) -> port names."""
+    sd: Dict[str, torch.Tensor] = {}
+    if "head" in tree:
+        sd.update({f"head.{k}": v for k, v in head_from_flax(tree["head"]).items()})
+    sd.update({f"pq.{k}": _t(v) for k, v in tree.get("pq", {}).items()})
+    return sd
+
+
 def params_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
-                    cfg: EQUSSConfig, probe_params: Optional[Mapping[str, Any]] = None
+                    cfg: Any, probe_params: Optional[Mapping[str, Any]] = None
                     ) -> Dict[str, torch.Tensor]:
-    """JAX ``EQUSS.init`` pytrees -> port ``EQUSS`` state dict (CPU f32).
-    With ``probe_params`` (a JAX Trainer state's ``probe_params``) the
-    probes come along under ``probes.``, the names ``Trainer.load_state_dict``
-    routes to its ``Evaluator``."""
+    """JAX model pytrees (``init``'s ``params`` and ``state``) -> the port
+    model's state dict (CPU f32); ``cfg`` is the model's config (its
+    ``model_type`` gives the backbone's depth).  With ``probe_params`` (a
+    JAX Trainer state's ``probe_params``) the probes come along under
+    ``probes.``, the names ``Trainer.load_state_dict`` routes to its
+    ``Evaluator``."""
     depth = VIT_PRESETS[cfg.model_type][1]
     sd = {f"backbone.{k}": v
           for k, v in backbone_from_flax(params["backbone"], depth).items()}
-    sd.update({f"head.{k}": v for k, v in head_from_flax(params["head"]).items()})
-    sd.update({f"pq.{k}": _t(v) for k, v in params["pq"].items()})
-    sd.update({f"pq_state.{k}": _t(v) for k, v in state["pq"].items()})
+    sd.update(_trainable_from_flax(params))
+    sd.update({f"pq_state.{k}": _t(v) for k, v in state.get("pq", {}).items()})
     if probe_params is not None:
         sd.update({f"probes.{k}": v for k, v in probes_from_flax(probe_params).items()})
     return sd
@@ -135,21 +148,18 @@ def train_state_from_jax(host_ts: Mapping[str, Any], cfg: Dict[str, Any]) -> Dic
     port's parameter names (a flax kernel's moments transposed with it)
     with Adam's count and the schedule position, and ``step``.  JAX's
     PRNG key has no torch counterpart, so the state carries no generator
-    and ``load_train_state`` keeps the trainer's own."""
-    ecfg = EQUSSConfig.from_config(cfg)
+    and ``load_train_state`` keeps the trainer's own.  Any registry model
+    converts: an optimizer over nothing (the probe-only model's, or the
+    cluster probe's in supervised mode) keeps only its counts."""
+    mcfg = types.SimpleNamespace(model_type=cfg["model"]["pretrained"]["model_type"])
     opt = host_ts["opt"]
-
-    def model_flat(tree):
-        out = {f"head.{k}": v for k, v in head_from_flax(tree["head"]).items()}
-        out.update({f"pq.{k}": _t(v) for k, v in tree["pq"].items()})
-        return out
-
     return {
-        "model": params_from_jax(host_ts["params"], host_ts["model_state"], ecfg),
+        "model": params_from_jax(host_ts["params"], host_ts["model_state"], mcfg),
         "probes": probes_from_flax(host_ts["probe_params"]),
-        "opt": {"model": _opt_from_jax(opt["model"], model_flat),
+        "opt": {"model": _opt_from_jax(opt["model"], _trainable_from_flax),
                 "cluster": _opt_from_jax(opt["cluster"],
-                                         lambda t: {"clusters": _t(t["clusters"])}),
+                                         lambda t: {"clusters": _t(t["clusters"])}
+                                         if "clusters" in t else {}),
                 "linear": _opt_from_jax(opt["linear"],
                                         lambda t: _dense(t["linear"], "linear"))},
         "step": int(np.asarray(host_ts["step"])),

@@ -5,12 +5,19 @@
 // (kernel body _pq_kernel).  The (n, M, K) distance tensor is never
 // written: each row keeps a running minimum in registers.
 //
-// Takes d in {8, 16, 32} and any K >= 1 whose codebooks for one subspace
-// fit a block's 227 KB of shared memory: (8d + 4) * K bytes in exact mode
-// (K <= 1761 at d = 16); (4d + 4) * roundup(K, 256 / d) bytes beside the
-// 43 008 bytes of staging tiles in fast mode (K <= 2784 at d = 16).
-// ops/pq_assign.py::kernel_domain_error states the same domain for the
-// wrapper and the eligibility predicate.
+// Domain: every d with d % 8 == 0 and every K >= 1, in both modes; this
+// holds every shape the JAX package sends to its kernel (d % 8 == 0 and
+// K % 128 == 0).  Three bodies share it:
+//   narrow (pq_exact_kernel, pq_fast_kernel): d in {8, 16, 32} where one
+//     subspace's codebooks fit a block's 227 KB of shared memory:
+//     (8d + 4) * K bytes in exact mode (K <= 1761 at d = 16);
+//     (4d + 4) * roundup(K, 256 / d) bytes beside the 43 008 bytes of
+//     staging tiles in fast mode (K <= 2784 at d = 16);
+//   wide (pq_wide_kernel): every other shape of the domain, among them the
+//     VQ baseline's d = 1024, K = 256 and the variants' d = 64 .. 384.
+// ops/pq_assign.py::kernel_domain_error and kernel_body state the same
+// domain and the same choice of body for the wrapper and the eligibility
+// predicate.
 //
 // Arithmetic kept from the TPU kernel:
 //   normalisation   none | l2: z / max(sqrt(sum z^2), 1e-12)
@@ -60,6 +67,26 @@
 // Exact mode (pq_exact_kernel) keeps the f32 CUDA-core body bit for bit:
 // one thread per row, the subspace's f32 codebook and squared norms in
 // shared memory, dot<D> in a fixed fmaf order.
+//
+// Wide body (pq_wide_kernel), both modes.  A subspace's codebook need not
+// fit shared memory: it is streamed through it in tiles of 64 codewords by
+// 8 dimensions.  A block owns 64 rows of one subspace.  First each warp
+// normalises rows of the tile (f32 warp sums over d), writes z_norm and
+// keeps |z_norm|^2 in shared memory.  Then, per codeword tile, the warps
+// take the tile's squared norms (f32, as the distance needs them), and the
+// 16 x 16 threads compute the 64 x 64 cross products with f32 FMAs from
+// shared-memory tiles of z_norm and c_norm (each thread 4 rows by 4
+// codewords, the depth in order); fast mode rounds both tiles to bf16 as
+// they are staged, so the products are exact and the sums f32.  The
+// epilogue folds each tile into a running minimum per (thread, row) under
+// the same rules as the narrow bodies (packed keys for K <= 256 in fast
+// mode, else the strict-< first minimum), the 16 threads of a row agree
+// by shuffles (equal distances: the lower index), and the warps gather
+// z_q (the raw f32 codeword, or its bf16 rounding) and write idx.  At
+// d = 1024, K = 256 and n = 100 352 the cross products are 52.6 GFLOP:
+// 0.79 ms at the f32 CUDA cores' peak, which bounds both modes of this
+// body (fast mode has the tensor cores' 0.05 ms bound of its work but
+// this body does not use them; the bytes take 0.37 ms).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <climits>
@@ -551,6 +578,241 @@ int launch_precision(bool exact, const float* z, const float* c_norm,
     return launch_fast<D, MODE, false>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
 }
 
+// ------------------------------------------------------------- wide body
+
+constexpr int WIDE_THREADS = 256;
+constexpr int WIDE_ROWS = 64;           // rows of one subspace per block
+constexpr int WIDE_CODES = 64;          // codewords per tile
+constexpr int WIDE_DEPTH = 8;           // dimensions per staged tile
+constexpr int WIDE_PAD = WIDE_ROWS + 4; // keeps the transposed stores conflict-free
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+    return x;
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <int MODE, bool FAST, bool PACKED>
+__global__ void __launch_bounds__(WIDE_THREADS)
+pq_wide_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
+               const float* __restrict__ c_raw, const float* __restrict__ z_mean,
+               const float* __restrict__ z_std, int n, int M, int K, int d,
+               int* __restrict__ idx, float* zn_out, float* __restrict__ zq_out) {
+    constexpr bool L2_SHORT = MODE == L2 && PACKED;
+    __shared__ __align__(16) float s_z[WIDE_DEPTH][WIDE_PAD];
+    __shared__ __align__(16) float s_c[WIDE_DEPTH][WIDE_PAD];
+    __shared__ float s_zsq[WIDE_ROWS];
+    __shared__ float s_csq[WIDE_CODES];
+    __shared__ int s_best[WIDE_ROWS];
+    const int m = blockIdx.y;
+    const int row0 = blockIdx.x * WIDE_ROWS;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const size_t row_stride = static_cast<size_t>(M) * d;
+    const float* cn = c_norm + static_cast<size_t>(m) * K * d;
+
+    // normalise: a warp per row, z_norm to device memory, |z_norm|^2 kept
+    for (int r = warp; r < WIDE_ROWS; r += WIDE_THREADS / 32) {
+        const int row = row0 + r;
+        if (row >= n) {
+            if (lane == 0) s_zsq[r] = 0.f;
+            continue;
+        }
+        const float* zr = z + row * row_stride + static_cast<size_t>(m) * d;
+        float* zo = zn_out + row * row_stride + static_cast<size_t>(m) * d;
+        float shift = 0.f, denom = 1.f;
+        if (MODE == L2) {
+            float ss = 0.f;
+            for (int j = lane; j < d; j += 32) ss += zr[j] * zr[j];
+            denom = fmaxf(sqrtf(warp_sum(ss)), 1e-12f);
+        } else if (MODE == Z_NORM) {
+            float s1 = 0.f;
+            for (int j = lane; j < d; j += 32) s1 += zr[j];
+            shift = warp_sum(s1) / d;
+            float s2 = 0.f;
+            for (int j = lane; j < d; j += 32) {
+                const float xc = zr[j] - shift;
+                s2 += xc * xc;
+            }
+            denom = sqrtf(warp_sum(s2) / (d - 1)) + 1e-5f;
+        }
+        float zsq = 0.f;
+        for (int j = lane; j < d; j += 32) {
+            float v = zr[j];
+            if (MODE == L2) v = v / denom;
+            else if (MODE == Z_NORM) v = (v - shift) / denom;
+            else if (MODE == Z_TRAINABLE)
+                v = (v - z_mean[m * d + j]) / (z_std[m * d + j] + 1e-5f);
+            zo[j] = v;
+            zsq += v * v;
+        }
+        zsq = warp_sum(zsq);
+        if (lane == 0) s_zsq[r] = zsq;
+    }
+    __syncthreads();        // the tile's z_norm rows are visible to the block
+
+    const int tx = tid & 15, ty = tid >> 4;     // codewords 4 tx.., rows 4 ty..
+    // staging: threads 0..127 a float4 of z_norm, 128..255 one of c_norm
+    const int lt = tid & 127, l_r = lt >> 1, l_c = 4 * (lt & 1);
+    const bool stages_z = tid < 128;
+    const float* zn_row = zn_out + (row0 + l_r) * row_stride + static_cast<size_t>(m) * d;
+    float best_d[4];
+    int best_k[4], best_p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        best_d[i] = INFINITY;
+        best_k[i] = 0;
+        best_p[i] = INT_MAX;
+    }
+    for (int k0 = 0; k0 < K; k0 += WIDE_CODES) {
+        if (!L2_SHORT) {
+            __syncthreads();            // the last tile's epilogue has read s_csq
+            for (int c = warp; c < WIDE_CODES; c += WIDE_THREADS / 32) {
+                float acc = 0.f;
+                if (k0 + c < K) {
+                    const float* cw = cn + static_cast<size_t>(k0 + c) * d;
+                    for (int j = lane; j < d; j += 32) acc += cw[j] * cw[j];
+                }
+                acc = warp_sum(acc);
+                if (lane == 0) s_csq[c] = acc;
+            }
+        }
+        float acc[4][4] = {};
+        for (int j0 = 0; j0 < d; j0 += WIDE_DEPTH) {
+            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (stages_z) {
+                if (row0 + l_r < n) v = *reinterpret_cast<const float4*>(zn_row + j0 + l_c);
+            } else if (k0 + l_r < K) {
+                v = __ldg(reinterpret_cast<const float4*>(
+                    cn + static_cast<size_t>(k0 + l_r) * d + j0 + l_c));
+            }
+            if (FAST) {
+                v.x = round_bf16(v.x); v.y = round_bf16(v.y);
+                v.z = round_bf16(v.z); v.w = round_bf16(v.w);
+            }
+            float (*dst)[WIDE_PAD] = stages_z ? s_z : s_c;
+            dst[l_c + 0][l_r] = v.x;
+            dst[l_c + 1][l_r] = v.y;
+            dst[l_c + 2][l_r] = v.z;
+            dst[l_c + 3][l_r] = v.w;
+            __syncthreads();
+#pragma unroll
+            for (int kk = 0; kk < WIDE_DEPTH; ++kk) {
+                const float4 a = *reinterpret_cast<const float4*>(&s_z[kk][4 * ty]);
+                const float4 b = *reinterpret_cast<const float4*>(&s_c[kk][4 * tx]);
+                const float av[4] = {a.x, a.y, a.z, a.w};
+                const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+            }
+            __syncthreads();
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float zsq = s_zsq[4 * ty + i];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int k = k0 + 4 * tx + j;
+                if (k >= K) continue;
+                const float dist = L2_SHORT ? 1.f - acc[i][j]
+                                            : (zsq + s_csq[4 * tx + j]) - 2.f * acc[i][j];
+                if (PACKED) {
+                    best_p[i] = min(best_p[i], (__float_as_int(dist) & ~0xFF) | k);
+                } else if (dist < best_d[i]) {
+                    best_d[i] = dist;
+                    best_k[i] = k;
+                }
+            }
+        }
+    }
+    // the 16 threads of a row (one half warp) agree on its minimum
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        int best;
+        if (PACKED) {
+            int key = best_p[i];
+#pragma unroll
+            for (int off = 1; off < 16; off <<= 1)
+                key = min(key, __shfl_xor_sync(0xffffffffu, key, off));
+            best = key & 0xFF;
+        } else {
+            float bd = best_d[i];
+            best = best_k[i];
+#pragma unroll
+            for (int off = 1; off < 16; off <<= 1) {
+                const float od = __shfl_xor_sync(0xffffffffu, bd, off);
+                const int ok = __shfl_xor_sync(0xffffffffu, best, off);
+                if (od < bd || (od == bd && ok < best)) { bd = od; best = ok; }
+            }
+        }
+        if (tx == 0) s_best[4 * ty + i] = best;
+    }
+    __syncthreads();
+
+    // idx and the z_q gather, a warp per row
+    for (int r = warp; r < WIDE_ROWS; r += WIDE_THREADS / 32) {
+        const int row = row0 + r;
+        if (row >= n) continue;
+        const int best = s_best[r];
+        if (lane == 0) idx[static_cast<size_t>(row) * M + m] = best;
+        const float* src = c_raw + (static_cast<size_t>(m) * K + best) * d;
+        float* dst = zq_out + row * row_stride + static_cast<size_t>(m) * d;
+        for (int j = lane; j < d; j += 32) dst[j] = FAST ? round_bf16(src[j]) : src[j];
+    }
+}
+
+template <int MODE, bool FAST, bool PACKED>
+int launch_wide(const float* z, const float* c_norm, const float* c_raw,
+                const float* z_mean, const float* z_std, int* idx, float* zn,
+                float* zq, int n, int M, int K, int d, cudaStream_t stream) {
+    if (M > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid((n + WIDE_ROWS - 1) / WIDE_ROWS, M);
+    pq_wide_kernel<MODE, FAST, PACKED><<<grid, WIDE_THREADS, 0, stream>>>(
+        z, c_norm, c_raw, z_mean, z_std, n, M, K, d, idx, zn, zq);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE>
+int launch_wide_precision(bool exact, const float* z, const float* c_norm,
+                          const float* c_raw, const float* z_mean, const float* z_std,
+                          int* idx, float* zn, float* zq, int n, int M, int K, int d,
+                          cudaStream_t s) {
+    if (exact)
+        return launch_wide<MODE, false, false>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, s);
+    if (K <= 256)
+        return launch_wide<MODE, true, true>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, s);
+    return launch_wide<MODE, true, false>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, s);
+}
+
+int launch_wide_mode(int mode, bool exact, const float* z, const float* c_norm,
+                     const float* c_raw, const float* z_mean, const float* z_std,
+                     int* idx, float* zn, float* zq, int n, int M, int K, int d,
+                     cudaStream_t s) {
+    switch (mode) {
+        case NONE: return launch_wide_precision<NONE>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, s);
+        case L2: return launch_wide_precision<L2>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, s);
+        case Z_NORM: return launch_wide_precision<Z_NORM>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, s);
+        case Z_TRAINABLE: return launch_wide_precision<Z_TRAINABLE>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+// The narrow bodies take d in {8, 16, 32} where one subspace's codebooks
+// fit shared memory (the header's rule); the wide body everything else.
+bool narrow_fits(int d, int K, bool exact) {
+    if (d != 8 && d != 16 && d != 32) return false;
+    const size_t chunk = 256 / d;
+    const size_t need = exact ? (8 * static_cast<size_t>(d) + 4) * K
+                              : (4 * static_cast<size_t>(d) + 4) * ((K + chunk - 1) / chunk * chunk)
+                                    + STAGE_BYTES;
+    return need <= SMEM_MAX;
+}
+
 template <int D>
 int launch_mode(int mode, bool exact, const float* z, const float* c_norm,
                 const float* c_raw, const float* z_mean, const float* z_std,
@@ -570,7 +832,7 @@ int launch_mode(int mode, bool exact, const float* z, const float* c_norm,
 // z (n, M, d), c_norm and c_raw (M, K, d), z_mean and z_std (M, d) or null,
 // all f32 contiguous and 16-byte aligned -> idx (n, M) int32, z_norm and
 // z_q (n, M, d) f32, on `stream`.  mode: 0 none, 1 l2, 2 z_norm,
-// 3 z_trainable; d in {8, 16, 32}; K as the header states.  Returns the
+// 3 z_trainable; d % 8 == 0, K >= 1 (the header's domain).  Returns the
 // cudaError_t of the launch (0 = success).
 extern "C" int pq_assign_launch(const void* z, const void* c_norm,
                                 const void* c_raw, const void* z_mean,
@@ -588,6 +850,9 @@ extern "C" int pq_assign_launch(const void* z, const void* c_norm,
     auto* ip = static_cast<int*>(idx);
     auto* znp = static_cast<float*>(zn);
     auto* zqp = static_cast<float*>(zq);
+    if (d < 8 || d % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (!narrow_fits(d, K, exact != 0))
+        return launch_wide_mode(mode, exact != 0, zf, cn, cr, zm, zs, ip, znp, zqp, n, M, K, d, s);
     switch (d) {
         case 8: return launch_mode<8>(mode, exact != 0, zf, cn, cr, zm, zs, ip, znp, zqp, n, M, K, s);
         case 16: return launch_mode<16>(mode, exact != 0, zf, cn, cr, zm, zs, ip, znp, zqp, n, M, K, s);

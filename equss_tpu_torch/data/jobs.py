@@ -69,8 +69,9 @@ def materialize_crops(dataset_name: str, data_dir: str, out_dir: Optional[str] =
 def extract_pooled_features(model, data, *, batch_size: int = 32,
                             max_items: Optional[int] = None) -> torch.Tensor:
     """Mean-pooled, L2-normalised dense features (n, C) f32 of every image
-    of ``data`` (an ``UnSegData``, in order), computed by ``model`` (an
-    ``EQUSS``) on its device; the first ``max_items`` only when given."""
+    of ``data`` (an ``UnSegData``, in order), computed by ``model`` (any
+    registry model: its ``features``) on its device; the first
+    ``max_items`` only when given."""
     out = []
     seen = 0
     for batch in data.batches(batch_size, shuffle=False, drop_last=False):

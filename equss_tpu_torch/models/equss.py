@@ -20,7 +20,7 @@ from equss_tpu_torch.device import DeviceLike, resolve_device
 from equss_tpu_torch.losses.stego import StegoLossConfig, stego_loss
 from equss_tpu_torch.models.heads import ExpansionHead, dropout2d
 from equss_tpu_torch.models.vit import VisionTransformer, make_vit_config
-from equss_tpu_torch.ops.quantizer import PQConfig, pq_forward, pq_init
+from equss_tpu_torch.ops.quantizer import PQConfig, ema_jsd_entropy, pq_forward, pq_init
 
 
 def pq_config_from_dict(vq: Dict[str, Any]) -> PQConfig:
@@ -42,6 +42,9 @@ def pq_config_from_dict(vq: Dict[str, Any]) -> PQConfig:
         use_split=vq.get("use_split", False),
         need_initialized=vq.get("need_initialized", "none"),
         pq_dropout=vq.get("pq_dropout", 0.0),
+        decay=vq.get("decay", 0.99),
+        eps=vq.get("eps", 1e-5),
+        jsd_ts=vq.get("jsd_ts", 1.0),
         use_pallas=vq.get("use_pallas", "auto"),
         assign_precision=vq.get("assign_precision", "exact"),
     )
@@ -51,6 +54,21 @@ def stego_config_from_dict(stego: Dict[str, Any]) -> StegoLossConfig:
     """cfg['loss']['stego'] -> StegoLossConfig (defaults where omitted)."""
     defaults = dataclasses.asdict(StegoLossConfig())
     return StegoLossConfig(**{k: stego.get(k, v) for k, v in defaults.items()})
+
+
+def backbone_settings(pre: Dict[str, Any]) -> Dict[str, Any]:
+    """``cfg['model']['pretrained']`` -> the backbone fields every model
+    config shares, as the JAX package reads them:
+    ``precision: bf16`` selects the bf16 backbone with bf16 attention.
+    ``freeze_backbone`` changes nothing that trains (the backbone is never
+    among the trained parameters), so the port always runs the backbone
+    without autograd."""
+    if pre.get("ln_stats", "f32") != "f32":
+        raise NotImplementedError("model.pretrained.ln_stats is not ported")
+    bf16 = pre.get("precision", "f32") == "bf16"
+    return dict(model_type=pre["model_type"], patch_size=pre["dino_patch_size"],
+                backbone_dtype=torch.bfloat16 if bf16 else torch.float32,
+                attn_bf16=bf16, gelu=pre.get("gelu"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,28 +87,17 @@ class EQUSSConfig:
 
     @staticmethod
     def from_config(cfg: Dict[str, Any]) -> "EQUSSConfig":
-        """The model part of a config dict, as the JAX package reads it:
-        ``model.pretrained.precision: bf16`` selects the bf16 backbone
-        with bf16 attention.  ``freeze_backbone`` changes nothing that
-        trains (the backbone is never among the trained parameters), so
-        the port always runs the backbone without autograd."""
+        """The model part of a config dict, as the JAX package reads it
+        (``backbone_settings`` for the backbone)."""
         m = cfg["model"]
         pre = m["pretrained"]
-        bf16 = pre.get("precision", "f32") == "bf16"
-        if pre.get("ln_stats", "f32") != "f32":
-            raise NotImplementedError("model.pretrained.ln_stats is not ported")
         return EQUSSConfig(
-            model_type=pre["model_type"],
-            patch_size=pre["dino_patch_size"],
             hidden_dim=m["vq"]["embed_dims"][0],
             dropout=pre.get("dropout", True),
             drop_prob=pre.get("drop_prob", 0.1),
-            backbone_dtype=torch.bfloat16 if bf16 else torch.float32,
-            attn_bf16=bf16,
-            gelu=pre.get("gelu"),
             pq=pq_config_from_dict(m["vq"]),
             stego=stego_config_from_dict(cfg["loss"]["stego"]),
-        )
+            **backbone_settings(pre))
 
 
 class _Buffers(nn.Module):
@@ -132,6 +139,11 @@ class EQUSS(nn.Module):
         self.pq_state = _Buffers(pq_state)
         self.to(self.device)
 
+    def output_dim(self, output_type: str) -> int:
+        """The probes' input width for ``eval.output_type``: ``feat`` (the
+        head's code) and ``vqN`` are both ``hidden_dim``."""
+        return self.cfg.hidden_dim
+
     def features(self, img: torch.Tensor) -> torch.Tensor:
         """Frozen backbone dense features (b, gh, gw, C) in f32."""
         with torch.no_grad():
@@ -160,9 +172,11 @@ class EQUSS(nn.Module):
         autograd (the frozen backbone), channel dropout drawn from
         ``generator``, the head on both halves, the quantizer on the first
         and the STEGO loss (``aux['stego-loss']``; ``stego_override`` =
-        ``(coords1, coords2, perms)`` replaces its random draws).  The
-        quantizer's new state is returned under ``pq_state`` and is not
-        applied: the caller decides."""
+        ``(coords1, coords2, perms)`` replaces its random draws); an EMA
+        quantizer adds ``jsd`` and ``entropy`` between the first and the
+        second half of the pixels' ``distance_prob``.  The quantizer's new
+        state is returned under ``pq_state`` and is not applied: the
+        caller decides."""
         if not training:
             with torch.no_grad():
                 if feat is None:
@@ -197,5 +211,11 @@ class EQUSS(nn.Module):
             code, dict(self.pq), self.pq_state.as_dict(), cfg.pq, training=True)
         aux["stego-loss"] = stego_loss(generator, feat, feat_pos, code, code_pos,
                                        cfg.stego, sample_override=stego_override)
+        if cfg.pq.vq_type == "ema" and "distance_prob" in aux:
+            # telemetry between the two halves of the batch's pixels
+            prob = aux["distance_prob"]
+            flat = prob.reshape(-1, *prob.shape[-2:])
+            half = flat.shape[0] // 2
+            aux["jsd"], aux["entropy"] = ema_jsd_entropy(flat[:half], flat[half:2 * half])
         return {"feat": feat, "code": code, "z_q": z_q, "indices": indices,
                 "aux": aux, "pq_state": pq_state}

@@ -1,0 +1,117 @@
+"""Model registry: ``model.name`` (or the run name) -> a model builder.
+
+Counterpart of ``equss_tpu/models/registry.py``: ``register``,
+``available_models``, ``resolve_model_name`` with the substring fallback
+over ``wandb.name`` in ``_KEYWORD_ORDER``, and ``build_model``, which
+takes the port's ``device`` and ``seed`` beside the config.  ``pqgo`` and
+``vq`` build ``EQUSS``, ``stego`` and ``sl`` build ``STEGOModel``,
+``probe`` builds ``ProbeOnlyModel``.  The families of the JAX package's
+``models/variants.py`` are registered under the same names, so that a
+config resolves as it does there, and their builders raise
+``NotImplementedError``: they belong to later slices of the port.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+from torch import nn
+
+from equss_tpu_torch.device import DeviceLike
+
+_REGISTRY: Dict[str, Callable[..., nn.Module]] = {}
+
+# the substring fallback's order (the reference's dispatch order)
+_KEYWORD_ORDER = [
+    "hihi", "sl", "pqgocls", "pqgo", "stego", "spq", "new", "cluster",
+    "res", "contra", "vae", "info", "ema", "vq",
+]
+
+# models/variants.py's families by registered name: later slices
+VARIANTS = {
+    "hihi": "UnSegModel", "new": "NewVQModel", "spq": "SPQModel",
+    "cluster": "ClusterModel", "vae": "VAEModel", "res": "ResModel",
+    "info": "InfoModel", "contra": "ContraModel", "ema": "EMAModel",
+    "pqgocls": "PQGOCLSModel",
+}
+
+
+def register(name: str):
+    def deco(builder):
+        _REGISTRY[name] = builder
+        return builder
+    return deco
+
+
+def available_models():
+    return sorted(_REGISTRY)
+
+
+def resolve_model_name(cfg: Dict[str, Any]) -> str:
+    """``model.name`` when set (it must be registered), else the first
+    keyword of ``_KEYWORD_ORDER`` found in the lower-cased ``wandb.name``."""
+    name = cfg.get("model", {}).get("name")
+    if name:
+        if name not in _REGISTRY:
+            raise ValueError(f"Unknown model '{name}'; available: {available_models()}")
+        return name
+    run_name = (cfg.get("wandb", {}) or {}).get("name", "").lower()
+    for kw in _KEYWORD_ORDER:
+        if kw in run_name and kw in _REGISTRY:
+            return kw
+    raise ValueError(
+        f"Could not resolve model from run name '{run_name}'; set model.name "
+        f"to one of {available_models()}")
+
+
+def build_model(cfg: Dict[str, Any], *, device: DeviceLike = None, seed: int = 0) -> nn.Module:
+    """Config dict -> the model, its weights drawn from ``seed`` on the
+    CPU and moved to ``device`` (None means CUDA)."""
+    return _REGISTRY[resolve_model_name(cfg)](cfg, device=device, seed=seed)
+
+
+# ---------------------------------------------------------------- builders
+
+@register("pqgo")
+def _build_pqgo(cfg, *, device=None, seed=0):
+    from equss_tpu_torch.models.equss import EQUSS, EQUSSConfig
+
+    return EQUSS(EQUSSConfig.from_config(cfg), device=device, seed=seed)
+
+
+@register("vq")
+def _build_vq(cfg, *, device=None, seed=0):
+    # the VQ/PQ baselines are EQUSS with other quantizer settings
+    return _build_pqgo(cfg, device=device, seed=seed)
+
+
+@register("stego")
+def _build_stego(cfg, *, device=None, seed=0):
+    from equss_tpu_torch.models.stego import STEGOConfig, STEGOModel
+
+    return STEGOModel(STEGOConfig.from_config(cfg), device=device, seed=seed)
+
+
+@register("probe")
+def _build_probe(cfg, *, device=None, seed=0):
+    from equss_tpu_torch.models.probe_only import ProbeOnlyConfig, ProbeOnlyModel
+
+    return ProbeOnlyModel(ProbeOnlyConfig.from_config(cfg), device=device, seed=seed)
+
+
+@register("sl")
+def _build_sl(cfg, *, device=None, seed=0):
+    # supervised linear training on the STEGO head: the trainer's
+    # supervised mode routes the probe's cross-entropy into the head
+    return _build_stego(cfg, device=device, seed=seed)
+
+
+def _later_slice(name: str):
+    def build(cfg, *, device=None, seed=0):
+        raise NotImplementedError(
+            f"model '{name}' ({VARIANTS[name]} of equss_tpu/models/variants.py) belongs "
+            f"to a later slice of the port (ROADMAP.md, queue 1, item 11)")
+    return build
+
+
+for _name in VARIANTS:
+    register(_name)(_later_slice(_name))

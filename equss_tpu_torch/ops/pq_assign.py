@@ -21,29 +21,37 @@ from equss_tpu_torch.device import check_cuda_tensor, launch_stream, on_device
 from equss_tpu_torch.ops import _build
 
 MODES = ("none", "l2", "z_norm", "z_trainable")
-KERNEL_SUB_DIMS = (8, 16, 32)
+NARROW_SUB_DIMS = (8, 16, 32)
 KERNEL_SMEM_BYTES = 232448        # shared memory one block can use on sm_90
-KERNEL_STAGE_BYTES = 43008        # the fast kernel's staging tiles
+KERNEL_STAGE_BYTES = 43008        # the fast narrow body's staging tiles
 
 
 def kernel_domain_error(d: int, K: int, exact: bool) -> Optional[str]:
     """Why the CUDA kernel does not take subspaces of width ``d`` with
     ``K`` codewords, or None where it does (the domain stated in
-    ``csrc/pq_assign.cu``'s header): d in (8, 16, 32) and one subspace's
-    codebooks within a block's shared memory, (8d + 4) K bytes in exact
-    mode, (4d + 4) roundup(K, 256 / d) bytes beside 43 008 bytes of
-    staging tiles in fast mode."""
-    if d not in KERNEL_SUB_DIMS:
-        return f"PQ kernel takes d in {KERNEL_SUB_DIMS}, got {d}"
+    ``csrc/pq_assign.cu``'s header): every d with d % 8 == 0 and every
+    K >= 1, in both modes (``exact`` changes only which body runs,
+    ``kernel_body``)."""
+    if d < 8 or d % 8:
+        return f"PQ kernel takes d % 8 == 0, got d = {d}"
     if K < 1:
         return f"PQ kernel needs K >= 1, got {K}"
+    return None
+
+
+def kernel_body(d: int, K: int, exact: bool) -> str:
+    """Which body of the kernel runs a shape inside its domain, by the
+    rule of ``csrc/pq_assign.cu``: ``narrow`` for d in (8, 16, 32) where
+    one subspace's codebooks fit a block's shared memory ((8d + 4) K bytes
+    in exact mode, (4d + 4) roundup(K, 256 / d) beside 43 008 bytes of
+    staging tiles in fast mode), else ``wide``, which streams the codebook
+    through shared memory in tiles."""
+    if d not in NARROW_SUB_DIMS:
+        return "wide"
     chunk = 256 // d
     need = (8 * d + 4) * K if exact \
         else (4 * d + 4) * (-(-K // chunk) * chunk) + KERNEL_STAGE_BYTES
-    if need > KERNEL_SMEM_BYTES:
-        return (f"PQ kernel: K = {K} codewords of d = {d} need {need} bytes of "
-                f"shared memory, more than {KERNEL_SMEM_BYTES}")
-    return None
+    return "narrow" if need <= KERNEL_SMEM_BYTES else "wide"
 
 
 def normalize_vectors(z: torch.Tensor, mode: str,

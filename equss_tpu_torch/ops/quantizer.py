@@ -1,13 +1,17 @@
-"""Product quantization: inference and the param-codebook training path.
+"""Product quantization: inference and the param- and EMA-codebook
+training paths.
 
 Counterpart of ``equss_tpu/ops/quantizer.py``: ``PQConfig``, ``pq_init``,
 ``normalize_vectors``, ``pairwise_sqdist``, ``_gather_codewords``,
-``_usage_aux``, ``_pallas_assign_ste`` and ``pq_forward``.  Parameters and
-state are plain dicts of tensors, as in the JAX package, so the two are
-held against each other like for like; ``pq_forward`` returns the new
-state and leaves the caller's untouched.  Training covers param
-codebooks (``vq_type="param"``); EMA codebooks, restart, split, dropout,
-Gumbel and the weighted-sum output belong to a later slice and raise.
+``_usage_aux``, ``_pallas_assign_ste``, ``ema_codebook_update``,
+``pq_forward`` and ``ema_jsd_entropy``.  Parameters and state are plain
+dicts of tensors, as in the JAX package, so the two are held against each
+other like for like; ``pq_forward`` returns the new state and leaves the
+caller's untouched.  Training covers param codebooks (``vq_type="param"``)
+and EMA codebooks (``"ema"``: the Laplace-smoothed moving averages of the
+assigned vectors, and the softmax of the distances for the JSD and
+entropy telemetry); restart, split, dropout, Gumbel and the weighted-sum
+output belong to a later slice and raise.
 
 Routing keeps the JAX package's rule: the fused kernel
 (``ops/pq_assign.py``) runs whenever the eligibility predicate holds and
@@ -15,10 +19,16 @@ Routing keeps the JAX package's rule: the fused kernel
 was keyed on the TPU backend).  On the CPU ``"auto"`` takes the torch
 counterpart of the XLA path unless its (n, M, K) distance tensor would
 exceed ``pallas_auto_bytes``.  Training takes the kernel only under an
-explicit ``use_pallas`` and ``train_route_ok``, through ``AssignSTE``.
+explicit ``use_pallas`` and ``train_route_ok``, through ``AssignSTE``;
+EMA training wants the distance softmax and so takes the plain route, as
+the JAX package's does.  On CUDA every (d, K) inside the JAX package's
+shape rule is inside the kernel's domain (``pq_assign.kernel_domain_error``);
+should one ever not be, the predicate raises with the reason instead of
+taking the plain route.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Tuple
@@ -46,6 +56,9 @@ class PQConfig:
     use_split: bool = False
     need_initialized: str = "none"   # none | uni | normal here
     pq_dropout: float = 0.0
+    decay: float = 0.99              # EMA decay
+    eps: float = 1.0e-5              # Laplace smoothing eps
+    jsd_ts: float = 1.0              # softmax temperature of distance_prob
     use_pallas: Any = "auto"         # "auto" | True | False: the fused kernel
     pallas_auto_bytes: float = 1.3e10
     pallas_auto_shards: int = 1
@@ -182,6 +195,41 @@ class AssignSTE(torch.autograd.Function):
         return d_z, d_c.reshape(M, K, d), None, None, None
 
 
+def ema_codebook_update(state: Dict[str, torch.Tensor], count: torch.Tensor,
+                        vec_sum: torch.Tensor, cfg: PQConfig) -> Dict[str, torch.Tensor]:
+    """The EMA codebook update with Laplace smoothing: ``count`` (M, K) and
+    ``vec_sum`` (M, K, d) of this batch fold into ``ema_count`` and
+    ``ema_weight_avg`` at ``decay``, and ``ema_weight`` becomes their
+    ratio with the smoothed counts.  Returns a new state dict."""
+    decay, eps = cfg.decay, cfg.eps
+    ema_count = state["ema_count"] * decay + count * (1.0 - decay)
+    ema_weight_avg = state["ema_weight_avg"] * decay + vec_sum * (1.0 - decay)
+    n = ema_count.sum(-1, keepdim=True)                               # (M, 1)
+    smoothed = (ema_count + eps) / (n + cfg.num_codebook * eps) * n   # (M, K)
+    return dict(state, ema_count=ema_count, ema_weight_avg=ema_weight_avg,
+                ema_weight=ema_weight_avg / smoothed[..., None])
+
+
+def ema_jsd_entropy(prob_a: torch.Tensor, prob_b: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JSD and negative-entropy telemetry between two chunks of distance
+    probabilities (..., M, K), averaged over the subspaces: per subspace
+    the batch-mean KL JSD and the entropy of the batch-mean probability
+    (returned negated, as the reference's entropy loss is)."""
+    pa = prob_a.reshape(-1, *prob_a.shape[-2:])
+    pb = prob_b.reshape(-1, *prob_b.shape[-2:])
+
+    def kl_batchmean(log_input, p_target):
+        log_t = torch.log(p_target + 1e-6)
+        return (p_target * (log_t - log_input)).sum(-1).mean(0)
+
+    log_m = torch.log(0.5 * (pa + pb) + 1e-6)
+    jsd = (0.5 * (kl_batchmean(log_m, pa) + kl_batchmean(log_m, pb))).mean()
+    avg_p = pa.mean(0)                                                # (M, K)
+    ent = (-avg_p * torch.log(avg_p + 1e-8)).sum(-1)                  # (M,)
+    return jsd, (-ent).mean()
+
+
 def _train_route_ok(cfg: PQConfig) -> bool:
     """``train_route_ok`` of the JAX package (quantizer.py:527-533): the
     kernel trains only under an explicit ``use_pallas``, a param codebook,
@@ -195,7 +243,6 @@ def _train_route_ok(cfg: PQConfig) -> bool:
 
 def _check_training_supported(cfg: PQConfig) -> None:
     later = [name for name, on in (
-        ("vq_type='ema'", cfg.vq_type != "param"),
         ("use_restart", cfg.use_restart),
         ("use_split", cfg.use_split),
         ("pq_dropout", cfg.pq_dropout > 0.0),
@@ -203,18 +250,16 @@ def _check_training_supported(cfg: PQConfig) -> None:
         ("use_weighted_sum", cfg.use_weighted_sum)) if on]
     if later:
         raise NotImplementedError(
-            "pq_forward(training=True) is ported for param codebooks only; "
-            f"{', '.join(later)} belong to a later slice of the port")
+            "pq_forward(training=True) is ported for param and EMA codebooks "
+            f"without {', '.join(later)}, which belong to a later slice of the port")
 
 
 def _kernel_eligible(cfg: PQConfig, n: int, device: torch.device,
                      training: bool = False) -> bool:
     """The JAX package's eligibility predicate (quantizer.py:496-543)
-    with the TPU backend test read as CUDA.  Its shape rule is the TPU
-    kernel's layout (``sub_dim % 8 == 0`` and ``num_codebook % 128 ==
-    0``) for tensors on the CPU, so that the plain version stands where
-    the JAX kernel would; on CUDA it is the CUDA kernel's own domain
-    (``pq_assign.kernel_domain_error``)."""
+    with the TPU backend test read as CUDA; the shape rule is
+    ``_kernel_shape_ok``.  EMA training wants the distance softmax
+    (``want_prob_eff``), so it never takes the kernel, as in JAX."""
     if cfg.use_pallas == "auto":
         if device.type == "cuda":
             want = True
@@ -232,17 +277,36 @@ def _kernel_eligible(cfg: PQConfig, n: int, device: torch.device,
         want = bool(cfg.use_pallas)
     return (want
             and (not training or _train_route_ok(cfg))
+            and not _want_prob(cfg, training)
             and not cfg.use_weighted_sum
             and not cfg.use_gumbel
             and cfg.pq_dropout == 0.0
             and _kernel_shape_ok(cfg, device))
 
 
+def _want_prob(cfg: PQConfig, training: bool) -> bool:
+    """``want_prob_eff``: the (n, M, K) distance softmax is computed."""
+    return cfg.use_weighted_sum or (training and cfg.vq_type == "ema")
+
+
 def _kernel_shape_ok(cfg: PQConfig, device: torch.device) -> bool:
-    if device.type == "cuda":
-        return kernel_domain_error(cfg.sub_dim, cfg.num_codebook,
-                                   cfg.assign_precision != "bf16") is None
-    return cfg.sub_dim % 8 == 0 and cfg.num_codebook % 128 == 0
+    """The shape rule of the predicate.  The JAX package's is the TPU
+    kernel's layout, ``sub_dim % 8 == 0`` and ``num_codebook % 128 == 0``;
+    on the CPU it stands as it is, so that the plain version runs where
+    the JAX kernel would.  On CUDA a shape inside it is always the
+    kernel's: True, or ``ValueError`` with the reason if the kernel's
+    domain (``pq_assign.kernel_domain_error``) ever left one out, never a
+    quiet plain route.  Outside it, where JAX takes its XLA path, CUDA
+    takes the kernel where its domain holds the shape."""
+    jax_rule = cfg.sub_dim % 8 == 0 and cfg.num_codebook % 128 == 0
+    if device.type != "cuda":
+        return jax_rule
+    why = kernel_domain_error(cfg.sub_dim, cfg.num_codebook, cfg.assign_precision != "bf16")
+    if why is not None and jax_rule:
+        raise ValueError(
+            f"the JAX package takes its PQ kernel at d = {cfg.sub_dim}, K = "
+            f"{cfg.num_codebook}, but the CUDA kernel cannot: {why}")
+    return why is None
 
 
 def pq_forward(
@@ -260,7 +324,11 @@ def pq_forward(
     indices (..., M) int32, aux holds ``vq-loss`` and ``codebook-sum`` and,
     in training, the usage telemetry of this batch (``codebook-usage``,
     ``current-p10/50/90``).  In training ``new_state["vq_count"]`` adds
-    this batch's counts; the caller's ``state`` is not modified."""
+    this batch's counts, and an EMA codebook's state (``ema_count``,
+    ``ema_weight_avg``, ``ema_weight``) takes this batch's update; EMA
+    training also returns ``aux["distance_prob"]`` (..., M, K), the
+    softmax of the negated distances over ``jsd_ts``.  z_q comes from the
+    codebook before the update.  The caller's ``state`` is not modified."""
     if training:
         _check_training_supported(cfg)
     if cfg.use_weighted_sum:
@@ -283,6 +351,8 @@ def pq_forward(
         codebook_norm = normalize_vectors(codebook, cfg.normalize)
 
     exact = cfg.assign_precision != "bf16"
+    want_prob = _want_prob(cfg, training)
+    distance_prob = None
     if _kernel_eligible(cfg, n, zf.device, training):
         if training:
             indices, z_norm, z_q = AssignSTE.apply(
@@ -293,9 +363,13 @@ def pq_forward(
                 normalize=cfg.normalize, z_mean=z_mean, z_std=z_std, exact=exact)
     else:
         z_norm = normalize_vectors(zf, cfg.normalize, z_mean, z_std)
-        with torch.no_grad():
+        # the softmax keeps its autograd graph, as in JAX; the distances
+        # of the argmin alone need none
+        with contextlib.nullcontext() if want_prob else torch.no_grad():
             dist = pairwise_sqdist(z_norm, codebook_norm, precision=cfg.assign_precision)
-            indices = dist.argmin(-1).to(torch.int32)
+            indices = dist.detach().argmin(-1).to(torch.int32)
+            if want_prob:
+                distance_prob = torch.softmax(-dist.float() / cfg.jsd_ts, dim=-1)
             del dist
         # bf16: the codeword rounds to bf16; its gradient is the f32
         # scatter-add, rounded to bf16 on its way back through the cast,
@@ -321,6 +395,16 @@ def pq_forward(
                 0, flat, torch.ones(flat.shape, device=indices.device)).reshape(M, K)
             new_state["vq_count"] = state["vq_count"] + count
             aux.update(_usage_aux(count, K))
+            if cfg.vq_type == "ema":
+                # the sums of the unnormalised z assigned to each codeword,
+                # in f32 by index_add_: a scatter, no matrix product, so no
+                # TF32 where JAX asks for precision="highest"
+                vec_sum = torch.zeros((M * K, d), device=zf.device).index_add_(
+                    0, flat, zf.reshape(-1, d))
+                new_state = ema_codebook_update(new_state, count,
+                                                vec_sum.reshape(M, K, d), cfg)
+    if distance_prob is not None:
+        aux["distance_prob"] = distance_prob.reshape(*lead_shape, M, K)
     z_q = z_norm + (z_q - z_norm).detach()          # the straight-through value
     return (z_q.reshape(*lead_shape, M * d), indices.reshape(*lead_shape, M),
             aux, new_state)

@@ -2,7 +2,8 @@
 ``torch.export`` artifact.
 
 Counterpart of ``equss_tpu/serve.py``.  ``build_predict_fn`` closes the
-trainer's model and evaluator into a ``Predictor`` module;
+trainer's model (any registry model) and evaluator into a ``Predictor``
+module;
 ``export_predictor`` exports it with ``torch.export`` (the weights ship
 inside the artifact), ``save_predictor`` writes it (``model.pt2`` by
 convention) and ``load_predictor`` reads it back into a callable that

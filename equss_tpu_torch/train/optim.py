@@ -88,6 +88,13 @@ class Optimizer:
         rest = [p for n, p in named if not wd_mask(n, p)]
         groups = [{"params": g, "weight_decay": w}
                   for g, w in ((decay, wd), (rest, 0.0)) if g]
+        if name not in ("adam", "adamw", "sgd"):
+            raise ValueError(f"Unsupported optimizer type {name}")
+        self.opt: Optional[torch.optim.Optimizer] = None
+        if not named:
+            # nothing to train (the probe-only model, a missing cluster
+            # probe): the schedule still counts its updates, as optax's does
+            return
         if name == "adam":
             self.opt = torch.optim.Adam(self.params, lr=lr)
         elif name == "adamw":
@@ -96,11 +103,10 @@ class Optimizer:
         elif name == "sgd":
             self.opt = torch.optim.SGD(groups, lr=lr,
                                        momentum=opt_cfg.get("momentum", 0.9))
-        else:
-            raise ValueError(f"Unsupported optimizer type {name}")
 
     def zero_grad(self) -> None:
-        self.opt.zero_grad(set_to_none=True)
+        if self.opt is not None:
+            self.opt.zero_grad(set_to_none=True)
 
     @torch.no_grad()
     def step(self, norm: Optional[torch.Tensor] = None) -> None:
@@ -116,19 +122,24 @@ class Optimizer:
                 if p.grad is not None:
                     p.grad.copy_(torch.where(keep, p.grad,
                                              p.grad / norm * self.clip_grad))
-        lr = self.schedule(self.count)
-        for group in self.opt.param_groups:
-            group["lr"] = lr
-        self.opt.step()
+        if self.opt is not None:
+            lr = self.schedule(self.count)
+            for group in self.opt.param_groups:
+                group["lr"] = lr
+            self.opt.step()
         self.count += 1
 
     def _index_names(self) -> List[str]:
         """Parameter names in the order ``torch.optim`` numbers them."""
+        if self.opt is None:
+            return []
         return [self._names[id(p)] for g in self.opt.param_groups for p in g["params"]]
 
     def state_dict(self) -> Dict[str, Any]:
         """``count`` (the schedule position: updates made) and ``state``,
         each parameter's moments (and Adam's ``step``) by parameter name."""
+        if self.opt is None:
+            return {"count": self.count, "state": {}}
         names = self._index_names()
         inner = self.opt.state_dict()["state"]
         return {"count": self.count,
@@ -141,10 +152,12 @@ class Optimizer:
         unknown = sorted(set(sd["state"]) - set(index))
         if unknown:
             raise KeyError(f"optimizer state for unknown parameters {unknown}")
+        self.count = int(sd["count"])
+        if self.opt is None:
+            return
         full = self.opt.state_dict()
         full["state"] = {index[n]: dict(s) for n, s in sd["state"].items()}
         self.opt.load_state_dict(full)
-        self.count = int(sd["count"])
 
 
 def build_optimizer(named_params: NamedParams, opt_cfg: Dict[str, Any],

@@ -1,18 +1,25 @@
-"""EQUSS trainer: the train step, the valid steps and the epoch loop.
+"""The trainer of every registry model: the train step, the valid steps
+and the epoch loop.
 
 Counterpart of ``equss_tpu/train/trainer.py`` (``TrainConfig``,
 ``LOSS_WEIGHT_MAP``, ``Trainer.__init__``, ``_model_loss``,
 ``_select_out``, ``_trainable``, ``_normalize_batch``,
 ``_train_step_impl``, ``_valid_step_impl``, ``_valid_crf_step_impl``,
-``validate``, ``validate_crf`` and ``fit``).  One step runs the model's
-training forward, the weighted loss, the probe losses on detached
-features, one backward, and three optimizers: the model's (head and
-codebook; the frozen backbone is never trained), clipped at
-``clip_grad``, and the two probes', unclipped.  A step whose loss or
-gradients are not finite changes no parameter, no optimizer state and no
-quantizer count (``train.skip_nonfinite``): the quantizer's new
-``vq_count`` is computed in the forward and applied only after that
-check.  The step counter advances either way, as the JAX step's does.
+``validate``, ``validate_crf`` and ``fit``).  The model comes from
+``models/registry.py::build_model`` (EQUSS for ``pqgo`` and ``vq``,
+STEGO for ``stego`` and ``sl``, the probe-only model for ``probe``).  One
+step runs the model's training forward, the weighted loss, the probe
+losses, one backward, and three optimizers: the model's (its trainable
+parameters: head and codebook, none for the probe-only model; the frozen
+backbone is never trained), clipped at ``clip_grad``, and the two
+probes', unclipped.  The probes see detached features, except in
+supervised mode (``train.supervised`` or ``model.name: sl``), where their
+cross-entropy trains the head and there is no cluster probe.  A step
+whose loss or gradients are not finite changes no parameter, no
+optimizer state and no quantizer state (``train.skip_nonfinite``): the
+quantizer's new counts and EMA codebook are computed in the forward and
+applied only after that check.  The step counter advances either way, as
+the JAX step's does.
 
 The train state lives in the trainer: the weights, the optimizers, the
 step and ``generator``, which draws the dropout masks and STEGO's
@@ -40,13 +47,14 @@ from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from equss_tpu_torch.core.logging import MetricsLogger
 from equss_tpu_torch.data.transforms import normalize_images
 from equss_tpu_torch.device import DeviceLike, resolve_device
 from equss_tpu_torch.eval.metrics import UnSegMetrics, confusion_update
 from equss_tpu_torch.eval.probes import Evaluator, EvaluatorConfig
-from equss_tpu_torch.models.equss import EQUSS, EQUSSConfig
+from equss_tpu_torch.models.registry import build_model
 from equss_tpu_torch.ops.crf import CRFConfig, batched_crf
 from equss_tpu_torch.train.optim import build_optimizer, global_grad_norm
 
@@ -100,14 +108,15 @@ LOSS_WEIGHT_MAP = {
     "swav_weight": "swav-loss",
 }
 
-_METRIC_AUX_KEYS = ("stego-loss", "vq-loss", "codebook-usage", "codebook-sum")
+_METRIC_AUX_KEYS = ("stego-loss", "vq-loss", "codebook-usage", "codebook-sum", "jsd",
+                    "entropy")
 
 
 class Trainer:
     """``Trainer(cfg)`` builds the model of ``cfg`` (a config dict as the
-    YAML files hold it) with weights drawn from ``seed`` (``cfg['seed']``
-    when None), the probes and the three optimizers; ``model`` takes an
-    ``EQUSS`` built by the caller instead.  ``device=None`` means CUDA,
+    YAML files hold it; ``build_model``) with weights drawn from ``seed``
+    (``cfg['seed']`` when None), the probes and the three optimizers;
+    ``model`` takes a model built by the caller instead.  ``device=None`` means CUDA,
     which must then be present; pass ``device='cpu'`` to run on the CPU.
     ``train_step(batch)`` runs one step and returns its metrics,
     ``valid_step(batch)`` one eval step and ``validate(batches)`` the
@@ -117,26 +126,27 @@ class Trainer:
     weights out, ``train_state()`` all of it."""
 
     def __init__(self, cfg: Dict[str, Any], *, device: DeviceLike = None,
-                 seed: Optional[int] = None, model: Optional[EQUSS] = None):
+                 seed: Optional[int] = None, model: Optional[nn.Module] = None):
         self.cfg = cfg
         self.tc = TrainConfig.from_config(cfg)
         self.device = resolve_device(device)
         seed = self.tc.seed if seed is None else seed
-        if cfg.get("train", {}).get("supervised") or cfg["model"].get("name") == "sl":
-            raise NotImplementedError("supervised training is not ported yet")
-        if cfg["model"].get("name", "pqgo") != "pqgo":
-            raise NotImplementedError(f"model {cfg['model']['name']} is not ported yet")
-        self.model = model if model is not None else EQUSS(
-            EQUSSConfig.from_config(cfg), device=self.device, seed=seed)
+        self.model = model if model is not None else build_model(
+            cfg, device=self.device, seed=seed)
         if self.model.device != self.device:
             raise ValueError(f"model on {self.model.device}, trainer on {self.device}")
+        # supervised mode: the probe's cross-entropy trains the head, and
+        # there is no cluster probe
+        self.supervised = bool(cfg.get("train", {}).get("supervised", False)
+                               or cfg["model"].get("name") == "sl")
         ev = cfg.get("eval", {})
         self.evaluator = Evaluator(EvaluatorConfig(
-            embed_dim=self.model.cfg.hidden_dim,
+            embed_dim=self.model.output_dim(self.tc.output_type),
             num_classes=self.tc.num_classes,
             extra_classes=self.tc.extra_classes,
             alpha=ev.get("cluster_alpha"),
             probe_res=ev.get("probe_res", "feat"),
+            with_cluster=not self.supervised,
         ), torch.Generator().manual_seed(seed + 1)).to(self.device)
         self.loss_weights = {aux_key: float(cfg["loss"][wkey])
                              for wkey, aux_key in LOSS_WEIGHT_MAP.items()
@@ -156,7 +166,8 @@ class Trainer:
         self.tx_model = build_optimizer(self.model_params, opt_cfg["model"],
                                         sch_cfg.get("model"), clip_grad=self.tc.clip_grad,
                                         **common)
-        self.tx_cluster = build_optimizer(self.evaluator.cluster_probe.named_parameters(),
+        cluster = self.evaluator.cluster_probe
+        self.tx_cluster = build_optimizer(cluster.named_parameters() if cluster else [],
                                           opt_cfg["cluster"], sch_cfg.get("cluster"), **common)
         self.tx_linear = build_optimizer(self.evaluator.linear_probe.named_parameters(),
                                          opt_cfg["linear"], sch_cfg.get("linear"), **common)
@@ -228,11 +239,22 @@ class Trainer:
                 f"configured loss weights map to aux keys {missing} that the "
                 f"model does not emit in training (emitted: {sorted(aux)}); "
                 f"fix cfg['loss'] or the model")
-        return sum(w * aux[k] for k, w in self.loss_weights.items())
+        loss = torch.zeros((), device=self.device)
+        for k, w in self.loss_weights.items():
+            loss = loss + w * aux[k]
+        return loss
 
     def _select_out(self, out: Dict[str, Any]) -> torch.Tensor:
-        sel = out["z_q"] if self.tc.output_type.startswith("vq") else out["code"]
-        return sel.detach()
+        """What the probes see: ``z_q`` for ``eval.output_type: vq*``,
+        else ``code``; detached unless supervised."""
+        if self.tc.output_type.startswith("vq"):
+            if "z_q" not in out:
+                raise ValueError(f"model {type(self.model).__name__} has no quantized "
+                                 f"output; set eval.output_type: feat")
+            sel = out["z_q"]
+        else:
+            sel = out["code"]
+        return sel if self.supervised else sel.detach()
 
     _TRAIN_KEYS = ("img", "img_pos", "feat", "feat_pos", "label",
                    "stego_coords1", "stego_coords2", "stego_perms")
@@ -257,8 +279,8 @@ class Trainer:
     def forward_backward(self, batch: Mapping[str, Any]):
         """Zero the gradients, run the training forward and the backward
         on ``batch``.  Returns ``(metrics, out)``: the metric tensors and
-        the model's training outputs, whose ``pq_state`` is the quantizer
-        state this step would set.  Nothing is updated; the gradients are
+        the model's training outputs, whose ``pq_state`` (EQUSS only) is
+        the quantizer state this step would set.  Nothing is updated; the gradients are
         left in the parameters' ``.grad``."""
         b = self._batch(batch)
         for tx in (self.tx_model, self.tx_cluster, self.tx_linear):
@@ -279,7 +301,10 @@ class Trainer:
         if "cluster_loss" in ev:
             metrics["cluster-loss"] = ev["cluster_loss"]
         metrics.update({k: aux[k] for k in _METRIC_AUX_KEYS if k in aux})
-        metrics["grad-norm"] = global_grad_norm(p for _, p in self.model_params)
+        # without trainable model parameters (the probe-only model) the
+        # norm is a CPU zero: onto the device with the other metrics
+        metrics["grad-norm"] = global_grad_norm(
+            p for _, p in self.model_params).to(self.device)
         metrics["probe-grad-norm"] = global_grad_norm(p for _, p in self.probe_params)
         return metrics, out
 
@@ -300,7 +325,7 @@ class Trainer:
             self.tx_cluster.step()
             self.tx_linear.step()
             with torch.no_grad():
-                for name, t in out["pq_state"].items():
+                for name, t in out.get("pq_state", {}).items():
                     getattr(self.model.pq_state, name).copy_(t)
         return result
 
@@ -380,44 +405,54 @@ class Trainer:
         """The final evaluation's step with CRF refinement: the inference
         forward, both probes' label-resolution log-probabilities, the
         dense CRF (``CRFConfig(**cfg['eval']['crf'])``) on each image of
-        each, and the argmax.  Returns ``cluster_conf``, ``linear_conf``,
-        ``linear_preds`` and ``cluster_preds`` on the device, as
-        ``valid_step`` does."""
+        each, and the argmax.  Returns ``linear_conf`` and
+        ``linear_preds`` and, with the cluster probe, ``cluster_conf`` and
+        ``cluster_preds``, on the device, as ``valid_step`` does."""
         b = self._batch(batch, keys=("img", "label"))
         crf_cfg = CRFConfig(**(self.cfg.get("eval", {}).get("crf", {}) or {}))
+        n, e = self.tc.num_classes, self.tc.extra_classes
         with torch.no_grad():
             out = self.model(b["img"], training=False)
             ev = self.evaluator(self._select_out(out), b["label"], want_log_probs=True)
-            linear_preds = batched_crf(b["img"], ev["linear_log_probs"], crf_cfg
-                                       ).argmax(-1).to(torch.int32)
-            cluster_preds = batched_crf(b["img"], ev["cluster_log_probs"], crf_cfg
-                                        ).argmax(-1).to(torch.int32)
-        n, e = self.tc.num_classes, self.tc.extra_classes
-        return {"cluster_conf": confusion_update(cluster_preds, b["label"], n, e),
-                "linear_conf": confusion_update(linear_preds, b["label"], n, 0),
-                "linear_preds": linear_preds,
-                "cluster_preds": cluster_preds}
+            res = {}
+            for probe, extra in (("linear", 0), ("cluster", e)):
+                if f"{probe}_log_probs" not in ev:
+                    continue                    # supervised: no cluster probe
+                preds = batched_crf(b["img"], ev[f"{probe}_log_probs"], crf_cfg
+                                    ).argmax(-1).to(torch.int32)
+                res[f"{probe}_conf"] = confusion_update(preds, b["label"], n, extra)
+                res[f"{probe}_preds"] = preds
+        return res
 
     def validate_crf(self, val_iter: Iterable[Mapping[str, Any]], *,
                      visualize_to: Optional[str] = None) -> Dict[str, float]:
         """``valid_crf_step`` over every batch of ``val_iter``:
         Cluster_mIoU / Cluster_Accuracy (Hungarian matched) and
         Linear_mIoU / Linear_Accuracy in percent from the summed confusion
-        matrices, which stay on the device until the end."""
+        matrices, which stay on the device until the end.  Without a
+        cluster probe the Cluster keys repeat the Linear ones, as in
+        ``validate`` (the JAX package's CRF step has no such case: it
+        reads the cluster probe unconditionally)."""
         if visualize_to is not None:
             raise NotImplementedError("visualize_to (utils/visualize.py) is not ported yet")
         sums: Dict[str, torch.Tensor] = {}
         for batch in val_iter:
             res = self.valid_crf_step(batch)
             for k in ("cluster_conf", "linear_conf"):
-                sums[k] = sums[k] + res[k] if k in sums else res[k]
+                if k in res:
+                    sums[k] = sums[k] + res[k] if k in sums else res[k]
         n, e = self.tc.num_classes, self.tc.extra_classes
-        cluster_m = UnSegMetrics(n, e, compute_hungarian=True)
         linear_m = UnSegMetrics(n, 0, compute_hungarian=False)
-        if sums:
-            cluster_m.update_confusion(sums["cluster_conf"].cpu())
+        if "linear_conf" in sums:
             linear_m.update_confusion(sums["linear_conf"].cpu())
-        cluster, linear = cluster_m.compute(), linear_m.compute()
+        linear = linear_m.compute()
+        if self.evaluator.cluster_probe is not None:
+            cluster_m = UnSegMetrics(n, e, compute_hungarian=True)
+            if "cluster_conf" in sums:
+                cluster_m.update_confusion(sums["cluster_conf"].cpu())
+            cluster = cluster_m.compute()
+        else:
+            cluster = linear
         return {"Cluster_mIoU": cluster["iou"], "Cluster_Accuracy": cluster["accuracy"],
                 "Linear_mIoU": linear["iou"], "Linear_Accuracy": linear["accuracy"]}
 

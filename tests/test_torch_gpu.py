@@ -95,6 +95,64 @@ def test_pq_kernel_matches_plain(cuda, mode, exact, d, K):
     assert torch.equal(zq, src[torch.arange(M, device=cuda), idx.long()])
 
 
+WIDE_SHAPES = [  # M, K, d: each config's quantizer outside the pqgo family, then
+    (1, 256, 1024),     # vq (vq_cocostuff27)
+    (8, 2048, 64),      # new_vq, spq
+    (4, 1024, 128),     # contra
+    (16, 1024, 32),     # contra: (8d + 4) K bytes past shared memory
+    (1, 2048, 384),     # unseg
+    (1, 1024, 256),     # vae
+    (2, 2800, 16),      # past the fast narrow body's shared memory
+    (3, 100, 24),       # a ragged codeword tile and d not a multiple of 32
+]
+
+
+@pytest.mark.parametrize("mode", ["none", "l2", "z_norm", "z_trainable"])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("M,K,d", WIDE_SHAPES)
+def test_pq_wide_body_matches_plain(cuda, mode, exact, M, K, d):
+    """The wide body against the plain version; n = 1000 leaves a ragged
+    last tile of 40 rows.  The bars of the narrow bodies."""
+    from equss_tpu_torch.ops.pq_assign import kernel_body
+
+    if not (M == 16 and d == 32 and not exact):
+        assert kernel_body(d, K, exact) == "wide"
+    g = torch.Generator(device=cuda).manual_seed(K + d)
+    z = 3.0 * torch.randn((1000, M, d), generator=g, device=cuda)
+    cb = torch.randn((M, K, d), generator=g, device=cuda)
+    cn = normalize_vectors(cb, "l2" if mode == "z_trainable" else mode).contiguous()
+    zm = zs = None
+    if mode == "z_trainable":
+        zm = 0.1 * torch.randn((M, d), generator=g, device=cuda)
+        zs = torch.exp(0.1 * torch.randn((M, d), generator=g, device=cuda))
+    kw = dict(normalize=mode, z_mean=zm, z_std=zs, exact=exact)
+    before = pq_assign.launches
+    idx, zn, zq = pq_assign(z, cn, cb, **kw)
+    assert pq_assign.launches == before + 1
+    idx_r, zn_r, zq_r = pq_assign_reference(z, cn, cb, **kw)
+    agree = (idx == idx_r).float().mean().item()
+    assert agree >= (0.9999 if exact else 0.995)
+    assert bool(((idx >= 0) & (idx < K)).all())
+    torch.testing.assert_close(zn, zn_r, rtol=1e-6, atol=1e-6)
+    src = cb if exact else cb.to(torch.bfloat16).float()
+    assert torch.equal(zq, src[torch.arange(M, device=cuda), idx.long()])
+
+
+def test_pq_forward_on_cuda_never_takes_the_plain_route(cuda):
+    """Every config's (d, K) inside the JAX predicate runs the kernel on
+    CUDA, in inference, under ``use_pallas: auto``."""
+    for M, K, d in WIDE_SHAPES[:6] + [(64, 256, 16)]:
+        for precision in ("exact", "bf16"):
+            cfg = tq.PQConfig(num_pq=M, num_codebook=K, embed_dim=M * d, normalize="none",
+                              assign_precision=precision)
+            params, state = tq.pq_init(torch.Generator().manual_seed(0), cfg)
+            params = {k: v.to(cuda) for k, v in params.items()}
+            state = {k: v.to(cuda) for k, v in state.items()}
+            before = pq_assign.launches
+            tq.pq_forward(torch.randn((2, 5, 5, M * d), device=cuda), params, state, cfg)
+            assert pq_assign.launches == before + 1, (M, K, d, precision)
+
+
 def test_kernels_reject_what_they_do_not_take(cuda):
     qkv = torch.zeros((1, 8, 3 * 32), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
@@ -105,10 +163,10 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         pq_assign(z, torch.zeros((2, 128, 12), device=cuda),
                   torch.zeros((2, 128, 12), device=cuda))   # d = 12
-    z = torch.zeros((4, 2, 16), device=cuda)
-    big = torch.zeros((2, 2800, 16), device=cuda)           # past shared memory
+    z = torch.zeros((4, 2, 20), device=cuda)
+    cb = torch.zeros((2, 2800, 20), device=cuda)            # d % 8 != 0
     with pytest.raises(ValueError):
-        pq_assign(z, big, big, exact=False)
+        pq_assign(z, cb, cb, exact=False)
 
 
 @pytest.mark.parametrize("rows,C", [(25120, 384), (1000, 768), (37, 32), (5, 200)])

@@ -84,6 +84,34 @@ def test_pq_assign_reference_matches_jax_kernel(mode, exact, K, D):
         np.testing.assert_array_equal(zq_t, cb_bf16[np.arange(M), idx_t])
 
 
+# the wide shapes of the configs outside the pqgo family, which the CUDA
+# kernel's wide body takes: (M, K, d) of new_vq/spq, contra, vq
+WIDE = ((2, 2048, 64), (1, 1024, 128), (1, 256, 1024))
+WIDE_CASES = [pytest.param(mode, exact, m, k, d, id=f"{mode}-{'exact' if exact else 'fast'}"
+                           f"-M{m}-K{k}-d{d}")
+              for m, k, d in WIDE for mode in ("none", "l2") for exact in (True, False)]
+
+
+@pytest.mark.parametrize("mode,exact,M,K,D", WIDE_CASES)
+def test_pq_assign_reference_matches_jax_kernel_wide(mode, exact, M, K, D):
+    """The plain version at the wide body's shapes against the JAX kernel
+    (one subspace per block-diagonal dot there, G = 1), with the bars of
+    the narrow shapes."""
+    rng = np.random.RandomState(K + D)
+    z = rng.randn(300, M, D).astype(np.float32)
+    cb = rng.randn(M, K, D).astype(np.float32)
+    cn = _codebook_norm(cb, mode).astype(np.float32)
+    (idx_j, zn_j, zq_j), (idx_t, zn_t, zq_t) = _run_both(z, cn, cb, mode, exact)
+    np.testing.assert_allclose(zn_t, zn_j, rtol=1e-6, atol=1e-6)
+    if exact:
+        np.testing.assert_array_equal(idx_t, idx_j)
+        np.testing.assert_array_equal(zq_t, cb[np.arange(M), idx_t])
+    else:
+        assert np.mean(idx_t == idx_j) >= 0.995
+        cb_bf16 = np.asarray(jnp.asarray(cb).astype(jnp.bfloat16).astype(jnp.float32))
+        np.testing.assert_array_equal(zq_t, cb_bf16[np.arange(M), idx_t])
+
+
 def test_pq_assign_tie_case_near_duplicate_codewords():
     """tests/test_pallas_kmeans.py's adversarial case: near-duplicate
     codewords and large z make f32 distances collapse into ties that the

@@ -25,7 +25,7 @@ import jax.numpy as jnp
 
 from equss_tpu.ops import quantizer as jq
 from equss_tpu_torch.ops import quantizer as tq
-from equss_tpu_torch.ops.pq_assign import kernel_domain_error
+from equss_tpu_torch.ops.pq_assign import kernel_body, kernel_domain_error
 
 
 def _cfgs(**kw):
@@ -106,45 +106,60 @@ def test_pq_forward_routing_and_inference_only():
     assert not tq._kernel_eligible(cfg, 10, torch.device("cpu"))     # auto on CPU
     big = 1 + int(cfg.pallas_auto_bytes / (cfg.num_pq * cfg.num_codebook * 4))
     assert tq._kernel_eligible(cfg, big, torch.device("cpu"))
-    for bad in (dict(num_codebook=2048), dict(embed_dim=48, num_pq=4),
-                dict(pq_dropout=0.1)):
+    # K = 2048 at d = 16 is inside the JAX predicate: the wide body takes it
+    assert tq._kernel_eligible(dataclasses.replace(cfg, use_pallas=True, num_codebook=2048),
+                               10, torch.device("cuda"))
+    for bad in (dict(embed_dim=48, num_pq=4), dict(pq_dropout=0.1)):
         c = dataclasses.replace(cfg, use_pallas=True, **bad)
         assert not tq._kernel_eligible(c, 10, torch.device("cuda"))
     # training takes the kernel only under an explicit use_pallas
-    # (train_route_ok); branches of a later slice raise
+    # (train_route_ok), and EMA training never (it wants the distance
+    # softmax); branches of a later slice raise
     assert not tq._kernel_eligible(cfg, 10, torch.device("cuda"), training=True)
     assert tq._kernel_eligible(dataclasses.replace(cfg, use_pallas=True), 10,
                                torch.device("cuda"), training=True)
-    ema = dataclasses.replace(cfg, vq_type="ema")
-    params, state = tq.pq_init(torch.Generator().manual_seed(0), ema)
-    with pytest.raises(NotImplementedError):
-        tq.pq_forward(torch.zeros(3, 64), params, state, ema, training=True)
+    ema = dataclasses.replace(cfg, vq_type="ema", use_pallas=True)
+    assert tq._kernel_eligible(ema, 10, torch.device("cuda"))
+    assert not tq._kernel_eligible(ema, 10, torch.device("cuda"), training=True)
+    restart = dataclasses.replace(ema, use_restart=True)
+    params, state = tq.pq_init(torch.Generator().manual_seed(0), restart)
+    with pytest.raises(NotImplementedError, match="use_restart"):
+        tq.pq_forward(torch.zeros(3, 64), params, state, restart, training=True)
 
 
 def _header_domain(d: int, K: int, exact: bool) -> bool:
-    """The (d, K) domain csrc/pq_assign.cu's header states: d in
-    {8, 16, 32}, and one subspace's codebooks within 232 448 bytes of
-    shared memory, (8d + 4) K in exact mode, (4d + 4) roundup(K, 256 / d)
-    beside 43 008 bytes of staging tiles in fast mode."""
-    if d not in (8, 16, 32) or K < 1:
-        return False
+    """The (d, K) domain csrc/pq_assign.cu's header states: every d with
+    d % 8 == 0 and every K >= 1, in both modes."""
+    return d >= 8 and d % 8 == 0 and K >= 1
+
+
+def _header_body(d: int, K: int, exact: bool) -> str:
+    """The header's choice of body: narrow for d in {8, 16, 32} where one
+    subspace's codebooks fit 232 448 bytes of shared memory, (8d + 4) K in
+    exact mode, (4d + 4) roundup(K, 256 / d) beside 43 008 bytes of
+    staging tiles in fast mode; else wide."""
+    if d not in (8, 16, 32):
+        return "wide"
     chunk = 256 // d
     need = (8 * d + 4) * K if exact else (4 * d + 4) * (-(-K // chunk) * chunk) + 43008
-    return need <= 232448
+    return "narrow" if need <= 232448 else "wide"
 
 
 @pytest.mark.parametrize("precision", ["exact", "bf16"])
 @pytest.mark.parametrize("d", [4, 8, 12, 16, 32, 64])
 def test_kernel_eligibility_on_cuda_is_the_kernel_domain(d, precision):
     """On CUDA the predicate is true exactly inside the kernel's domain,
-    so it never picks a shape the wrapper refuses; on the CPU it keeps the
-    JAX package's TPU layout rule (d % 8, K % 128)."""
+    so it never picks a shape the wrapper refuses, and the body that runs
+    is the header's; on the CPU it keeps the JAX package's TPU layout rule
+    (d % 8, K % 128)."""
     exact = precision == "exact"
     for K in (1, 100, 128, 256, 257, 512, 894, 895, 1432, 1433, 1761, 1762, 2784, 2785, 4096):
         cfg = tq.PQConfig(num_pq=4, num_codebook=K, embed_dim=4 * d, use_pallas=True,
                           assign_precision=precision)
         inside = _header_domain(d, K, exact)
         assert (kernel_domain_error(d, K, exact) is None) == inside
+        if inside:
+            assert kernel_body(d, K, exact) == _header_body(d, K, exact)
         assert tq._kernel_eligible(cfg, 10, torch.device("cuda")) == inside
         assert tq._kernel_eligible(cfg, 10, torch.device("cpu")) == (
             d % 8 == 0 and K % 128 == 0)

@@ -234,8 +234,9 @@ def test_trainer_defaults_to_cuda(monkeypatch):
     bad = copy.deepcopy(micro_cfg(bf16=False))
     bad["model"]["vq"]["vq_type"] = "ema"
     bad["model"]["vq"]["normalize"] = "none"
+    bad["model"]["vq"]["use_restart"] = True           # EMA trains; restart is later
     tr = Trainer(bad, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="use_restart"):
         tr.train_step(_batches(1)[0])
 
 
