@@ -23,10 +23,13 @@ Phases, each printing JSON lines on stdout:
             shapes), with its time, the plain version's, one PyTorch
             library call's (a yardstick the port never calls) and the
             bound the card's peak rates set (for attention also the
-            exponential unit's); ``pq_wide``: the PQ kernel's wide body
+            exponential unit's); ``pq_wide``: the PQ kernel's wide bodies
             at the VQ baseline's calls (M = 1, K = 256, d = 1024 at
             n = 12 800 and 100 352) and at every other config's quantizer
-            outside the pqgo family, both modes;
+            outside the pqgo family, both modes, fast rows with a second
+            yardstick (a bf16 ``torch.baddbmm`` for the distances) and
+            the fast body's blocks, resident blocks per SM and dynamic
+            shared memory; then which fast rows lose to a yardstick;
 4. main     serving: the ViT-S/8 224^2 bf16 -> head -> PQ 64x256 forward
             on raw uint8 requests at b = 1, 8 and 128 with seeded weights:
             launch counts (12 attention and 1 PQ per forward), ms per
@@ -108,7 +111,10 @@ Phases, each printing JSON lines on stdout:
             ``entropy``, ``vq-loss`` finite; 12 attention launches), a
             valid step at b = 8, 320^2 (12 attention + 1 wide PQ), the
             predictor at b = 128 (12 + 1), profiles, and a b = 2 train step
-            card vs CPU;
+            card vs CPU, at the preset's codebook and at one of 256 of the
+            CPU's own codes (end-to-end indices >= 95% equal on the pairs
+            whose CPU minimum is untied, printed with the tied and untied
+            shares);
 18. stego   ``stego_cocostuff27`` (ViT-S/8) and ``stego_pascal`` (ViT-B/8 at
             b = 64, valid at b = 32) train and valid steps with 12
             attention launches each, and a b = 2 STEGO step card vs CPU;
@@ -535,9 +541,17 @@ def pq_row(name: str, n: int, M: int, K: int, d: int, mode: str, exact: bool, g)
     indices equal in exact mode, >= 99.5% in fast mode, indices in range,
     z_q the codeword at the kernel's own index bit for bit; the kernel's,
     the plain version's and the library yardstick's times (normalise +
-    ``torch.cdist`` + ``argmin`` + gather) and the bound."""
-    from equss_tpu_torch.ops.pq_assign import kernel_body, pq_assign, pq_assign_reference
-    from equss_tpu_torch.tools.pq_ab import case_inputs, library_call
+    ``torch.cdist`` + ``argmin`` + gather) and the bound; in fast mode also
+    the bf16 yardstick's (``library_bf16_call``: a bf16 ``torch.baddbmm``
+    for the distances), and for the fast wide body its launch (blocks,
+    resident blocks per SM, dynamic shared memory)."""
+    from equss_tpu_torch.ops.pq_assign import (
+        kernel_body,
+        pq_assign,
+        pq_assign_reference,
+        wide_fast_config,
+    )
+    from equss_tpu_torch.tools.pq_ab import case_inputs, library_bf16_call, library_call
 
     z, cn, cb, zm, zs = case_inputs(n, M, K, d, mode, g)
     kw = dict(normalize=mode, z_mean=zm, z_std=zs, exact=exact)
@@ -559,6 +573,12 @@ def pq_row(name: str, n: int, M: int, K: int, d: int, mode: str, exact: bool, g)
     ms = cuda_ms(lambda: pq_assign(z, cn, cb, **kw), iters=10)
     plain = cuda_ms(lambda: pq_assign_reference(z, cn, cb, **kw), iters=3)
     lib = cuda_ms(lambda: library_call(z, cn, cb, mode, zm, zs), iters=3)
+    extra = {}
+    if not exact:
+        extra["library_bf16_ms"] = cuda_ms(lambda: library_bf16_call(z, cn, cb, mode, zm, zs),
+                                           iters=3)
+        if kernel_body(d, K, exact) == "wide":
+            extra["launch"] = wide_fast_config(n, M, K, d, mode)
     nbytes = 4.0 * (n * M * d + 2 * M * K * d + n * M + 2 * n * M * d
                     + (2 * M * d if zm is not None else 0))
     bnd, by = bound_ms(2.0 * n * M * K * d, PEAK_F32_FLOPS if exact else PEAK_BF16_FLOPS,
@@ -567,7 +587,8 @@ def pq_row(name: str, n: int, M: int, K: int, d: int, mode: str, exact: bool, g)
            "body": kernel_body(d, K, exact), "n": n, "M": M, "K": K, "d": d,
            "normalize": mode, "exact": exact, "index_agreement": agree, "required": need,
            "max_abs_err": zn_err, "zq_err_where_equal": zq_err_same,
-           "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd, "bound_by": by,
+           "ms": ms, "plain_ms": plain, "library_ms": lib, **extra, "bound_ms": bnd,
+           "bound_by": by, "share_of_bound": bnd / ms,
            "f32_ops_bound_ms": 1e3 * 2.0 * n * M * K * d / PEAK_F32_FLOPS}
     emit(row)
     del z, cb, cn
@@ -622,6 +643,12 @@ def phase_pq_wide(results: dict) -> None:
     results["pq_assign_wide"] = rows[0]
     check(all(r["body"] == "wide" for r in rows if r["case"] != "contra_16_n12800_fast"),
           "pq_wide: a case left the wide body")
+    fast = [r for r in rows if not r["exact"] and r["body"] == "wide"]
+    emit({"phase": "pq_wide_summary",
+          "fast_rows_slower_than_library": [r["case"] for r in fast
+                                            if r["ms"] >= r["library_ms"]],
+          "fast_rows_slower_than_library_bf16": [r["case"] for r in fast
+                                                 if r["ms"] >= r["library_bf16_ms"]]})
 
 
 def phase_layernorm(results: dict) -> None:
@@ -999,10 +1026,13 @@ def stego_samples(batch: dict, seed: int, feature_samples: int = 11) -> dict:
                 stego_perms=np.stack([rng.permutation(b) for _ in range(5)]).astype(np.int32))
 
 
-def tied_minimum_share(tr, code: torch.Tensor) -> float:
-    """The share of (pixel, subspace) pairs whose smallest distance, in
-    the quantizer's own arithmetic on the CPU, is shared by more than one
-    codeword: there the first index wins, whatever the inputs' last bits."""
+def minimum_ties(tr, code: torch.Tensor) -> tuple:
+    """(tied share, untied mask) of the (pixel, subspace) pairs of ``code``
+    under the CPU trainer ``tr``'s quantizer, in its own arithmetic: a pair
+    is tied where its smallest distance is shared by more than one codeword
+    (there the first index wins, whatever the inputs' last bits), and
+    untied (mask (pixels, M), True) where the second-smallest distance is
+    larger than the smallest by more than one bf16 ulp of the smallest."""
     from equss_tpu_torch.ops.pq_assign import normalize_vectors
     from equss_tpu_torch.ops.quantizer import pairwise_sqdist
 
@@ -1014,7 +1044,13 @@ def tied_minimum_share(tr, code: torch.Tensor) -> float:
         d = pairwise_sqdist(normalize_vectors(zf, cfg.normalize),
                             normalize_vectors(codebook, cfg.normalize),
                             precision=cfg.assign_precision).float()
-        return ((d == d.amin(-1, keepdim=True)).sum(-1) > 1).float().mean().item()
+        tied = ((d == d.amin(-1, keepdim=True)).sum(-1) > 1).float().mean().item()
+        two = d.topk(min(2, d.shape[-1]), dim=-1, largest=False).values
+        if two.shape[-1] < 2:
+            return tied, torch.ones(two.shape[:-1], dtype=torch.bool)
+        exp = torch.frexp(two[..., 0]).exponent.float()       # |x| in [2^(e-1), 2^e)
+        ulp = torch.where(two[..., 0] == 0, torch.zeros_like(exp), torch.exp2(exp - 8))
+        return tied, two[..., 1] - two[..., 0] > ulp
 
 
 def reference_step(make_trainer, batch: dict, grads: dict, what: str,
@@ -1025,11 +1061,11 @@ def reference_step(make_trainer, batch: dict, grads: dict, what: str,
     term within 5e-2 relative, the cosine similarity of each gradient of
     ``grads`` (name: parameter-name prefix) >= 0.98, and where the model
     quantizes, the CPU's quantizer on the card's own code >= 99.5% of
-    indices equal (the fast mode's class) and, with ``e2e_bar``, the
-    end-to-end indices >= 95% equal (the serving reference's class);
-    without it the end-to-end agreement is printed beside the share of
-    tied minima (``tied_minimum_share``) that explains it.  Returns the
-    row."""
+    indices equal (the fast mode's class) and the end-to-end indices >= 95%
+    equal (the serving reference's class): over all pairs with
+    ``e2e_bar``, else over the pairs whose CPU minimum is untied
+    (``minimum_ties``), printed beside the tied share and the untied share
+    (an empty untied set holds nothing and says so).  Returns the row."""
     from equss_tpu_torch.ops.quantizer import pq_forward
 
     runs = {}
@@ -1065,7 +1101,15 @@ def reference_step(make_trainer, batch: dict, grads: dict, what: str,
             check(row["index_agreement"] >= 0.95,
                   f"{what}: end-to-end index agreement {row['index_agreement']}")
         else:
-            row["cpu_tied_minimum_share"] = tied_minimum_share(tr_c, code_c)
+            tied, untied = minimum_ties(tr_c, code_c)
+            row["cpu_tied_minimum_share"] = tied
+            row["cpu_untied_share"] = untied.float().mean().item()
+            row["untied_pairs"] = int(untied.sum())
+            row["untied_index_agreement"] = (same[untied].float().mean().item()
+                                             if row["untied_pairs"] else None)
+            check(not row["untied_pairs"] or row["untied_index_agreement"] >= 0.95,
+                  f"{what}: end-to-end index agreement on untied pairs "
+                  f"{row['untied_index_agreement']}")
     for k in ("jsd", "entropy"):
         if k in m_c:
             row[f"{k}_rel_err"] = abs(m_g[k] - m_c[k]) / abs(m_c[k])
@@ -1578,9 +1622,8 @@ def phase_vq(results: dict) -> None:
     ``entropy`` and ``vq-loss`` finite; ``validate`` over 4 batches of
     b = 8 at 320^2 (12 attention and 1 PQ launch per valid step, the PQ
     kernel's wide body at n = 12 800); the predictor at b = 128 on 224^2
-    (12 + 1 launches per request, the wide body at n = 100 352); profiles;
-    and one train step at b = 2 on the card against the CPU
-    (``reference_step``)."""
+    (12 + 1 launches per request, the wide body at n = 100 352); profiles.
+    ``phase_vq_reference`` holds a train step against the CPU."""
     from equss_tpu_torch import launch_counts, reset_launch_counts
     from equss_tpu_torch import serve as port_serve
     from equss_tpu_torch.data.synthetic import synthetic_batches
@@ -1635,16 +1678,43 @@ def phase_vq(results: dict) -> None:
     del tr, predict
     torch.cuda.empty_cache()
 
+
+def phase_vq_reference() -> None:
+    """One ``vq_cocostuff27`` train step at b = 2, dropout off, on the card
+    against the CPU (``reference_step``): at the preset's codebook, then
+    at a codebook of 256 of the CPU's own codes."""
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+
     batch = stego_samples(next(synthetic_batches(8, 1, 2, res=224, num_classes=27)), 8)
     # at the preset's initial codebook (uniform in +-1/256) the bf16
     # distances of d = 1024 codes (|z|^2 ~ 1.6e3, one bf16 ulp 8) to the
     # 256 codewords tie at the minimum in nearly every pixel, and the first
     # tied index wins: the end-to-end agreement follows the bf16 rounding
-    # of |z|^2, not the port, so it is printed with the tie share and the
-    # quantizer is held on the card's own code
+    # of |z|^2, not the port, so it is held on the untied pairs only (none
+    # may be left) and the quantizer is held on the card's own code
     row = reference_step(lambda device: preset_trainer("vq_cocostuff27", device, False)[1],
                          batch, {"head": "head."}, "vq train reference", e2e_bar=False)
     emit({"phase": "train_reference_cpu", "config": "vq_cocostuff27", **row})
+    # the same step with a codebook of 256 of the CPU's own codes (a data
+    # initialisation: codewords spread as the codes are), where the minima
+    # are untied and the end-to-end bar holds most pairs
+    _, tr0 = preset_trainer("vq_cocostuff27", "cpu", False)
+    code = tr0.forward_backward(batch)[1]["code"].detach().reshape(-1, 1024)
+    pick = torch.randperm(code.shape[0], generator=torch.Generator().manual_seed(8))[:256]
+    data_cb = code[pick].reshape(1, 256, 1024).clone()
+    del tr0, code
+
+    def data_trainer(device):
+        tr = preset_trainer("vq_cocostuff27", device, False)[1]
+        for name in ("ema_weight", "ema_weight_avg"):
+            getattr(tr.model.pq_state, name).copy_(data_cb)
+        return tr
+
+    row = reference_step(data_trainer, batch, {"head": "head."},
+                         "vq train reference, data codebook", e2e_bar=False)
+    check(row["untied_pairs"] > 0, "vq train reference, data codebook: no untied pair")
+    emit({"phase": "train_reference_cpu", "config": "vq_cocostuff27", "codebook": "data",
+          **row})
 
 
 def phase_stego(results: dict) -> None:
@@ -2412,6 +2482,7 @@ def main() -> int:
     phase_custom_op_ab(results)
     phase_own_data(results)
     phase_vq(results)
+    phase_vq_reference()
     phase_stego(results)
     phase_baselines(results)
     phase_cli_baselines(results)

@@ -7,14 +7,15 @@
 //
 // Domain: every d with d % 8 == 0 and every K >= 1, in both modes; this
 // holds every shape the JAX package sends to its kernel (d % 8 == 0 and
-// K % 128 == 0).  Three bodies share it:
+// K % 128 == 0).  Four bodies share it:
 //   narrow (pq_exact_kernel, pq_fast_kernel): d in {8, 16, 32} where one
 //     subspace's codebooks fit a block's 227 KB of shared memory:
 //     (8d + 4) * K bytes in exact mode (K <= 1761 at d = 16);
 //     (4d + 4) * roundup(K, 256 / d) bytes beside the 43 008 bytes of
 //     staging tiles in fast mode (K <= 2784 at d = 16);
-//   wide (pq_wide_kernel): every other shape of the domain, among them the
-//     VQ baseline's d = 1024, K = 256 and the variants' d = 64 .. 384.
+//   wide (pq_wide_kernel exact, pq_wide_fast_kernel fast): every other
+//     shape of the domain, among them the VQ baseline's d = 1024, K = 256
+//     and the variants' d = 64 .. 384.
 // ops/pq_assign.py::kernel_domain_error and kernel_body state the same
 // domain and the same choice of body for the wrapper and the eligibility
 // predicate.
@@ -68,25 +69,53 @@
 // one thread per row, the subspace's f32 codebook and squared norms in
 // shared memory, dot<D> in a fixed fmaf order.
 //
-// Wide body (pq_wide_kernel), both modes.  A subspace's codebook need not
-// fit shared memory: it is streamed through it in tiles of 64 codewords by
-// 8 dimensions.  A block owns 64 rows of one subspace.  First each warp
-// normalises rows of the tile (f32 warp sums over d), writes z_norm and
-// keeps |z_norm|^2 in shared memory.  Then, per codeword tile, the warps
-// take the tile's squared norms (f32, as the distance needs them), and the
-// 16 x 16 threads compute the 64 x 64 cross products with f32 FMAs from
-// shared-memory tiles of z_norm and c_norm (each thread 4 rows by 4
-// codewords, the depth in order); fast mode rounds both tiles to bf16 as
-// they are staged, so the products are exact and the sums f32.  The
-// epilogue folds each tile into a running minimum per (thread, row) under
-// the same rules as the narrow bodies (packed keys for K <= 256 in fast
-// mode, else the strict-< first minimum), the 16 threads of a row agree
-// by shuffles (equal distances: the lower index), and the warps gather
-// z_q (the raw f32 codeword, or its bf16 rounding) and write idx.  At
-// d = 1024, K = 256 and n = 100 352 the cross products are 52.6 GFLOP:
-// 0.79 ms at the f32 CUDA cores' peak, which bounds both modes of this
-// body (fast mode has the tensor cores' 0.05 ms bound of its work but
-// this body does not use them; the bytes take 0.37 ms).
+// Wide bodies: every other shape of the domain.  A subspace's codebook
+// need not fit shared memory: it is streamed through it in tiles.
+//
+// Exact mode (pq_wide_kernel): a block owns 64 rows of one subspace.  Each
+// warp normalises rows of the tile (f32 warp sums over d), writes z_norm
+// and keeps |z_norm|^2 in shared memory.  Then, per tile of 64 codewords,
+// the warps take the tile's squared norms, and the 16 x 16 threads compute
+// the 64 x 64 cross products with f32 FMAs from shared-memory tiles of
+// z_norm and c_norm (8 dimensions deep; each thread 4 rows by 4 codewords,
+// the depth in order).  The epilogue folds each tile into a strict-<
+// running minimum per (thread, row); the 16 threads of a row agree by
+// shuffles (equal distances: the lower index), and the warps gather the
+// raw f32 codeword and write idx.  At d = 1024, K = 256, n = 100 352 the
+// cross products are 52.6 GFLOP: 0.79 ms at the f32 CUDA cores' peak.
+//
+// Fast mode (pq_wide_fast_kernel, after a pre-pass).  The distances are
+// bf16 mma.sync products with f32 sums, so the body is bound by its bytes:
+// at the VQ baseline's valid call (n = 12 800, M = 1, K = 256, d = 1024)
+// 157 MB of z, z_norm and z_q, 0.047 ms at 3.35 TB/s, against 6.7 GFLOP,
+// 0.007 ms on the bf16 tensor cores.
+//   Pre-pass (pq_wide_prep_kernel, the same C entry, one launch before the
+//   body): a warp per codeword writes c_norm rounded to bf16, padded with
+//   zeros to k_pad = roundup(K, 128) codewords of d_pad = roundup(d, 64)
+//   dimensions, and the f32 squared norm of the unrounded values, into the
+//   caller's workspace (pq_assign_workspace_bytes); so no block rounds or
+//   sums the codebook again.
+//   Body: a block of 8 warps owns 32 rows of one subspace, so at M = 1 and
+//   n = 12 800 400 blocks share out over the 132 SMs (2 resident per SM at
+//   d = 1024).  It first issues the cp.async loads of the ring's first
+//   codebook stages; then each warp normalises rows in f32 (float4 loads,
+//   warp sums), writes z_norm to device memory in 16-byte stores, keeps
+//   |z_norm|^2 in shared memory and the bf16 row, zero-padded to d_pad, in
+//   a shared row tile (32 x d_pad x 2 bytes, 64 KB at d = 1024), whose
+//   16-byte pieces are swizzled by row so that ldmatrix reads are free of
+//   bank conflicts.  Past d = 2816 the tile does not fit beside the ring:
+//   then each 64-deep chunk of it is read back from z_norm and rounded
+//   before the chunk's products (the same arithmetic).  The codebook
+//   streams through a 3-stage cp.async ring of 128 codewords x 64
+//   dimensions; warp (slab, group) multiplies rows 16 slab.. by codewords
+//   32 group.. of each tile with mma.sync m16n8k16 (A and B by ldmatrix,
+//   four f32 accumulator fragments over the whole depth; zero padding adds
+//   exact zeros, so d % 16 == 8 needs no other path).  After a tile's last
+//   chunk the fragments fold into the running minima by the narrow
+//   bodies' rules, codewords past K skipped; the quads, then the four
+//   warp groups of a slab agree through shuffles and shared memory (equal
+//   keys: the lower index), and the warps write idx and gather z_q (the
+//   raw codeword rounded to bf16) as whole lines.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <climits>
@@ -580,12 +609,6 @@ int launch_precision(bool exact, const float* z, const float* c_norm,
 
 // ------------------------------------------------------------- wide body
 
-constexpr int WIDE_THREADS = 256;
-constexpr int WIDE_ROWS = 64;           // rows of one subspace per block
-constexpr int WIDE_CODES = 64;          // codewords per tile
-constexpr int WIDE_DEPTH = 8;           // dimensions per staged tile
-constexpr int WIDE_PAD = WIDE_ROWS + 4; // keeps the transposed stores conflict-free
-
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
@@ -596,13 +619,19 @@ __device__ __forceinline__ float round_bf16(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <int MODE, bool FAST, bool PACKED>
+// Exact mode: f32 FMAs from 64 x 64 x 8 shared-memory tiles (header).
+constexpr int WIDE_THREADS = 256;
+constexpr int WIDE_ROWS = 64;           // rows of one subspace per block
+constexpr int WIDE_CODES = 64;          // codewords per tile
+constexpr int WIDE_DEPTH = 8;           // dimensions per staged tile
+constexpr int WIDE_PAD = WIDE_ROWS + 4; // keeps the transposed stores conflict-free
+
+template <int MODE>
 __global__ void __launch_bounds__(WIDE_THREADS)
 pq_wide_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
                const float* __restrict__ c_raw, const float* __restrict__ z_mean,
                const float* __restrict__ z_std, int n, int M, int K, int d,
                int* __restrict__ idx, float* zn_out, float* __restrict__ zq_out) {
-    constexpr bool L2_SHORT = MODE == L2 && PACKED;
     __shared__ __align__(16) float s_z[WIDE_DEPTH][WIDE_PAD];
     __shared__ __align__(16) float s_c[WIDE_DEPTH][WIDE_PAD];
     __shared__ float s_zsq[WIDE_ROWS];
@@ -660,25 +689,22 @@ pq_wide_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
     const bool stages_z = tid < 128;
     const float* zn_row = zn_out + (row0 + l_r) * row_stride + static_cast<size_t>(m) * d;
     float best_d[4];
-    int best_k[4], best_p[4];
+    int best_k[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         best_d[i] = INFINITY;
         best_k[i] = 0;
-        best_p[i] = INT_MAX;
     }
     for (int k0 = 0; k0 < K; k0 += WIDE_CODES) {
-        if (!L2_SHORT) {
-            __syncthreads();            // the last tile's epilogue has read s_csq
-            for (int c = warp; c < WIDE_CODES; c += WIDE_THREADS / 32) {
-                float acc = 0.f;
-                if (k0 + c < K) {
-                    const float* cw = cn + static_cast<size_t>(k0 + c) * d;
-                    for (int j = lane; j < d; j += 32) acc += cw[j] * cw[j];
-                }
-                acc = warp_sum(acc);
-                if (lane == 0) s_csq[c] = acc;
+        __syncthreads();            // the last tile's epilogue has read s_csq
+        for (int c = warp; c < WIDE_CODES; c += WIDE_THREADS / 32) {
+            float acc = 0.f;
+            if (k0 + c < K) {
+                const float* cw = cn + static_cast<size_t>(k0 + c) * d;
+                for (int j = lane; j < d; j += 32) acc += cw[j] * cw[j];
             }
+            acc = warp_sum(acc);
+            if (lane == 0) s_csq[c] = acc;
         }
         float acc[4][4] = {};
         for (int j0 = 0; j0 < d; j0 += WIDE_DEPTH) {
@@ -688,10 +714,6 @@ pq_wide_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
             } else if (k0 + l_r < K) {
                 v = __ldg(reinterpret_cast<const float4*>(
                     cn + static_cast<size_t>(k0 + l_r) * d + j0 + l_c));
-            }
-            if (FAST) {
-                v.x = round_bf16(v.x); v.y = round_bf16(v.y);
-                v.z = round_bf16(v.z); v.w = round_bf16(v.w);
             }
             float (*dst)[WIDE_PAD] = stages_z ? s_z : s_c;
             dst[l_c + 0][l_r] = v.x;
@@ -719,11 +741,8 @@ pq_wide_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
             for (int j = 0; j < 4; ++j) {
                 const int k = k0 + 4 * tx + j;
                 if (k >= K) continue;
-                const float dist = L2_SHORT ? 1.f - acc[i][j]
-                                            : (zsq + s_csq[4 * tx + j]) - 2.f * acc[i][j];
-                if (PACKED) {
-                    best_p[i] = min(best_p[i], (__float_as_int(dist) & ~0xFF) | k);
-                } else if (dist < best_d[i]) {
+                const float dist = (zsq + s_csq[4 * tx + j]) - 2.f * acc[i][j];
+                if (dist < best_d[i]) {
                     best_d[i] = dist;
                     best_k[i] = k;
                 }
@@ -733,22 +752,13 @@ pq_wide_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
     // the 16 threads of a row (one half warp) agree on its minimum
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-        int best;
-        if (PACKED) {
-            int key = best_p[i];
+        float bd = best_d[i];
+        int best = best_k[i];
 #pragma unroll
-            for (int off = 1; off < 16; off <<= 1)
-                key = min(key, __shfl_xor_sync(0xffffffffu, key, off));
-            best = key & 0xFF;
-        } else {
-            float bd = best_d[i];
-            best = best_k[i];
-#pragma unroll
-            for (int off = 1; off < 16; off <<= 1) {
-                const float od = __shfl_xor_sync(0xffffffffu, bd, off);
-                const int ok = __shfl_xor_sync(0xffffffffu, best, off);
-                if (od < bd || (od == bd && ok < best)) { bd = od; best = ok; }
-            }
+        for (int off = 1; off < 16; off <<= 1) {
+            const float od = __shfl_xor_sync(0xffffffffu, bd, off);
+            const int ok = __shfl_xor_sync(0xffffffffu, best, off);
+            if (od < bd || (od == bd && ok < best)) { bd = od; best = ok; }
         }
         if (tx == 0) s_best[4 * ty + i] = best;
     }
@@ -762,18 +772,405 @@ pq_wide_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
         if (lane == 0) idx[static_cast<size_t>(row) * M + m] = best;
         const float* src = c_raw + (static_cast<size_t>(m) * K + best) * d;
         float* dst = zq_out + row * row_stride + static_cast<size_t>(m) * d;
-        for (int j = lane; j < d; j += 32) dst[j] = FAST ? round_bf16(src[j]) : src[j];
+        for (int j = lane; j < d; j += 32) dst[j] = src[j];
     }
 }
 
-template <int MODE, bool FAST, bool PACKED>
-int launch_wide(const float* z, const float* c_norm, const float* c_raw,
-                const float* z_mean, const float* z_std, int* idx, float* zn,
-                float* zq, int n, int M, int K, int d, cudaStream_t stream) {
+template <int MODE>
+int launch_wide_exact(const float* z, const float* c_norm, const float* c_raw,
+                      const float* z_mean, const float* z_std, int* idx, float* zn,
+                      float* zq, int n, int M, int K, int d, cudaStream_t stream) {
     if (M > 65535) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid((n + WIDE_ROWS - 1) / WIDE_ROWS, M);
-    pq_wide_kernel<MODE, FAST, PACKED><<<grid, WIDE_THREADS, 0, stream>>>(
+    pq_wide_kernel<MODE><<<grid, WIDE_THREADS, 0, stream>>>(
         z, c_norm, c_raw, z_mean, z_std, n, M, K, d, idx, zn, zq);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Fast mode (pq_wide_fast_kernel; the header says why and how).
+constexpr int WF_THREADS = 256;
+constexpr int WF_ROWS = 32;             // rows of one subspace per block: two 16-row slabs
+constexpr int WF_CODES = 128;           // codewords per tile: four warp groups of 32
+constexpr int WF_DEPTH = 64;            // dimensions per ring stage: 128 bytes of bf16
+constexpr int WF_STAGES = 3;
+constexpr int WF_STAGE_BYTES = WF_CODES * WF_DEPTH * 2;
+constexpr int WF_RING_BYTES = WF_STAGES * WF_STAGE_BYTES;
+constexpr int WF_SMALL_BYTES = 2 * WF_ROWS * 4;     // |z_norm|^2 and the row's index
+
+__host__ __device__ constexpr int round_up(int x, int to) { return (x + to - 1) / to * to; }
+
+// z_norm stays in shared memory as bf16 when the row tile fits beside the
+// ring (d <= 2816); past that it is streamed over depth from z_norm.
+__host__ __device__ constexpr bool wide_fast_resident(int d_pad) {
+    return WF_RING_BYTES + WF_ROWS * d_pad * 2 + WF_SMALL_BYTES <= SMEM_MAX;
+}
+
+size_t wide_fast_smem(int d) {
+    const int d_pad = round_up(d, WF_DEPTH);
+    return WF_RING_BYTES + WF_SMALL_BYTES
+           + static_cast<size_t>(WF_ROWS) * (wide_fast_resident(d_pad) ? d_pad : WF_DEPTH) * 2;
+}
+
+// workspace: the bf16 codebook (M, k_pad, d_pad), then c_sq (M, k_pad) in f32
+size_t wide_fast_workspace(int M, int K, int d) {
+    const size_t words = static_cast<size_t>(M) * round_up(K, WF_CODES);
+    return words * round_up(d, WF_DEPTH) * 2 + words * 4;
+}
+
+// element offset of the 16-byte piece q (8 bf16) of row r in rows of ld
+// elements (ld % 64 == 0): pieces swap within each 128-byte line by
+// q ^ (r % 8), so the eight rows an ldmatrix phase reads hit eight
+// different bank groups
+__device__ __forceinline__ int swz(int r, int q, int ld) {
+    return r * ld + (((q & ~7) | ((q ^ r) & 7)) << 3);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, global -> the shared-memory byte address dst
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 b16 matrices from the shared-memory byte address each lane gives
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+// four f32 -> four bf16 at element offset o of s (o % 4 == 0)
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* s, int o, float4 v) {
+    *reinterpret_cast<uint2*>(s + o) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+
+// The pre-pass: a warp per codeword of the padded codebook writes c_norm
+// rounded to bf16 (zeros past d and past K) and the f32 squared norm of
+// the unrounded values.
+__global__ void __launch_bounds__(256)
+pq_wide_prep_kernel(const float* __restrict__ c_norm, int M, int K, int d, int k_pad,
+                    int d_pad, __nv_bfloat16* __restrict__ cb, float* __restrict__ csq) {
+    const int w = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+    if (w >= M * k_pad) return;
+    const int m = w / k_pad, k = w - m * k_pad;
+    const float* src = c_norm + (static_cast<size_t>(m) * K + k) * d;
+    __nv_bfloat16* dst = cb + static_cast<size_t>(w) * d_pad;
+    float acc = 0.f;
+    for (int j = 4 * lane; j < d_pad; j += 128) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k < K && j < d) {
+            v = __ldg(reinterpret_cast<const float4*>(src + j));
+            acc += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+        }
+        store_bf16x4(dst, j, v);
+    }
+    acc = warp_sum(acc);
+    if (lane == 0) csq[w] = acc;
+}
+
+template <int MODE, bool PACKED>
+__global__ void __launch_bounds__(WF_THREADS, 2)
+pq_wide_fast_kernel(const float* __restrict__ z, const __nv_bfloat16* __restrict__ cb,
+                    const float* __restrict__ csq, const float* __restrict__ c_raw,
+                    const float* __restrict__ z_mean, const float* __restrict__ z_std,
+                    int n, int M, int K, int d, int k_pad, int d_pad, int resident,
+                    int* __restrict__ idx, float* zn_out, float* __restrict__ zq_out) {
+    constexpr bool L2_SHORT = MODE == L2 && PACKED;
+    extern __shared__ __align__(128) unsigned char wf_smem[];
+    __nv_bfloat16* s_ring = reinterpret_cast<__nv_bfloat16*>(wf_smem);   // [STAGES][CODES][DEPTH]
+    __nv_bfloat16* s_a = s_ring + WF_STAGES * WF_CODES * WF_DEPTH;       // [ROWS][a_ld]
+    const int a_ld = resident ? d_pad : WF_DEPTH;
+    float* s_zsq = reinterpret_cast<float*>(s_a + WF_ROWS * a_ld);       // [ROWS]
+    int* s_best = reinterpret_cast<int*>(s_zsq + WF_ROWS);               // [ROWS]
+    // once the ring has drained: each (row, warp group)'s minimum
+    int* s_key = reinterpret_cast<int*>(wf_smem);                        // [ROWS][4]
+    float* s_kd = reinterpret_cast<float*>(s_key + WF_ROWS * 4);         // [ROWS][4]
+
+    const int m = blockIdx.y, row0 = blockIdx.x * WF_ROWS;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const size_t row_stride = static_cast<size_t>(M) * d;
+    const size_t col0 = static_cast<size_t>(m) * d;
+    const int chunks = d_pad / WF_DEPTH, steps = chunks * (k_pad / WF_CODES);
+    const __nv_bfloat16* cbm = cb + static_cast<size_t>(m) * k_pad * d_pad;
+
+    // the ring: step s holds codeword tile s / chunks, depth chunk
+    // s % chunks in stage s % STAGES.  This thread copies the 16-byte piece
+    // tid % 8 of codewords tid / 8 + 32 u (u < 4) of each step: its shared
+    // and global offsets are fixed, a step adds its stage and its place.
+    const uint32_t ring = smem_addr(s_ring);
+    const int ld_cw = tid >> 3, ld_q = tid & 7;
+    const uint32_t ld_dst = ring + ld_cw * (WF_DEPTH * 2) + ((ld_q ^ (ld_cw & 7)) << 4);
+    const __nv_bfloat16* ld_src = cbm + static_cast<size_t>(ld_cw) * d_pad + 8 * ld_q;
+    constexpr int LD_ROWS = WF_THREADS / 8;     // codewords one pass of the block copies
+    int ld_step = 0, ld_tile = 0, ld_c = 0, ld_stage = 0;
+    auto load_next = [&]() {
+        if (ld_step < steps) {
+            const uint32_t dst = ld_dst + ld_stage * WF_STAGE_BYTES;
+            const __nv_bfloat16* src = ld_src + static_cast<size_t>(ld_tile) * WF_CODES * d_pad
+                                       + ld_c * WF_DEPTH;
+#pragma unroll
+            for (int u = 0; u < WF_CODES / LD_ROWS; ++u)
+                cp_async16(dst + u * LD_ROWS * (WF_DEPTH * 2),
+                           src + static_cast<size_t>(u) * LD_ROWS * d_pad);
+            if (++ld_c == chunks) { ld_c = 0; ++ld_tile; }
+            if (++ld_stage == WF_STAGES) ld_stage = 0;
+        }
+        ++ld_step;
+        cp_async_commit();
+    };
+    // the first codebook stages load while the rows are normalised
+    for (int s = 0; s < WF_STAGES - 1; ++s) load_next();
+
+    // normalise: a warp per row, z_norm to device memory as f32, |z_norm|^2
+    // and (resident) the bf16 row with zeros past d into shared memory
+    const int a_end = resident ? d_pad : 0;
+    for (int r = warp; r < WF_ROWS; r += WF_THREADS / 32) {
+        const int row = row0 + r;
+        if (row >= n) {
+            for (int j = 4 * lane; j < a_end; j += 128)
+                store_bf16x4(s_a, swz(r, j >> 3, a_ld) + (j & 4), make_float4(0.f, 0.f, 0.f, 0.f));
+            if (lane == 0) s_zsq[r] = 0.f;
+            continue;
+        }
+        const float* zr = z + row * row_stride + col0;
+        float* zo = zn_out + row * row_stride + col0;
+        float shift = 0.f, denom = 1.f;
+        if (MODE == L2) {
+            float ss = 0.f;
+#pragma unroll 4
+            for (int j = 4 * lane; j < d; j += 128) {
+                const float4 v = *reinterpret_cast<const float4*>(zr + j);
+                ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+            }
+            denom = fmaxf(sqrtf(warp_sum(ss)), 1e-12f);
+        } else if (MODE == Z_NORM) {
+            float s1 = 0.f;
+#pragma unroll 4
+            for (int j = 4 * lane; j < d; j += 128) {
+                const float4 v = *reinterpret_cast<const float4*>(zr + j);
+                s1 += v.x + v.y + v.z + v.w;
+            }
+            shift = warp_sum(s1) / d;
+            float s2 = 0.f;
+#pragma unroll 4
+            for (int j = 4 * lane; j < d; j += 128) {
+                const float4 v = *reinterpret_cast<const float4*>(zr + j);
+                const float x0 = v.x - shift, x1 = v.y - shift, x2 = v.z - shift, x3 = v.w - shift;
+                s2 += x0 * x0 + x1 * x1 + x2 * x2 + x3 * x3;
+            }
+            denom = sqrtf(warp_sum(s2) / (d - 1)) + 1e-5f;
+        }
+        float zsq = 0.f;
+#pragma unroll 4
+        for (int j = 4 * lane; j < max(d, a_end); j += 128) {
+            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (j < d) {
+                v = __ldcs(reinterpret_cast<const float4*>(zr + j));
+                if (MODE == L2) {
+                    v = make_float4(v.x / denom, v.y / denom, v.z / denom, v.w / denom);
+                } else if (MODE == Z_NORM) {
+                    v = make_float4((v.x - shift) / denom, (v.y - shift) / denom,
+                                    (v.z - shift) / denom, (v.w - shift) / denom);
+                } else if (MODE == Z_TRAINABLE) {
+                    const float4 mu = __ldg(reinterpret_cast<const float4*>(z_mean + col0 + j));
+                    const float4 sd = __ldg(reinterpret_cast<const float4*>(z_std + col0 + j));
+                    v = make_float4((v.x - mu.x) / (sd.x + 1e-5f), (v.y - mu.y) / (sd.y + 1e-5f),
+                                    (v.z - mu.z) / (sd.z + 1e-5f), (v.w - mu.w) / (sd.w + 1e-5f));
+                }
+                *reinterpret_cast<float4*>(zo + j) = v;
+                zsq += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+            }
+            if (j < a_end) store_bf16x4(s_a, swz(r, j >> 3, a_ld) + (j & 4), v);
+        }
+        zsq = warp_sum(zsq);
+        if (lane == 0) s_zsq[r] = zsq;
+    }
+    __syncthreads();        // z_norm rows, s_zsq and s_a are visible to the block
+
+    // warp (slab, grp): rows 16 slab.., codewords 32 grp.. of each tile
+    const int slab = warp >> 2, grp = warp & 3, g = lane >> 2, t = lane & 3;
+    const float zsq_r[2] = {s_zsq[16 * slab + g], s_zsq[16 * slab + g + 8]};
+    int best_p[2] = {INT_MAX, INT_MAX};
+    float best_d[2] = {INFINITY, INFINITY};
+    int best_k[2] = {0, 0};
+    // ldmatrix rows: A rows 16 slab + lane % 16, piece lane / 16 of each
+    // 16-deep step; B codewords 8 (lane / 16) + lane % 8 (and 16 more),
+    // piece (lane / 8) % 2.  Rows r of A and B sit r % 8 pieces swizzled
+    // (swz); a chunk is 8 pieces, so the swizzle never leaves it.
+    const int a_row = 16 * slab + (lane & 15), a_q = lane >> 4;
+    const int b_cw = 32 * grp + (lane & 7) + ((lane >> 4) << 3), b_q = (lane >> 3) & 1;
+    const uint32_t a_base = smem_addr(s_a) + a_row * a_ld * 2;
+    const uint32_t b_base = ring + b_cw * (WF_DEPTH * 2);
+    const float* csq_m = csq + static_cast<size_t>(m) * k_pad;
+    float acc[4][4] = {};
+
+    int tile = 0, c = 0, stage = 0;     // of step s
+    for (int s = 0; s < steps; ++s) {
+        if (!resident) {
+            __syncthreads();        // every warp is done with the last chunk's rows
+            for (int i = tid; i < WF_ROWS * 16; i += WF_THREADS) {
+                const int r = i >> 4, j = c * WF_DEPTH + 4 * (i & 15);
+                float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+                if (row0 + r < n && j < d)
+                    v = *reinterpret_cast<const float4*>(zn_out + (row0 + r) * row_stride + col0 + j);
+                store_bf16x4(s_a, swz(r, (j >> 3) & 7, WF_DEPTH) + (j & 4), v);
+            }
+        }
+        cp_async_wait<WF_STAGES - 2>();
+        __syncthreads();            // stage s has landed; stage s - 1 is free
+        load_next();
+        const uint32_t sa = a_base + (resident ? c * (WF_DEPTH * 2) : 0);
+        const uint32_t sb = b_base + stage * WF_STAGE_BYTES;
+#pragma unroll
+        for (int ks = 0; ks < WF_DEPTH / 16; ++ks) {
+            uint32_t a[4], b0[4], b1[4];
+            ldsm_x4(a, sa + (((2 * ks + a_q) ^ (a_row & 7)) << 4));
+            ldsm_x4(b0, sb + (((2 * ks + b_q) ^ (b_cw & 7)) << 4));
+            ldsm_x4(b1, sb + 16 * (WF_DEPTH * 2) + (((2 * ks + b_q) ^ (b_cw & 7)) << 4));
+            mma_k16(acc[0], a[0], a[1], a[2], a[3], b0[0], b0[1]);
+            mma_k16(acc[1], a[0], a[1], a[2], a[3], b0[2], b0[3]);
+            mma_k16(acc[2], a[0], a[1], a[2], a[3], b1[0], b1[1]);
+            mma_k16(acc[3], a[0], a[1], a[2], a[3], b1[2], b1[3]);
+        }
+        if (c == chunks - 1) {
+            // fold the tile into the running minima, codewords in order
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int kc = tile * WF_CODES + 32 * grp + 8 * j + 2 * t;
+                float2 cs = make_float2(0.f, 0.f);
+                if (!L2_SHORT) cs = __ldg(reinterpret_cast<const float2*>(csq_m + kc));
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int r = e >> 1, k = kc + (e & 1);
+                    if (k >= K) continue;
+                    const float dist = L2_SHORT ? 1.f - acc[j][e]
+                                                : (zsq_r[r] + ((e & 1) ? cs.y : cs.x)) - 2.f * acc[j][e];
+                    if (PACKED) {
+                        best_p[r] = min(best_p[r], (__float_as_int(dist) & ~0xFF) | k);
+                    } else if (dist < best_d[r]) {
+                        best_d[r] = dist;
+                        best_k[r] = k;
+                    }
+                }
+                acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+            }
+        }
+        if (++c == chunks) { c = 0; ++tile; }
+        if (++stage == WF_STAGES) stage = 0;
+    }
+    cp_async_wait<0>();
+    __syncthreads();                // the ring is free for s_key
+
+    // the quad of a row agrees, then the four warp groups of its slab
+    // (equal distances: the lower index)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int row = 16 * slab + g + 8 * r;
+        if (PACKED) {
+            int key = best_p[r];
+            key = min(key, __shfl_xor_sync(0xffffffffu, key, 1));
+            key = min(key, __shfl_xor_sync(0xffffffffu, key, 2));
+            if (t == 0) s_key[4 * row + grp] = key;
+        } else {
+            float bd = best_d[r];
+            int bk = best_k[r];
+#pragma unroll
+            for (int off = 1; off <= 2; off <<= 1) {
+                const float od = __shfl_xor_sync(0xffffffffu, bd, off);
+                const int ok = __shfl_xor_sync(0xffffffffu, bk, off);
+                if (od < bd || (od == bd && ok < bk)) { bd = od; bk = ok; }
+            }
+            if (t == 0) {
+                s_key[4 * row + grp] = bk;
+                s_kd[4 * row + grp] = bd;
+            }
+        }
+    }
+    __syncthreads();
+    if (tid < WF_ROWS) {
+        int best;
+        if (PACKED) {
+            int key = s_key[4 * tid];
+#pragma unroll
+            for (int q = 1; q < 4; ++q) key = min(key, s_key[4 * tid + q]);
+            best = key & 0xFF;
+        } else {
+            float bd = s_kd[4 * tid];
+            best = s_key[4 * tid];
+#pragma unroll
+            for (int q = 1; q < 4; ++q) {
+                const float od = s_kd[4 * tid + q];
+                const int ok = s_key[4 * tid + q];
+                if (od < bd || (od == bd && ok < best)) { bd = od; best = ok; }
+            }
+        }
+        s_best[tid] = best;
+    }
+    __syncthreads();
+
+    // idx and z_q (the bf16-rounded raw codeword), a warp per row
+    for (int r = warp; r < WF_ROWS; r += WF_THREADS / 32) {
+        const int row = row0 + r;
+        if (row >= n) continue;
+        const int best = s_best[r];
+        if (lane == 0) idx[static_cast<size_t>(row) * M + m] = best;
+        const float* src = c_raw + (static_cast<size_t>(m) * K + best) * d;
+        float* dst = zq_out + row * row_stride + col0;
+#pragma unroll 4
+        for (int j = 4 * lane; j < d; j += 128) {
+            const float4 v = __ldg(reinterpret_cast<const float4*>(src + j));
+            __stcs(reinterpret_cast<float4*>(dst + j),
+                   make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z), round_bf16(v.w)));
+        }
+    }
+}
+
+// blocks, resident blocks per SM and dynamic shared memory of a fast
+// wide launch on the current device
+template <int MODE, bool PACKED>
+int wide_fast_config(int n, int M, int d, int* blocks, int* per_sm, size_t* smem) {
+    auto kernel = pq_wide_fast_kernel<MODE, PACKED>;
+    *smem = wide_fast_smem(d);
+    *blocks = (n + WF_ROWS - 1) / WF_ROWS * M;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(*smem));
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, WF_THREADS, *smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return *per_sm < 1 ? static_cast<int>(cudaErrorInvalidConfiguration) : 0;
+}
+
+template <int MODE, bool PACKED>
+int launch_wide_fast(const float* z, const float* c_norm, const float* c_raw,
+                     const float* z_mean, const float* z_std, int* idx, float* zn,
+                     float* zq, int n, int M, int K, int d, void* workspace,
+                     cudaStream_t stream) {
+    if (M > 65535 || workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int k_pad = round_up(K, WF_CODES), d_pad = round_up(d, WF_DEPTH);
+    auto* cb = static_cast<__nv_bfloat16*>(workspace);
+    auto* csq = reinterpret_cast<float*>(cb + static_cast<size_t>(M) * k_pad * d_pad);
+    int blocks = 0, per_sm = 0;
+    size_t smem = 0;
+    int err = wide_fast_config<MODE, PACKED>(n, M, d, &blocks, &per_sm, &smem);
+    if (err) return err;
+    pq_wide_prep_kernel<<<(M * k_pad + 7) / 8, 256, 0, stream>>>(c_norm, M, K, d, k_pad, d_pad,
+                                                                  cb, csq);
+    if ((err = static_cast<int>(cudaGetLastError()))) return err;
+    const dim3 grid((n + WF_ROWS - 1) / WF_ROWS, M);
+    pq_wide_fast_kernel<MODE, PACKED><<<grid, WF_THREADS, smem, stream>>>(
+        z, cb, csq, c_raw, z_mean, z_std, n, M, K, d, k_pad, d_pad,
+        wide_fast_resident(d_pad) ? 1 : 0, idx, zn, zq);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -781,29 +1178,29 @@ template <int MODE>
 int launch_wide_precision(bool exact, const float* z, const float* c_norm,
                           const float* c_raw, const float* z_mean, const float* z_std,
                           int* idx, float* zn, float* zq, int n, int M, int K, int d,
-                          cudaStream_t s) {
+                          void* ws, cudaStream_t s) {
     if (exact)
-        return launch_wide<MODE, false, false>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, s);
+        return launch_wide_exact<MODE>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, s);
     if (K <= 256)
-        return launch_wide<MODE, true, true>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, s);
-    return launch_wide<MODE, true, false>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, s);
+        return launch_wide_fast<MODE, true>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, ws, s);
+    return launch_wide_fast<MODE, false>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, ws, s);
 }
 
 int launch_wide_mode(int mode, bool exact, const float* z, const float* c_norm,
                      const float* c_raw, const float* z_mean, const float* z_std,
                      int* idx, float* zn, float* zq, int n, int M, int K, int d,
-                     cudaStream_t s) {
+                     void* ws, cudaStream_t s) {
     switch (mode) {
-        case NONE: return launch_wide_precision<NONE>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, s);
-        case L2: return launch_wide_precision<L2>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, s);
-        case Z_NORM: return launch_wide_precision<Z_NORM>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, s);
-        case Z_TRAINABLE: return launch_wide_precision<Z_TRAINABLE>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, s);
+        case NONE: return launch_wide_precision<NONE>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, ws, s);
+        case L2: return launch_wide_precision<L2>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, ws, s);
+        case Z_NORM: return launch_wide_precision<Z_NORM>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, ws, s);
+        case Z_TRAINABLE: return launch_wide_precision<Z_TRAINABLE>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, ws, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
 
 // The narrow bodies take d in {8, 16, 32} where one subspace's codebooks
-// fit shared memory (the header's rule); the wide body everything else.
+// fit shared memory (the header's rule); the wide bodies everything else.
 bool narrow_fits(int d, int K, bool exact) {
     if (d != 8 && d != 16 && d != 32) return false;
     const size_t chunk = 256 / d;
@@ -829,16 +1226,50 @@ int launch_mode(int mode, bool exact, const float* z, const float* c_norm,
 
 }  // namespace
 
+// Bytes of device workspace pq_assign_launch needs for (M, K, d) in this
+// mode: the fast wide body's bf16 codebook and squared norms, else 0.
+extern "C" size_t pq_assign_workspace_bytes(int M, int K, int d, int exact) {
+    if (exact || M < 1 || K < 1 || d < 8 || d % 8 != 0 || narrow_fits(d, K, false)) return 0;
+    return wide_fast_workspace(M, K, d);
+}
+
+// The fast wide body's launch on the current device: out[0] blocks,
+// out[1] resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// out[2] dynamic shared memory bytes.  Returns a cudaError_t (0 = success).
+extern "C" int pq_assign_wide_config(int n, int M, int K, int d, int mode, int* out) {
+    int blocks = 0, per_sm = 0;
+    size_t smem = 0;
+    int err;
+    const bool packed = K <= 256;
+    switch (mode) {
+        case NONE: err = packed ? wide_fast_config<NONE, true>(n, M, d, &blocks, &per_sm, &smem)
+                                : wide_fast_config<NONE, false>(n, M, d, &blocks, &per_sm, &smem); break;
+        case L2: err = packed ? wide_fast_config<L2, true>(n, M, d, &blocks, &per_sm, &smem)
+                              : wide_fast_config<L2, false>(n, M, d, &blocks, &per_sm, &smem); break;
+        case Z_NORM: err = packed ? wide_fast_config<Z_NORM, true>(n, M, d, &blocks, &per_sm, &smem)
+                                  : wide_fast_config<Z_NORM, false>(n, M, d, &blocks, &per_sm, &smem); break;
+        case Z_TRAINABLE: err = packed ? wide_fast_config<Z_TRAINABLE, true>(n, M, d, &blocks, &per_sm, &smem)
+                                       : wide_fast_config<Z_TRAINABLE, false>(n, M, d, &blocks, &per_sm, &smem); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    out[0] = blocks;
+    out[1] = per_sm;
+    out[2] = static_cast<int>(smem);
+    return err;
+}
+
 // z (n, M, d), c_norm and c_raw (M, K, d), z_mean and z_std (M, d) or null,
 // all f32 contiguous and 16-byte aligned -> idx (n, M) int32, z_norm and
 // z_q (n, M, d) f32, on `stream`.  mode: 0 none, 1 l2, 2 z_norm,
-// 3 z_trainable; d % 8 == 0, K >= 1 (the header's domain).  Returns the
-// cudaError_t of the launch (0 = success).
+// 3 z_trainable; d % 8 == 0, K >= 1 (the header's domain).  `workspace`:
+// pq_assign_workspace_bytes(M, K, d, exact) bytes of device memory,
+// 16-byte aligned (null where that is 0).  Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int pq_assign_launch(const void* z, const void* c_norm,
                                 const void* c_raw, const void* z_mean,
                                 const void* z_std, void* idx, void* zn,
                                 void* zq, int n, int M, int K, int d, int mode,
-                                int exact, void* stream) {
+                                int exact, void* stream, void* workspace) {
     if (n == 0) return 0;
     if (K < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
     const auto s = static_cast<cudaStream_t>(stream);
@@ -852,7 +1283,8 @@ extern "C" int pq_assign_launch(const void* z, const void* c_norm,
     auto* zqp = static_cast<float*>(zq);
     if (d < 8 || d % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
     if (!narrow_fits(d, K, exact != 0))
-        return launch_wide_mode(mode, exact != 0, zf, cn, cr, zm, zs, ip, znp, zqp, n, M, K, d, s);
+        return launch_wide_mode(mode, exact != 0, zf, cn, cr, zm, zs, ip, znp, zqp, n, M, K, d,
+                                workspace, s);
     switch (d) {
         case 8: return launch_mode<8>(mode, exact != 0, zf, cn, cr, zm, zs, ip, znp, zqp, n, M, K, s);
         case 16: return launch_mode<16>(mode, exact != 0, zf, cn, cr, zm, zs, ip, znp, zqp, n, M, K, s);

@@ -131,8 +131,32 @@ def _kernel_lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p]
+            + [ctypes.c_void_p] * 2
+        lib.pq_assign_workspace_bytes.restype = ctypes.c_size_t
+        lib.pq_assign_workspace_bytes.argtypes = [ctypes.c_int] * 4
+        lib.pq_assign_wide_config.restype = ctypes.c_int
+        lib.pq_assign_wide_config.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     return lib
+
+
+def kernel_workspace(z: torch.Tensor, K: int, exact: bool) -> Optional[torch.Tensor]:
+    """The device workspace a kernel launch on ``z`` (n, M, d) needs (the
+    fast wide body's bf16 codebook and squared norms, written by its
+    pre-pass), allocated on ``z``'s device; None where it needs none."""
+    _, M, d = z.shape
+    nbytes = _kernel_lib().pq_assign_workspace_bytes(M, K, d, int(exact))
+    return torch.empty(nbytes, dtype=torch.uint8, device=z.device) if nbytes else None
+
+
+def wide_fast_config(n: int, M: int, K: int, d: int, normalize: str) -> dict:
+    """The fast wide body's launch on the current card: its blocks, the
+    resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
+    and its dynamic shared memory."""
+    out = (ctypes.c_int * 3)()
+    err = _kernel_lib().pq_assign_wide_config(n, M, K, d, MODES.index(normalize), out)
+    if err:
+        raise RuntimeError(f"pq_assign_wide_config failed: CUDA error {err}")
+    return {"blocks": out[0], "blocks_per_sm": out[1], "dynamic_smem_bytes": out[2]}
 
 
 @torch.library.custom_op("equss::pq_assign", mutates_args=(), device_types="cpu")
@@ -170,11 +194,13 @@ def _pq_assign_cuda(z: torch.Tensor, c_norm: torch.Tensor, c_raw: torch.Tensor,
     idx = torch.empty((n, M), dtype=torch.int32, device=z.device)
     zn = torch.empty_like(z)
     zq = torch.empty_like(z)
+    ws = kernel_workspace(z, K, exact)
     with on_device(z):
         err = _kernel_lib().pq_assign_launch(
             z.data_ptr(), c_norm.data_ptr(), c_raw.data_ptr(), *stats,
             idx.data_ptr(), zn.data_ptr(), zq.data_ptr(), n, M, K, d,
-            MODES.index(normalize), int(exact), launch_stream(z))
+            MODES.index(normalize), int(exact), launch_stream(z),
+            None if ws is None else ws.data_ptr())
     if err:
         raise RuntimeError(f"pq_assign launch failed: CUDA error {err}")
     pq_assign.launches += 1

@@ -71,11 +71,13 @@ def pq_assign_ctypes(z: torch.Tensor, c_norm: torch.Tensor, c_raw: torch.Tensor,
     idx = torch.empty((n, M), dtype=torch.int32, device=z.device)
     zn = torch.empty_like(z)
     zq = torch.empty_like(z)
+    ws = pq.kernel_workspace(z, K, exact)
     with on_device(z):
         err = pq._kernel_lib().pq_assign_launch(
             z.data_ptr(), c_norm.data_ptr(), c_raw.data_ptr(), *stats,
             idx.data_ptr(), zn.data_ptr(), zq.data_ptr(), n, M, K, d,
-            pq.MODES.index(normalize), int(exact), launch_stream(z))
+            pq.MODES.index(normalize), int(exact), launch_stream(z),
+            None if ws is None else ws.data_ptr())
     if err:
         raise RuntimeError(f"pq_assign launch failed: CUDA error {err}")
     pq_assign_ctypes.launches += 1

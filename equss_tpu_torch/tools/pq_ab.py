@@ -2,25 +2,32 @@
 
     python3 -m equss_tpu_torch.tools.pq_ab OLD.cu
 
-``OLD.cu`` is an earlier version of ``csrc/pq_assign.cu`` with the same
-``pq_assign_launch`` C entry.  Both sources are compiled with the port's
-nvcc flags (in parallel, into ``_build/ab/``); each build's ptxas
-register and spill lines are printed.  At every case of
-``chip_smoke.py``'s PQ phase (serve and train fast l2, serve exact l2,
-z_norm exact, z_trainable fast) and at K = 512, d = 8 and d = 32, both
-builds run on the same input.  Each build is held to the plain version
-(``pq_assign_reference``) with the kernel's bar: >= 99.99% of indices
-equal in exact mode, >= 99.5% in fast mode, indices in range, z_q the
-codeword at the build's own index bit for bit, z_norm within 1e-6 + 1e-6
-|z_norm| (f32 sums in another order); ``identical_indices`` says whether
-the two builds agree everywhere.  Then old, new and the library call
-(normalise + ``torch.cdist`` + ``argmin`` + gather, a yardstick the port
-never calls) are timed in turns (old, new, library, library, new, old,
-three times: medians of six) with CUDA events over back-to-back launches;
-one launch moves at least 150 MB at every case, more than the 50 MB L2,
-so z comes from device memory, as on the serving path.  Prints the card's
-name and power limit, one JSON line per build and per case, and exits
-non-zero if a build or a launch fails or a bar is missed.
+``OLD.cu`` is an earlier version of ``csrc/pq_assign.cu`` with a
+``pq_assign_launch`` C entry; a build that exports
+``pq_assign_workspace_bytes`` gets its workspace, an older one is called
+without.  Both sources are compiled with the port's nvcc flags (in
+parallel, into ``_build/ab/``); each build's ptxas register and spill
+lines are printed.  At every case of ``chip_smoke.py``'s PQ phase (serve
+and train fast l2, serve exact l2, z_norm exact, z_trainable fast), at
+K = 512, d = 8 and d = 32, and at the wide body's cases in both modes
+(the VQ baseline's valid and predictor calls, M = 1, K = 256, d = 1024;
+unseg 1 x 2048 x 384, vae 1 x 1024 x 256 and new_vq 8 x 2048 x 64 at
+n = 12 800), both builds run on the same input.  Each build is held to
+the plain version (``pq_assign_reference``) with the kernel's bar:
+>= 99.99% of indices equal in exact mode, >= 99.5% in fast mode, indices
+in range, z_q the codeword at the build's own index bit for bit, z_norm
+within 1e-6 + 1e-6 |z_norm| (f32 sums in another order);
+``identical_indices`` says whether the two builds agree everywhere.
+Then old, new and the library call (normalise + ``torch.cdist`` +
+``argmin`` + gather, a yardstick the port never calls) are timed in turns
+(old, new, library, library, new, old, three times: medians of six) with
+CUDA events over back-to-back launches; in fast mode also a second
+yardstick, normalise + a bf16 ``torch.baddbmm`` of the distances +
+``argmin`` + gather (``library_bf16``, its indices not held).  One launch
+moves at least 150 MB at the narrow cases and 39-1233 MB at the wide
+ones (their paths' own sizes), so z comes mostly from device memory.  Prints the card's name
+and power limit, one JSON line per build and per case, and exits non-zero
+if a build or a launch fails or a bar is missed.
 """
 from __future__ import annotations
 
@@ -47,6 +54,13 @@ CASES = (  # name, n, M, K, d, normalize, exact
     ("k512_fast_l2", 16384, 64, 512, 16, "l2", False),
     ("d8_fast_l2", 16384, 128, 256, 8, "l2", False),
     ("d32_fast_l2", 16384, 32, 256, 32, "l2", False),
+    *((f"wide_{name}_{'exact' if exact else 'fast'}", n, M, K, d, "none", exact)
+      for name, n, M, K, d in (("vq_valid", 8 * 40 * 40, 1, 256, 1024),
+                               ("vq_predictor", 128 * 28 * 28, 1, 256, 1024),
+                               ("unseg", 8 * 40 * 40, 1, 2048, 384),
+                               ("vae", 8 * 40 * 40, 1, 1024, 256),
+                               ("new_vq", 8 * 40 * 40, 8, 2048, 64))
+      for exact in (False, True)),
 )
 PEAK_BYTES = 3.35e12
 PEAK_BF16_FLOPS = 989e12
@@ -65,7 +79,8 @@ def _compile(sources):
     libs = {}
     for name, (lib, proc) in procs.items():
         log = proc.communicate()[0]
-        ptxas = [ln.strip() for ln in log.splitlines() if re.search(r"registers|spill", ln)]
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if re.search(r"registers|spill|entry function", ln)]
         spills = sum(map(int, re.findall(r"(\d+) bytes spill", log)))
         print(json.dumps({"build": name, "rc": proc.returncode, "spill_bytes": spills,
                           "max_registers": max(map(int, re.findall(r"Used (\d+) registers",
@@ -73,10 +88,16 @@ def _compile(sources):
                           "ptxas": ptxas}), flush=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(lib)).pq_assign_launch
+        dll = ctypes.CDLL(str(lib))
+        fn = dll.pq_assign_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        libs[name] = fn
+        ws = getattr(dll, "pq_assign_workspace_bytes", None)
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p] * (1 if ws is None else 2)
+        if ws is not None:
+            ws.restype = ctypes.c_size_t
+            ws.argtypes = [ctypes.c_int] * 4
+        libs[name] = (fn, ws)
     return libs
 
 
@@ -105,6 +126,18 @@ def library_call(z, cn, cb, mode, zm=None, zs=None):
     return torch.gather(cb, 1, i[..., None].expand(-1, -1, z.shape[-1]))
 
 
+def library_bf16_call(z, cn, cb, mode, zm=None, zs=None):
+    """The fast mode's time yardstick in library calls: normalise, the
+    distances |c|^2 - 2 z.c as one bf16 ``torch.baddbmm`` (bf16 operands,
+    f32 sums, bf16 result), ``argmin``, gather.  Its indices are not held
+    (the bf16 result ties many distances)."""
+    zl = normalize_vectors(z, mode, zm, zs).transpose(0, 1).to(torch.bfloat16)
+    cnb = cn.to(torch.bfloat16)
+    csq = (cn * cn).sum(-1, keepdim=True).transpose(1, 2).to(torch.bfloat16)   # (M, 1, K)
+    i = torch.baddbmm(csq, zl, cnb.transpose(1, 2), alpha=-2.0).argmin(-1)    # (M, n)
+    return torch.gather(cb, 1, i[..., None].expand(-1, -1, z.shape[-1]))
+
+
 def main(argv) -> int:
     if len(argv) != 1 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
@@ -123,13 +156,22 @@ def main(argv) -> int:
         outs = {b: (torch.empty((n, M), dtype=torch.int32, device="cuda"),
                     torch.empty_like(z), torch.empty_like(z)) for b in libs}
 
+        wss = {}
+        for b, (_, ws) in libs.items():
+            nbytes = ws(M, K, d, int(exact)) if ws is not None else 0
+            wss[b] = (torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+                      if nbytes else None)
+
         def run(b):
             idx, zn, zq = outs[b]
-            err = libs[b](z.data_ptr(), cn.data_ptr(), cb.data_ptr(),
-                          None if zm is None else zm.data_ptr(),
-                          None if zs is None else zs.data_ptr(),
-                          idx.data_ptr(), zn.data_ptr(), zq.data_ptr(), n, M, K, d,
-                          MODES.index(mode), int(exact), stream)
+            fn, ws = libs[b]
+            extra = () if ws is None else \
+                (None if wss[b] is None else wss[b].data_ptr(),)
+            err = fn(z.data_ptr(), cn.data_ptr(), cb.data_ptr(),
+                     None if zm is None else zm.data_ptr(),
+                     None if zs is None else zs.data_ptr(),
+                     idx.data_ptr(), zn.data_ptr(), zq.data_ptr(), n, M, K, d,
+                     MODES.index(mode), int(exact), stream, *extra)
             if err:
                 raise RuntimeError(f"{b} launch failed: CUDA error {err}")
 
@@ -156,14 +198,15 @@ def main(argv) -> int:
         identical = torch.equal(outs["old"][0], outs["new"][0])
         del idx_r, zn_r
 
-        def library():
-            library_call(z, cn, cb, mode, zm, zs)
-
-        times = {b: [] for b in ("old", "new", "library")}
+        fns = {"old": lambda: run("old"), "new": lambda: run("new"),
+               "library": lambda: library_call(z, cn, cb, mode, zm, zs)}
+        if not exact:
+            fns["library_bf16"] = lambda: library_bf16_call(z, cn, cb, mode, zm, zs)
+        order = list(fns)
+        times = {b: [] for b in order}
         for _ in range(3):
-            for b in ("old", "new", "library", "library", "new", "old"):
-                times[b].append(_time_ms(library if b == "library" else (lambda: run(b)),
-                                         iters=10))
+            for b in order + order[::-1]:
+                times[b].append(_time_ms(fns[b], iters=10))
         nbytes = 4.0 * (3 * n * M * d + 2 * M * K * d + n * M
                         + (2 * M * d if zm is not None else 0))
         flops = 2.0 * n * M * K * d
@@ -179,7 +222,7 @@ def main(argv) -> int:
             "share_of_bound_new": 1e3 * max(t_bytes, t_ops) / med["new"],
             "new_over_old": med["new"] / med["old"], "ms": times,
             "nvidia_smi": smi}), flush=True)
-        del z, cn, cb, zm, zs, outs
+        del z, cn, cb, zm, zs, outs, wss
         torch.cuda.empty_cache()
     return 0 if ok else 1
 

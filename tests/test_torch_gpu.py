@@ -107,19 +107,39 @@ WIDE_SHAPES = [  # M, K, d: each config's quantizer outside the pqgo family, the
 ]
 
 
+# the fast wide body's tiling (32-row blocks, 128-codeword tiles, 64-deep
+# chunks, the row tile streamed past d = 2816): M, K, d, n, duplicated
+# codewords (the second half of the codebook equal to the first)
+WIDE_TILING = [
+    pytest.param(1, 256, 1024, 5, False, id="n5-1-256-1024"),     # n below one row tile
+    pytest.param(3, 100, 40, 1000, False, id="3-100-40"),         # d % 16 == 8
+    pytest.param(1, 256, 1032, 1000, False, id="1-256-1032"),     # d % 16 == 8, d_pad 1088
+    pytest.param(2, 1, 64, 1000, False, id="2-1-64"),             # K = 1
+    pytest.param(2, 100, 128, 1000, False, id="2-100-128"),       # K = 100, one ragged tile
+    pytest.param(2, 2048, 64, 1000, True, id="dup-2-2048-64"),    # equal distances
+    pytest.param(1, 256, 2824, 1000, False, id="streamed-1-256-2824"),
+    pytest.param(1, 300, 4104, 77, False, id="streamed-1-300-4104"),
+]
+
+
 @pytest.mark.parametrize("mode", ["none", "l2", "z_norm", "z_trainable"])
 @pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("M,K,d", WIDE_SHAPES)
-def test_pq_wide_body_matches_plain(cuda, mode, exact, M, K, d):
+@pytest.mark.parametrize("M,K,d,n,dup", [pytest.param(M, K, d, 1000, False, id=f"{M}-{K}-{d}")
+                                         for M, K, d in WIDE_SHAPES] + WIDE_TILING)
+def test_pq_wide_body_matches_plain(cuda, mode, exact, M, K, d, n, dup):
     """The wide body against the plain version; n = 1000 leaves a ragged
-    last tile of 40 rows.  The bars of the narrow bodies."""
+    last tile of 40 rows (8 in fast mode).  The bars of the narrow bodies;
+    with duplicated codewords every index lies in the first half (equal
+    distances: the lower index)."""
     from equss_tpu_torch.ops.pq_assign import kernel_body
 
     if not (M == 16 and d == 32 and not exact):
         assert kernel_body(d, K, exact) == "wide"
     g = torch.Generator(device=cuda).manual_seed(K + d)
-    z = 3.0 * torch.randn((1000, M, d), generator=g, device=cuda)
+    z = 3.0 * torch.randn((n, M, d), generator=g, device=cuda)
     cb = torch.randn((M, K, d), generator=g, device=cuda)
+    if dup:
+        cb[:, K // 2:] = cb[:, :K // 2]
     cn = normalize_vectors(cb, "l2" if mode == "z_trainable" else mode).contiguous()
     zm = zs = None
     if mode == "z_trainable":
@@ -132,7 +152,7 @@ def test_pq_wide_body_matches_plain(cuda, mode, exact, M, K, d):
     idx_r, zn_r, zq_r = pq_assign_reference(z, cn, cb, **kw)
     agree = (idx == idx_r).float().mean().item()
     assert agree >= (0.9999 if exact else 0.995)
-    assert bool(((idx >= 0) & (idx < K)).all())
+    assert bool(((idx >= 0) & (idx < (K // 2 if dup else K))).all())
     torch.testing.assert_close(zn, zn_r, rtol=1e-6, atol=1e-6)
     src = cb if exact else cb.to(torch.bfloat16).float()
     assert torch.equal(zq, src[torch.arange(M, device=cuda), idx.long()])
