@@ -27,9 +27,11 @@ Phases, each printing JSON lines on stdout:
             at the VQ baseline's calls (M = 1, K = 256, d = 1024 at
             n = 12 800 and 100 352) and at every other config's quantizer
             outside the pqgo family, both modes, fast rows with a second
-            yardstick (a bf16 ``torch.baddbmm`` for the distances) and
-            the fast body's blocks, resident blocks per SM and dynamic
-            shared memory; then which fast rows lose to a yardstick;
+            yardstick (a bf16 ``torch.baddbmm`` for the distances), each
+            wide row with its launch (blocks, resident blocks per SM,
+            dynamic shared memory, the exact body's codeword splits and
+            whether it runs fused); then which fast and exact rows lose
+            to a yardstick, and each exact row's launch;
 4. main     serving: the ViT-S/8 224^2 bf16 -> head -> PQ 64x256 forward
             on raw uint8 requests at b = 1, 8 and 128 with seeded weights:
             launch counts (12 attention and 1 PQ per forward), ms per
@@ -110,7 +112,10 @@ Phases, each printing JSON lines on stdout:
             width: train steps at b = 16 (EMA state moved; ``jsd``,
             ``entropy``, ``vq-loss`` finite; 12 attention launches), a
             valid step at b = 8, 320^2 (12 attention + 1 wide PQ), the
-            predictor at b = 128 (12 + 1), profiles, and a b = 2 train step
+            predictor at b = 128 (12 + 1), profiles; the same valid
+            steps and predictor with ``model.vq.assign_precision: exact``
+            (the JAX default: the exact wide body, its device ms and
+            share of bound per launch in path); and a b = 2 train step
             card vs CPU, at the preset's codebook and at one of 256 of the
             CPU's own codes (end-to-end indices >= 95% equal on the pairs
             whose CPU minimum is untied, printed with the tied and untied
@@ -543,13 +548,13 @@ def pq_row(name: str, n: int, M: int, K: int, d: int, mode: str, exact: bool, g)
     the plain version's and the library yardstick's times (normalise +
     ``torch.cdist`` + ``argmin`` + gather) and the bound; in fast mode also
     the bf16 yardstick's (``library_bf16_call``: a bf16 ``torch.baddbmm``
-    for the distances), and for the fast wide body its launch (blocks,
-    resident blocks per SM, dynamic shared memory)."""
+    for the distances); for the wide bodies their launch (blocks,
+    resident blocks per SM, dynamic shared memory, codeword splits)."""
     from equss_tpu_torch.ops.pq_assign import (
         kernel_body,
         pq_assign,
         pq_assign_reference,
-        wide_fast_config,
+        wide_config,
     )
     from equss_tpu_torch.tools.pq_ab import case_inputs, library_bf16_call, library_call
 
@@ -577,8 +582,8 @@ def pq_row(name: str, n: int, M: int, K: int, d: int, mode: str, exact: bool, g)
     if not exact:
         extra["library_bf16_ms"] = cuda_ms(lambda: library_bf16_call(z, cn, cb, mode, zm, zs),
                                            iters=3)
-        if kernel_body(d, K, exact) == "wide":
-            extra["launch"] = wide_fast_config(n, M, K, d, mode)
+    if kernel_body(d, K, exact) == "wide":
+        extra["launch"] = wide_config(n, M, K, d, mode, exact)
     nbytes = 4.0 * (n * M * d + 2 * M * K * d + n * M + 2 * n * M * d
                     + (2 * M * d if zm is not None else 0))
     bnd, by = bound_ms(2.0 * n * M * K * d, PEAK_F32_FLOPS if exact else PEAK_BF16_FLOPS,
@@ -639,16 +644,23 @@ def phase_pq_wide(results: dict) -> None:
             for exact in (False, True):
                 tag = f"{name}_n{n}_{'exact' if exact else 'fast'}"
                 rows.append(pq_row(tag, n, M, K, d, mode, exact, g))
-    # the kernels line's wide row: the VQ valid step's call
+    # the kernels line's wide rows: the VQ valid step's call in both modes
     results["pq_assign_wide"] = rows[0]
+    results["pq_assign_wide_exact"] = rows[1]
     check(all(r["body"] == "wide" for r in rows if r["case"] != "contra_16_n12800_fast"),
           "pq_wide: a case left the wide body")
     fast = [r for r in rows if not r["exact"] and r["body"] == "wide"]
+    exact = [r for r in rows if r["exact"]]
     emit({"phase": "pq_wide_summary",
           "fast_rows_slower_than_library": [r["case"] for r in fast
                                             if r["ms"] >= r["library_ms"]],
           "fast_rows_slower_than_library_bf16": [r["case"] for r in fast
-                                                 if r["ms"] >= r["library_bf16_ms"]]})
+                                                 if r["ms"] >= r["library_bf16_ms"]],
+          "exact_rows_slower_than_library": [r["case"] for r in exact
+                                             if r["ms"] >= r["library_ms"]],
+          "exact_launches": {r["case"]: {**r["launch"], "ms": r["ms"],
+                                         "share_of_bound": r["share_of_bound"]}
+                             for r in exact}})
 
 
 def phase_layernorm(results: dict) -> None:
@@ -1622,11 +1634,12 @@ def phase_vq(results: dict) -> None:
     ``entropy`` and ``vq-loss`` finite; ``validate`` over 4 batches of
     b = 8 at 320^2 (12 attention and 1 PQ launch per valid step, the PQ
     kernel's wide body at n = 12 800); the predictor at b = 128 on 224^2
-    (12 + 1 launches per request, the wide body at n = 100 352); profiles.
+    (12 + 1 launches per request, the wide body at n = 100 352); profiles;
+    then the same valid and predictor runs with ``model.vq.assign_precision:
+    exact`` (the JAX default), on the exact wide body.
     ``phase_vq_reference`` holds a train step against the CPU."""
-    from equss_tpu_torch import launch_counts, reset_launch_counts
-    from equss_tpu_torch import serve as port_serve
     from equss_tpu_torch.data.synthetic import synthetic_batches
+    from equss_tpu_torch.train.trainer import Trainer
 
     _, tr = preset_trainer("vq_cocostuff27")
     before = {k: v.clone() for k, v in tr.model.pq_state.as_dict().items()}
@@ -1645,13 +1658,52 @@ def phase_vq(results: dict) -> None:
           **device_profile(lambda: tr.train_step(next(cycle)), 2,
                            pick=KERNEL_PICK + ("index", "softmax"))})
 
+    vq_valid_and_serve(tr, "vq", results)
+    del tr
+    torch.cuda.empty_cache()
+
+    # the exact sub-run: the JAX default assign_precision, the exact wide body
+    cfg = with_overrides(preset("vq_cocostuff27"), {"model.vq.assign_precision": "exact"})
+    tr = Trainer(cfg, device="cuda", seed=0)
+    vq_valid_and_serve(tr, "vq_exact", results, exact=True)
+    del tr
+    torch.cuda.empty_cache()
+
+
+def wide_in_path(prof: dict, n: int, exact: bool, what: str) -> dict:
+    """The wide PQ launch in a profile of two calls (one launch each): its
+    kernels' device ms per launch and the share of the body's bound at the
+    VQ baseline's quantizer (M = 1, K = 256, d = 1024) and this n; the
+    profile must name the mode's body."""
+    body = "pq_wide_exact" if exact else "pq_wide_fast"
+    check(any(body in r["name"] for r in prof["picked"]), f"{what}: no {body} in the profile")
+    ms = sum(r["ms"] for r in prof["picked"] if "pq_wide" in r["name"]) / prof["calls"]
+    M, K, d = 1, 256, 1024
+    bnd, by = bound_ms(2.0 * n * M * K * d, PEAK_F32_FLOPS if exact else PEAK_BF16_FLOPS,
+                       4.0 * (3 * n * M * d + 2 * M * K * d + n * M))
+    return {"pq_wide_ms_per_launch": ms, "pq_wide_bound_ms": bnd, "pq_wide_bound_by": by,
+            "pq_wide_share_of_bound": bnd / ms if ms else None}
+
+
+def vq_valid_and_serve(tr, tag: str, results: dict, exact: bool = False) -> None:
+    """``validate`` over 4 batches of b = 8 at 320^2 after 2 warm-up steps
+    (12 attention and 1 PQ launch per valid step, the PQ kernel's wide body
+    at n = 12 800), then the predictor at b = 128 on 224^2 (12 + 1 launches
+    per request, the wide body at n = 100 352), each with a profile that
+    names the wide launch's device ms and share of bound in path; launch
+    counts under ``<tag>_valid`` and ``<tag>_serve``."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+    from equss_tpu_torch import serve as port_serve
+
     vb = valid_batches(6, 8, seed=330)
-    val, res, timing = timed_validate(tr, vb, 2, SERVE_KERNELS, "vq_valid", results)
-    check(tuple(res["pq_indices"].shape) == (8, 40, 40, 1), "vq valid: index shape")
-    emit({"phase": "vq", "what": "valid", "batch": 8, "res": 320, **timing, **val})
+    val, res, timing = timed_validate(tr, vb, 2, SERVE_KERNELS, f"{tag}_valid", results)
+    check(tuple(res["pq_indices"].shape) == (8, 40, 40, 1), f"{tag} valid: index shape")
+    emit({"phase": "vq", "what": "valid", "assign_precision": "exact" if exact else "bf16",
+          "batch": 8, "res": 320, **timing, **val})
     cycle = iter(vb * 2)
-    emit({"phase": "profile", "what": "vq_valid", "batch": 8, "res": 320, "steps": 2,
-          **device_profile(lambda: tr.valid_step(next(cycle)), 2, pick=KERNEL_PICK)})
+    prof = device_profile(lambda: tr.valid_step(next(cycle)), 2, pick=KERNEL_PICK)
+    emit({"phase": "profile", "what": f"{tag}_valid", "batch": 8, "res": 320, "steps": 2,
+          **prof, **wide_in_path(prof, 8 * 40 * 40, exact, f"{tag} valid")})
 
     predict = port_serve.build_predict_fn(tr)
     reqs = requests(128, 5, seed=1282)
@@ -1664,19 +1716,19 @@ def phase_vq(results: dict) -> None:
         times.append(time.perf_counter() - t0)
         check(all(tuple(v.shape) == (128, 224, 224) and v.dtype == torch.int32
                   and bool(((v >= 0) & (v < 27)).all()) for v in out.values()),
-              "vq serve: predictions")
+              f"{tag} serve: predictions")
     counts = launch_counts()
-    results["launches"]["vq_serve"] = counts
-    check(counts == expected(SERVE_KERNELS, len(reqs)), f"vq serve: launches {counts}")
+    results["launches"][f"{tag}_serve"] = counts
+    check(counts == expected(SERVE_KERNELS, len(reqs)), f"{tag} serve: launches {counts}")
     t = sorted(times[2:])
-    emit({"phase": "vq", "what": "serve", "batch": 128, "requests_timed": len(t),
+    emit({"phase": "vq", "what": "serve", "assign_precision": "exact" if exact else "bf16",
+          "batch": 128, "requests_timed": len(t),
           "ms_per_request_median": 1e3 * t[len(t) // 2], "img_per_s": 128 / t[len(t) // 2],
           "launches_per_request": {k: v / len(reqs) for k, v in counts.items()}})
     img = reqs[0].to("cuda")
-    emit({"phase": "profile", "what": "vq_serve", "batch": 128, "forwards": 2,
-          **device_profile(lambda: predict(img), 2, pick=KERNEL_PICK)})
-    del tr, predict
-    torch.cuda.empty_cache()
+    prof = device_profile(lambda: predict(img), 2, pick=KERNEL_PICK)
+    emit({"phase": "profile", "what": f"{tag}_serve", "batch": 128, "forwards": 2,
+          **prof, **wide_in_path(prof, 128 * 28 * 28, exact, f"{tag} serve")})
 
 
 def phase_vq_reference() -> None:
@@ -2451,11 +2503,24 @@ KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     "layernorm": ("equss_tpu_torch/csrc/layernorm.cu", "equss_tpu/ops/layernorm.py:74"),
     "add_layernorm": ("equss_tpu_torch/csrc/layernorm.cu", "equss_tpu/ops/layernorm.py:112"),
     "pq_assign": ("equss_tpu_torch/csrc/pq_assign.cu", "equss_tpu/ops/pq_pallas.py:443"),
-    # the wide body (pq_wide_kernel) of the same wrapper: its launches are
-    # the PQ launches of the VQ baseline's paths, all at d = 1024
+    # the wide bodies of the same wrapper: their launches are the PQ
+    # launches of the VQ baseline's paths, all at d = 1024, fast
+    # (pq_wide_fast_kernel) on the preset's bf16 assignments, exact
+    # (pq_wide_exact_kernel) on the exact sub-run's
     "pq_assign_wide": ("equss_tpu_torch/csrc/pq_assign.cu", "equss_tpu/ops/pq_pallas.py:443"),
+    "pq_assign_wide_exact": ("equss_tpu_torch/csrc/pq_assign.cu",
+                             "equss_tpu/ops/pq_pallas.py:443"),
 }
-WIDE_PATHS = ("vq_", "cli_vq")
+
+
+def wide_path(name: str, path: str) -> bool:
+    """Whether the launches of ``path`` count for the kernels line's row
+    ``name``: the wide rows take the VQ baseline's paths, each its mode's."""
+    if name == "pq_assign_wide_exact":
+        return path.startswith("vq_exact")
+    if name == "pq_assign_wide":
+        return path.startswith(("vq_", "cli_vq")) and not path.startswith("vq_exact")
+    return True
 
 
 def main() -> int:
@@ -2497,9 +2562,8 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         r = results[name]
-        wrapper = "pq_assign" if name == "pq_assign_wide" else name
-        paths = {p: c[wrapper] for p, c in by_path.items()
-                 if name != "pq_assign_wide" or p.startswith(WIDE_PATHS)}
+        wrapper = "pq_assign" if name.startswith("pq_assign_wide") else name
+        paths = {p: c[wrapper] for p, c in by_path.items() if wide_path(name, p)}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": sum(paths.values()), "launches_by_path": paths,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

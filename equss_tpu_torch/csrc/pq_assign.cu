@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel equss_tpu/ops/pq_pallas.py::pq_assign_pallas
 // (kernel body _pq_kernel).  The (n, M, K) distance tensor is never
-// written: each row keeps a running minimum in registers.
+// written: each row keeps a running minimum in registers (the exact wide
+// body: in shared memory, then a 64-bit key per row).
 //
 // Domain: every d with d % 8 == 0 and every K >= 1, in both modes; this
 // holds every shape the JAX package sends to its kernel (d % 8 == 0 and
@@ -13,9 +14,9 @@
 //     (8d + 4) * K bytes in exact mode (K <= 1761 at d = 16);
 //     (4d + 4) * roundup(K, 256 / d) bytes beside the 43 008 bytes of
 //     staging tiles in fast mode (K <= 2784 at d = 16);
-//   wide (pq_wide_kernel exact, pq_wide_fast_kernel fast): every other
-//     shape of the domain, among them the VQ baseline's d = 1024, K = 256
-//     and the variants' d = 64 .. 384.
+//   wide (pq_wide_exact_kernel exact, pq_wide_fast_kernel fast, each
+//     with its passes): every other shape of the domain, among them the
+//     VQ baseline's d = 1024, K = 256 and the variants' d = 64 .. 384.
 // ops/pq_assign.py::kernel_domain_error and kernel_body state the same
 // domain and the same choice of body for the wrapper and the eligibility
 // predicate.
@@ -72,18 +73,57 @@
 // Wide bodies: every other shape of the domain.  A subspace's codebook
 // need not fit shared memory: it is streamed through it in tiles.
 //
-// Exact mode (pq_wide_kernel): a block owns 64 rows of one subspace.  Each
-// warp normalises rows of the tile (f32 warp sums over d), writes z_norm
-// and keeps |z_norm|^2 in shared memory.  Then, per tile of 64 codewords,
-// the warps take the tile's squared norms, and the 16 x 16 threads compute
-// the 64 x 64 cross products with f32 FMAs from shared-memory tiles of
-// z_norm and c_norm (8 dimensions deep; each thread 4 rows by 4 codewords,
-// the depth in order).  The epilogue folds each tile into a strict-<
-// running minimum per (thread, row); the 16 threads of a row agree by
-// shuffles (equal distances: the lower index), and the warps gather the
-// raw f32 codeword and write idx.  At d = 1024, K = 256, n = 100 352 the
-// cross products are 52.6 GFLOP: 0.79 ms at the f32 CUDA cores' peak.
-//
+// Exact mode (pq_wide_exact_kernel after a pre-pass, and where it runs
+// split, before a gather pass: two or three kernels of one launch).  The
+// distances are f32 FMAs on the CUDA cores, so the body is bound by its
+// operations: 2 n M K d, at unseg's n = 12 800, 1 x 2048 x 384
+// 20.1 GFLOP, 0.30 ms at 67 TFLOP/s; at the VQ baseline's predictor call
+// (n = 100 352, 1 x 256 x 1024) 52.6 GFLOP, 0.79 ms.
+//   Pre-pass (pq_wide_exact_prep_kernel): a warp per codeword writes c_sq
+//   into the caller's workspace (pq_assign_workspace_bytes: M x K f32),
+//   once per launch; split launches also give it a warp per (row,
+//   subspace), which normalises the row, writes z_norm and puts
+//   |z_norm|^2 and the row's key (all ones) into its z_q slot.
+//   Body: a block owns 128 rows of one subspace and a range of 128-codeword
+//   tiles; its 256 threads each hold 4 rows x 16 codewords of f32
+//   accumulators.  z_norm (read back from device memory, mostly from L2)
+//   and c_norm stream through a 2-stage cp.async ring, 32 dimensions deep,
+//   row-major with rows padded to 36 floats: a thread reads 4 depths of
+//   each of its rows and codewords as float4s free of bank conflicts,
+//   20 loads of 16 bytes for 256 FMAs, one barrier per stage.  Pieces past
+//   d are zeros (d % 32 != 0 adds exact zeros); rows past n and codewords
+//   past K repeat the last one and are never read back.  After a tile's
+//   last stage each thread folds its 64 distances into its running
+//   minima in shared memory; at the end a thread per row combines the
+//   row's 8 threads.
+//   The grid: where the (n / 128) x M row tiles fill the resident slots
+//   (2 per SM) in whole waves to 90% (the predictor call: 784 blocks on
+//   264 slots), a block takes all of its row tile's codewords and runs
+//   fused: its warps normalise the 128 rows first (z_norm to device
+//   memory, |z_norm|^2 to shared memory) and at the end write idx and
+//   gather the raw f32 codewords into z_q.  Else (M = 1 at n = 12 800:
+//   100 row tiles) each row tile's codeword tiles are split into ranges
+//   over up to WX_WAVES blocks per slot (2 ranges at K = 256, 16 at
+//   K = 2048), each block's minimum goes into the row's 64-bit key by
+//   atomicMin, and a gather pass (pq_wide_exact_gather_kernel, a warp per
+//   row) reads the key, writes idx and the codeword as 16-byte lines.
+//   Same bits as the body it replaced (pq_wide_kernel: 64 x 64 x 8 tiles,
+//   no split) on every input: the normalisation, |z_norm|^2 and c_sq are
+//   the same warp sums (lane-strided partial sums, then the xor
+//   butterfly); each (row, codeword)'s cross product is one fmaf chain
+//   from 0 over the depth in order, never split across threads or blocks
+//   (the build's flags, which decide how the sums contract into FMAs, are
+//   unchanged); dist = (z_sq + c_sq) - 2 * cross; each
+//   thread scans its codewords in increasing order with strict <, and the
+//   combines take the lower index on equal distances.
+//   The key is ordered(dist) << 32 | k, ordered() the unsigned order of
+//   floats (sign bit set if positive, all bits flipped if negative), so
+//   atomicMin keeps the least distance and on equal ones the lower index.
+//   dist + 0.f first makes -0 equal to +0, as strict < has it; every NaN
+//   maps above +inf, and a key at or above +inf's (no distance below +inf,
+//   as the strict-< scan from +inf never takes one) gives index 0, as
+//   before.  ops/pq_assign.py::key_argmin is its plain version.
+
 // Fast mode (pq_wide_fast_kernel, after a pre-pass).  The distances are
 // bf16 mma.sync products with f32 sums, so the body is bound by its bytes:
 // at the VQ baseline's valid call (n = 12 800, M = 1, K = 256, d = 1024)
@@ -118,6 +158,7 @@
 //   raw codeword rounded to bf16) as whole lines.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <algorithm>
 #include <climits>
 #include <stdint.h>
 #include <type_traits>
@@ -619,174 +660,6 @@ __device__ __forceinline__ float round_bf16(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// Exact mode: f32 FMAs from 64 x 64 x 8 shared-memory tiles (header).
-constexpr int WIDE_THREADS = 256;
-constexpr int WIDE_ROWS = 64;           // rows of one subspace per block
-constexpr int WIDE_CODES = 64;          // codewords per tile
-constexpr int WIDE_DEPTH = 8;           // dimensions per staged tile
-constexpr int WIDE_PAD = WIDE_ROWS + 4; // keeps the transposed stores conflict-free
-
-template <int MODE>
-__global__ void __launch_bounds__(WIDE_THREADS)
-pq_wide_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
-               const float* __restrict__ c_raw, const float* __restrict__ z_mean,
-               const float* __restrict__ z_std, int n, int M, int K, int d,
-               int* __restrict__ idx, float* zn_out, float* __restrict__ zq_out) {
-    __shared__ __align__(16) float s_z[WIDE_DEPTH][WIDE_PAD];
-    __shared__ __align__(16) float s_c[WIDE_DEPTH][WIDE_PAD];
-    __shared__ float s_zsq[WIDE_ROWS];
-    __shared__ float s_csq[WIDE_CODES];
-    __shared__ int s_best[WIDE_ROWS];
-    const int m = blockIdx.y;
-    const int row0 = blockIdx.x * WIDE_ROWS;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const size_t row_stride = static_cast<size_t>(M) * d;
-    const float* cn = c_norm + static_cast<size_t>(m) * K * d;
-
-    // normalise: a warp per row, z_norm to device memory, |z_norm|^2 kept
-    for (int r = warp; r < WIDE_ROWS; r += WIDE_THREADS / 32) {
-        const int row = row0 + r;
-        if (row >= n) {
-            if (lane == 0) s_zsq[r] = 0.f;
-            continue;
-        }
-        const float* zr = z + row * row_stride + static_cast<size_t>(m) * d;
-        float* zo = zn_out + row * row_stride + static_cast<size_t>(m) * d;
-        float shift = 0.f, denom = 1.f;
-        if (MODE == L2) {
-            float ss = 0.f;
-            for (int j = lane; j < d; j += 32) ss += zr[j] * zr[j];
-            denom = fmaxf(sqrtf(warp_sum(ss)), 1e-12f);
-        } else if (MODE == Z_NORM) {
-            float s1 = 0.f;
-            for (int j = lane; j < d; j += 32) s1 += zr[j];
-            shift = warp_sum(s1) / d;
-            float s2 = 0.f;
-            for (int j = lane; j < d; j += 32) {
-                const float xc = zr[j] - shift;
-                s2 += xc * xc;
-            }
-            denom = sqrtf(warp_sum(s2) / (d - 1)) + 1e-5f;
-        }
-        float zsq = 0.f;
-        for (int j = lane; j < d; j += 32) {
-            float v = zr[j];
-            if (MODE == L2) v = v / denom;
-            else if (MODE == Z_NORM) v = (v - shift) / denom;
-            else if (MODE == Z_TRAINABLE)
-                v = (v - z_mean[m * d + j]) / (z_std[m * d + j] + 1e-5f);
-            zo[j] = v;
-            zsq += v * v;
-        }
-        zsq = warp_sum(zsq);
-        if (lane == 0) s_zsq[r] = zsq;
-    }
-    __syncthreads();        // the tile's z_norm rows are visible to the block
-
-    const int tx = tid & 15, ty = tid >> 4;     // codewords 4 tx.., rows 4 ty..
-    // staging: threads 0..127 a float4 of z_norm, 128..255 one of c_norm
-    const int lt = tid & 127, l_r = lt >> 1, l_c = 4 * (lt & 1);
-    const bool stages_z = tid < 128;
-    const float* zn_row = zn_out + (row0 + l_r) * row_stride + static_cast<size_t>(m) * d;
-    float best_d[4];
-    int best_k[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        best_d[i] = INFINITY;
-        best_k[i] = 0;
-    }
-    for (int k0 = 0; k0 < K; k0 += WIDE_CODES) {
-        __syncthreads();            // the last tile's epilogue has read s_csq
-        for (int c = warp; c < WIDE_CODES; c += WIDE_THREADS / 32) {
-            float acc = 0.f;
-            if (k0 + c < K) {
-                const float* cw = cn + static_cast<size_t>(k0 + c) * d;
-                for (int j = lane; j < d; j += 32) acc += cw[j] * cw[j];
-            }
-            acc = warp_sum(acc);
-            if (lane == 0) s_csq[c] = acc;
-        }
-        float acc[4][4] = {};
-        for (int j0 = 0; j0 < d; j0 += WIDE_DEPTH) {
-            float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (stages_z) {
-                if (row0 + l_r < n) v = *reinterpret_cast<const float4*>(zn_row + j0 + l_c);
-            } else if (k0 + l_r < K) {
-                v = __ldg(reinterpret_cast<const float4*>(
-                    cn + static_cast<size_t>(k0 + l_r) * d + j0 + l_c));
-            }
-            float (*dst)[WIDE_PAD] = stages_z ? s_z : s_c;
-            dst[l_c + 0][l_r] = v.x;
-            dst[l_c + 1][l_r] = v.y;
-            dst[l_c + 2][l_r] = v.z;
-            dst[l_c + 3][l_r] = v.w;
-            __syncthreads();
-#pragma unroll
-            for (int kk = 0; kk < WIDE_DEPTH; ++kk) {
-                const float4 a = *reinterpret_cast<const float4*>(&s_z[kk][4 * ty]);
-                const float4 b = *reinterpret_cast<const float4*>(&s_c[kk][4 * tx]);
-                const float av[4] = {a.x, a.y, a.z, a.w};
-                const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-                for (int i = 0; i < 4; ++i)
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-            }
-            __syncthreads();
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const float zsq = s_zsq[4 * ty + i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int k = k0 + 4 * tx + j;
-                if (k >= K) continue;
-                const float dist = (zsq + s_csq[4 * tx + j]) - 2.f * acc[i][j];
-                if (dist < best_d[i]) {
-                    best_d[i] = dist;
-                    best_k[i] = k;
-                }
-            }
-        }
-    }
-    // the 16 threads of a row (one half warp) agree on its minimum
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        float bd = best_d[i];
-        int best = best_k[i];
-#pragma unroll
-        for (int off = 1; off < 16; off <<= 1) {
-            const float od = __shfl_xor_sync(0xffffffffu, bd, off);
-            const int ok = __shfl_xor_sync(0xffffffffu, best, off);
-            if (od < bd || (od == bd && ok < best)) { bd = od; best = ok; }
-        }
-        if (tx == 0) s_best[4 * ty + i] = best;
-    }
-    __syncthreads();
-
-    // idx and the z_q gather, a warp per row
-    for (int r = warp; r < WIDE_ROWS; r += WIDE_THREADS / 32) {
-        const int row = row0 + r;
-        if (row >= n) continue;
-        const int best = s_best[r];
-        if (lane == 0) idx[static_cast<size_t>(row) * M + m] = best;
-        const float* src = c_raw + (static_cast<size_t>(m) * K + best) * d;
-        float* dst = zq_out + row * row_stride + static_cast<size_t>(m) * d;
-        for (int j = lane; j < d; j += 32) dst[j] = src[j];
-    }
-}
-
-template <int MODE>
-int launch_wide_exact(const float* z, const float* c_norm, const float* c_raw,
-                      const float* z_mean, const float* z_std, int* idx, float* zn,
-                      float* zq, int n, int M, int K, int d, cudaStream_t stream) {
-    if (M > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((n + WIDE_ROWS - 1) / WIDE_ROWS, M);
-    pq_wide_kernel<MODE><<<grid, WIDE_THREADS, 0, stream>>>(
-        z, c_norm, c_raw, z_mean, z_std, n, M, K, d, idx, zn, zq);
-    return static_cast<int>(cudaGetLastError());
-}
-
 // Fast mode (pq_wide_fast_kernel; the header says why and how).
 constexpr int WF_THREADS = 256;
 constexpr int WF_ROWS = 32;             // rows of one subspace per block: two 16-row slabs
@@ -1174,13 +1047,389 @@ int launch_wide_fast(const float* z, const float* c_norm, const float* c_raw,
     return static_cast<int>(cudaGetLastError());
 }
 
+// Exact mode (the header's "exact wide body"): the distance body between a
+// pre-pass and a gather pass, or with both inside it.
+constexpr int WX_THREADS = 256;
+constexpr int WX_ROWS = 128;            // rows of one subspace per block
+constexpr int WX_CODES = 128;           // codewords per tile
+constexpr int WX_DEPTH = 32;            // dimensions per ring stage
+constexpr int WX_LD = WX_DEPTH + 4;     // floats per staged row: 144 bytes, so that the float4
+                                        // reads of 8 neighbouring rows hit 32 different banks
+constexpr int WX_STAGES = 2;
+constexpr int WX_STAGE_FLOATS = (WX_ROWS + WX_CODES) * WX_LD;
+constexpr int WX_TM = 4, WX_TN = 16;    // rows and codewords of a thread
+constexpr int WX_WAVES = 16;            // blocks per resident slot the codeword split aims at
+// the ring, |z_norm|^2 of the rows, the running minima (WX_TM rows per thread)
+constexpr int WX_SMEM = (WX_STAGES * WX_STAGE_FLOATS + WX_ROWS + 2 * WX_TM * WX_THREADS) * 4;
+constexpr uint32_t KEY_INF = 0xFF800000u;   // ordered(+inf): keys at or above it mean "none"
+
+// the order of floats as unsigned integers: -0 counts as +0, every NaN
+// above +inf
+__device__ __forceinline__ uint32_t ordered(float x) {
+    if (isnan(x)) return 0xFFFFFFFFu;
+    const uint32_t b = __float_as_uint(x + 0.f);
+    return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// 16 bytes, global -> shared, or 16 zero bytes where !valid (src not read)
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"(dst), "l"(src), "r"(valid ? 16 : 0));
+}
+
+// One warp normalises the row zr (d floats of subspace m) into zo and
+// returns |z_norm|^2: f32 warp sums of lane-strided partial sums (the
+// unrolling only brings the loads forward; each lane's sums stay in order).
+template <int MODE>
+__device__ __forceinline__ float normalise_row(const float* __restrict__ zr,
+                                               float* __restrict__ zo,
+                                               const float* __restrict__ z_mean,
+                                               const float* __restrict__ z_std, int m, int d,
+                                               int lane) {
+    float shift = 0.f, denom = 1.f;
+    if (MODE == L2) {
+        float ss = 0.f;
+#pragma unroll 8
+        for (int j = lane; j < d; j += 32) ss += zr[j] * zr[j];
+        denom = fmaxf(sqrtf(warp_sum(ss)), 1e-12f);
+    } else if (MODE == Z_NORM) {
+        float s1 = 0.f;
+#pragma unroll 8
+        for (int j = lane; j < d; j += 32) s1 += zr[j];
+        shift = warp_sum(s1) / d;
+        float s2 = 0.f;
+#pragma unroll 8
+        for (int j = lane; j < d; j += 32) {
+            const float xc = zr[j] - shift;
+            s2 += xc * xc;
+        }
+        denom = sqrtf(warp_sum(s2) / (d - 1)) + 1e-5f;
+    }
+    float zsq = 0.f;
+#pragma unroll 8
+    for (int j = lane; j < d; j += 32) {
+        float v = zr[j];
+        if (MODE == L2) v = v / denom;
+        else if (MODE == Z_NORM) v = (v - shift) / denom;
+        else if (MODE == Z_TRAINABLE)
+            v = (v - z_mean[m * d + j]) / (z_std[m * d + j] + 1e-5f);
+        zo[j] = v;
+        zsq += v * v;
+    }
+    return warp_sum(zsq);
+}
+
+// One warp writes the raw codeword src into dst, 16 bytes a lane.
+__device__ __forceinline__ void gather_row(const float* __restrict__ src, float* dst, int d,
+                                           int lane) {
+#pragma unroll 4
+    for (int j = 4 * lane; j < d; j += 128)
+        __stcs(reinterpret_cast<float4*>(dst + j), __ldg(reinterpret_cast<const float4*>(src + j)));
+}
+
+// Pre-pass: a warp per (row, subspace) normalises it and puts |z_norm|^2
+// and the row's key (all ones) into its z_q slot, words 0..2, until the
+// gather pass overwrites it (n = 0: no rows); then a warp per codeword:
+// c_sq into the workspace.
+template <int MODE>
+__global__ void __launch_bounds__(256)
+pq_wide_exact_prep_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
+                          const float* __restrict__ z_mean, const float* __restrict__ z_std,
+                          int n, int M, int K, int d, float* __restrict__ zn_out,
+                          float* __restrict__ zq_out, float* __restrict__ csq) {
+    const long long w = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    const long long rows = static_cast<long long>(n) * M;
+    if (w >= rows) {
+        const long long c = w - rows;
+        if (c >= static_cast<long long>(M) * K) return;
+        const float* cw = c_norm + c * d;
+        float acc = 0.f;
+        for (int j = lane; j < d; j += 32) acc += cw[j] * cw[j];
+        acc = warp_sum(acc);
+        if (lane == 0) csq[c] = acc;
+        return;
+    }
+    // (row * M + m) * d = w * d
+    const float zsq = normalise_row<MODE>(z + w * d, zn_out + w * d, z_mean, z_std,
+                                          static_cast<int>(w % M), d, lane);
+    if (lane == 0) {
+        float* slot = zq_out + w * d;
+        *reinterpret_cast<unsigned long long*>(slot) = ~0ull;
+        slot[2] = zsq;
+    }
+}
+
+// The distance body: a block owns 128 rows of one subspace and a range of
+// 128-codeword tiles; thread (tx, ty) the rows ty + 32 i (i < 4) and
+// codewords tx + 8 j (j < 16) of each tile, each an fmaf chain over the
+// depth in order.  FUSED (the range is every tile): the block normalises
+// its rows first and gathers their codewords last; else the pre-pass did
+// the first and its minimum over the range goes into the row's key.
+template <int MODE, bool FUSED>
+__global__ void __launch_bounds__(WX_THREADS, 2)
+pq_wide_exact_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
+                     const float* __restrict__ c_raw, const float* __restrict__ csq,
+                     const float* __restrict__ z_mean, const float* __restrict__ z_std,
+                     int n, int M, int K, int d, int splits, int tiles_per_block,
+                     int* __restrict__ idx, float* zn, float* zq_out) {
+    extern __shared__ __align__(16) float wx_smem[];
+    float* s_zsq = wx_smem + WX_STAGES * WX_STAGE_FLOATS;           // [ROWS]
+    float* s_bd = s_zsq + WX_ROWS;                                  // [TM][THREADS]
+    int* s_bk = reinterpret_cast<int*>(s_bd + WX_TM * WX_THREADS);  // [TM][THREADS]
+    int* s_best = reinterpret_cast<int*>(wx_smem);  // [ROWS], once the ring has drained
+    const int m = blockIdx.y;
+    const int row_tile = blockIdx.x / splits;
+    const int row0 = row_tile * WX_ROWS;
+    const int tile0 = (blockIdx.x - row_tile * splits) * tiles_per_block;
+    const int tile_end = min((K + WX_CODES - 1) / WX_CODES, tile0 + tiles_per_block);
+    const int chunks = (d + WX_DEPTH - 1) / WX_DEPTH;
+    const int steps = (tile_end - tile0) * chunks;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const size_t row_stride = static_cast<size_t>(M) * d;
+    const size_t col0 = static_cast<size_t>(m) * d;
+    const float* cn = c_norm + static_cast<size_t>(m) * K * d;
+    const float* csq_m = csq + static_cast<size_t>(m) * K;
+
+    if (FUSED) {
+        for (int r = warp; r < WX_ROWS; r += WX_THREADS / 32) {
+            const size_t off = (row0 + r) * row_stride + col0;
+            const float zsq = row0 + r < n
+                ? normalise_row<MODE>(z + off, zn + off, z_mean, z_std, m, d, lane) : 0.f;
+            if (lane == 0) s_zsq[r] = zsq;
+        }
+        __syncthreads();            // the tile's z_norm rows are in device memory
+    } else {
+        for (int r = tid; r < WX_ROWS; r += WX_THREADS)
+            s_zsq[r] = row0 + r < n ? zq_out[(row0 + r) * row_stride + col0 + 2] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < WX_TM; ++i) {
+        s_bd[i * WX_THREADS + tid] = INFINITY;
+        s_bk[i * WX_THREADS + tid] = 0;
+    }
+
+    // the ring: step s holds codeword tile tile0 + s / chunks, depth chunk
+    // s % chunks, in stage s % STAGES: rows then codewords, WX_LD floats
+    // each.  This thread copies the 16-byte piece ld_q of rows and of
+    // codewords ld_r + 32 u (u < 4).  Pieces past d are zeros; rows past n
+    // and codewords past K repeat the last one (no result of theirs is used).
+    const int ld_r = tid >> 3, ld_q = tid & 7;
+    const uint32_t ld_dst = smem_addr(wx_smem) + (ld_r * WX_LD + 4 * ld_q) * 4;
+    int ld_t = 0, ld_c = 0, ld_stage = 0;     // of the next step to load
+    auto load = [&](int s) {
+        if (s < steps) {
+            const int j = ld_c * WX_DEPTH + 4 * ld_q;
+            const bool in_d = j < d;
+            const uint32_t dst = ld_dst + ld_stage * (WX_STAGE_FLOATS * 4);
+            const int k0 = (tile0 + ld_t) * WX_CODES + ld_r;
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const int row = min(row0 + ld_r + 32 * u, n - 1);
+                cp_async16_zfill(dst + u * (32 * WX_LD * 4),
+                                 in_d ? zn + row * row_stride + col0 + j : zn, in_d);
+                const int k = min(k0 + 32 * u, K - 1);
+                cp_async16_zfill(dst + (WX_ROWS + 32 * u) * (WX_LD * 4),
+                                 in_d ? cn + static_cast<size_t>(k) * d + j : cn, in_d);
+            }
+            if (++ld_c == chunks) { ld_c = 0; ++ld_t; }
+            if (++ld_stage == WX_STAGES) ld_stage = 0;
+        }
+        cp_async_commit();
+    };
+    for (int s = 0; s < WX_STAGES - 1; ++s) load(s);
+
+    // warp w covers rows 4 w.. and every codeword group: a float4 read of
+    // A touches 4 rows, one of B 8 codewords
+    const int tx = lane & 7, ty = (lane >> 3) + 4 * warp;
+    float acc[WX_TM][WX_TN];
+#pragma unroll
+    for (int i = 0; i < WX_TM; ++i)
+#pragma unroll
+        for (int j = 0; j < WX_TN; ++j) acc[i][j] = 0.f;
+
+    int stage = 0, c = 0, t = 0;              // of step s
+    for (int s = 0; s < steps; ++s) {
+        cp_async_wait<WX_STAGES - 2>();
+        __syncthreads();            // stage s has landed; stage s - 1 is free
+        load(s + WX_STAGES - 1);
+        const float* sa = wx_smem + stage * WX_STAGE_FLOATS + ty * WX_LD;
+        const float* sb = wx_smem + stage * WX_STAGE_FLOATS + (WX_ROWS + tx) * WX_LD;
+#pragma unroll 1
+        for (int g = 0; g < WX_DEPTH / 4; ++g) {
+            float4 a[WX_TM];
+#pragma unroll
+            for (int i = 0; i < WX_TM; ++i)
+                a[i] = *reinterpret_cast<const float4*>(sa + i * 32 * WX_LD + 4 * g);
+#pragma unroll
+            for (int j = 0; j < WX_TN; ++j) {
+                const float4 b = *reinterpret_cast<const float4*>(sb + j * 8 * WX_LD + 4 * g);
+#pragma unroll
+                for (int i = 0; i < WX_TM; ++i) {
+                    acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+                    acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+                    acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+                    acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+                }
+            }
+        }
+        if (c == chunks - 1) {
+            // fold the tile into this thread's running minima, codewords in order
+            const int k0 = (tile0 + t) * WX_CODES + tx;
+            float cs[WX_TN];
+#pragma unroll
+            for (int j = 0; j < WX_TN; ++j) cs[j] = k0 + 8 * j < K ? csq_m[k0 + 8 * j] : 0.f;
+#pragma unroll
+            for (int i = 0; i < WX_TM; ++i) {
+                const float zs = s_zsq[ty + 32 * i];
+                float bd = s_bd[i * WX_THREADS + tid];
+                int bk = s_bk[i * WX_THREADS + tid];
+#pragma unroll
+                for (int j = 0; j < WX_TN; ++j) {
+                    const int k = k0 + 8 * j;
+                    const float dist = (zs + cs[j]) - 2.f * acc[i][j];
+                    if (k < K && dist < bd) {
+                        bd = dist;
+                        bk = k;
+                    }
+                    acc[i][j] = 0.f;
+                }
+                s_bd[i * WX_THREADS + tid] = bd;
+                s_bk[i * WX_THREADS + tid] = bk;
+            }
+        }
+        if (++c == chunks) { c = 0; ++t; }
+        if (++stage == WX_STAGES) stage = 0;
+    }
+    cp_async_wait<0>();
+    __syncthreads();                // every running minimum is in place; the ring is free
+
+    // a thread per row: the row's 8 threads agree (equal distances: the
+    // lower index); the row's key takes the minimum, or (FUSED) its warp
+    // writes idx and z_q
+    if (tid < WX_ROWS && row0 + tid < n) {
+        const int r_ty = tid & 31, i = tid >> 5;
+        float bd = INFINITY;
+        int bk = 0;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+            const int th = (r_ty >> 2) * 32 + (r_ty & 3) * 8 + t;
+            const float od = s_bd[i * WX_THREADS + th];
+            const int ok = s_bk[i * WX_THREADS + th];
+            if (od < bd || (od == bd && ok < bk)) { bd = od; bk = ok; }
+        }
+        if (FUSED)
+            s_best[tid] = bk;
+        else
+            atomicMin(reinterpret_cast<unsigned long long*>(zq_out + (row0 + tid) * row_stride + col0),
+                      (static_cast<unsigned long long>(ordered(bd)) << 32) | static_cast<uint32_t>(bk));
+    }
+    if (FUSED) {
+        __syncthreads();
+        for (int r = warp; r < WX_ROWS; r += WX_THREADS / 32) {
+            const int row = row0 + r;
+            if (row >= n) break;
+            const int best = s_best[r];
+            if (lane == 0) idx[static_cast<size_t>(row) * M + m] = best;
+            gather_row(c_raw + (static_cast<size_t>(m) * K + best) * d,
+                       zq_out + row * row_stride + col0, d, lane);
+        }
+    }
+}
+
+// Gather pass: a warp per (row, subspace): the index from the row's key (0
+// where no distance was below +inf) into idx, the raw codeword over the key
+// in z_q.
+__global__ void __launch_bounds__(256)
+pq_wide_exact_gather_kernel(const float* __restrict__ c_raw, int n, int M, int K, int d,
+                            int* __restrict__ idx, float* zq_out) {
+    const long long w = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (w >= static_cast<long long>(n) * M) return;
+    float* dst = zq_out + w * d;
+    unsigned long long key = 0;
+    if (lane == 0) key = *reinterpret_cast<const unsigned long long*>(dst);
+    key = __shfl_sync(0xffffffffu, key, 0);     // read before any lane writes the slot
+    const int best = static_cast<uint32_t>(key >> 32) >= KEY_INF ? 0 : static_cast<int>(key & 0xFFFFFFFFu);
+    if (lane == 0) idx[w] = best;
+    gather_row(c_raw + (static_cast<size_t>(w % M) * K + best) * d, dst, d, lane);
+}
+
+// blocks, resident blocks per SM, codeword splits, tiles per block and
+// whether the body runs fused, for an exact wide launch on the current
+// device.  Fused (one block per row tile, no passes) where the row tiles
+// fill the resident slots in whole waves to 90%; else each row tile's
+// codeword tiles are split into ranges for WX_WAVES blocks per slot.
+int wide_exact_config(int n, int M, int K, int* blocks, int* per_sm, int* splits,
+                      int* tiles_per_block, bool* fused) {
+    auto kernel = pq_wide_exact_kernel<NONE, false>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           WX_SMEM);
+    int device = 0, sms = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, WX_THREADS, WX_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (*per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const long long slots = static_cast<long long>(sms) * *per_sm;
+    const long long row_blocks = static_cast<long long>((n + WX_ROWS - 1) / WX_ROWS) * M;
+    const int tiles = (K + WX_CODES - 1) / WX_CODES;
+    const long long waves = (row_blocks + slots - 1) / slots;
+    *fused = 10 * row_blocks >= 9 * waves * slots;
+    const long long want = *fused ? 1 : (WX_WAVES * slots + row_blocks - 1) / row_blocks;
+    const int split = static_cast<int>(std::min<long long>(tiles, std::max(1LL, want)));
+    *tiles_per_block = (tiles + split - 1) / split;
+    *splits = (tiles + *tiles_per_block - 1) / *tiles_per_block;
+    *blocks = static_cast<int>(row_blocks * *splits);
+    return 0;
+}
+
+template <int MODE>
+int launch_wide_exact(const float* z, const float* c_norm, const float* c_raw,
+                      const float* z_mean, const float* z_std, int* idx, float* zn,
+                      float* zq, int n, int M, int K, int d, void* workspace,
+                      cudaStream_t stream) {
+    if (M > 65535 || workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    auto* csq = static_cast<float*>(workspace);
+    int blocks = 0, per_sm = 0, splits = 0, per_block = 0;
+    bool fused = false;
+    int err = wide_exact_config(n, M, K, &blocks, &per_sm, &splits, &per_block, &fused);
+    if (err) return err;
+    if (fused) {
+        auto kernel = pq_wide_exact_kernel<MODE, true>;
+        err = static_cast<int>(cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WX_SMEM));
+        if (err) return err;
+    }
+    // the pre-pass: the rows (split launches only) and c_sq
+    const long long rows = fused ? 0 : static_cast<long long>(n) * M;
+    const auto prep_blocks = static_cast<unsigned>((rows + static_cast<long long>(M) * K + 7) / 8);
+    pq_wide_exact_prep_kernel<MODE><<<prep_blocks, 256, 0, stream>>>(
+        z, c_norm, z_mean, z_std, fused ? 0 : n, M, K, d, zn, zq, csq);
+    if ((err = static_cast<int>(cudaGetLastError()))) return err;
+    const dim3 grid((n + WX_ROWS - 1) / WX_ROWS * splits, M);
+    if (fused) {
+        pq_wide_exact_kernel<MODE, true><<<grid, WX_THREADS, WX_SMEM, stream>>>(
+            z, c_norm, c_raw, csq, z_mean, z_std, n, M, K, d, splits, per_block, idx, zn, zq);
+        return static_cast<int>(cudaGetLastError());
+    }
+    pq_wide_exact_kernel<NONE, false><<<grid, WX_THREADS, WX_SMEM, stream>>>(
+        z, c_norm, c_raw, csq, z_mean, z_std, n, M, K, d, splits, per_block, idx, zn, zq);
+    if ((err = static_cast<int>(cudaGetLastError()))) return err;
+    pq_wide_exact_gather_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
+        c_raw, n, M, K, d, idx, zq);
+    return static_cast<int>(cudaGetLastError());
+}
+
 template <int MODE>
 int launch_wide_precision(bool exact, const float* z, const float* c_norm,
                           const float* c_raw, const float* z_mean, const float* z_std,
                           int* idx, float* zn, float* zq, int n, int M, int K, int d,
                           void* ws, cudaStream_t s) {
     if (exact)
-        return launch_wide_exact<MODE>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, s);
+        return launch_wide_exact<MODE>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, ws, s);
     if (K <= 256)
         return launch_wide_fast<MODE, true>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, ws, s);
     return launch_wide_fast<MODE, false>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, ws, s);
@@ -1227,19 +1476,33 @@ int launch_mode(int mode, bool exact, const float* z, const float* c_norm,
 }  // namespace
 
 // Bytes of device workspace pq_assign_launch needs for (M, K, d) in this
-// mode: the fast wide body's bf16 codebook and squared norms, else 0.
+// mode: for the wide bodies, the fast one's bf16 codebook and squared
+// norms or the exact one's squared norms (M x K f32); else 0.
 extern "C" size_t pq_assign_workspace_bytes(int M, int K, int d, int exact) {
-    if (exact || M < 1 || K < 1 || d < 8 || d % 8 != 0 || narrow_fits(d, K, false)) return 0;
-    return wide_fast_workspace(M, K, d);
+    if (M < 1 || K < 1 || d < 8 || d % 8 != 0 || narrow_fits(d, K, exact != 0)) return 0;
+    return exact ? static_cast<size_t>(M) * K * 4 : wide_fast_workspace(M, K, d);
 }
 
-// The fast wide body's launch on the current device: out[0] blocks,
-// out[1] resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// out[2] dynamic shared memory bytes.  Returns a cudaError_t (0 = success).
-extern "C" int pq_assign_wide_config(int n, int M, int K, int d, int mode, int* out) {
+// A wide launch on the current device: out[0] blocks, out[1] resident
+// blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[2]
+// dynamic shared memory bytes and out[3] codeword splits (1 in fast mode)
+// of its main kernel, out[4] 1 where the exact body runs fused (without
+// its pre-pass rows and gather pass).  Returns a cudaError_t (0 = success).
+extern "C" int pq_assign_wide_config(int n, int M, int K, int d, int mode, int exact, int* out) {
     int blocks = 0, per_sm = 0;
     size_t smem = 0;
     int err;
+    if (exact) {
+        int splits = 0, per_block = 0;
+        bool fused = false;
+        err = wide_exact_config(n, M, K, &blocks, &per_sm, &splits, &per_block, &fused);
+        out[0] = blocks;
+        out[1] = per_sm;
+        out[2] = WX_SMEM;
+        out[3] = splits;
+        out[4] = fused ? 1 : 0;
+        return err;
+    }
     const bool packed = K <= 256;
     switch (mode) {
         case NONE: err = packed ? wide_fast_config<NONE, true>(n, M, d, &blocks, &per_sm, &smem)
@@ -1255,6 +1518,8 @@ extern "C" int pq_assign_wide_config(int n, int M, int K, int d, int mode, int* 
     out[0] = blocks;
     out[1] = per_sm;
     out[2] = static_cast<int>(smem);
+    out[3] = 1;
+    out[4] = 0;
     return err;
 }
 

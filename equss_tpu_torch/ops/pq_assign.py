@@ -135,28 +135,60 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.pq_assign_workspace_bytes.restype = ctypes.c_size_t
         lib.pq_assign_workspace_bytes.argtypes = [ctypes.c_int] * 4
         lib.pq_assign_wide_config.restype = ctypes.c_int
-        lib.pq_assign_wide_config.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.pq_assign_wide_config.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return lib
 
 
 def kernel_workspace(z: torch.Tensor, K: int, exact: bool) -> Optional[torch.Tensor]:
     """The device workspace a kernel launch on ``z`` (n, M, d) needs (the
-    fast wide body's bf16 codebook and squared norms, written by its
-    pre-pass), allocated on ``z``'s device; None where it needs none."""
+    wide bodies' codeword squared norms, and in fast mode the bf16
+    codebook, written by their pre-passes), allocated on ``z``'s device;
+    None where it needs none."""
     _, M, d = z.shape
     nbytes = _kernel_lib().pq_assign_workspace_bytes(M, K, d, int(exact))
     return torch.empty(nbytes, dtype=torch.uint8, device=z.device) if nbytes else None
 
 
-def wide_fast_config(n: int, M: int, K: int, d: int, normalize: str) -> dict:
-    """The fast wide body's launch on the current card: its blocks, the
-    resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
-    and its dynamic shared memory."""
-    out = (ctypes.c_int * 3)()
-    err = _kernel_lib().pq_assign_wide_config(n, M, K, d, MODES.index(normalize), out)
+def wide_config(n: int, M: int, K: int, d: int, normalize: str, exact: bool) -> dict:
+    """A wide body's launch on the current card: the blocks of its main
+    kernel, the resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), its dynamic shared
+    memory, in exact mode into how many codeword ranges the rows' tiles are
+    split (1 in fast mode) and whether the body runs ``fused`` (it
+    normalises its rows and gathers their codewords itself: one block per
+    row tile, no split)."""
+    out = (ctypes.c_int * 5)()
+    err = _kernel_lib().pq_assign_wide_config(n, M, K, d, MODES.index(normalize), int(exact), out)
     if err:
         raise RuntimeError(f"pq_assign_wide_config failed: CUDA error {err}")
-    return {"blocks": out[0], "blocks_per_sm": out[1], "dynamic_smem_bytes": out[2]}
+    return {"blocks": out[0], "blocks_per_sm": out[1], "dynamic_smem_bytes": out[2],
+            "codeword_splits": out[3], "fused": bool(out[4])}
+
+
+KEY_INF = 0xFF800000              # ordered(+inf): keys at or above it mean "none"
+
+
+def ordered_key(dist: torch.Tensor) -> torch.Tensor:
+    """The exact wide body's order of f32 distances as int64 values in
+    [0, 2**32): ``dist + 0`` (so -0 counts as +0) with its sign bit set if
+    positive, all bits flipped if negative; every NaN above +inf."""
+    bits = (dist.float() + 0.0).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    key = torch.where(bits >= 0x80000000, bits ^ 0xFFFFFFFF, bits | 0x80000000)
+    return torch.where(torch.isnan(dist), torch.full_like(key, 0xFFFFFFFF), key)
+
+
+def key_argmin(dist: torch.Tensor) -> torch.Tensor:
+    """Plain version of the exact wide body's minimum over the last axis:
+    the least key (``ordered_key(dist)``, then the index k), as the body's
+    ``atomicMin`` on ``ordered << 32 | k`` keeps it; index 0 where the key is
+    at or above +inf's.  This is the strict-< scan's first minimum: NaN is
+    never taken, equal distances (-0 and +0 among them) keep the lower
+    index, a row with no distance below +inf gets 0.  int32 indices."""
+    K = dist.shape[-1]
+    k = torch.arange(K, dtype=torch.int64, device=dist.device)
+    # (ordered - 2**31) * 2**32 + k keeps the unsigned order inside int64
+    best = ((ordered_key(dist) - 2 ** 31) * 2 ** 32 + k).amin(-1)
+    return torch.where((best >> 32) + 2 ** 31 >= KEY_INF, 0, best & 0xFFFFFFFF).to(torch.int32)
 
 
 @torch.library.custom_op("equss::pq_assign", mutates_args=(), device_types="cpu")

@@ -1,6 +1,6 @@
 """Two builds of the PQ assignment kernel, side by side on one card.
 
-    python3 -m equss_tpu_torch.tools.pq_ab OLD.cu
+    python3 -m equss_tpu_torch.tools.pq_ab OLD.cu [CASE_PATTERN]
 
 ``OLD.cu`` is an earlier version of ``csrc/pq_assign.cu`` with a
 ``pq_assign_launch`` C entry; a build that exports
@@ -17,7 +17,9 @@ the plain version (``pq_assign_reference``) with the kernel's bar:
 >= 99.99% of indices equal in exact mode, >= 99.5% in fast mode, indices
 in range, z_q the codeword at the build's own index bit for bit, z_norm
 within 1e-6 + 1e-6 |z_norm| (f32 sums in another order);
-``identical_indices`` says whether the two builds agree everywhere.
+``identical_indices`` says whether the two builds agree everywhere, and
+in exact mode ``identical_outputs`` whether z_norm and z_q are bit-equal
+too (the exact bodies promise both: a difference there fails the run).
 Then old, new and the library call (normalise + ``torch.cdist`` +
 ``argmin`` + gather, a yardstick the port never calls) are timed in turns
 (old, new, library, library, new, old, three times: medians of six) with
@@ -25,9 +27,13 @@ CUDA events over back-to-back launches; in fast mode also a second
 yardstick, normalise + a bf16 ``torch.baddbmm`` of the distances +
 ``argmin`` + gather (``library_bf16``, its indices not held).  One launch
 moves at least 150 MB at the narrow cases and 39-1233 MB at the wide
-ones (their paths' own sizes), so z comes mostly from device memory.  Prints the card's name
-and power limit, one JSON line per build and per case, and exits non-zero
-if a build or a launch fails or a bar is missed.
+ones (their paths' own sizes), so z comes mostly from device memory.
+Exact rows also give the new build's share of the f32 operations bound
+(2 n M K d at 67 TFLOP/s) and its time over the library call's.  With
+``CASE_PATTERN`` (a regular expression, e.g. ``wide_.*exact``) only the
+cases whose name it matches run.  Prints the
+card's name and power limit, one JSON line per build and per case, and
+exits non-zero if a build or a launch fails or a bar is missed.
 """
 from __future__ import annotations
 
@@ -139,7 +145,7 @@ def library_bf16_call(z, cn, cb, mode, zm=None, zs=None):
 
 
 def main(argv) -> int:
-    if len(argv) != 1 or not torch.cuda.is_available():
+    if len(argv) not in (1, 2) or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
     smi = subprocess.run(
@@ -152,6 +158,8 @@ def main(argv) -> int:
     stream = torch.cuda.current_stream().cuda_stream
     ok = True
     for name, n, M, K, d, mode, exact in CASES:
+        if len(argv) == 2 and not re.search(argv[1], name):
+            continue
         z, cn, cb, zm, zs = case_inputs(n, M, K, d, mode, g)
         outs = {b: (torch.empty((n, M), dtype=torch.int32, device="cuda"),
                     torch.empty_like(z), torch.empty_like(z)) for b in libs}
@@ -196,6 +204,11 @@ def main(argv) -> int:
                          "zn_max_abs_err": zn_err, "zn_within_1e-6": zn_ok,
                          "passed": passed}
         identical = torch.equal(outs["old"][0], outs["new"][0])
+        extra = {}
+        if exact:
+            extra["identical_outputs"] = all(torch.equal(outs["old"][i], outs["new"][i])
+                                             for i in (1, 2))
+            ok &= identical and extra["identical_outputs"]
         del idx_r, zn_r
 
         fns = {"old": lambda: run("old"), "new": lambda: run("new"),
@@ -220,7 +233,11 @@ def main(argv) -> int:
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "share_of_bound_new": 1e3 * max(t_bytes, t_ops) / med["new"],
-            "new_over_old": med["new"] / med["old"], "ms": times,
+            "new_over_old": med["new"] / med["old"],
+            "new_over_library": med["new"] / med["library"], **extra,
+            **({"share_of_f32_bound_new": 1e3 * flops / PEAK_F32_FLOPS / med["new"]}
+               if exact else {}),
+            "ms": times,
             "nvidia_smi": smi}), flush=True)
         del z, cn, cb, zm, zs, outs, wss
         torch.cuda.empty_cache()

@@ -119,6 +119,8 @@ WIDE_TILING = [
     pytest.param(2, 2048, 64, 1000, True, id="dup-2-2048-64"),    # equal distances
     pytest.param(1, 256, 2824, 1000, False, id="streamed-1-256-2824"),
     pytest.param(1, 300, 4104, 77, False, id="streamed-1-300-4104"),
+    # past the exact body's fused threshold: it normalises in each mode itself
+    pytest.param(1, 300, 264, 100315, False, id="fused-1-300-264"),
 ]
 
 
@@ -128,7 +130,7 @@ WIDE_TILING = [
                                          for M, K, d in WIDE_SHAPES] + WIDE_TILING)
 def test_pq_wide_body_matches_plain(cuda, mode, exact, M, K, d, n, dup):
     """The wide body against the plain version; n = 1000 leaves a ragged
-    last tile of 40 rows (8 in fast mode).  The bars of the narrow bodies;
+    last tile of 104 rows (8 in fast mode).  The bars of the narrow bodies;
     with duplicated codewords every index lies in the first half (equal
     distances: the lower index)."""
     from equss_tpu_torch.ops.pq_assign import kernel_body
@@ -156,6 +158,62 @@ def test_pq_wide_body_matches_plain(cuda, mode, exact, M, K, d, n, dup):
     torch.testing.assert_close(zn, zn_r, rtol=1e-6, atol=1e-6)
     src = cb if exact else cb.to(torch.bfloat16).float()
     assert torch.equal(zq, src[torch.arange(M, device=cuda), idx.long()])
+
+
+# the exact wide body's tiling (128-row blocks, 128-codeword tiles, 16-deep
+# stages, each block a range of tiles, the ranges of a row tile on other
+# blocks; fused where the row tiles fill the card): M, K, d, n
+WIDE_EXACT_TILING = [
+    pytest.param(1, 256, 1024, 5, id="n5-1-256-1024"),        # n below one row tile
+    pytest.param(1, 256, 1024, 1000, id="1-256-1024"),        # a ragged last row tile
+    pytest.param(2, 1, 64, 1000, id="K1-2-1-64"),
+    pytest.param(3, 300, 128, 1000, id="3-300-128"),          # a ragged last codeword tile
+    pytest.param(2, 100, 40, 1000, id="d40-2-100-40"),        # d % 16 == 8
+    pytest.param(8, 2048, 64, 12800, id="ranges-8-2048-64"),  # several tiles per block
+    pytest.param(1, 300, 264, 100315, id="fused-1-300-264"),  # fused, ragged rows and tiles
+]
+
+
+@pytest.mark.parametrize("case", ["random", "dup", "self"])
+@pytest.mark.parametrize("M,K,d,n", WIDE_EXACT_TILING)
+def test_pq_wide_exact_tiling_edges(cuda, M, K, d, n, case):
+    """The exact wide body at its tiles' edges against the plain version
+    (the bars of ``test_pq_wide_body_matches_plain``).  ``dup``: the
+    codebook is four copies of its first quarter, so every minimum is a tie
+    between tiles of one block's range and between blocks, and the lower
+    index must win; ``self``: under l2, each row is a scaled codeword, so
+    its distance to that codeword is near zero or just below, and the
+    index is that codeword's.  At n = 100 315 the body runs fused (one
+    block per row tile normalises and gathers); at n <= 12 800 split."""
+    from equss_tpu_torch.ops.pq_assign import kernel_body, wide_config
+
+    assert kernel_body(d, K, True) == "wide"
+    launch = wide_config(n, M, K, d, "none", True)
+    tiles = -(-K // 128)
+    assert launch["fused"] == (n > 50000)
+    if not launch["fused"] and n >= 1000 and K >= 256:
+        assert launch["codeword_splits"] >= 2   # the ranges of a row tile on other blocks
+    if M == 8:                      # and a block's range holds several tiles
+        assert -(-tiles // launch["codeword_splits"]) >= 2
+    g = torch.Generator(device=cuda).manual_seed(K + d + n)
+    cb = torch.randn((M, K, d), generator=g, device=cuda)
+    base = K // 4 if case == "dup" and K >= 4 else K
+    cb = cb[:, :base].repeat(1, K // base, 1)
+    mode = "l2" if case == "self" else "none"
+    if case == "self":
+        own = torch.arange(n, device=cuda) % K
+        z = 3.0 * cb[:, own].transpose(0, 1).contiguous()
+    else:
+        z = 3.0 * torch.randn((n, M, d), generator=g, device=cuda)
+    cn = normalize_vectors(cb, mode).contiguous()
+    idx, zn, zq = pq_assign(z, cn, cb, normalize=mode, exact=True)
+    idx_r, zn_r, _ = pq_assign_reference(z, cn, cb, normalize=mode, exact=True)
+    assert (idx == idx_r).float().mean().item() >= 0.9999
+    assert bool(((idx >= 0) & (idx < base)).all())
+    torch.testing.assert_close(zn, zn_r, rtol=1e-6, atol=1e-6)
+    assert torch.equal(zq, cb[torch.arange(M, device=cuda), idx.long()])
+    if case == "self":
+        assert torch.equal(idx, own[:, None].expand(n, M).to(torch.int32))
 
 
 def test_pq_forward_on_cuda_never_takes_the_plain_route(cuda):

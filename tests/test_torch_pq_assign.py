@@ -21,7 +21,7 @@ import torch
 import jax.numpy as jnp
 
 from equss_tpu.ops.pq_pallas import pq_assign_pallas
-from equss_tpu_torch.ops.pq_assign import pq_assign, pq_assign_reference
+from equss_tpu_torch.ops.pq_assign import key_argmin, pq_assign, pq_assign_reference
 
 N, M, K, D = 700, 4, 128, 16
 MODES = ("none", "l2", "z_norm", "z_trainable")
@@ -139,3 +139,62 @@ def test_pq_assign_wrapper_takes_plain_version_on_cpu():
         pq_assign(z, cb, cb, normalize="z_trainable")
     with pytest.raises(ValueError):
         pq_assign(z, cb[:, :, :4], cb, normalize="l2")
+
+
+def _strict_scan(row):
+    """The exact bodies' minimum: a strict-< scan in codeword order from
+    (+inf, 0), so NaN is never taken and equal distances keep the first."""
+    best, best_d = 0, float("inf")
+    for k, v in enumerate(row):
+        if v < best_d:
+            best, best_d = k, v
+    return best
+
+
+NAN, INF = float("nan"), float("inf")
+KEY_ROWS = [
+    pytest.param([3.0, 1.0, 1.0, 2.0], id="tie"),
+    pytest.param([0.0, -0.0, 1.0, 2.0], id="pos-neg-zero"),
+    pytest.param([-0.0, 0.0, 1.0, 2.0], id="neg-pos-zero"),
+    pytest.param([1.0, -0.0, 0.0, -0.0], id="zeros-after"),
+    pytest.param([-1e-7, -3e-7, -3e-7, 0.0], id="negative"),
+    pytest.param([INF, 5.0, INF, 5.0], id="inf"),
+    pytest.param([INF, INF, INF, INF], id="all-inf"),
+    pytest.param([NAN, 2.0, NAN, 2.0], id="nan"),
+    pytest.param([-NAN, 2.0, 1.0, -NAN], id="negative-nan"),
+    pytest.param([NAN, INF, NAN, INF], id="nan-inf"),
+    pytest.param([NAN, NAN, NAN, NAN], id="all-nan"),
+    pytest.param([-INF, -1e30, -INF, 0.0], id="minus-inf"),
+]
+
+
+@pytest.mark.parametrize("row", KEY_ROWS)
+def test_key_argmin_matches_first_minimum(row):
+    """The exact wide body's key combine (``key_argmin``, the plain version
+    of its ``atomicMin``) on hand-made distances: equal to the strict-<
+    scan everywhere, and to ``argmin``'s first minimum where no NaN is."""
+    d = torch.tensor(row, dtype=torch.float32)
+    # -NAN as a Python float keeps the sign bit: make sure the tensor does
+    d = torch.where(torch.isnan(d) & torch.tensor([np.signbit(v) for v in row]),
+                    -torch.tensor(NAN), d)
+    got = key_argmin(d[None])[0].item()
+    assert got == _strict_scan(row)
+    if not any(v != v for v in row) and min(row) < INF:
+        assert got == d.argmin().item()
+
+
+def test_key_argmin_matches_argmin_on_exact_distances():
+    """Random distances with many ties (rounded to a coarse grid, signs
+    mixed), and the exact-mode distances of ``pq_assign_reference``: the
+    key combine equals ``argmin``'s first minimum on every row."""
+    rng = np.random.RandomState(12)
+    d = torch.from_numpy((np.round(rng.randn(4000, 37) * 4) / 8).astype(np.float32))
+    assert torch.equal(key_argmin(d), d.argmin(-1).to(torch.int32))
+    z = torch.from_numpy(3 * rng.randn(300, 2, 24).astype(np.float32))
+    cb = torch.from_numpy(rng.randn(2, 100, 24).astype(np.float32))
+    cb[:, 50:] = cb[:, :50]                       # duplicated codewords: exact ties
+    idx, zn, _ = pq_assign_reference(z, cb, cb, normalize="l2", exact=True)
+    dist = ((zn * zn).sum(-1, keepdim=True) + (cb * cb).sum(-1)) \
+        - 2.0 * torch.einsum("nmd,mkd->nmk", zn, cb)
+    assert torch.equal(key_argmin(dist), idx)
+    assert bool((idx < 50).all())
