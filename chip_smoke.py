@@ -35,7 +35,9 @@ Phases, each printing JSON lines on stdout:
 4. main     serving: the ViT-S/8 224^2 bf16 -> head -> PQ 64x256 forward
             on raw uint8 requests at b = 1, 8 and 128 with seeded weights:
             launch counts (12 attention and 1 PQ per forward), ms per
-            batch and img/s; a second configuration with exact PQ at b = 8;
+            batch and img/s; a second configuration with exact PQ at b = 8
+            and a profile of it (the narrow exact body's device ms and
+            share of its f32 bound per launch in path, n = 6 272);
             the card's output held stage by stage against the same model
             run on the CPU on a small input; and the b = 128 forward with
             the LayerNorm kernels (``fused_ln``) beside the stock one;
@@ -59,7 +61,13 @@ Phases, each printing JSON lines on stdout:
             ms and a profile of two valid steps; then one valid step at
             b = 2 on the card against the same on the CPU (indices >= 95%
             equal; z_q and predictions held where the indices agree;
-            both confusion matrices printed);
+            both confusion matrices printed); then the exact sub-run: the
+            preset with ``model.vq.assign_precision: exact`` and
+            ``use_pallas: 1`` (``AssignSTE``), 4 train steps at b = 16 and
+            4 valid steps at b = 8, 320^2 (12 attention + 1 PQ launch per
+            step), each with a profile that names the narrow exact body's
+            device ms and share of its f32 bound per launch in path
+            (n = 12 544 and 12 800);
 8. fit      ``Trainer.fit`` of the preset for one epoch of 4 train steps
             at b = 16, validating every 2 steps and at the epoch's end
             on 2 batches of b = 8 at 320^2: the logged steps, the best
@@ -603,10 +611,11 @@ def pq_row(name: str, n: int, M: int, K: int, d: int, mode: str, exact: bool, g)
 
 def phase_pq(results: dict) -> None:
     """The PQ kernel's narrow bodies (M = 64, d = 16) against their plain
-    version at the serving, train and valid calls, exact mode, the other
-    normalisations, K = 512 (the fast mode's (value, index) minimum over
-    many codeword tiles) and a ragged n (a last row tile of 5 rows); the
-    bars and yardstick of ``pq_row``."""
+    version at the serving, train and valid calls in both modes (exact:
+    the exact sub-run's calls, ``phase_pqgo_exact``, and the exact b = 8
+    serving configuration's), the other normalisations, K = 512 (the fast
+    mode's (value, index) minimum over many codeword tiles) and a ragged n
+    (a last row tile of 5 rows); the bars and yardstick of ``pq_row``."""
     g = torch.Generator(device="cuda").manual_seed(1)
     n_bench = 128 * 28 * 28
     cases = [  # name, n, K, normalize, exact
@@ -614,13 +623,35 @@ def phase_pq(results: dict) -> None:
         ("train_fast_l2", 16 * 28 * 28, 256, "l2", False),   # the train step's
         ("valid_fast_l2", 8 * 40 * 40, 256, "l2", False),    # the valid step's
         ("bench_exact_l2", n_bench, 256, "l2", True),
+        ("train_exact_l2", 16 * 28 * 28, 256, "l2", True),
+        ("valid_exact_l2", 8 * 40 * 40, 256, "l2", True),
+        ("serve8_exact_l2", 8 * 28 * 28, 256, "l2", True),
         ("z_norm_exact", 16384, 256, "z_norm", True),
         ("z_trainable_fast", 16384, 256, "z_trainable", False),
         ("k512_fast_l2", 16384, 512, "l2", False),
         ("train_fast_l2_ragged", 16 * 28 * 28 + 37, 256, "l2", False),
     ]
     for name, n, K, mode, exact in cases:
-        results.setdefault("pq_assign", pq_row(name, n, 64, K, 16, mode, exact, g))
+        row = pq_row(name, n, 64, K, 16, mode, exact, g)
+        results.setdefault("pq_assign", row)
+        if name == "train_exact_l2":
+            # the kernels line's exact narrow row: the exact sub-run's train call
+            results["pq_assign_exact"] = row
+
+
+def narrow_exact_in_path(prof: dict, n: int, what: str) -> dict:
+    """The narrow exact PQ launch (``pq_exact_kernel``) in a profile of
+    ``calls`` calls of one launch each: its device ms per launch and the
+    share of its f32 bound at the preset's quantizer (M = 64, K = 256,
+    d = 16) and this n; the profile must name the body."""
+    check(any("pq_exact" in r["name"] for r in prof["picked"]),
+          f"{what}: no pq_exact_kernel in the profile")
+    ms = sum(r["ms"] for r in prof["picked"] if "pq_exact" in r["name"]) / prof["calls"]
+    M, K, d = 64, 256, 16
+    bnd, by = bound_ms(2.0 * n * M * K * d, PEAK_F32_FLOPS,
+                       4.0 * (3 * n * M * d + 2 * M * K * d + n * M))
+    return {"pq_exact_n": n, "pq_exact_ms_per_launch": ms, "pq_exact_bound_ms": bnd,
+            "pq_exact_bound_by": by, "pq_exact_share_of_bound": bnd / ms if ms else None}
 
 
 # the quantizers of the configs outside the pqgo family (M, K, d, normalize)
@@ -819,6 +850,7 @@ def phase_main(results: dict):
     """Serve the main configuration and the exact one; returns the main
     model and its configuration."""
     from equss_tpu_torch import EQUSS, launch_counts, reset_launch_counts
+    from equss_tpu_torch.data.transforms import normalize_images
 
     cfg = main_config("bf16")
     torch.cuda.reset_peak_memory_stats()
@@ -873,6 +905,10 @@ def phase_main(results: dict):
           "ms_per_batch_median": 1e3 * t[len(t) // 2], "img_per_s": 8 * len(t) / sum(t),
           **{f"launches_{k}": v for k, v in counts_x.items()}})
     results["launches"]["serve_exact"] = counts_x
+    img = normalize_images(requests(8, 1, seed=81)[0].to("cuda"))
+    prof = device_profile(lambda: model_x(img), 2, pick=KERNEL_PICK)
+    emit({"phase": "profile", "what": "serve_exact", "batch": 8, "forwards": 2, **prof,
+          **narrow_exact_in_path(prof, 8 * 28 * 28, "serve exact b=8")})
     del model_x, outs
 
     phase_reference(model, cfg)
@@ -1126,6 +1162,43 @@ def reference_step(make_trainer, batch: dict, grads: dict, what: str,
         if k in m_c:
             row[f"{k}_rel_err"] = abs(m_g[k] - m_c[k]) / abs(m_c[k])
     return row
+
+
+def phase_pqgo_exact(results: dict) -> None:
+    """The preset with ``model.vq.assign_precision: exact`` (the JAX
+    default) and ``model.vq.use_pallas: 1`` (the kernel's training route,
+    ``AssignSTE``): 4 train steps at b = 16 (+16 positives) on 224^2 after
+    2 warm-up ones, then ``validate`` over 4 batches of b = 8 at 320^2
+    after 2 warm-up steps; 12 attention and 1 PQ launch per step, the PQ
+    kernel's narrow exact body at n = 12 544 and 12 800; every loss
+    finite; a profile of two steps of each, which names the body's device
+    ms per launch and its share of the f32 bound."""
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+    from equss_tpu_torch.train.trainer import Trainer
+
+    cfg = with_overrides(PQGO_COCOSTUFF27, {"model.vq.assign_precision": "exact",
+                                            "model.vq.use_pallas": 1})
+    tr = Trainer(cfg, device="cuda", seed=0)
+    batches = list(synthetic_batches(13, 6, 16, res=224, num_classes=27))
+    metrics, timing = timed_train(tr, batches, 2, SERVE_KERNELS, "pqgo_exact_train", results)
+    emit({"phase": "pqgo_exact", "what": "train", "batch": 16, **timing,
+          **{f"{k}_per_step": [m[k] for m in metrics]
+             for k in ("loss", "stego-loss", "vq-loss", "linear-loss", "cluster-loss")}})
+    cycle = iter(batches * 2)
+    prof = device_profile(lambda: tr.train_step(next(cycle)), 2, pick=KERNEL_PICK)
+    emit({"phase": "profile", "what": "pqgo_exact_train", "batch": 16, "steps": 2, **prof,
+          **narrow_exact_in_path(prof, 16 * 28 * 28, "pqgo exact train")})
+
+    vb = valid_batches(6, 8, seed=331)
+    val, res, timing = timed_validate(tr, vb, 2, SERVE_KERNELS, "pqgo_exact_valid", results)
+    check(tuple(res["pq_indices"].shape) == (8, 40, 40, 64), "pqgo exact valid: index shape")
+    emit({"phase": "pqgo_exact", "what": "valid", "batch": 8, "res": 320, **timing, **val})
+    cycle = iter(vb * 2)
+    prof = device_profile(lambda: tr.valid_step(next(cycle)), 2, pick=KERNEL_PICK)
+    emit({"phase": "profile", "what": "pqgo_exact_valid", "batch": 8, "res": 320, "steps": 2,
+          **prof, **narrow_exact_in_path(prof, 8 * 40 * 40, "pqgo exact valid")})
+    del tr
+    torch.cuda.empty_cache()
 
 
 def phase_train_reference() -> None:
@@ -2503,6 +2576,10 @@ KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     "layernorm": ("equss_tpu_torch/csrc/layernorm.cu", "equss_tpu/ops/layernorm.py:74"),
     "add_layernorm": ("equss_tpu_torch/csrc/layernorm.cu", "equss_tpu/ops/layernorm.py:112"),
     "pq_assign": ("equss_tpu_torch/csrc/pq_assign.cu", "equss_tpu/ops/pq_pallas.py:443"),
+    # the narrow exact body of the same wrapper (pq_exact_kernel): its
+    # launches are the PQ launches of the preset's exact paths, the exact
+    # sub-run's train and valid steps and the exact b = 8 serving
+    "pq_assign_exact": ("equss_tpu_torch/csrc/pq_assign.cu", "equss_tpu/ops/pq_pallas.py:443"),
     # the wide bodies of the same wrapper: their launches are the PQ
     # launches of the VQ baseline's paths, all at d = 1024, fast
     # (pq_wide_fast_kernel) on the preset's bf16 assignments, exact
@@ -2513,9 +2590,12 @@ KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
 }
 
 
-def wide_path(name: str, path: str) -> bool:
+def row_path(name: str, path: str) -> bool:
     """Whether the launches of ``path`` count for the kernels line's row
-    ``name``: the wide rows take the VQ baseline's paths, each its mode's."""
+    ``name``: the narrow exact row takes the preset's exact paths, the
+    wide rows the VQ baseline's, each its mode's."""
+    if name == "pq_assign_exact":
+        return path.startswith(("pqgo_exact", "serve_exact"))
     if name == "pq_assign_wide_exact":
         return path.startswith("vq_exact")
     if name == "pq_assign_wide":
@@ -2541,6 +2621,7 @@ def main() -> int:
     phase_train_reference()
     phase_valid(results)
     phase_valid_reference()
+    phase_pqgo_exact(results)
     phase_fit(results)
     phase_crf()
     phase_cli(results)
@@ -2553,7 +2634,8 @@ def main() -> int:
     phase_cli_baselines(results)
 
     # launches: every main-path run (serving, serving with fused_ln, both
-    # train configurations, both valid configurations, fit, the three CLI
+    # train configurations, both valid configurations, the exact sub-run's
+    # train and valid steps, fit, the three CLI
     # runs, the kNN job, the train job on files, the exported artifact's
     # requests and the custom-op side of the A/B), each counted from 0;
     # ``attention`` has no caller on any path and is launched by its
@@ -2562,8 +2644,8 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         r = results[name]
-        wrapper = "pq_assign" if name.startswith("pq_assign_wide") else name
-        paths = {p: c[wrapper] for p, c in by_path.items() if wide_path(name, p)}
+        wrapper = "pq_assign" if name.startswith("pq_assign") else name
+        paths = {p: c[wrapper] for p, c in by_path.items() if row_path(name, p)}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": sum(paths.values()), "launches_by_path": paths,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -11,7 +11,7 @@
 // K % 128 == 0).  Four bodies share it:
 //   narrow (pq_exact_kernel, pq_fast_kernel): d in {8, 16, 32} where one
 //     subspace's codebooks fit a block's 227 KB of shared memory:
-//     (8d + 4) * K bytes in exact mode (K <= 1761 at d = 16);
+//     (8d + 4) * K bytes in exact mode (K <= 1760 at d = 16);
 //     (4d + 4) * roundup(K, 256 / d) bytes beside the 43 008 bytes of
 //     staging tiles in fast mode (K <= 2784 at d = 16);
 //   wide (pq_wide_exact_kernel exact, pq_wide_fast_kernel fast, each
@@ -66,9 +66,29 @@
 // minimum by shuffles; the gather writes z_q into a second staging tile.
 // z_norm and z_q leave as whole lines, idx as one vector per row.
 //
-// Exact mode (pq_exact_kernel) keeps the f32 CUDA-core body bit for bit:
-// one thread per row, the subspace's f32 codebook and squared norms in
-// shared memory, dot<D> in a fixed fmaf order.
+// Exact mode (pq_exact_kernel).  The distances are f32 FMAs on the CUDA
+// cores: the body is bound by its operations (0.79 ms above, against
+// 0.376 ms of bytes), and what limits it is the issue slots around the
+// FMAs.  A block owns one subspace and a run of rows; it stages the
+// subspace's c_norm and c_sq (a thread per codeword, K (4d + 4) bytes)
+// in shared memory.  Each thread holds R = 64 / d normalised rows in
+// registers (64 floats at every d) and scans the K codewords in order:
+// one broadcast read of a codeword (d / 4 float4s and its c_sq) serves
+// R rows, so at d = 16 a codeword costs 5 shared loads for 64 FMAs and
+// 20 epilogue operations, where one row per thread spent 5 loads on 16
+// FMAs.  z_q is gathered from c_raw in device memory (L2: 1 MB at
+// 64 x 256 x 16), which halves the shared memory of the body it
+// replaced (one thread per row, c_norm, c_raw and c_sq staged by every
+// 1024-row block).  The launch gives a block as many rounds of
+// 256 R rows as leave at least EXACT_WAVES blocks per resident slot
+// (2 per SM below K (4d + 4) = 113 KB), for balance.
+//   Same bits as that body on every input: each row's normalisation
+// and |z_norm|^2, and each codeword's c_sq, are one thread's sequential
+// sums in j order; each (row, codeword) cross product is one fmaf chain
+// from 0 over j; dist = (z_sq + c_sq) - 2 * cross; each row's strict-<
+// scan runs in codeword order in one thread (first minimum, NaN never
+// taken, -0 equal to +0, index 0 when nothing is below +inf); z_q is the
+// raw f32 codeword.
 //
 // Wide bodies: every other shape of the domain.  A subspace's codebook
 // need not fit shared memory: it is streamed through it in tiles.
@@ -172,113 +192,149 @@ enum Mode { NONE = 0, L2 = 1, Z_NORM = 2, Z_TRAINABLE = 3 };
 // ------------------------------------------------------------ exact mode
 
 constexpr int THREADS = 256;
-constexpr int ROWS_PER_BLOCK = 1024;
+constexpr int EXACT_MIN_BLOCKS = 2;   // resident blocks per SM the registers allow
 
+// rows a thread holds in registers: 64 floats of z_norm at every width
 template <int D>
-__device__ __forceinline__ float dot(const float (&v)[D], const float* c) {
+__host__ __device__ constexpr int exact_rows() { return 64 / D; }
+
+// The cross product of one (row, codeword): one fmaf chain from 0 over
+// j in order.
+template <int D>
+__device__ __forceinline__ float dot(const float (&v)[D], const float (&c)[D]) {
     float acc = 0.f;
 #pragma unroll
-    for (int q = 0; q < D / 4; ++q) {
-        const float4 cq = reinterpret_cast<const float4*>(c)[q];
-        acc = fmaf(v[4 * q + 0], cq.x, acc);
-        acc = fmaf(v[4 * q + 1], cq.y, acc);
-        acc = fmaf(v[4 * q + 2], cq.z, acc);
-        acc = fmaf(v[4 * q + 3], cq.w, acc);
-    }
+    for (int j = 0; j < D; ++j) acc = fmaf(v[j], c[j], acc);
     return acc;
 }
 
+// (z_sq + c_sq) - 2 cross as the body it replaced compiled it: three
+// rounded adds (2 cross as cross + cross), never contracted into an FMA.
+__device__ __forceinline__ float exact_dist(float z_sq, float c_sq, float cross) {
+    return __fadd_rn(__fadd_rn(z_sq, c_sq), -__fadd_rn(cross, cross));
+}
+
+// One row of one subspace normalised in place by one thread, each sum
+// sequential in j order.
 template <int D, int MODE>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void normalise(float (&v)[D], const float* __restrict__ z_mean,
+                                          const float* __restrict__ z_std, int m) {
+    if (MODE == L2) {
+        float ss = 0.f;
+#pragma unroll
+        for (int j = 0; j < D; ++j) ss += v[j] * v[j];
+        const float denom = fmaxf(sqrtf(ss), 1e-12f);
+#pragma unroll
+        for (int j = 0; j < D; ++j) v[j] = v[j] / denom;
+    } else if (MODE == Z_NORM) {
+        float mu = 0.f;
+#pragma unroll
+        for (int j = 0; j < D; ++j) mu += v[j];
+        mu = mu / D;
+        float var = 0.f;
+#pragma unroll
+        for (int j = 0; j < D; ++j) {
+            v[j] = v[j] - mu;
+            var += v[j] * v[j];
+        }
+        var = var / (D - 1);
+        const float denom = sqrtf(var) + 1e-5f;
+#pragma unroll
+        for (int j = 0; j < D; ++j) v[j] = v[j] / denom;
+    } else if (MODE == Z_TRAINABLE) {
+#pragma unroll
+        for (int j = 0; j < D; ++j)
+            v[j] = (v[j] - __ldg(z_mean + m * D + j)) / (__ldg(z_std + m * D + j) + 1e-5f);
+    }
+}
+
+// A block owns one subspace and 256 R rows: thread t the R consecutive
+// rows R t .. of them.
+template <int D, int MODE>
+__global__ void __launch_bounds__(THREADS, EXACT_MIN_BLOCKS)
 pq_exact_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
                 const float* __restrict__ c_raw,
                 const float* __restrict__ z_mean,
                 const float* __restrict__ z_std, int n, int M, int K,
                 int* __restrict__ idx, float* __restrict__ zn_out,
                 float* __restrict__ zq_out) {
+    constexpr int R = exact_rows<D>();
     extern __shared__ __align__(16) float smem[];
     float* s_c = smem;                  // K x D distance codebook
-    float* s_raw = smem + K * D;        // K x D gather source
-    float* s_csq = smem + 2 * K * D;    // K squared norms of c_norm
+    float* s_csq = smem + K * D;        // K squared norms of c_norm
     const int m = blockIdx.y;
     const float* cn = c_norm + static_cast<size_t>(m) * K * D;
-    const float* cr = c_raw + static_cast<size_t>(m) * K * D;
-    for (int i = threadIdx.x; i < K * D; i += THREADS) {
-        s_c[i] = cn[i];
-        s_raw[i] = cr[i];
-    }
+    // a thread per codeword: stage it and sum its squares
     for (int k = threadIdx.x; k < K; k += THREADS) {
-        float acc = 0.f;
-#pragma unroll
-        for (int j = 0; j < D; ++j) acc += cn[k * D + j] * cn[k * D + j];
-        s_csq[k] = acc;
-    }
-    float zm[D], zs[D];
-    if (MODE == Z_TRAINABLE) {
-#pragma unroll
-        for (int j = 0; j < D; ++j) {
-            zm[j] = z_mean[m * D + j];
-            zs[j] = z_std[m * D + j] + 1e-5f;
-        }
-    }
-    __syncthreads();
-
-    const int row_end = min(n, (blockIdx.x + 1) * ROWS_PER_BLOCK);
-    for (int r = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x; r < row_end;
-         r += THREADS) {
-        const size_t off = (static_cast<size_t>(r) * M + m) * D;
-        float v[D];
+        float c[D];
 #pragma unroll
         for (int q = 0; q < D / 4; ++q) {
-            const float4 f = reinterpret_cast<const float4*>(z + off)[q];
-            v[4 * q] = f.x; v[4 * q + 1] = f.y; v[4 * q + 2] = f.z; v[4 * q + 3] = f.w;
+            const float4 f = __ldg(reinterpret_cast<const float4*>(cn + k * D) + q);
+            reinterpret_cast<float4*>(s_c + k * D)[q] = f;
+            c[4 * q] = f.x; c[4 * q + 1] = f.y; c[4 * q + 2] = f.z; c[4 * q + 3] = f.w;
         }
-        if (MODE == L2) {
-            float ss = 0.f;
+        float acc = 0.f;
 #pragma unroll
-            for (int j = 0; j < D; ++j) ss += v[j] * v[j];
-            const float denom = fmaxf(sqrtf(ss), 1e-12f);
+        for (int j = 0; j < D; ++j) acc += c[j] * c[j];
+        s_csq[k] = acc;
+    }
+
+    const int r0 = (blockIdx.x * THREADS + threadIdx.x) * R;
+    float v[R][D], z_sq[R];
 #pragma unroll
-            for (int j = 0; j < D; ++j) v[j] = v[j] / denom;
-        } else if (MODE == Z_NORM) {
-            float mu = 0.f;
+    for (int i = 0; i < R; ++i) {
+        // rows past n repeat the last one and are never written
+        const size_t off = (static_cast<size_t>(min(r0 + i, n - 1)) * M + m) * D;
 #pragma unroll
-            for (int j = 0; j < D; ++j) mu += v[j];
-            mu = mu / D;
-            float var = 0.f;
-#pragma unroll
-            for (int j = 0; j < D; ++j) {
-                v[j] = v[j] - mu;
-                var += v[j] * v[j];
-            }
-            var = var / (D - 1);
-            const float denom = sqrtf(var) + 1e-5f;
-#pragma unroll
-            for (int j = 0; j < D; ++j) v[j] = v[j] / denom;
-        } else if (MODE == Z_TRAINABLE) {
-#pragma unroll
-            for (int j = 0; j < D; ++j) v[j] = (v[j] - zm[j]) / zs[j];
+        for (int q = 0; q < D / 4; ++q) {
+            const float4 f = __ldg(reinterpret_cast<const float4*>(z + off) + q);
+            v[i][4 * q] = f.x; v[i][4 * q + 1] = f.y;
+            v[i][4 * q + 2] = f.z; v[i][4 * q + 3] = f.w;
         }
+        normalise<D, MODE>(v[i], z_mean, z_std, m);
+        if (r0 + i < n) {
+#pragma unroll
+            for (int q = 0; q < D / 4; ++q)
+                reinterpret_cast<float4*>(zn_out + off)[q] =
+                    make_float4(v[i][4 * q], v[i][4 * q + 1], v[i][4 * q + 2], v[i][4 * q + 3]);
+        }
+        z_sq[i] = 0.f;
+#pragma unroll
+        for (int j = 0; j < D; ++j) z_sq[i] += v[i][j] * v[i][j];
+    }
+    __syncthreads();
+    if (r0 >= n) return;
+
+    int best[R];
+    float best_d[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) { best[i] = 0; best_d[i] = INFINITY; }
+#pragma unroll 2
+    for (int k = 0; k < K; ++k) {
+        // one broadcast read of the codeword serves the R rows
+        float c[D];
+#pragma unroll
+        for (int q = 0; q < D / 4; ++q) {
+            const float4 f = reinterpret_cast<const float4*>(s_c + k * D)[q];
+            c[4 * q] = f.x; c[4 * q + 1] = f.y; c[4 * q + 2] = f.z; c[4 * q + 3] = f.w;
+        }
+        const float csq = s_csq[k];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+            const float dist = exact_dist(z_sq[i], csq, dot<D>(v[i], c));
+            if (dist < best_d[i]) { best_d[i] = dist; best[i] = k; }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+        if (r0 + i >= n) break;
+        const size_t row = static_cast<size_t>(r0 + i) * M + m;
+        idx[row] = best[i];
+        const float4* src = reinterpret_cast<const float4*>(
+            c_raw + (static_cast<size_t>(m) * K + best[i]) * D);
 #pragma unroll
         for (int q = 0; q < D / 4; ++q)
-            reinterpret_cast<float4*>(zn_out + off)[q] =
-                make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
-
-        float z_sq = 0.f;
-#pragma unroll
-        for (int j = 0; j < D; ++j) z_sq += v[j] * v[j];
-
-        int best = 0;
-        float best_d = INFINITY;
-        for (int k = 0; k < K; ++k) {
-            const float dist = (z_sq + s_csq[k]) - 2.f * dot<D>(v, s_c + k * D);
-            if (dist < best_d) { best_d = dist; best = k; }
-        }
-        idx[static_cast<size_t>(r) * M + m] = best;
-#pragma unroll
-        for (int q = 0; q < D / 4; ++q)
-            reinterpret_cast<float4*>(zq_out + off)[q] =
-                reinterpret_cast<const float4*>(s_raw + best * D)[q];
+            reinterpret_cast<float4*>(zq_out + row * D)[q] = __ldg(src + q);
     }
 }
 
@@ -287,17 +343,15 @@ int launch_exact(const float* z, const float* c_norm, const float* c_raw,
                  const float* z_mean, const float* z_std, int* idx, float* zn,
                  float* zq, int n, int M, int K, cudaStream_t stream) {
     auto kernel = pq_exact_kernel<D, MODE>;
-    const size_t smem = (2 * static_cast<size_t>(K) * D + K) * sizeof(float);
-    if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    const dim3 grid((n + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK, M);
-    kernel<<<grid, THREADS, smem, stream>>>(z, c_norm, c_raw, z_mean, z_std,
-                                            n, M, K, idx, zn, zq);
+    const size_t smem = (static_cast<size_t>(K) * D + K) * sizeof(float);
+    if (smem > SMEM_MAX || M > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    constexpr int rows = THREADS * exact_rows<D>();
+    const dim3 grid((n + rows - 1) / rows, M);
+    kernel<<<grid, THREADS, smem, stream>>>(z, c_norm, c_raw, z_mean, z_std, n, M, K,
+                                            idx, zn, zq);
     return static_cast<int>(cudaGetLastError());
 }
 

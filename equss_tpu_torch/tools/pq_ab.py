@@ -9,7 +9,10 @@ without.  Both sources are compiled with the port's nvcc flags (in
 parallel, into ``_build/ab/``); each build's ptxas register and spill
 lines are printed.  At every case of ``chip_smoke.py``'s PQ phase (serve
 and train fast l2, serve exact l2, z_norm exact, z_trainable fast), at
-K = 512, d = 8 and d = 32, and at the wide body's cases in both modes
+K = 512, d = 8 and d = 32, at the narrow exact body's domain (the train,
+valid and b = 8 serving calls, a ragged n, ``none`` and ``z_trainable``,
+K = 512, d = 8 and 32, K at the top of the narrow domain at each d), and
+at the wide body's cases in both modes
 (the VQ baseline's valid and predictor calls, M = 1, K = 256, d = 1024;
 unseg 1 x 2048 x 384, vae 1 x 1024 x 256 and new_vq 8 x 2048 x 64 at
 n = 12 800), both builds run on the same input.  Each build is held to
@@ -26,8 +29,8 @@ Then old, new and the library call (normalise + ``torch.cdist`` +
 CUDA events over back-to-back launches; in fast mode also a second
 yardstick, normalise + a bf16 ``torch.baddbmm`` of the distances +
 ``argmin`` + gather (``library_bf16``, its indices not held).  One launch
-moves at least 150 MB at the narrow cases and 39-1233 MB at the wide
-ones (their paths' own sizes), so z comes mostly from device memory.
+moves 39-1233 MB (the paths' own sizes), so z comes mostly from
+device memory.
 Exact rows also give the new build's share of the f32 operations bound
 (2 n M K d at 67 TFLOP/s) and its time over the library call's.  With
 ``CASE_PATTERN`` (a regular expression, e.g. ``wide_.*exact``) only the
@@ -60,6 +63,22 @@ CASES = (  # name, n, M, K, d, normalize, exact
     ("k512_fast_l2", 16384, 64, 512, 16, "l2", False),
     ("d8_fast_l2", 16384, 128, 256, 8, "l2", False),
     ("d32_fast_l2", 16384, 32, 256, 32, "l2", False),
+    # the narrow exact body's domain: the paths' calls (train step b = 16,
+    # valid step b = 8 at 320^2, serving b = 8), its other widths, K and
+    # normalisations, a ragged last round of rows and K at the top of the
+    # narrow domain ((8d + 4) K <= 232 448) at each width
+    ("train_exact_l2", 16 * 28 * 28, 64, 256, 16, "l2", True),
+    ("valid_exact_l2", 8 * 40 * 40, 64, 256, 16, "l2", True),
+    ("serve8_exact_l2", 8 * 28 * 28, 64, 256, 16, "l2", True),
+    ("ragged_exact_l2", 16 * 28 * 28 + 37, 64, 256, 16, "l2", True),
+    ("none_exact", 16384, 64, 256, 16, "none", True),
+    ("z_trainable_exact", 16384, 64, 256, 16, "z_trainable", True),
+    ("k512_exact_l2", 16384, 64, 512, 16, "l2", True),
+    ("d8_exact_l2", 16384, 128, 256, 8, "l2", True),
+    ("d32_exact_l2", 16384, 32, 256, 32, "l2", True),
+    ("k1760_exact_l2", 16384, 64, 1760, 16, "l2", True),
+    ("d8_k3418_exact_l2", 16384, 16, 3418, 8, "l2", True),
+    ("d32_k894_exact_l2", 16384, 32, 894, 32, "l2", True),
     *((f"wide_{name}_{'exact' if exact else 'fast'}", n, M, K, d, "none", exact)
       for name, n, M, K, d in (("vq_valid", 8 * 40 * 40, 1, 256, 1024),
                                ("vq_predictor", 128 * 28 * 28, 1, 256, 1024),

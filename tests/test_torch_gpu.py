@@ -216,6 +216,64 @@ def test_pq_wide_exact_tiling_edges(cuda, M, K, d, n, case):
         assert torch.equal(idx, own[:, None].expand(n, M).to(torch.int32))
 
 
+# the narrow exact body's tiling (R = 64 / d rows per thread, rounds of
+# 256 R rows, a run of rounds per block, the codebook scanned in order):
+# d, K, M, n
+NARROW_EXACT_TILING = [
+    pytest.param(16, 256, 4, 1000, id="ragged-16-256"),        # a ragged last round
+    pytest.param(16, 256, 4, 3, id="n3-16-256"),               # n below one thread's rows
+    pytest.param(8, 100, 5, 2049, id="d8-100"),                # R = 8, K and n ragged
+    pytest.param(32, 77, 3, 515, id="d32-77"),                 # R = 2, K and n ragged
+    pytest.param(16, 1, 2, 300, id="K1-16"),
+    pytest.param(16, 1760, 4, 1000, id="top-16-1760"),         # the top of the narrow domain
+    pytest.param(8, 3418, 2, 600, id="top-8-3418"),
+    pytest.param(32, 894, 2, 600, id="top-32-894"),
+    pytest.param(16, 256, 64, 70001, id="rounds-64-256-16"),   # several rounds per block
+]
+
+
+@pytest.mark.parametrize("case", ["random", "dup", "zeros_nan"])
+@pytest.mark.parametrize("d,K,M,n", NARROW_EXACT_TILING)
+def test_pq_narrow_exact_tiling_edges(cuda, d, K, M, n, case):
+    """The narrow exact body at its tiles' edges against the plain version
+    (the bars of ``test_pq_kernel_matches_plain``, z_norm NaN where the
+    input is).  ``dup``: codeword k is codeword k mod K / 4, so every
+    minimum is an exact tie and the lower index must win; ``zeros_nan``
+    (no normalisation): rows r % 7 == 0 are +0 and r % 7 == 3 are -0, so
+    their distances are the codewords' c_sq and the index is the first
+    least c_sq, with -0 kept in z_norm; rows r % 7 == 5 are NaN, no
+    distance is below +inf and the index is 0."""
+    from equss_tpu_torch.ops.pq_assign import kernel_body
+
+    assert kernel_body(d, K, True) == "narrow"
+    g = torch.Generator(device=cuda).manual_seed(K + d + n)
+    cb = torch.randn((M, K, d), generator=g, device=cuda)
+    base = max(1, K // 4) if case == "dup" else K
+    cb = cb[:, torch.arange(K, device=cuda) % base].contiguous()
+    z = 3.0 * torch.randn((n, M, d), generator=g, device=cuda)
+    r = torch.arange(n, device=cuda) % 7
+    if case == "zeros_nan":
+        z[r == 0] = 0.0
+        z[r == 3] = -0.0
+        z[r == 5] = float("nan")
+    mode = "none" if case == "zeros_nan" else "l2"
+    cn = normalize_vectors(cb, mode).contiguous()
+    before = pq_assign.launches
+    idx, zn, zq = pq_assign(z, cn, cb, normalize=mode, exact=True)
+    assert pq_assign.launches == before + 1
+    idx_r, zn_r, _ = pq_assign_reference(z, cn, cb, normalize=mode, exact=True)
+    assert (idx == idx_r).float().mean().item() >= 0.9999
+    assert bool(((idx >= 0) & (idx < base)).all())
+    torch.testing.assert_close(zn, zn_r, rtol=1e-6, atol=1e-6, equal_nan=True)
+    assert torch.equal(zq, cb[torch.arange(M, device=cuda), idx.long()])
+    if case == "zeros_nan":
+        first = (cb * cb).sum(-1).argmin(-1).to(torch.int32)       # (M,)
+        zero = (r == 0) | (r == 3)
+        assert torch.equal(idx[zero], first.expand(int(zero.sum()), M))
+        assert bool(torch.signbit(zn[r == 3]).all())
+        assert bool((idx[r == 5] == 0).all())
+
+
 def test_pq_forward_on_cuda_never_takes_the_plain_route(cuda):
     """Every config's (d, K) inside the JAX predicate runs the kernel on
     CUDA, in inference, under ``use_pallas: auto``."""

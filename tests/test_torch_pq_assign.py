@@ -21,7 +21,7 @@ import torch
 import jax.numpy as jnp
 
 from equss_tpu.ops.pq_pallas import pq_assign_pallas
-from equss_tpu_torch.ops.pq_assign import key_argmin, pq_assign, pq_assign_reference
+from equss_tpu_torch.ops.pq_assign import key_argmin, kernel_body, pq_assign, pq_assign_reference
 
 N, M, K, D = 700, 4, 128, 16
 MODES = ("none", "l2", "z_norm", "z_trainable")
@@ -139,6 +139,16 @@ def test_pq_assign_wrapper_takes_plain_version_on_cpu():
         pq_assign(z, cb, cb, normalize="z_trainable")
     with pytest.raises(ValueError):
         pq_assign(z, cb[:, :, :4], cb, normalize="l2")
+
+
+@pytest.mark.parametrize("d,K", [(8, 3418), (16, 1760), (32, 894)])
+def test_kernel_body_narrow_exact_boundary(d, K):
+    """The last K the narrow exact body takes at each width, by the rule
+    (8d + 4) K <= 232 448 bytes of shared memory; one codeword more goes
+    to the wide body."""
+    assert (8 * d + 4) * K <= 232448 < (8 * d + 4) * (K + 1)
+    assert kernel_body(d, K, True) == "narrow"
+    assert kernel_body(d, K + 1, True) == "wide"
 
 
 def _strict_scan(row):
