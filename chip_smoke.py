@@ -639,19 +639,25 @@ def phase_pq(results: dict) -> None:
             results["pq_assign_exact"] = row
 
 
-def narrow_exact_in_path(prof: dict, n: int, what: str) -> dict:
-    """The narrow exact PQ launch (``pq_exact_kernel``) in a profile of
-    ``calls`` calls of one launch each: its device ms per launch and the
-    share of its f32 bound at the preset's quantizer (M = 64, K = 256,
-    d = 16) and this n; the profile must name the body."""
-    check(any("pq_exact" in r["name"] for r in prof["picked"]),
-          f"{what}: no pq_exact_kernel in the profile")
-    ms = sum(r["ms"] for r in prof["picked"] if "pq_exact" in r["name"]) / prof["calls"]
-    M, K, d = 64, 256, 16
-    bnd, by = bound_ms(2.0 * n * M * K * d, PEAK_F32_FLOPS,
+def pq_in_path(prof: dict, n: int, shape: tuple, exact: bool, body: str, launch: str,
+               what: str) -> dict:
+    """One PQ launch in a profile of ``calls`` calls of one launch each:
+    the device ms per launch of its kernels (those whose name holds
+    ``launch``) and the share of its bound at quantizer ``shape`` (M, K,
+    d) and this n; the profile must name ``body``."""
+    check(any(body in r["name"] for r in prof["picked"]), f"{what}: no {body} in the profile")
+    ms = sum(r["ms"] for r in prof["picked"] if launch in r["name"]) / prof["calls"]
+    M, K, d = shape
+    bnd, by = bound_ms(2.0 * n * M * K * d, PEAK_F32_FLOPS if exact else PEAK_BF16_FLOPS,
                        4.0 * (3 * n * M * d + 2 * M * K * d + n * M))
-    return {"pq_exact_n": n, "pq_exact_ms_per_launch": ms, "pq_exact_bound_ms": bnd,
-            "pq_exact_bound_by": by, "pq_exact_share_of_bound": bnd / ms if ms else None}
+    return {f"{launch}_ms_per_launch": ms, f"{launch}_bound_ms": bnd,
+            f"{launch}_bound_by": by, f"{launch}_share_of_bound": bnd / ms if ms else None}
+
+
+def narrow_exact_in_path(prof: dict, n: int, what: str) -> dict:
+    """``pq_in_path`` for the narrow exact body (``pq_exact_kernel``) at
+    the preset's quantizer, 64 x 256 x 16."""
+    return pq_in_path(prof, n, (64, 256, 16), True, "pq_exact", "pq_exact", what)
 
 
 # the quantizers of the configs outside the pqgo family (M, K, d, normalize)
@@ -1744,18 +1750,11 @@ def phase_vq(results: dict) -> None:
 
 
 def wide_in_path(prof: dict, n: int, exact: bool, what: str) -> dict:
-    """The wide PQ launch in a profile of two calls (one launch each): its
-    kernels' device ms per launch and the share of the body's bound at the
-    VQ baseline's quantizer (M = 1, K = 256, d = 1024) and this n; the
-    profile must name the mode's body."""
-    body = "pq_wide_exact" if exact else "pq_wide_fast"
-    check(any(body in r["name"] for r in prof["picked"]), f"{what}: no {body} in the profile")
-    ms = sum(r["ms"] for r in prof["picked"] if "pq_wide" in r["name"]) / prof["calls"]
-    M, K, d = 1, 256, 1024
-    bnd, by = bound_ms(2.0 * n * M * K * d, PEAK_F32_FLOPS if exact else PEAK_BF16_FLOPS,
-                       4.0 * (3 * n * M * d + 2 * M * K * d + n * M))
-    return {"pq_wide_ms_per_launch": ms, "pq_wide_bound_ms": bnd, "pq_wide_bound_by": by,
-            "pq_wide_share_of_bound": bnd / ms if ms else None}
+    """``pq_in_path`` for the wide launch (all its kernels) at the VQ
+    baseline's quantizer, 1 x 256 x 1024; the profile must name the
+    mode's body."""
+    return pq_in_path(prof, n, (1, 256, 1024), exact,
+                      "pq_wide_exact" if exact else "pq_wide_fast", "pq_wide", what)
 
 
 def vq_valid_and_serve(tr, tag: str, results: dict, exact: bool = False) -> None:

@@ -11,7 +11,9 @@
 // K % 128 == 0).  Four bodies share it:
 //   narrow (pq_exact_kernel, pq_fast_kernel): d in {8, 16, 32} where one
 //     subspace's codebooks fit a block's 227 KB of shared memory:
-//     (8d + 4) * K bytes in exact mode (K <= 1760 at d = 16);
+//     (8d + 4) * K bytes in exact mode (K <= 1760 at d = 16; the
+//     routing rule, unchanged since the exact body staged c_raw too: it
+//     now stages (4d + 4) * K);
 //     (4d + 4) * roundup(K, 256 / d) bytes beside the 43 008 bytes of
 //     staging tiles in fast mode (K <= 2784 at d = 16);
 //   wide (pq_wide_exact_kernel exact, pq_wide_fast_kernel fast, each
@@ -68,20 +70,23 @@
 //
 // Exact mode (pq_exact_kernel).  The distances are f32 FMAs on the CUDA
 // cores: the body is bound by its operations (0.79 ms above, against
-// 0.376 ms of bytes), and what limits it is the issue slots around the
-// FMAs.  A block owns one subspace and a run of rows; it stages the
-// subspace's c_norm and c_sq (a thread per codeword, K (4d + 4) bytes)
-// in shared memory.  Each thread holds R = 64 / d normalised rows in
-// registers (64 floats at every d) and scans the K codewords in order:
-// one broadcast read of a codeword (d / 4 float4s and its c_sq) serves
-// R rows, so at d = 16 a codeword costs 5 shared loads for 64 FMAs and
-// 20 epilogue operations, where one row per thread spent 5 loads on 16
-// FMAs.  z_q is gathered from c_raw in device memory (L2: 1 MB at
-// 64 x 256 x 16), which halves the shared memory of the body it
-// replaced (one thread per row, c_norm, c_raw and c_sq staged by every
-// 1024-row block).  The launch gives a block as many rounds of
-// 256 R rows as leave at least EXACT_WAVES blocks per resident slot
-// (2 per SM below K (4d + 4) = 113 KB), for balance.
+// 0.376 ms of bytes).  A block owns one subspace and 256 R rows (128 R
+// at d = 8 and 32); it stages the subspace's c_norm and c_sq (a thread
+// per codeword, K (4d + 4) bytes) in shared memory.  Each thread holds R
+// normalised rows in registers (R = 4 at d = 16: 64 floats; 8 at d = 8,
+// 3 at d = 32) and scans the K codewords in order: one broadcast read of
+// a codeword (d / 4 float4s and its c_sq) serves the R rows, so at
+// d = 16 a codeword costs 5 shared loads for 64 FMAs and 24 epilogue
+// operations, where one row per thread spent 5 loads on 16 FMAs.  z_q
+// is gathered from c_raw in device memory (L2: 1 MB at 64 x 256 x 16),
+// which halves the shared memory of the body it replaced (one thread per
+// row, c_norm, c_raw and c_sq staged by every 1024-row block).  Block b
+// takes subspace b % M of row range b / M, so the M blocks of a row
+// range start together and the range's lines are read and written whole.
+// What limits the loop is the shared-memory reads and the epilogue's
+// compare and selects around the FMAs, not their count: more rows per
+// thread (fewer warps), a prefetched next codeword and a chunked minimum
+// with a recompute were all slower on an H100 (PERF.md, Findings).
 //   Same bits as that body on every input: each row's normalisation
 // and |z_norm|^2, and each codeword's c_sq, are one thread's sequential
 // sums in j order; each (row, codeword) cross product is one fmaf chain
@@ -191,12 +196,16 @@ enum Mode { NONE = 0, L2 = 1, Z_NORM = 2, Z_TRAINABLE = 3 };
 
 // ------------------------------------------------------------ exact mode
 
-constexpr int THREADS = 256;
-constexpr int EXACT_MIN_BLOCKS = 2;   // resident blocks per SM the registers allow
-
-// rows a thread holds in registers: 64 floats of z_norm at every width
+// rows a thread holds in registers, threads per block and the resident
+// blocks per SM its registers must allow, per width (chosen by A/B on an
+// H100: d = 8 and 32 gain from smaller blocks, whose registers leave
+// room for more warps)
 template <int D>
-__host__ __device__ constexpr int exact_rows() { return 64 / D; }
+__host__ __device__ constexpr int exact_rows() { return D == 8 ? 8 : D == 16 ? 4 : 3; }
+template <int D>
+__host__ __device__ constexpr int exact_threads() { return D == 16 ? 256 : 128; }
+template <int D>
+__host__ __device__ constexpr int exact_min_blocks() { return D == 8 ? 4 : D == 16 ? 2 : 3; }
 
 // The cross product of one (row, codeword): one fmaf chain from 0 over
 // j in order.
@@ -248,10 +257,12 @@ __device__ __forceinline__ void normalise(float (&v)[D], const float* __restrict
     }
 }
 
-// A block owns one subspace and 256 R rows: thread t the R consecutive
-// rows R t .. of them.
+// A block owns one subspace and 256 R rows, thread t the R consecutive
+// rows R t .. of them.  Blocks start in the order of their index, and
+// the M blocks of a row range have neighbouring ones, so they run
+// together and read and write its rows' lines whole.
 template <int D, int MODE>
-__global__ void __launch_bounds__(THREADS, EXACT_MIN_BLOCKS)
+__global__ void __launch_bounds__(exact_threads<D>(), exact_min_blocks<D>())
 pq_exact_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
                 const float* __restrict__ c_raw,
                 const float* __restrict__ z_mean,
@@ -259,10 +270,11 @@ pq_exact_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
                 int* __restrict__ idx, float* __restrict__ zn_out,
                 float* __restrict__ zq_out) {
     constexpr int R = exact_rows<D>();
+    constexpr int THREADS = exact_threads<D>();
     extern __shared__ __align__(16) float smem[];
     float* s_c = smem;                  // K x D distance codebook
     float* s_csq = smem + K * D;        // K squared norms of c_norm
-    const int m = blockIdx.y;
+    const int m = blockIdx.x % M;
     const float* cn = c_norm + static_cast<size_t>(m) * K * D;
     // a thread per codeword: stage it and sum its squares
     for (int k = threadIdx.x; k < K; k += THREADS) {
@@ -279,7 +291,7 @@ pq_exact_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
         s_csq[k] = acc;
     }
 
-    const int r0 = (blockIdx.x * THREADS + threadIdx.x) * R;
+    const int r0 = (blockIdx.x / M * THREADS + threadIdx.x) * R;
     float v[R][D], z_sq[R];
 #pragma unroll
     for (int i = 0; i < R; ++i) {
@@ -344,14 +356,16 @@ int launch_exact(const float* z, const float* c_norm, const float* c_raw,
                  float* zq, int n, int M, int K, cudaStream_t stream) {
     auto kernel = pq_exact_kernel<D, MODE>;
     const size_t smem = (static_cast<size_t>(K) * D + K) * sizeof(float);
-    if (smem > SMEM_MAX || M > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    constexpr int rows = THREADS * exact_rows<D>();
-    const dim3 grid((n + rows - 1) / rows, M);
-    kernel<<<grid, THREADS, smem, stream>>>(z, c_norm, c_raw, z_mean, z_std, n, M, K,
-                                            idx, zn, zq);
+    constexpr int threads = exact_threads<D>();
+    constexpr int rows = threads * exact_rows<D>();
+    const long long blocks = M * ((static_cast<long long>(n) + rows - 1) / rows);
+    if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+        z, c_norm, c_raw, z_mean, z_std, n, M, K, idx, zn, zq);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -216,19 +216,19 @@ def test_pq_wide_exact_tiling_edges(cuda, M, K, d, n, case):
         assert torch.equal(idx, own[:, None].expand(n, M).to(torch.int32))
 
 
-# the narrow exact body's tiling (R = 64 / d rows per thread, rounds of
-# 256 R rows, a run of rounds per block, the codebook scanned in order):
-# d, K, M, n
+# the narrow exact body's tiling (R rows per thread: 4 at d = 16, 8 at
+# d = 8, 3 at d = 32; a block per subspace and 256 R rows at d = 16,
+# 128 R at d = 8 and 32; the codebook scanned in order): d, K, M, n
 NARROW_EXACT_TILING = [
-    pytest.param(16, 256, 4, 1000, id="ragged-16-256"),        # a ragged last round
+    pytest.param(16, 256, 4, 1000, id="ragged-16-256"),        # a ragged last block
     pytest.param(16, 256, 4, 3, id="n3-16-256"),               # n below one thread's rows
     pytest.param(8, 100, 5, 2049, id="d8-100"),                # R = 8, K and n ragged
-    pytest.param(32, 77, 3, 515, id="d32-77"),                 # R = 2, K and n ragged
+    pytest.param(32, 77, 3, 515, id="d32-77"),                 # R = 3, K and n ragged
     pytest.param(16, 1, 2, 300, id="K1-16"),
     pytest.param(16, 1760, 4, 1000, id="top-16-1760"),         # the top of the narrow domain
     pytest.param(8, 3418, 2, 600, id="top-8-3418"),
     pytest.param(32, 894, 2, 600, id="top-32-894"),
-    pytest.param(16, 256, 64, 70001, id="rounds-64-256-16"),   # several rounds per block
+    pytest.param(16, 256, 64, 70001, id="grid-64-256-16"),     # 69 row ranges of 64 blocks
 ]
 
 
