@@ -135,8 +135,29 @@ Phases, each printing JSON lines on stdout:
             ``sl_cocostuff27`` (supervised) train steps and ``validate``;
 20. cli     ``cli.run`` on ``stego_cocostuff27`` and ``vq_cocostuff27`` with
             synthetic data, launches counted, and the STEGO run's predictor
-            exported, loaded and held against the live one.
-The configurations of 17-20 are ``preset(name)``: the preset with the
+            exported, loaded and held against the live one;
+21. variants  the first ``models/variants.py`` slice at its configs'
+            widths and batches: ``pqgo_cls_cocostuff27`` and
+            ``cluster_margin_cocostuff27`` (b = 16, valid b = 8),
+            ``cluster_swav_cocostuff27`` (b = 64, valid b = 32) and
+            ``res_cocostuff27`` (b = 16, valid b = 8), the photometric
+            view drawn on the card in each step: 4 train steps after 2
+            warm-up and ``validate`` over 2 batches of 320^2 after 2, the
+            step medians, the loss terms per step, peak memory, launches
+            per path (attention 36 per ``pqgocls`` step, 3 backbone
+            passes, and 12 per ``cluster`` or ``res`` step; PQ 1 per
+            ``pqgocls`` valid step, 0 per train step), ``swav_it`` and
+            ``swav_queue_n`` advancing, ``club-enc-loss`` below
+            ``club-enc-loss-first`` in every step, the EMA head nearer the
+            student after a step; a profile of 2 train and 2 valid steps
+            of each;
+22. variants_reference  one step of each at b = 2, dropout off, on the
+            card against the CPU from the same seeded weights, with the
+            same view, InfoNCE negatives and STEGO samples
+            (``reference_step``): each loss term within 5e-2 relative,
+            the trainable gradients' cosine >= 0.98, ``pqgocls``'s
+            pseudo-labels >= 95% equal end to end.
+The configurations of 17-22 are ``preset(name)``: the preset with the
 changes of ``PRESET_CHANGES``, which the tests hold against ``configs/``.
 
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -223,6 +244,10 @@ PQGO_COCOSTUFF27 = {
 
 _STEGO = {"model.name": "stego", "model.pretrained.dim": 70, "eval.output_type": "feat",
           "model.vq": None, "loss.vq_weight": None}
+_CLUSTER = {"model.name": "cluster", "model.hidden_dim": 512, "model.enc_num_blocks": 1,
+            "loss.stego": None, "loss.stego_weight": None, "loss.vq_weight": None,
+            "loss.margin_weight": 0.1, "optimizer.model.name": "adamw",
+            "eval.output_type": "feat"}
 # the baselines' configs as changes to the preset (dotted key: value; None
 # drops the key); tests/test_torch_baselines.py holds each against its
 # YAML file
@@ -250,6 +275,33 @@ PRESET_CHANGES = {
     "sl_cocostuff27": {"model.name": "sl", "model.pretrained.dim": 70,
                        "model.vq.assign_precision": None, "loss": {},
                        "eval.output_type": "feat", "train.supervised": True},
+    "pqgo_cls_cocostuff27": {"model.name": "pqgocls", "model.encoder": {"momentum": 0.996},
+                             "loss.cls_weight": 0.3, "loss.mse_weight": 1.0},
+    "cluster_margin_cocostuff27": {**_CLUSTER, "model.vq.assign_precision": None},
+    "cluster_swav_cocostuff27": {
+        **_CLUSTER, "model.vq": None, "visualize_path": "./visualize/swav",
+        "optimizer.model.weight_decay": 1.0e-4, "loss.swav_weight": 1.0,
+        "loss.info_nce_weight": 0.0,
+        "loss.info_nce": {"neg_sample": 100, "temperature": 0.1, "normalize": "l2",
+                          "cal_type": "cosine"},
+        "loss.cluster": {"num_prototypes": 1024, "queue_start_iter": 150,
+                         "queue_stack_iter": 5, "queue_len": 4096, "temperature": 0.1,
+                         "eps": 0.03, "freeze_prototypes_niter": 100},
+        "dataset.train": {"data_dir": "${data_dir}", "dataset_name": "${dataset_name}",
+                          "model_type": "${model.pretrained.model_type}", "crop_type": None,
+                          "crop_ratio": 0.5, "loader_crop_type": "center", "res": 224},
+        "dataloader.train.batch_size": 64, "dataloader.val.batch_size": 32,
+        "train.max_epochs": 10, "train.valid_interval_iters": 25, "train.clip_grad": 1.0},
+    "res_cocostuff27": {
+        "model.name": "res", "model.hidden_dim": 512, "model.vq.assign_precision": None,
+        "loss.stego": None, "loss.stego_weight": None, "loss.vq_weight": None,
+        "loss.recon_weight": 1.0, "loss.info_nce_weight": 0.1, "loss.club_weight": 0.1,
+        "loss.club": {"mi_iter": 5, "clip_grad": 1.0},
+        "loss.info_nce": {"normalize": "l2", "neg_sample": 10, "temperature": 1.0,
+                          "cal_type": "random"},
+        "optimizer.model.name": "adamw", "optimizer.model.weight_decay": 1.0e-4,
+        "optimizer.club_enc": {"name": "adam", "lr": 3.0e-6, "weight_decay": 0.0},
+        "eval.output_type": "feat"},
 }
 
 
@@ -522,7 +574,8 @@ def phase_attention(results: dict) -> None:
         ("vit_b_224", 32, 785, 12, 785, "randn"),
         ("vit_b_224_train", 128, 785, 12, 785, "randn"),  # stego_pascal's step, b = 64
         ("vit_b_320_valid", 32, 1601, 12, 1601, "randn"),  # its valid step, b = 32
-        ("vit_s_320", 32, 1601, 6, 1601, "randn"),
+        ("vit_s_320", 32, 1601, 6, 1601, "randn"),       # cluster_swav's valid step, b = 32
+        ("vit_s_224_pqgocls", 16, 785, 6, 785, "randn"),  # each of pqgocls's 3 passes
         ("vit_s_320_valid", 8, 1601, 6, 1601, "randn"),  # the valid step's shape
         ("late_max", 32, 785, 6, 785, "late_max"),
         ("late_max_near", 32, 785, 6, 785, "late_max_near"),
@@ -1107,8 +1160,13 @@ def minimum_ties(tr, code: torch.Tensor) -> tuple:
         return tied, two[..., 1] - two[..., 0] > ulp
 
 
+LOSS_TERMS = ("loss", "stego-loss", "vq-loss", "linear-loss", "cluster-loss", "margin-loss",
+              "swav-loss", "recon-loss", "info_nce-loss", "club-loss", "club-enc-loss",
+              "mse-loss", "cls-loss")
+
+
 def reference_step(make_trainer, batch: dict, grads: dict, what: str,
-                   e2e_bar: bool = True) -> dict:
+                   e2e_bar: bool = True, quantizer: bool = True) -> dict:
     """One training forward and backward of ``make_trainer(device)`` on the
     card and on the CPU (plain kernel versions) from the same seeded
     weights and batch; TF32 is off on the card (phase 1).  Bars: each loss
@@ -1119,7 +1177,9 @@ def reference_step(make_trainer, batch: dict, grads: dict, what: str,
     equal (the serving reference's class): over all pairs with
     ``e2e_bar``, else over the pairs whose CPU minimum is untied
     (``minimum_ties``), printed beside the tied share and the untied share
-    (an empty untied set holds nothing and says so).  Returns the row."""
+    (an empty untied set holds nothing and says so).  ``quantizer=False``
+    (a model whose indices are not of its ``code``: ``pqgocls``'s teacher)
+    holds the end-to-end indices only.  Returns the row."""
     from equss_tpu_torch.ops.quantizer import pq_forward
 
     runs = {}
@@ -1132,15 +1192,18 @@ def reference_step(make_trainer, batch: dict, grads: dict, what: str,
         runs[device] = ({k: v.detach().item() for k, v in metrics.items()}, flat,
                         out.get("indices"), out["code"].detach().cpu(), tr)
     (m_g, g_g, idx_g, code_g, _), (m_c, g_c, idx_c, code_c, tr_c) = runs["cuda"], runs["cpu"]
-    terms = [k for k in ("loss", "stego-loss", "vq-loss", "linear-loss", "cluster-loss")
-             if k in m_c]
+    terms = [k for k in LOSS_TERMS if k in m_c]
     rel = {k: abs(m_g[k] - m_c[k]) / abs(m_c[k]) for k in terms}
     cos = {k: torch.nn.functional.cosine_similarity(g_g[k], g_c[k], dim=0).item() for k in grads}
     check(all(v <= 5e-2 for v in rel.values()), f"{what}: loss rel errors {rel}")
     check(all(v >= 0.98 for v in cos.values()), f"{what}: gradient cosines {cos}")
     row = {"batch": len(batch["img"]), "tf32": False, "loss_rel_err": rel, "grad_cosine": cos,
            "card": {k: m_g[k] for k in terms}, "cpu": {k: m_c[k] for k in terms}}
-    if idx_c is not None:
+    if idx_c is not None and not quantizer:
+        row["index_agreement"] = (idx_g.cpu() == idx_c).float().mean().item()
+        check(row["index_agreement"] >= 0.95,
+              f"{what}: end-to-end index agreement {row['index_agreement']}")
+    elif idx_c is not None:
         m = tr_c.model
         with torch.no_grad():
             _, idx_s, _, _ = pq_forward(code_g, dict(m.pq), m.pq_state.as_dict(), m.cfg.pq,
@@ -2569,6 +2632,105 @@ def phase_custom_op_ab(results: dict) -> None:
     emit(row)
 
 
+# the first models/variants.py slice: (config, train batch, valid batch,
+# attention launches per train step, the trainable gradients held by the
+# reference step: name -> parameter-name prefix; cluster_swav's
+# prototypes take no gradient while frozen, in its first 100 steps)
+VARIANTS = (
+    ("pqgo_cls_cocostuff27", 16, 8, 36, {"head": "head.", "classifier": "classifier."}),
+    ("cluster_margin_cocostuff27", 16, 8, 12, {"net": "net."}),
+    ("cluster_swav_cocostuff27", 64, 32, 12, {"net": "net."}),
+    ("res_cocostuff27", 16, 8, 12, {"semantic": "semantic.", "local": "local.",
+                                    "agg": "agg.", "dec": "dec."}),
+)
+
+
+def without_view(batches: list) -> list:
+    """The synthetic batches without their ``aug_img``, so that the
+    trainer draws the photometric view on the card."""
+    return [{k: v for k, v in b.items() if k != "aug_img"} for b in batches]
+
+
+def phase_variants(results: dict) -> None:
+    """The four configs of the first variants slice at their widths and
+    batches (``VARIANTS``): 4 train steps after 2 warm-up with the view
+    drawn on the card, ``validate`` over 2 batches of 320^2 after 2, the
+    per-step checks of each family, and profiles of 2 train and 2 valid
+    steps (device ms and busy share)."""
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+
+    for i, (name, bs, vbs, attn, _) in enumerate(VARIANTS):
+        cfg, tr = preset_trainer(name)
+        m = tr.model
+        torch.cuda.reset_peak_memory_stats()
+        batches = without_view(list(synthetic_batches(20 + i, 6, bs, res=224,
+                                                      num_classes=27)))
+        before = {k: v.clone() for k, v in m.state_dict().items()
+                  if not k.startswith("backbone.")}
+        metrics, timing = timed_train(tr, batches, 2, {"attention_qkv": attn},
+                                      f"{name}_train", results)
+        row = {"phase": "variants", "config": name, "what": "train", "batch": bs, **timing,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               **{f"{k}_per_step": [x[k] for x in metrics]
+                  for k in LOSS_TERMS + ("club-enc-loss-first", "grad-norm") if k in metrics[0]}}
+        if name.startswith("cluster_swav"):
+            row["swav_it"], row["swav_queue_n"] = int(m.swav_it), int(m.swav_queue_n)
+            check(row["swav_it"] == 6 and 0 < row["swav_queue_n"] <= m.queue_len
+                  and not torch.equal(m.swav_queue, before["swav_queue"]),
+                  f"{name}: SwAV state did not advance {row}")
+        if name.startswith("res"):
+            check(all(x["club-enc-loss"] < x["club-enc-loss-first"] for x in metrics),
+                  f"{name}: the CLUB inner loop did not lower its NLL")
+            check(not torch.equal(m.dec.dec_0.norm1.mean, before["dec.dec_0.norm1.mean"])
+                  and int(m.club_opt.count) == 6 * m.mi_iter, f"{name}: state did not move")
+        if name.startswith("pqgo_cls"):
+            # one more step: the EMA head nearer the student it averages in
+            student = {k: v.detach().clone() for k, v in m.head.named_parameters()}
+            ema_old = {k: v.clone() for k, v in m.ema_head.named_buffers()}
+            tr.train_step(batches[-1])
+            gap = lambda ema: math.sqrt(sum(float(((ema[k] - student[k]) ** 2).sum())  # noqa
+                                            for k in student))
+            row["ema_gap_before_after"] = [gap(ema_old), gap(dict(m.ema_head.named_buffers()))]
+            check(0 < row["ema_gap_before_after"][1] < row["ema_gap_before_after"][0],
+                  f"{name}: the EMA head did not move toward the student {row}")
+        emit(row)
+        vb = valid_batches(4, vbs, seed=360 + i)
+        per_valid = {"attention_qkv": 12, "pq_assign": 1 if name.startswith("pqgo") else 0}
+        val, res, vtiming = timed_validate(tr, vb, 2, per_valid, f"{name}_valid", results)
+        check(tuple(res["linear_preds"].shape) == (vbs, 320, 320), f"{name} valid: shapes")
+        emit({"phase": "variants", "config": name, "what": "valid", "batch": vbs, "res": 320,
+              **vtiming, **val})
+        cycle = iter(batches * 2)
+        emit({"phase": "profile", "what": f"{name}_train", "batch": bs, "steps": 2,
+              **device_profile(lambda: tr.train_step(next(cycle)), 2, pick=KERNEL_PICK)})
+        vcycle = iter(vb * 2)
+        emit({"phase": "profile", "what": f"{name}_valid", "batch": vbs, "res": 320,
+              "steps": 2,
+              **device_profile(lambda: tr.valid_step(next(vcycle)), 2, pick=KERNEL_PICK)})
+        del tr, m
+        torch.cuda.empty_cache()
+
+
+def phase_variants_reference() -> None:
+    """One train step of each variant config at b = 2, dropout off, card
+    against CPU (``reference_step``), the view (the CPU's photometric
+    view of the batch), InfoNCE negatives and STEGO samples fixed in the
+    batch."""
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+    from equss_tpu_torch.data.transforms import photometric_aug
+
+    for i, (name, _, _, _, grads) in enumerate(VARIANTS):
+        batch = stego_samples(next(synthetic_batches(40 + i, 1, 2, res=224,
+                                                     num_classes=27)), 40 + i)
+        img01 = torch.from_numpy(batch["img"]).clamp(0, 1)
+        batch["aug_img"] = photometric_aug(torch.Generator().manual_seed(i), img01).numpy()
+        n = 2 * 28 * 28
+        batch["info_nce_idx"] = np.random.RandomState(i).randint(0, n, (n, 10))
+        row = reference_step(lambda device: preset_trainer(name, device, False)[1], batch,
+                             grads, f"{name} train reference", quantizer=False)
+        emit({"phase": "variants_reference", "config": name, **row})
+
+
 KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     "attention_qkv": ("equss_tpu_torch/csrc/attention_qkv.cu", "equss_tpu/ops/attention.py:198"),
     "attention": ("equss_tpu_torch/csrc/attention_qkv.cu", "equss_tpu/ops/attention.py:91"),
@@ -2631,11 +2793,13 @@ def main() -> int:
     phase_stego(results)
     phase_baselines(results)
     phase_cli_baselines(results)
+    phase_variants(results)
+    phase_variants_reference()
 
     # launches: every main-path run (serving, serving with fused_ln, both
     # train configurations, both valid configurations, the exact sub-run's
-    # train and valid steps, fit, the three CLI
-    # runs, the kNN job, the train job on files, the exported artifact's
+    # train and valid steps, fit, the three CLI runs, the variants' train
+    # and valid steps, the kNN job, the train job on files, the exported artifact's
     # requests and the custom-op side of the A/B), each counted from 0;
     # ``attention`` has no caller on any path and is launched by its
     # kernel phase only

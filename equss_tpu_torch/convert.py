@@ -3,7 +3,10 @@
 * ``params_from_jax`` maps the ``(params, state)`` pytrees of a JAX
   registry model's ``init`` (numpy-valued: EQUSS's backbone, head, PQ
   parameters and quantizer state, param or EMA; STEGO's backbone and
-  head; the probe-only model's backbone) onto the port model's
+  head; the probe-only model's backbone; the variants' encoders,
+  decoders, prototypes and classifier, and their state: the SwAV queue
+  and counters, the EMA head, the CLUB encoder with its Adam moments and
+  count, BatchNorm's running averages) onto the port model's
   ``state_dict()`` names, and the Trainer's probe parameters onto
   ``Evaluator`` names under ``probes.``, so both packages compute with the
   same numbers.
@@ -16,7 +19,8 @@
   the port's ``VisionTransformer`` names.
 
 Layouts: a flax Dense ``kernel (in, out)`` is the port's ``weight (out,
-in)``; the flax patch conv ``(kh, kw, in, out)`` and the torch patch conv
+in)``, a flax norm's ``scale`` its ``weight``, and every other leaf keeps
+its name (and an integer leaf its dtype); the flax patch conv ``(kh, kw, in, out)`` and the torch patch conv
 ``(out, in, kh, kw)`` both become the port's patch matmul ``(out, kh*kw*in)``.
 """
 from __future__ import annotations
@@ -32,6 +36,29 @@ from equss_tpu_torch.models.vit import VIT_PRESETS
 
 def _t(x: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _leaf(x: Any) -> torch.Tensor:
+    """An f32 tensor, or an int32 one for an integer leaf (a counter)."""
+    a = np.asarray(x)
+    return torch.from_numpy(np.array(a, dtype=np.int32 if a.dtype.kind in "iu" else np.float32))
+
+
+def tree_from_flax(tree: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    """A flax subtree -> port names under ``prefix``: ``kernel`` becomes a
+    transposed ``weight``, ``scale`` a ``weight``, other leaves keep their
+    names."""
+    sd: Dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            sd.update(tree_from_flax(v, f"{prefix}{k}."))
+        elif k == "kernel":
+            sd[f"{prefix}weight"] = _t(v).T.contiguous()
+        elif k == "scale":
+            sd[f"{prefix}weight"] = _t(v)
+        else:
+            sd[f"{prefix}{k}"] = _leaf(v)
+    return sd
 
 
 def _dense(tree: Mapping[str, Any], name: str) -> Dict[str, torch.Tensor]:
@@ -67,10 +94,7 @@ def backbone_from_flax(bb: Mapping[str, Any], depth: int) -> Dict[str, torch.Ten
 
 def head_from_flax(head: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax ``ExpansionHead`` params -> port ``ExpansionHead`` state."""
-    sd: Dict[str, torch.Tensor] = {}
-    for name in ("cluster1", "cluster2_fc1", "cluster2_fc2"):
-        sd.update(_dense(head[name], name))
-    return sd
+    return tree_from_flax(head, "")
 
 
 def probes_from_flax(probes: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -83,11 +107,38 @@ def probes_from_flax(probes: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def _trainable_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The trainable subtrees a model has (``head``, ``pq``) -> port names."""
+    """Every subtree but the backbone (the trainable parameters: a head,
+    the quantizer's ``pq``, the variants' encoders, decoder, prototypes
+    and classifier) -> port names."""
+    return tree_from_flax({k: v for k, v in tree.items() if k != "backbone"}, "")
+
+
+def _adam_moments(opt_state: Any, prefix: str) -> Dict[str, torch.Tensor]:
+    """An optax Adam state kept as model state (the CLUB encoder's) ->
+    ``<prefix>mu.*``, ``<prefix>nu.*`` and the int32 ``<prefix>count``."""
+    adam, _ = _adam_state(opt_state)
+    return {**tree_from_flax(adam.mu, f"{prefix}mu."), **tree_from_flax(adam.nu, f"{prefix}nu."),
+            f"{prefix}count": _leaf(adam.count)}
+
+
+def state_from_flax(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX model's ``state`` -> port buffer names: the quantizer's under
+    ``pq_state.``, the EMA head and the CLUB encoder by their names, the
+    CLUB optimizer's Adam state under ``club_opt.``, the decoder's
+    BatchNorm statistics under ``dec.``, and top-level arrays (the SwAV
+    queue and counters) as they are."""
     sd: Dict[str, torch.Tensor] = {}
-    if "head" in tree:
-        sd.update({f"head.{k}": v for k, v in head_from_flax(tree["head"]).items()})
-    sd.update({f"pq.{k}": _t(v) for k, v in tree.get("pq", {}).items()})
+    for k, v in state.items():
+        if k == "pq":
+            sd.update({f"pq_state.{n}": _t(t) for n, t in v.items()})
+        elif k == "club_opt":
+            sd.update(_adam_moments(v, "club_opt."))
+        elif k == "batch_stats":
+            sd.update(tree_from_flax(v, "dec."))
+        elif isinstance(v, Mapping):
+            sd.update(tree_from_flax(v, f"{k}."))
+        else:
+            sd[k] = _leaf(v)
     return sd
 
 
@@ -104,7 +155,7 @@ def params_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
     sd = {f"backbone.{k}": v
           for k, v in backbone_from_flax(params["backbone"], depth).items()}
     sd.update(_trainable_from_flax(params))
-    sd.update({f"pq_state.{k}": _t(v) for k, v in state.get("pq", {}).items()})
+    sd.update(state_from_flax(state))
     if probe_params is not None:
         sd.update({f"probes.{k}": v for k, v in probes_from_flax(probe_params).items()})
     return sd

@@ -10,7 +10,11 @@ Counterpart of ``equss_tpu/data/transforms.py``:
   pixel for pixel as the JAX package does;
 * device: ``normalize_images`` (ToTensor + ImageNet Normalize), so a
   request can be raw uint8 or [0, 1] float RGB, and its inverse
-  ``unnormalize_images``, which gives the dense CRF its colours back.
+  ``unnormalize_images``, which gives the dense CRF its colours back;
+  ``photometric_aug``, the batched ColorJitter + RandomGrayscale +
+  GaussianBlur view of the variants that consume one, in two parts:
+  ``photometric_draws`` draws each image's factors from a generator on
+  the device and ``photometric_apply`` applies them.
 
 PIL is imported where a file is decoded, so the module imports without
 it.
@@ -18,7 +22,7 @@ it.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -172,3 +176,105 @@ def unnormalize_images(img: torch.Tensor) -> torch.Tensor:
     """Inverse of ``normalize_images`` on f32 images: ``img * std + mean``."""
     mean, std = _stats(img.device)
     return img * std + mean
+
+
+def _rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=img.dtype, device=img.device)
+    return (img * w).sum(-1, keepdim=True)
+
+
+def _rgb_to_hsv(img: torch.Tensor):
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    maxc = img.amax(-1)
+    minc = img.amin(-1)
+    deltac = maxc - minc
+    zero = torch.zeros((), dtype=img.dtype, device=img.device)
+    s = torch.where(maxc > 0, deltac / maxc.clamp_min(1e-12), zero)
+    dz = deltac.clamp_min(1e-12)
+    rc, gc, bc = (maxc - r) / dz, (maxc - g) / dz, (maxc - b) / dz
+    h = torch.where(r == maxc, bc - gc,
+                    torch.where(g == maxc, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.remainder(h / 6.0, 1.0)
+    h = torch.where(deltac == 0, zero, h)
+    return h, s, maxc
+
+
+def _hsv_to_rgb(h: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - f * s)
+    t = v * (1.0 - (1.0 - f) * s)
+    i = torch.remainder(i.to(torch.int32), 6)
+    conds = [(v, t, p), (q, v, p), (p, v, t), (p, q, v), (t, p, v), (v, p, q)]
+    out = []
+    for c in range(3):
+        x = conds[5][c]                  # i is in [0, 6): case 5 is what is left
+        for k in range(4, -1, -1):
+            x = torch.where(i == k, conds[k][c], x)
+        out.append(x)
+    return torch.stack(out, -1)
+
+
+def photometric_draws(generator: torch.Generator, b: int, device, *,
+                      brightness: float = 0.3, contrast: float = 0.3,
+                      saturation: float = 0.3, hue: float = 0.1,
+                      grayscale_p: float = 0.2, blur_p: float = 0.5,
+                      blur_sigma: Tuple[float, float] = (3.0, 3.0)) -> Dict[str, torch.Tensor]:
+    """Each image's factors of ``photometric_apply``, drawn from
+    ``generator`` on ``device``: brightness, contrast and saturation
+    factors (b, 1, 1, 1) uniform in 1 -+ their strength, the hue shift
+    (b, 1, 1) uniform in -+hue, the grayscale and blur coins (b, 1, 1, 1)
+    and the blur's sigma (b,)."""
+    def uniform(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=generator, device=device)
+
+    return {
+        "brightness": uniform((b, 1, 1, 1), 1 - brightness, 1 + brightness),
+        "contrast": uniform((b, 1, 1, 1), 1 - contrast, 1 + contrast),
+        "saturation": uniform((b, 1, 1, 1), 1 - saturation, 1 + saturation),
+        "hue": uniform((b, 1, 1), -hue, hue),
+        "to_gray": torch.rand((b, 1, 1, 1), generator=generator, device=device) < grayscale_p,
+        "sigma": uniform((b,), blur_sigma[0], blur_sigma[1]),
+        "blur": torch.rand((b, 1, 1, 1), generator=generator, device=device) < blur_p,
+    }
+
+
+def photometric_apply(img: torch.Tensor, draws: Dict[str, torch.Tensor],
+                      blur_kernel: int = 3) -> torch.Tensor:
+    """(b, h, w, 3) images in [0, 1] -> the jittered view: brightness,
+    contrast against the image's mean gray, saturation against each
+    pixel's gray, a hue shift in HSV, grayscale where drawn, then a
+    separable Gaussian blur with edge padding where drawn; each step
+    clipped to [0, 1] as in the JAX package."""
+    img = torch.clamp(img * draws["brightness"], 0.0, 1.0)
+    fc = draws["contrast"]
+    mean_gray = _rgb_to_gray(img).mean(dim=(1, 2), keepdim=True)
+    img = torch.clamp(fc * img + (1 - fc) * mean_gray, 0.0, 1.0)
+    fs = draws["saturation"]
+    img = torch.clamp(fs * img + (1 - fs) * _rgb_to_gray(img), 0.0, 1.0)
+    h, s, v = _rgb_to_hsv(img)
+    img = torch.clamp(_hsv_to_rgb(torch.remainder(h + draws["hue"], 1.0), s, v), 0.0, 1.0)
+    img = torch.where(draws["to_gray"], _rgb_to_gray(img).expand_as(img), img)
+
+    half = blur_kernel // 2
+    x = torch.arange(-half, half + 1, dtype=torch.float32, device=img.device)
+    k1d = torch.exp(-0.5 * (x[None, :] / draws["sigma"][:, None].clamp_min(1e-6)) ** 2)
+    k1d = k1d / k1d.sum(-1, keepdim=True)                     # (b, kernel)
+    H, W = img.shape[1:3]
+    kb = k1d[:, :, None, None, None]
+    im_p = torch.cat([img[:, :1]] * half + [img] + [img[:, -1:]] * half, 1)
+    im_h = sum(kb[:, i] * im_p[:, i:i + H] for i in range(blur_kernel))
+    im_p = torch.cat([im_h[:, :, :1]] * half + [im_h] + [im_h[:, :, -1:]] * half, 2)
+    blurred = sum(kb[:, i] * im_p[:, :, i:i + W] for i in range(blur_kernel))
+    return torch.where(draws["blur"], blurred, img)
+
+
+def photometric_aug(generator: torch.Generator, img: torch.Tensor, *,
+                    blur_kernel: int = 3, **factors) -> torch.Tensor:
+    """Batched ColorJitter + RandomGrayscale + GaussianBlur of (b, h, w, 3)
+    images in [0, 1], one independent draw per image from ``generator``
+    (on the images' device); ``factors`` are ``photometric_draws``'s
+    keyword arguments."""
+    draws = photometric_draws(generator, img.shape[0], img.device, **factors)
+    return photometric_apply(img, draws, blur_kernel)

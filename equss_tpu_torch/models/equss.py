@@ -175,8 +175,8 @@ class EQUSS(nn.Module):
         ``(coords1, coords2, perms)`` replaces its random draws); an EMA
         quantizer adds ``jsd`` and ``entropy`` between the first and the
         second half of the pixels' ``distance_prob``.  The quantizer's new
-        state is returned under ``pq_state`` and is not applied: the
-        caller decides."""
+        state is returned under ``state`` by buffer name
+        (``pq_state.<name>``) and is not applied: the caller decides."""
         if not training:
             with torch.no_grad():
                 if feat is None:
@@ -218,4 +218,4 @@ class EQUSS(nn.Module):
             half = flat.shape[0] // 2
             aux["jsd"], aux["entropy"] = ema_jsd_entropy(flat[:half], flat[half:2 * half])
         return {"feat": feat, "code": code, "z_q": z_q, "indices": indices,
-                "aux": aux, "pq_state": pq_state}
+                "aux": aux, "state": {f"pq_state.{k}": v for k, v in pq_state.items()}}

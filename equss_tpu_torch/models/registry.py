@@ -5,10 +5,12 @@ Counterpart of ``equss_tpu/models/registry.py``: ``register``,
 over ``wandb.name`` in ``_KEYWORD_ORDER``, and ``build_model``, which
 takes the port's ``device`` and ``seed`` beside the config.  ``pqgo`` and
 ``vq`` build ``EQUSS``, ``stego`` and ``sl`` build ``STEGOModel``,
-``probe`` builds ``ProbeOnlyModel``.  The families of the JAX package's
-``models/variants.py`` are registered under the same names, so that a
-config resolves as it does there, and their builders raise
-``NotImplementedError``: they belong to later slices of the port.
+``probe`` builds ``ProbeOnlyModel``, and ``pqgocls``, ``cluster`` and
+``res`` build the ``models/variants.py`` families of those names.  The
+other families of the JAX package's ``models/variants.py`` are
+registered under the same names, so that a config resolves as it does
+there, and their builders raise ``NotImplementedError`` naming the
+ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -26,12 +28,12 @@ _KEYWORD_ORDER = [
     "res", "contra", "vae", "info", "ema", "vq",
 ]
 
-# models/variants.py's families by registered name: later slices
+# the models/variants.py families still to port: registered name ->
+# (JAX class, ROADMAP.md queue 1 item that ports it)
 VARIANTS = {
-    "hihi": "UnSegModel", "new": "NewVQModel", "spq": "SPQModel",
-    "cluster": "ClusterModel", "vae": "VAEModel", "res": "ResModel",
-    "info": "InfoModel", "contra": "ContraModel", "ema": "EMAModel",
-    "pqgocls": "PQGOCLSModel",
+    "hihi": ("UnSegModel", 3), "new": ("NewVQModel", 3), "spq": ("SPQModel", 3),
+    "vae": ("VAEModel", 4), "info": ("InfoModel", 5), "contra": ("ContraModel", 6),
+    "ema": ("EMAModel", 6),
 }
 
 
@@ -105,11 +107,34 @@ def _build_sl(cfg, *, device=None, seed=0):
     return _build_stego(cfg, device=device, seed=seed)
 
 
+@register("pqgocls")
+def _build_pqgocls(cfg, *, device=None, seed=0):
+    from equss_tpu_torch.models.variants import PQGOCLSModel
+
+    return PQGOCLSModel(cfg, device=device, seed=seed)
+
+
+@register("cluster")
+def _build_cluster(cfg, *, device=None, seed=0):
+    from equss_tpu_torch.models.variants import ClusterModel
+
+    return ClusterModel(cfg, device=device, seed=seed)
+
+
+@register("res")
+def _build_res(cfg, *, device=None, seed=0):
+    from equss_tpu_torch.models.variants import ResModel
+
+    return ResModel(cfg, device=device, seed=seed)
+
+
 def _later_slice(name: str):
+    cls, item = VARIANTS[name]
+
     def build(cfg, *, device=None, seed=0):
         raise NotImplementedError(
-            f"model '{name}' ({VARIANTS[name]} of equss_tpu/models/variants.py) belongs "
-            f"to a later slice of the port (ROADMAP.md, queue 1, item 11)")
+            f"model '{name}' ({cls} of equss_tpu/models/variants.py) belongs to a later "
+            f"slice of the port (ROADMAP.md, queue 1, item {item})")
     return build
 
 

@@ -7,7 +7,8 @@ Counterpart of ``equss_tpu/train/trainer.py`` (``TrainConfig``,
 ``_train_step_impl``, ``_valid_step_impl``, ``_valid_crf_step_impl``,
 ``validate``, ``validate_crf`` and ``fit``).  The model comes from
 ``models/registry.py::build_model`` (EQUSS for ``pqgo`` and ``vq``,
-STEGO for ``stego`` and ``sl``, the probe-only model for ``probe``).  One
+STEGO for ``stego`` and ``sl``, the probe-only model for ``probe``, the
+variants for ``pqgocls``, ``cluster`` and ``res``).  One
 step runs the model's training forward, the weighted loss, the probe
 losses, one backward, and three optimizers: the model's (its trainable
 parameters: head and codebook, none for the probe-only model; the frozen
@@ -16,10 +17,18 @@ probes', unclipped.  The probes see detached features, except in
 supervised mode (``train.supervised`` or ``model.name: sl``), where their
 cross-entropy trains the head and there is no cluster probe.  A step
 whose loss or gradients are not finite changes no parameter, no
-optimizer state and no quantizer state (``train.skip_nonfinite``): the
-quantizer's new counts and EMA codebook are computed in the forward and
-applied only after that check.  The step counter advances either way, as
-the JAX step's does.
+optimizer state and no model state (``train.skip_nonfinite``): the
+forward returns the model's new state (the quantizer's counts and EMA
+codebook, the SwAV queue, the EMA head, the CLUB encoder and its Adam
+moments, BatchNorm's running averages) without writing it, and the
+trainer copies it into the model's buffers only after that check.  The
+step counter advances either way, as the JAX step's does.
+
+Models that consume a photometric view (``consumes_aug``) get
+``aug_img`` from ``data.transforms.photometric_aug`` in the step, on the
+device, drawn from the trainer's generator before normalisation; a
+batch's own ``aug_img`` takes precedence, ``train.photometric_aug:
+false`` turns the view off and a dict gives its keyword arguments.
 
 The train state lives in the trainer: the weights, the optimizers, the
 step and ``generator``, which draws the dropout masks and STEGO's
@@ -50,7 +59,7 @@ import torch
 from torch import nn
 
 from equss_tpu_torch.core.logging import MetricsLogger
-from equss_tpu_torch.data.transforms import normalize_images
+from equss_tpu_torch.data.transforms import normalize_images, photometric_aug
 from equss_tpu_torch.device import DeviceLike, resolve_device
 from equss_tpu_torch.eval.metrics import UnSegMetrics, confusion_update
 from equss_tpu_torch.eval.probes import Evaluator, EvaluatorConfig
@@ -109,7 +118,10 @@ LOSS_WEIGHT_MAP = {
 }
 
 _METRIC_AUX_KEYS = ("stego-loss", "vq-loss", "codebook-usage", "codebook-sum", "jsd",
-                    "entropy")
+                    "entropy", "recon-loss", "info_nce-loss", "margin-loss", "swav-loss",
+                    "club-loss", "club-enc-loss", "club-enc-loss-first", "mse-loss",
+                    "cls-loss", "contra-loss-pos", "contra-loss-neg")
+
 
 
 class Trainer:
@@ -152,6 +164,9 @@ class Trainer:
                              for wkey, aux_key in LOSS_WEIGHT_MAP.items()
                              if float(cfg["loss"].get(wkey, 0.0) or 0.0) > 0.0}
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        aug_cfg = cfg.get("train", {}).get("photometric_aug", True)
+        self.apply_aug = bool(getattr(self.model, "consumes_aug", False)) and aug_cfg is not False
+        self.aug_kwargs = dict(aug_cfg) if isinstance(aug_cfg, dict) else {}
 
         opt_cfg, sch_cfg = cfg["optimizer"], cfg.get("scheduler", {})
         ipe = cfg.get("train", {}).get("iter_per_epoch", cfg.get("_iter_per_epoch", 100))
@@ -193,8 +208,8 @@ class Trainer:
 
     def train_state(self) -> Dict[str, Any]:
         """Everything a resumed run needs, as the JAX train state holds it:
-        ``model`` (the model's state dict: parameters and the quantizer's
-        ``pq_state`` buffers), ``probes``, ``opt`` (each optimizer's
+        ``model`` (the model's state dict: parameters and the model's
+        state buffers), ``probes``, ``opt`` (each optimizer's
         ``state_dict``), ``step``, and ``generator`` with
         ``generator_device`` (its state and device type).  The tensors
         are the live ones: copy before training on
@@ -256,21 +271,28 @@ class Trainer:
             sel = out["code"]
         return sel if self.supervised else sel.detach()
 
-    _TRAIN_KEYS = ("img", "img_pos", "feat", "feat_pos", "label",
-                   "stego_coords1", "stego_coords2", "stego_perms")
+    _TRAIN_KEYS = ("img", "img_pos", "aug_img", "feat", "feat_pos", "label",
+                   "stego_coords1", "stego_coords2", "stego_perms", "info_nce_idx")
+    # what only a model with a photometric view (``consumes_aug``) reads
+    _VIEW_KEYS = ("aug_img", "info_nce_idx")
 
-    def _batch(self, batch: Mapping[str, Any],
-               keys: Iterable[str] = _TRAIN_KEYS) -> Dict[str, Any]:
+    def _batch(self, batch: Mapping[str, Any], keys: Iterable[str] = _TRAIN_KEYS,
+               aug: bool = False) -> Dict[str, Any]:
         """Host batch (numpy or tensors) -> the tensors of ``keys`` on the
-        device: images normalised, labels int64, the STEGO override keys
-        as given."""
+        device: with ``aug`` and no ``aug_img`` in the batch, the
+        photometric view of the [0, 1] images; images normalised, labels
+        int64, the STEGO and InfoNCE override keys as given."""
         out: Dict[str, Any] = {}
         for k, v in batch.items():
             if v is None or k not in keys:
                 continue
             t = torch.from_numpy(np.asarray(v)) if not torch.is_tensor(v) else v
             out[k] = t.to(self.device, non_blocking=True)
-        for k in ("img", "img_pos"):
+        if aug and "aug_img" not in out:
+            img = out["img"]
+            img01 = img.float() / 255.0 if img.dtype == torch.uint8 else img
+            out["aug_img"] = photometric_aug(self.generator, img01, **self.aug_kwargs)
+        for k in ("img", "img_pos", "aug_img"):
             if k in out:
                 out[k] = normalize_images(out[k])
         out["label"] = out["label"].long()
@@ -279,18 +301,22 @@ class Trainer:
     def forward_backward(self, batch: Mapping[str, Any]):
         """Zero the gradients, run the training forward and the backward
         on ``batch``.  Returns ``(metrics, out)``: the metric tensors and
-        the model's training outputs, whose ``pq_state`` (EQUSS only) is
-        the quantizer state this step would set.  Nothing is updated; the gradients are
-        left in the parameters' ``.grad``."""
-        b = self._batch(batch)
+        the model's training outputs, whose ``state`` (buffer name -> new
+        value) is the model state this step would set.  Nothing is
+        updated; the gradients are left in the parameters' ``.grad``."""
+        consumes = getattr(self.model, "consumes_aug", False)
+        keys = self._TRAIN_KEYS if consumes else [
+            k for k in self._TRAIN_KEYS if k not in self._VIEW_KEYS]
+        b = self._batch(batch, keys, aug=self.apply_aug)
         for tx in (self.tx_model, self.tx_cluster, self.tx_linear):
             tx.zero_grad()
         override = None
         if "stego_coords1" in b:
             override = (b["stego_coords1"], b["stego_coords2"], b["stego_perms"])
+        view = {k: b.get(k) for k in self._VIEW_KEYS} if consumes else {}
         out = self.model(b.get("img"), b.get("img_pos"), feat=b.get("feat"),
                          feat_pos=b.get("feat_pos"), training=True,
-                         generator=self.generator, stego_override=override)
+                         generator=self.generator, stego_override=override, **view)
         aux = out["aux"]
         model_loss = self._model_loss(aux)
         ev = self.evaluator(self._select_out(out), b["label"])
@@ -324,9 +350,10 @@ class Trainer:
             self.tx_model.step(metrics["grad-norm"])
             self.tx_cluster.step()
             self.tx_linear.step()
+            buffers = dict(self.model.named_buffers())
             with torch.no_grad():
-                for name, t in out.get("pq_state", {}).items():
-                    getattr(self.model.pq_state, name).copy_(t)
+                for name, t in out.get("state", {}).items():
+                    buffers[name].copy_(t)
         return result
 
     # -------------------------------------------------------- validation

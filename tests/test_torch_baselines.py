@@ -391,7 +391,9 @@ def test_stego_export_round_trip_and_jax_predictor(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["vq_cocostuff27", "stego_cocostuff27", "stego_potsdam",
-                                  "stego_pascal", "cluster_baseline", "sl_cocostuff27"])
+                                  "stego_pascal", "cluster_baseline", "sl_cocostuff27",
+                                  "pqgo_cls_cocostuff27", "cluster_margin_cocostuff27",
+                                  "cluster_swav_cocostuff27", "res_cocostuff27"])
 def test_chip_smoke_presets_are_the_yaml_configs(name):
     import chip_smoke
     from equss_tpu_torch.core.config import load_config

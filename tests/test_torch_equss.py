@@ -200,6 +200,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
         EQUSS(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         VisionTransformer(make_vit_config("vit_micro", 8))
+    from equss_tpu_torch.core.config import load_config
+    from equss_tpu_torch.models.registry import build_model
+
+    res_cfg = load_config("configs/res_cocostuff27.yaml")
+    res_cfg["model"]["pretrained"]["model_type"] = "vit_micro"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(res_cfg)
+    assert build_model(res_cfg, device="cpu").device == torch.device("cpu")
     model = EQUSS(cfg, device="cpu")
     assert model.device == torch.device("cpu")
     with pytest.raises(ValueError, match="img_pos"):      # training needs positives

@@ -1,0 +1,360 @@
+"""The first ``models/variants.py`` slice against the JAX package:
+``pqgocls``, ``cluster`` (margin and SwAV) and ``res``.
+
+* One training forward and backward per family on vit_micro, b = 2 at
+  32^2, dropout off, on the JAX model's weights and state
+  (``convert.params_from_jax``), the same view ``aug_img`` on both sides
+  and JAX's own InfoNCE negatives and STEGO samples fed to the port: every
+  aux term within rtol 1e-5 (CLUB's and the margin's 1e-4: the port's
+  forms sum in another order); the trainable gradients within 1e-4 of their
+  largest magnitude (a bias right ahead of a BatchNorm, whose gradient is
+  zero up to rounding on both sides, within 1e-4 of the model's largest);
+  the new state within 1e-4 of its scale: the SwAV queue and counters,
+  the EMA head, the quantizer's counts, the BatchNorm statistics, the
+  CLUB encoder after ``mi_iter`` Adam steps and its moments (an Adam
+  step normalises each element's gradient, so a near-zero gradient's
+  rounding moves an element by a fraction of the learning rate: the CLUB
+  encoder is also allowed 1e-3 of ``optimizer.club_enc.lr``).  SwAV runs
+  at its first step (prototypes frozen, queue off) and past both gates
+  with a partly filled queue.
+* ``pqgocls``'s pseudo-labels bit-equal to JAX's with exact assignments,
+  and >= 99.5% equal with bf16 ones.
+* The trainer: the in-step photometric view (drawn from the trainer's
+  generator, a batch's own ``aug_img`` first, ``train.photometric_aug:
+  false`` off); a non-finite step leaves every parameter, buffer and
+  optimizer state as it was, and a finite one moves the model state; a
+  mid-epoch resume of ``res`` and ``cluster_swav`` through ``cli.run`` is
+  bit-exact, state included; the JAX train state of each family converts
+  (``convert.train_state_from_jax``) and loads; ``pqgocls``'s ``vq0``
+  evaluation equals JAX's ``validate``; the four configs train and
+  validate through ``cli.run`` at vit_micro.
+"""
+import copy
+import glob
+import json
+import os
+import shutil
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from equss_tpu.core.config import load_config
+from equss_tpu.losses.stego import super_perm
+from equss_tpu.models import registry as jregistry
+from equss_tpu.parallel.mesh import make_mesh
+from equss_tpu.train.trainer import LOSS_WEIGHT_MAP
+from equss_tpu.train.trainer import Trainer as JTrainer
+from equss_tpu_torch import cli
+from equss_tpu_torch.convert import (_trainable_from_flax, params_from_jax, state_from_flax,
+                                     train_state_from_jax)
+from equss_tpu_torch.data.synthetic import synthetic_batches
+from equss_tpu_torch.data.transforms import normalize_images
+from equss_tpu_torch.models import registry
+from equss_tpu_torch.models.variants import codebook_usage_percentiles
+from equss_tpu_torch.train.trainer import Trainer
+from test_torch_checkpoint import _flat
+from test_torch_checkpoint import _one_intra_op_thread  # noqa: F401 (autouse)
+from test_torch_valid import _val_batches
+
+CONFIGS = ["pqgo_cls_cocostuff27", "cluster_margin_cocostuff27", "cluster_swav_cocostuff27",
+           "res_cocostuff27"]
+B, RES = 2, 32
+N = B * (RES // 8) ** 2
+
+
+def micro(name, precision="exact"):
+    """The config at vit_micro in f32, dropout off; pqgocls with
+    ``precision`` assignments and STEGO at 5 samples, 2 negatives."""
+    cfg = load_config(f"configs/{name}.yaml")
+    cfg["model"]["pretrained"].update(model_type="vit_micro", precision="f32", dropout=False)
+    if name.startswith("pqgo"):
+        cfg["model"]["vq"]["assign_precision"] = precision
+        cfg["loss"]["stego"].update(correlation_precision="exact", feature_samples=5,
+                                    neg_samples=2)
+    return cfg
+
+
+def _mcfg():
+    return types.SimpleNamespace(model_type="vit_micro")
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _draws(name, cfg, rng):
+    """JAX's draws inside ``apply`` for ``rng``, as the port's overrides."""
+    kw = {}
+    if name.startswith(("cluster", "res")):
+        fold = 23 if name.startswith("cluster") else 3
+        neg = (cfg["loss"].get("info_nce", {}) or {}).get("neg_sample", 10)
+        kw["info_nce_idx"] = _t(jax.random.randint(jax.random.fold_in(rng, fold), (N, neg), 0, N))
+    if name.startswith("pqgo"):
+        k1, k2, k_neg = jax.random.split(jax.random.split(rng, 4)[2], 3)
+        c1 = jax.random.uniform(k1, (B, 5, 5, 2)) * 2.0 - 1.0
+        c2 = jax.random.uniform(k2, (B, 5, 5, 2)) * 2.0 - 1.0
+        perms = np.stack([super_perm(k, B) for k in jax.random.split(k_neg, 2)])
+        kw["stego_override"] = (_t(c1), _t(c2), _t(perms))
+    return kw
+
+
+def _pair(name, precision="exact", swav_it=None):
+    cfg = micro(name, precision)
+    jm = jregistry.build_model(cfg)
+    params, state = jax.device_get(jm.init(jax.random.PRNGKey(0), img_hw=(RES, RES)))
+    if swav_it is not None:
+        # a partly filled queue of unit rows, as the model inserts them:
+        # 3000 of 4096 slots live
+        queue = np.random.RandomState(4).randn(*state["swav_queue"].shape).astype(np.float32)
+        queue /= np.linalg.norm(queue, axis=-1, keepdims=True)
+        state = dict(state, swav_queue=queue, swav_queue_n=np.int32(3000),
+                     swav_it=np.int32(swav_it))
+    tm = registry.build_model(cfg, device="cpu", seed=5)
+    tm.load_state_dict(params_from_jax(params, state, _mcfg()))
+    return cfg, jm, params, state, tm
+
+
+def _rel_close(got, want, rtol, what, floor=0.0):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = max(np.abs(want).max(initial=0.0), floor)
+    assert np.abs(got - want).max(initial=0.0) <= rtol * scale, what
+
+
+# bias ahead of a BatchNorm: its gradient is zero up to rounding
+_AHEAD_OF_BN = ("agg.bias", "dec.dec_0.conv1.bias")
+
+
+@pytest.mark.parametrize("name,swav_it", [
+    ("pqgo_cls_cocostuff27", None), ("cluster_margin_cocostuff27", None),
+    ("cluster_swav_cocostuff27", 0), ("cluster_swav_cocostuff27", 200),
+    ("res_cocostuff27", None)])
+def test_training_forward_matches_jax(name, swav_it):
+    cfg, jm, params, state, tm = _pair(name, swav_it=swav_it)
+    rs = np.random.RandomState(1)
+    img, pos, aug = (rs.randn(B, RES, RES, 3).astype(np.float32) for _ in range(3))
+    rng = jax.random.PRNGKey(1)
+    weights = {aux: float(cfg["loss"][w]) for w, aux in LOSS_WEIGHT_MAP.items()
+               if float(cfg["loss"].get(w, 0.0) or 0.0) > 0.0}
+
+    def loss_j(trainable):
+        out, new_state = jm.apply(dict(params, **trainable), state, jnp.asarray(img),
+                                  img_pos=jnp.asarray(pos), aug_img=jnp.asarray(aug),
+                                  training=True, rng=rng)
+        return sum(w * out["aux"][k] for k, w in weights.items()), (out, new_state)
+
+    trainable = {k: v for k, v in params.items() if k != "backbone"}
+    (_, (out_j, state_j)), grads_j = jax.value_and_grad(loss_j, has_aux=True)(trainable)
+    out_t = tm(_t(img), _t(pos), aug_img=_t(aug), training=True,
+               generator=torch.Generator(), **_draws(name, cfg, rng))
+    sum(w * out_t["aux"][k] for k, w in weights.items()).backward()
+
+    scalars = {k for k, v in out_j["aux"].items() if np.ndim(v) == 0}
+    assert scalars <= set(out_t["aux"]) and set(weights) <= scalars
+    for k in scalars:
+        # the O(n d) CLUB and the blocked margin sum in another order
+        rtol = 1e-4 if k.startswith(("club-loss", "margin")) else 1e-5
+        np.testing.assert_allclose(float(out_t["aux"][k].detach()), float(out_j["aux"][k]),
+                                   rtol=rtol, atol=1e-7, err_msg=k)
+
+    want = _trainable_from_flax(jax.device_get(grads_j))
+    got = {k: p.grad for k, p in tm.named_parameters() if not k.startswith("backbone.")}
+    assert set(got) == set(want)
+    largest = max(np.abs(w.numpy()).max() for w in want.values())
+    for k, g in got.items():
+        w = want[k].numpy()
+        g = np.zeros_like(w) if g is None else g.numpy()
+        _rel_close(g, w, 1e-4, k, floor=largest if k in _AHEAD_OF_BN else 0.0)
+    if swav_it is not None:      # frozen prototypes take no gradient
+        frozen = swav_it < tm.freeze_protos_niter
+        assert (np.abs(want["prototypes"].numpy()).max() == 0) == frozen
+        assert (float(tm.prototypes.grad.abs().max()) == 0) == frozen
+
+    new_j = state_from_flax(jax.device_get(state_j))
+    new_t = out_t.get("state", {})
+    buffers = {k for k, _ in tm.named_buffers() if not k.startswith("backbone.")}
+    assert set(new_t) == set(new_j) == buffers
+    lr = float(cfg["optimizer"].get("club_enc", {}).get("lr", 0.0))
+    for k, v in new_t.items():
+        assert v.dtype == new_j[k].dtype, k
+        if k.startswith("club_enc."):
+            np.testing.assert_allclose(v.numpy(), new_j[k].numpy(), rtol=0,
+                                       atol=max(1e-4 * np.abs(new_j[k].numpy()).max(),
+                                                1e-3 * lr), err_msg=k)
+        else:
+            _rel_close(v.detach().numpy(), new_j[k].numpy(), 1e-4, k)
+    if name.startswith("pqgo"):
+        np.testing.assert_array_equal(out_t["indices"].numpy(), np.asarray(out_j["indices"]))
+        # the EMA head moved toward the student: by (1 - momentum) of the gap
+        assert not torch.equal(new_t["ema_head.cluster1.weight"],
+                               tm.ema_head.cluster1.weight)
+    if name.startswith("res"):
+        assert float(out_t["aux"]["club-enc-loss"]) < float(out_t["aux"]["club-enc-loss-first"])
+
+
+def test_pqgocls_bf16_pseudo_labels_match_jax():
+    cfg, jm, params, state, tm = _pair("pqgo_cls_cocostuff27", precision="bf16")
+    img = np.random.RandomState(2).randn(4, RES, RES, 3).astype(np.float32)
+    out_j, _ = jm.apply(params, state, jnp.asarray(img), training=False)
+    out_t = tm(_t(img), training=False)
+    assert np.mean(out_t["indices"].numpy() == np.asarray(out_j["indices"])) >= 0.995
+
+
+def test_codebook_usage_percentiles_match_jax():
+    from equss_tpu.models.variants import codebook_usage_percentiles as jusage
+
+    count = np.random.RandomState(3).poisson(2.0, (4, 64)).astype(np.float32)
+    want = jusage(jnp.asarray(count), "cb")
+    got = codebook_usage_percentiles(_t(count), "cb")
+    assert set(got) == set(want)
+    for k in want:
+        assert float(got[k]) == pytest.approx(float(want[k]), abs=1e-7), k
+
+
+# ----------------------------------------------------------------- trainer
+
+def _batches(n, seed, aug=False):
+    out = list(synthetic_batches(seed, n, batch_size=B, res=RES, num_classes=4))
+    if aug:
+        rs = np.random.RandomState(seed)
+        for b in out:
+            b["aug_img"] = rs.randint(0, 256, b["img"].shape).astype(np.uint8)
+    return out
+
+
+def _trainer(name, **train):
+    cfg = micro(name)
+    cfg["num_classes"] = 4
+    cfg["train"].update(train)
+    return cfg, Trainer(cfg, device="cpu", seed=0)
+
+
+def test_trainer_draws_the_view_and_a_batch_view_comes_first():
+    cfg, tr = _trainer("cluster_margin_cocostuff27")
+    batch = _batches(1, 0)[0]
+    assert tr.apply_aug
+    b = tr._batch(batch, aug=True)
+    assert b["aug_img"].shape == b["img"].shape and not torch.equal(b["aug_img"], b["img"])
+    given = _batches(1, 0, aug=True)[0]
+    b2 = tr._batch(given, aug=True)
+    assert torch.equal(b2["aug_img"], normalize_images(torch.from_numpy(given["aug_img"])))
+    _, off = _trainer("cluster_margin_cocostuff27", photometric_aug=False)
+    assert not off.apply_aug
+    _, kw = _trainer("cluster_margin_cocostuff27", photometric_aug={"blur_p": 0.0})
+    assert kw.apply_aug and kw.aug_kwargs == {"blur_p": 0.0}
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_nonfinite_step_leaves_model_state_and_a_finite_one_moves_it(name):
+    cfg, tr = _trainer(name)
+    before = copy.deepcopy(tr.train_state())
+    bad = _batches(1, 1)[0]
+    bad["img"] = np.full(bad["img"].shape, np.nan, np.float32)
+    assert tr.train_step(bad)["skipped"] == 1.0
+    after = tr.train_state()
+    for k, v in _flat(before).items():
+        if k != "generator":
+            assert torch.equal(_flat(after)[k], v), k
+    metrics = tr.train_step(_batches(1, 2)[0])
+    assert metrics["skipped"] == 0.0 and all(np.isfinite(v) for v in metrics.values())
+    moved = {k for k, v in tr.model.state_dict().items() if not k.startswith("backbone.")
+             and not torch.equal(v, before["model"][k])}
+    state = {k for k, _ in tr.model.named_buffers() if not k.startswith("backbone.")}
+    if name.startswith("res"):
+        assert metrics["club-enc-loss"] < metrics["club-enc-loss-first"]
+    if name.startswith("cluster_swav"):
+        assert int(tr.model.swav_it) == 1 and int(tr.model.swav_queue_n) == 2 * N
+    # every state buffer moved but the CLUB residual's, which the inner
+    # likelihood does not use, and the EMA head's biases: the first step
+    # averages the student's biases before its update, zero as the EMA's
+    still = {k for k in state if "p_residual" in k
+             or (k.startswith("ema_head.") and k.endswith(".bias"))}
+    assert state - still <= moved
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_jax_train_state_converts_and_loads(name):
+    cfg = micro(name)
+    cfg["num_classes"] = 4
+    jtr = JTrainer(cfg, mesh=make_mesh(2))
+    ts = jax.device_get(jtr.init_state(jax.random.PRNGKey(0), img_hw=(RES, RES)))
+    state = train_state_from_jax(ts, cfg)
+    tr = Trainer(cfg, device="cpu", seed=3)
+    tr.load_train_state(copy.deepcopy(state))
+    mine = tr.train_state()
+    for k, v in _flat(state).items():
+        assert torch.equal(_flat(mine)[k], v), k
+    assert set(_flat(mine)) == set(_flat(state)) | {"generator"}
+
+
+def test_pqgocls_vq0_validate_matches_jax():
+    cfg = micro("pqgo_cls_cocostuff27")
+    cfg["num_classes"] = 4
+    jtr = JTrainer(cfg, mesh=make_mesh(2))
+    ts = jtr.init_state(jax.random.PRNGKey(0), img_hw=(RES, RES))
+    tr = Trainer(cfg, device="cpu")
+    tr.load_train_state(train_state_from_jax(jax.device_get(ts), cfg))
+    val = _val_batches(2, seed=3)
+    val_j, val_t = jtr.validate(ts, val), tr.validate(val)
+    assert set(val_t) == set(val_j)
+    for k, v in val_j.items():
+        if k.endswith(("mIoU", "Accuracy")):
+            assert val_t[k] == pytest.approx(v, abs=1e-6), k
+        else:
+            assert val_t[k] == pytest.approx(v, rel=1e-5, abs=1e-7), k
+    res = tr.valid_step(val[0])
+    assert res["pq_indices"].shape[-1] == 64
+
+
+def _cli(tmp_path, config, *extra):
+    before = set(glob.glob(str(tmp_path / "runs" / "*")))
+    result = cli.main(["--config", f"configs/{config}.yaml", "--debug",
+                       f"save_dir={tmp_path / 'runs'}", "device=cpu",
+                       "model.pretrained.model_type=vit_micro", "dataset.synthetic=true",
+                       "dataset.synthetic_batches=4", "dataloader.train.batch_size=2",
+                       "dataloader.val.batch_size=2", "dataset.train.res=32",
+                       "dataset.val.res=32", "train.max_epochs=1",
+                       "train.print_interval_iters=1", "train.valid_interval_iters=2",
+                       "eval.final_crf=false", *extra])
+    (run_dir,) = set(glob.glob(str(tmp_path / "runs" / "*"))) - before
+    return result, run_dir
+
+
+def _records(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+@pytest.mark.parametrize("config", ["pqgo_cls_cocostuff27", "cluster_margin_cocostuff27"])
+def test_cli_trains_and_validates_the_variant(tmp_path, config):
+    result, run_dir = _cli(tmp_path, config)
+    steps = [r for r in _records(run_dir) if "loss" in r]
+    assert [r["step"] for r in steps] == [1, 2, 3, 4]
+    assert all(np.isfinite(r["loss"]) and r["skipped"] == 0.0 for r in steps)
+    assert 0.0 <= result["best"]["Cluster_mIoU"] <= 100.0
+
+
+@pytest.mark.parametrize("config", ["res_cocostuff27", "cluster_swav_cocostuff27"])
+def test_cli_mid_epoch_resume_is_bit_exact(tmp_path, config):
+    """``cli.run`` for 4 steps with a checkpoint at step 2, then a run
+    resumed from it: the same logs after step 2 and the same weights and
+    model state after step 4 (SwAV with its queue on from step 0)."""
+    extra = ["loss.cluster.queue_start_iter=0"] if "swav" in config else []
+    result, run_dir = _cli(tmp_path, config, *extra)
+    ckpt = os.path.join(run_dir, "ckpt")
+    assert 2 in {int(s) for s in os.listdir(ckpt)}
+    shutil.copytree(os.path.join(ckpt, "2"), tmp_path / "from2" / "2")
+    resumed, resumed_dir = _cli(tmp_path, config, *extra,
+                                f"resume.checkpoint={tmp_path / 'from2'}", "resume.mode=train")
+    strip = lambda recs: [{k: v for k, v in r.items() if k != "iter_time"}  # noqa: E731
+                          for r in recs if "final_Cluster_mIoU" not in r]
+    records = _records(run_dir)
+    assert strip(_records(resumed_dir)) == [r for r in strip(records) if r["step"] > 2]
+    assert any("club-enc-loss" in r or "swav-loss" in r for r in records)
+    assert set(resumed["state"]) == set(result["state"])
+    for k, v in result["state"].items():
+        assert torch.equal(resumed["state"][k], v), k
+    assert any(k.startswith(("club_enc.", "swav_queue")) for k in result["state"])
