@@ -123,7 +123,6 @@ _METRIC_AUX_KEYS = ("stego-loss", "vq-loss", "codebook-usage", "codebook-sum", "
                     "cls-loss", "contra-loss-pos", "contra-loss-neg")
 
 
-
 class Trainer:
     """``Trainer(cfg)`` builds the model of ``cfg`` (a config dict as the
     YAML files hold it; ``build_model``) with weights drawn from ``seed``
