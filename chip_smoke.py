@@ -151,14 +151,41 @@ Phases, each printing JSON lines on stdout:
             ``club-enc-loss-first`` in every step, the EMA head nearer the
             student after a step; a profile of 2 train and 2 valid steps
             of each;
-22. variants_reference  one step of each at b = 2, dropout off, on the
+    The second slice in the same phase and with the same rows:
+            ``unseg_cocostuff27`` (UnSeg, b = 16, valid b = 8; the
+            decoder's BatchNorm mean moves), ``new_vq_cocostuff27``
+            (NewVQ, b = 16 + the view, valid b = 8; ``info_nce-loss``
+            finite and positive) and ``spq_cocostuff27`` (SPQ, b = 16 +
+            the view, valid b = 8; ``jsd`` >= 0, the codebook moves);
+            the valid steps of UnSeg and NewVQ launch the PQ kernel's
+            wide bodies (exact at 1 x 2048 x 384, fast at 8 x 2048 x 64,
+            n = 12 800), 1 launch per valid step, and their profiles name
+            the body with its device ms per launch and share of bound in
+            path (``wide_in_path``);
+22. stage1  NewVQ with ``model.stage: 1`` (``n_kmeans`` 100,
+            ``eval.output_type: feat``, InfoNCE off as stage 1 computes
+            none): 2 train steps after 1 at b = 16 + the view, k-means
+            (10 Lloyd steps from k-means++ seeds, k = 2048) over the
+            25 088 feature pixels and the quantizer and decoder on the
+            204 800 selected rows: step median, the k-means share of it,
+            peak memory;
+23. variants_reference  one step of each at b = 2, dropout off, on the
             card against the CPU from the same seeded weights, with the
-            same view, InfoNCE negatives and STEGO samples
-            (``reference_step``): each loss term within 5e-2 relative,
-            the trainable gradients' cosine >= 0.98, ``pqgocls``'s
-            pseudo-labels >= 95% equal end to end.
-The configurations of 17-22 are ``preset(name)``: the preset with the
+            same view, InfoNCE negatives, STEGO samples and (stage 1, at
+            ``n_kmeans`` 10) k-means draws (``reference_step``): each loss
+            term within 5e-2 relative, the trainable gradients' cosine >=
+            0.98, ``pqgocls``'s pseudo-labels >= 95% equal end to end;
+            NewVQ's quantizer on the card's code >= 99.5% and its indices
+            >= 95% equal end to end on the pairs whose CPU minimum is
+            untied (bf16 distances at the initial codebook tie, as the
+            VQ baseline's do).
+The configurations of 17-23 are ``preset(name)``: the preset with the
 changes of ``PRESET_CHANGES``, which the tests hold against ``configs/``.
+In the kernels line each PQ row counts the launches of its own body's
+paths (``row_path``): the narrow fast row the preset's bf16 paths, the
+narrow exact row the preset's exact ones, the wide fast row the VQ
+baseline's and NewVQ's, the wide exact row the exact VQ sub-run's and
+UnSeg's.
 
 Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failed check exits non-zero without the ok line; without
@@ -248,6 +275,14 @@ _CLUSTER = {"model.name": "cluster", "model.hidden_dim": 512, "model.enc_num_blo
             "loss.stego": None, "loss.stego_weight": None, "loss.vq_weight": None,
             "loss.margin_weight": 0.1, "optimizer.model.name": "adamw",
             "eval.output_type": "feat"}
+# the second variants slice's NewVQ and SPQ: a soft or hard 8 x 2048 x 64
+# quantizer after an encoder to 512, InfoNCE between the views
+_VARIANT_PQ = {"model.vq.embed_dims": [512], "model.vq.normalize": "none",
+               "model.vq.num_codebooks": [2048], "model.vq.num_pq": [8], "loss.stego": None,
+               "loss.stego_weight": None, "loss.info_nce_weight": 0.1,
+               "loss.info_nce": {"normalize": "l2", "neg_sample": 10, "temperature": 1.0,
+                                 "cal_type": "random"},
+               "loss.jsd": {"temperature": 1.0}, "optimizer.model.name": "adamw"}
 # the baselines' configs as changes to the preset (dotted key: value; None
 # drops the key); tests/test_torch_baselines.py holds each against its
 # YAML file
@@ -302,6 +337,19 @@ PRESET_CHANGES = {
         "optimizer.model.name": "adamw", "optimizer.model.weight_decay": 1.0e-4,
         "optimizer.club_enc": {"name": "adam", "lr": 3.0e-6, "weight_decay": 0.0},
         "eval.output_type": "feat"},
+    "unseg_cocostuff27": {
+        "model.name": "hihi", "model.hidden_dim": 384, "model.enc_num_blocks": 1,
+        "model.dec_num_blocks": 3, "model.vq.assign_precision": None,
+        "model.vq.embed_dims": [384], "model.vq.normalize": "none",
+        "model.vq.num_codebooks": [2048], "model.vq.num_pq": 1, "loss.stego": None,
+        "loss.stego_weight": None, "loss.recon_weight": 1.0,
+        "loss.contra_weight": {"pos": 0.0, "neg": 0.0}, "optimizer.model.name": "adamw",
+        "optimizer.model.weight_decay": 1.0e-6},
+    "new_vq_cocostuff27": {**_VARIANT_PQ, "model.name": "new", "model.enc_num_blocks": 1,
+                           "model.dec_num_blocks": 1, "loss.recon_weight": 1.0,
+                           "loss.jsd_weight": 0.0},
+    "spq_cocostuff27": {**_VARIANT_PQ, "model.name": "spq", "loss.vq_weight": None,
+                        "loss.jsd_weight": 0.1},
 }
 
 
@@ -1133,6 +1181,12 @@ def stego_samples(batch: dict, seed: int, feature_samples: int = 11) -> dict:
                 stego_perms=np.stack([rng.permutation(b) for _ in range(5)]).astype(np.int32))
 
 
+def model_pq_cfg(model):
+    """The ``PQConfig`` of a model with one quantizer: EQUSS's
+    ``cfg.pq``, a variant's ``pq_cfg``."""
+    return model.pq_cfg if hasattr(model, "pq_cfg") else model.cfg.pq
+
+
 def minimum_ties(tr, code: torch.Tensor) -> tuple:
     """(tied share, untied mask) of the (pixel, subspace) pairs of ``code``
     under the CPU trainer ``tr``'s quantizer, in its own arithmetic: a pair
@@ -1143,7 +1197,7 @@ def minimum_ties(tr, code: torch.Tensor) -> tuple:
     from equss_tpu_torch.ops.pq_assign import normalize_vectors
     from equss_tpu_torch.ops.quantizer import pairwise_sqdist
 
-    cfg = tr.model.cfg.pq
+    cfg = model_pq_cfg(tr.model)
     codebook = (tr.model.pq["codebook"] if cfg.vq_type == "param"
                 else tr.model.pq_state.ema_weight).detach()
     zf = code.reshape(-1, cfg.num_pq, cfg.sub_dim)
@@ -1166,7 +1220,8 @@ LOSS_TERMS = ("loss", "stego-loss", "vq-loss", "linear-loss", "cluster-loss", "m
 
 
 def reference_step(make_trainer, batch: dict, grads: dict, what: str,
-                   e2e_bar: bool = True, quantizer: bool = True) -> dict:
+                   e2e_bar: bool = True, quantizer: bool = True,
+                   indices: bool = True) -> dict:
     """One training forward and backward of ``make_trainer(device)`` on the
     card and on the CPU (plain kernel versions) from the same seeded
     weights and batch; TF32 is off on the card (phase 1).  Bars: each loss
@@ -1179,7 +1234,10 @@ def reference_step(make_trainer, batch: dict, grads: dict, what: str,
     (``minimum_ties``), printed beside the tied share and the untied share
     (an empty untied set holds nothing and says so).  ``quantizer=False``
     (a model whose indices are not of its ``code``: ``pqgocls``'s teacher)
-    holds the end-to-end indices only.  Returns the row."""
+    holds the end-to-end indices only; ``indices=False`` none (NewVQ's
+    stage 1, whose indices are of the rows its k-means selects: their
+    order within a centroid follows each side's f32 rounding).  Returns
+    the row."""
     from equss_tpu_torch.ops.quantizer import pq_forward
 
     runs = {}
@@ -1199,16 +1257,19 @@ def reference_step(make_trainer, batch: dict, grads: dict, what: str,
     check(all(v >= 0.98 for v in cos.values()), f"{what}: gradient cosines {cos}")
     row = {"batch": len(batch["img"]), "tf32": False, "loss_rel_err": rel, "grad_cosine": cos,
            "card": {k: m_g[k] for k in terms}, "cpu": {k: m_c[k] for k in terms}}
-    if idx_c is not None and not quantizer:
+    if idx_c is None or not indices:
+        pass
+    elif not quantizer:
         row["index_agreement"] = (idx_g.cpu() == idx_c).float().mean().item()
         check(row["index_agreement"] >= 0.95,
               f"{what}: end-to-end index agreement {row['index_agreement']}")
-    elif idx_c is not None:
+    else:
         m = tr_c.model
+        pq_cfg = model_pq_cfg(m)
         with torch.no_grad():
-            _, idx_s, _, _ = pq_forward(code_g, dict(m.pq), m.pq_state.as_dict(), m.cfg.pq,
+            _, idx_s, _, _ = pq_forward(code_g, dict(m.pq), m.pq_state.as_dict(), pq_cfg,
                                         training=True)
-        same = (idx_g.cpu() == idx_c).reshape(-1, m.cfg.pq.num_pq)
+        same = (idx_g.cpu() == idx_c).reshape(-1, pq_cfg.num_pq)
         row["quantizer_on_card_code_agreement"] = (idx_s == idx_g.cpu()).float().mean().item()
         row["index_agreement"] = same.float().mean().item()
         check(row["quantizer_on_card_code_agreement"] >= 0.995,
@@ -1812,12 +1873,15 @@ def phase_vq(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def wide_in_path(prof: dict, n: int, exact: bool, what: str) -> dict:
-    """``pq_in_path`` for the wide launch (all its kernels) at the VQ
-    baseline's quantizer, 1 x 256 x 1024; the profile must name the
-    mode's body."""
-    return pq_in_path(prof, n, (1, 256, 1024), exact,
-                      "pq_wide_exact" if exact else "pq_wide_fast", "pq_wide", what)
+def wide_in_path(prof: dict, n: int, exact: bool, what: str,
+                 shape: tuple = (1, 256, 1024)) -> dict:
+    """``pq_in_path`` for the wide launch (all its kernels) at quantizer
+    ``shape`` (M, K, d; the VQ baseline's by default); the profile must
+    name the mode's body, ``pq_wide_exact_kernel`` or
+    ``pq_wide_fast_kernel``."""
+    return pq_in_path(prof, n, shape, exact,
+                      "pq_wide_exact_kernel" if exact else "pq_wide_fast_kernel", "pq_wide",
+                      what)
 
 
 def vq_valid_and_serve(tr, tag: str, results: dict, exact: bool = False) -> None:
@@ -2632,7 +2696,7 @@ def phase_custom_op_ab(results: dict) -> None:
     emit(row)
 
 
-# the first models/variants.py slice: (config, train batch, valid batch,
+# the models/variants.py slices: (config, train batch, valid batch,
 # attention launches per train step, the trainable gradients held by the
 # reference step: name -> parameter-name prefix; cluster_swav's
 # prototypes take no gradient while frozen, in its first 100 steps)
@@ -2642,7 +2706,21 @@ VARIANTS = (
     ("cluster_swav_cocostuff27", 64, 32, 12, {"net": "net."}),
     ("res_cocostuff27", 16, 8, 12, {"semantic": "semantic.", "local": "local.",
                                     "agg": "agg.", "dec": "dec."}),
+    ("unseg_cocostuff27", 16, 8, 12, {"enc": "net.enc.", "dec": "net.dec.", "pq": "pq."}),
+    ("new_vq_cocostuff27", 16, 8, 12, {"enc": "net.enc.", "dec": "net.dec.", "pq": "pq."}),
+    ("spq_cocostuff27", 16, 8, 12, {"enc": "enc.", "codebook": "codebook"}),
 )
+# the variants whose valid step launches the PQ kernel once, and (second
+# slice) the wide body it runs: config prefix -> None (pqgocls: the
+# narrow fast body) or ((M, K, d), exact)
+PQ_VALID = {"pqgo_cls": None, "unseg": ((1, 2048, 384), True),
+            "new_vq": ((8, 2048, 64), False)}
+
+
+def pq_valid(name: str):
+    """(launches per valid step, the wide body's (shape, exact) or None)."""
+    key = next((k for k in PQ_VALID if name.startswith(k)), None)
+    return (0, None) if key is None else (1, PQ_VALID[key])
 
 
 def without_view(batches: list) -> list:
@@ -2652,11 +2730,12 @@ def without_view(batches: list) -> list:
 
 
 def phase_variants(results: dict) -> None:
-    """The four configs of the first variants slice at their widths and
-    batches (``VARIANTS``): 4 train steps after 2 warm-up with the view
-    drawn on the card, ``validate`` over 2 batches of 320^2 after 2, the
-    per-step checks of each family, and profiles of 2 train and 2 valid
-    steps (device ms and busy share)."""
+    """The configs of the variants slices at their widths and batches
+    (``VARIANTS``): 4 train steps after 2 warm-up with the view drawn on
+    the card, ``validate`` over 2 batches of 320^2 after 2, the per-step
+    checks of each family, and profiles of 2 train and 2 valid steps
+    (device ms and busy share; UnSeg's and NewVQ's valid profiles with the
+    wide PQ body's ms per launch and share of bound in path)."""
     from equss_tpu_torch.data.synthetic import synthetic_batches
 
     for i, (name, bs, vbs, attn, _) in enumerate(VARIANTS):
@@ -2693,9 +2772,22 @@ def phase_variants(results: dict) -> None:
             row["ema_gap_before_after"] = [gap(ema_old), gap(dict(m.ema_head.named_buffers()))]
             check(0 < row["ema_gap_before_after"][1] < row["ema_gap_before_after"][0],
                   f"{name}: the EMA head did not move toward the student {row}")
+        if name.startswith("unseg"):
+            check(not torch.equal(m.net.dec.dec_0.norm1.mean,
+                                  before["net.dec.dec_0.norm1.mean"])
+                  and bool((m.pq_state[0].vq_count > 0).any()),
+                  f"{name}: the decoder's BatchNorm or the quantizer's counts did not move")
+        if name.startswith("new_vq"):
+            check(all(np.isfinite(x["info_nce-loss"]) and x["info_nce-loss"] > 0
+                      for x in metrics), f"{name}: info_nce-loss not finite and positive")
+        if name.startswith("spq"):
+            row["codebook_max_change"] = (m.codebook - before["codebook"]).abs().max().item()
+            check(all(x["jsd"] >= 0 for x in metrics) and row["codebook_max_change"] > 0,
+                  f"{name}: jsd negative or the codebook did not move {row}")
         emit(row)
         vb = valid_batches(4, vbs, seed=360 + i)
-        per_valid = {"attention_qkv": 12, "pq_assign": 1 if name.startswith("pqgo") else 0}
+        pq_launches, wide = pq_valid(name)
+        per_valid = {"attention_qkv": 12, "pq_assign": pq_launches}
         val, res, vtiming = timed_validate(tr, vb, 2, per_valid, f"{name}_valid", results)
         check(tuple(res["linear_preds"].shape) == (vbs, 320, 320), f"{name} valid: shapes")
         emit({"phase": "variants", "config": name, "what": "valid", "batch": vbs, "res": 320,
@@ -2704,30 +2796,103 @@ def phase_variants(results: dict) -> None:
         emit({"phase": "profile", "what": f"{name}_train", "batch": bs, "steps": 2,
               **device_profile(lambda: tr.train_step(next(cycle)), 2, pick=KERNEL_PICK)})
         vcycle = iter(vb * 2)
+        prof = device_profile(lambda: tr.valid_step(next(vcycle)), 2, pick=KERNEL_PICK)
+        if wide is not None:
+            shape, exact = wide
+            prof.update(wide_in_path(prof, vbs * 40 * 40, exact, f"{name} valid", shape))
         emit({"phase": "profile", "what": f"{name}_valid", "batch": vbs, "res": 320,
-              "steps": 2,
-              **device_profile(lambda: tr.valid_step(next(vcycle)), 2, pick=KERNEL_PICK)})
+              "steps": 2, **prof})
         del tr, m
         torch.cuda.empty_cache()
+
+
+def stage1_config(n_kmeans: int) -> dict:
+    """``new_vq_cocostuff27`` with ``model.stage: 1``: ``eval.output_type:
+    feat`` (stage 1 has no spatial z_q) and no InfoNCE weight (stage 1
+    computes none; the trainer, as JAX's, raises on a weighted term a
+    model does not emit)."""
+    return with_overrides(preset("new_vq_cocostuff27"), {
+        "model.stage": 1, "model.n_kmeans": n_kmeans, "eval.output_type": "feat",
+        "loss.info_nce_weight": 0.0})
+
+
+def phase_new_vq_stage1(results: dict) -> None:
+    """NewVQ's stage 1 at b = 16 + the view: 2 train steps after 1, the
+    step median, the k-means share of each step (the call timed between
+    two synchronisations), peak memory, 12 attention launches and no PQ
+    launch per step (training takes the plain route), every metric
+    finite."""
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+    from equss_tpu_torch.models import variants
+    from equss_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(stage1_config(100), device="cuda", seed=0)
+    kmeans_s = []
+    plain_kmeans = variants.kmeans
+
+    def timed_kmeans(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_kmeans(*args, **kw)
+        torch.cuda.synchronize()
+        kmeans_s.append(time.perf_counter() - t0)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    batches = without_view(list(synthetic_batches(30, 3, 16, res=224, num_classes=27)))
+    variants.kmeans = timed_kmeans
+    try:
+        metrics, timing = timed_train(tr, batches, 1, STOCK_TRAIN_KERNELS,
+                                      "new_vq_stage1_train", results)
+    finally:
+        variants.kmeans = plain_kmeans
+    median_s = timing["ms_per_step_median"] / 1e3
+    emit({"phase": "stage1", "config": "new_vq_cocostuff27", "stage": 1, "n_kmeans": 100,
+          "batch": 16, "rows_selected": 2048 * 100, **timing,
+          "kmeans_ms_per_step": [1e3 * k for k in kmeans_s[1:]],
+          "kmeans_share_of_median_step": [k / median_s for k in kmeans_s[1:]],
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          **{f"{k}_per_step": [x[k] for x in metrics]
+             for k in ("loss", "vq-loss", "recon-loss", "codebook-usage") if k in metrics[0]}})
+    del tr
+    torch.cuda.empty_cache()
 
 
 def phase_variants_reference() -> None:
     """One train step of each variant config at b = 2, dropout off, card
     against CPU (``reference_step``), the view (the CPU's photometric
     view of the batch), InfoNCE negatives and STEGO samples fixed in the
-    batch."""
+    batch; then NewVQ's stage 1 (at ``n_kmeans`` 10: 20 480 selected rows,
+    which the CPU quantizes in seconds) with its k-means draws fixed in the
+    batch too."""
     from equss_tpu_torch.data.synthetic import synthetic_batches
     from equss_tpu_torch.data.transforms import photometric_aug
+    from equss_tpu_torch.train.trainer import Trainer
 
-    for i, (name, _, _, _, grads) in enumerate(VARIANTS):
+    runs = [(name, grads, lambda device, name=name: preset_trainer(name, device, False)[1])
+            for name, _, _, _, grads in VARIANTS]
+    new_vq_grads = next(g for n, *_, g in VARIANTS if n == "new_vq_cocostuff27")
+    runs.append(("new_vq_cocostuff27_stage1", new_vq_grads,
+                 lambda device: Trainer(stage1_config(10), device=device, seed=0)))
+    for i, (name, grads, make_trainer) in enumerate(runs):
         batch = stego_samples(next(synthetic_batches(40 + i, 1, 2, res=224,
                                                      num_classes=27)), 40 + i)
         img01 = torch.from_numpy(batch["img"]).clamp(0, 1)
         batch["aug_img"] = photometric_aug(torch.Generator().manual_seed(i), img01).numpy()
         n = 2 * 28 * 28
-        batch["info_nce_idx"] = np.random.RandomState(i).randint(0, n, (n, 10))
-        row = reference_step(lambda device: preset_trainer(name, device, False)[1], batch,
-                             grads, f"{name} train reference", quantizer=False)
+        rs = np.random.RandomState(i)
+        batch["info_nce_idx"] = rs.randint(0, n, (n, 10))
+        if name.endswith("stage1"):     # k-means over both views' pixels, k = 2048
+            batch["kmeans_first"] = rs.randint(0, 2 * n, (1,))
+            u = rs.uniform(np.finfo(np.float32).tiny, 1.0, (2047, 1, 2 * n))
+            batch["kmeans_gumbel"] = (-np.log(-np.log(u))).astype(np.float32)
+        # NewVQ's indices are of its code, bf16 at the initial codebook:
+        # the quantizer on the card's code, and end to end on the pairs
+        # whose CPU minimum is untied (as for the VQ baseline)
+        own = name == "new_vq_cocostuff27"
+        row = reference_step(make_trainer, batch, grads, f"{name} train reference",
+                             e2e_bar=not own, quantizer=own,
+                             indices=not name.endswith("stage1"))
         emit({"phase": "variants_reference", "config": name, **row})
 
 
@@ -2742,26 +2907,37 @@ KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     # sub-run's train and valid steps and the exact b = 8 serving
     "pq_assign_exact": ("equss_tpu_torch/csrc/pq_assign.cu", "equss_tpu/ops/pq_pallas.py:443"),
     # the wide bodies of the same wrapper: their launches are the PQ
-    # launches of the VQ baseline's paths, all at d = 1024, fast
+    # launches of the VQ baseline's paths at d = 1024, fast
     # (pq_wide_fast_kernel) on the preset's bf16 assignments, exact
-    # (pq_wide_exact_kernel) on the exact sub-run's
+    # (pq_wide_exact_kernel) on the exact sub-run's; and of the variants'
+    # valid steps, NewVQ's fast at 8 x 2048 x 64, UnSeg's exact at
+    # 1 x 2048 x 384
     "pq_assign_wide": ("equss_tpu_torch/csrc/pq_assign.cu", "equss_tpu/ops/pq_pallas.py:443"),
     "pq_assign_wide_exact": ("equss_tpu_torch/csrc/pq_assign.cu",
                              "equss_tpu/ops/pq_pallas.py:443"),
 }
 
 
+def pq_body_row(path: str) -> str:
+    """The kernels line's PQ row whose body ``path``'s PQ launches run:
+    the narrow exact body on the preset's exact paths, the wide exact body
+    on the exact VQ sub-run's and UnSeg's, the wide fast body on the VQ
+    baseline's and NewVQ's, the narrow fast body (``pq_assign``) on every
+    other path (the preset's bf16 ones and ``pqgocls``'s)."""
+    if path.startswith(("pqgo_exact", "serve_exact")):
+        return "pq_assign_exact"
+    if path.startswith(("vq_exact", "unseg")):
+        return "pq_assign_wide_exact"
+    if path.startswith(("vq_", "cli_vq", "new_vq")):
+        return "pq_assign_wide"
+    return "pq_assign"
+
+
 def row_path(name: str, path: str) -> bool:
     """Whether the launches of ``path`` count for the kernels line's row
-    ``name``: the narrow exact row takes the preset's exact paths, the
-    wide rows the VQ baseline's, each its mode's."""
-    if name == "pq_assign_exact":
-        return path.startswith(("pqgo_exact", "serve_exact"))
-    if name == "pq_assign_wide_exact":
-        return path.startswith("vq_exact")
-    if name == "pq_assign_wide":
-        return path.startswith(("vq_", "cli_vq")) and not path.startswith("vq_exact")
-    return True
+    ``name``: each PQ row takes the paths of its own body
+    (``pq_body_row``), every other row all paths."""
+    return pq_body_row(path) == name if name.startswith("pq_assign") else True
 
 
 def main() -> int:
@@ -2794,13 +2970,15 @@ def main() -> int:
     phase_baselines(results)
     phase_cli_baselines(results)
     phase_variants(results)
+    phase_new_vq_stage1(results)
     phase_variants_reference()
 
     # launches: every main-path run (serving, serving with fused_ln, both
     # train configurations, both valid configurations, the exact sub-run's
     # train and valid steps, fit, the three CLI runs, the variants' train
-    # and valid steps, the kNN job, the train job on files, the exported artifact's
-    # requests and the custom-op side of the A/B), each counted from 0;
+    # and valid steps, NewVQ's stage 1, the kNN job, the train job on
+    # files, the exported artifact's requests and the custom-op side of the
+    # A/B), each counted from 0, each PQ launch under its body's row;
     # ``attention`` has no caller on any path and is launched by its
     # kernel phase only
     by_path = results["launches"]

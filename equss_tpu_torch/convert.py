@@ -4,9 +4,10 @@
   registry model's ``init`` (numpy-valued: EQUSS's backbone, head, PQ
   parameters and quantizer state, param or EMA; STEGO's backbone and
   head; the probe-only model's backbone; the variants' encoders,
-  decoders, prototypes and classifier, and their state: the SwAV queue
-  and counters, the EMA head, the CLUB encoder with its Adam moments and
-  count, BatchNorm's running averages) onto the port model's
+  decoders, prototypes, classifier, SPQ's codebook and UnSeg's list of
+  quantizers, and their state: the SwAV queue and counters, the EMA
+  head, the CLUB encoder with its Adam moments and count, BatchNorm's
+  running averages, each list entry's quantizer state) onto the port model's
   ``state_dict()`` names, and the Trainer's probe parameters onto
   ``Evaluator`` names under ``probes.``, so both packages compute with the
   same numbers.
@@ -20,8 +21,10 @@
 
 Layouts: a flax Dense ``kernel (in, out)`` is the port's ``weight (out,
 in)``, a flax norm's ``scale`` its ``weight``, and every other leaf keeps
-its name (and an integer leaf its dtype); the flax patch conv ``(kh, kw, in, out)`` and the torch patch conv
-``(out, in, kh, kw)`` both become the port's patch matmul ``(out, kh*kw*in)``.
+its name (and an integer leaf its dtype); a list's i-th entry takes the
+name ``i``; the flax patch conv ``(kh, kw, in, out)`` and the torch patch
+conv ``(out, in, kh, kw)`` both become the port's patch matmul ``(out,
+kh*kw*in)``, any other flax conv kernel torch's ``(out, in, kh, kw)``.
 """
 from __future__ import annotations
 
@@ -44,14 +47,19 @@ def _leaf(x: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.int32 if a.dtype.kind in "iu" else np.float32))
 
 
-def tree_from_flax(tree: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+def tree_from_flax(tree: Any, prefix: str) -> Dict[str, torch.Tensor]:
     """A flax subtree -> port names under ``prefix``: ``kernel`` becomes a
-    transposed ``weight``, ``scale`` a ``weight``, other leaves keep their
-    names."""
+    transposed ``weight`` (a conv's (kh, kw, in, out) torch's (out, in,
+    kh, kw)), ``scale`` a ``weight``, the i-th entry of a list (UnSeg's
+    quantizers) ``<prefix>i.``, other leaves keep their names."""
+    if isinstance(tree, (list, tuple)):
+        tree = {str(i): v for i, v in enumerate(tree)}
     sd: Dict[str, torch.Tensor] = {}
     for k, v in tree.items():
-        if isinstance(v, Mapping):
+        if isinstance(v, (Mapping, list, tuple)):
             sd.update(tree_from_flax(v, f"{prefix}{k}."))
+        elif k == "kernel" and np.ndim(v) == 4:
+            sd[f"{prefix}weight"] = _t(v).permute(3, 2, 0, 1).contiguous()
         elif k == "kernel":
             sd[f"{prefix}weight"] = _t(v).T.contiguous()
         elif k == "scale":
@@ -121,25 +129,35 @@ def _adam_moments(opt_state: Any, prefix: str) -> Dict[str, torch.Tensor]:
             f"{prefix}count": _leaf(adam.count)}
 
 
-def state_from_flax(state: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def state_from_flax(state: Mapping[str, Any],
+                    batch_stats_prefix: str = "dec.") -> Dict[str, torch.Tensor]:
     """A JAX model's ``state`` -> port buffer names: the quantizer's under
-    ``pq_state.``, the EMA head and the CLUB encoder by their names, the
-    CLUB optimizer's Adam state under ``club_opt.``, the decoder's
-    BatchNorm statistics under ``dec.``, and top-level arrays (the SwAV
-    queue and counters) as they are."""
+    ``pq_state.`` (a list of quantizers under ``pq_state.<i>.``), the EMA
+    head and the CLUB encoder by their names, the CLUB optimizer's Adam
+    state under ``club_opt.``, the BatchNorm statistics under
+    ``batch_stats_prefix`` (``dec.``: ``res``'s decoder; ``net.``: the
+    decoder inside UnSeg's and NewVQ's ``net``), and top-level arrays
+    (the SwAV queue and counters) as they are."""
     sd: Dict[str, torch.Tensor] = {}
     for k, v in state.items():
         if k == "pq":
-            sd.update({f"pq_state.{n}": _t(t) for n, t in v.items()})
+            sd.update({n: t.float() for n, t in tree_from_flax(v, "pq_state.").items()})
         elif k == "club_opt":
             sd.update(_adam_moments(v, "club_opt."))
         elif k == "batch_stats":
-            sd.update(tree_from_flax(v, "dec."))
+            sd.update(tree_from_flax(v, batch_stats_prefix))
         elif isinstance(v, Mapping):
             sd.update(tree_from_flax(v, f"{k}."))
         else:
             sd[k] = _leaf(v)
     return sd
+
+
+def batch_stats_prefix(params: Mapping[str, Any]) -> str:
+    """Where a JAX model's ``batch_stats`` live in the port: inside
+    ``net.`` for a model whose trainable torso is one flax module ``net``
+    (UnSeg, NewVQ), else under ``dec.`` (``res``'s decoder)."""
+    return "net." if "net" in params else "dec."
 
 
 def params_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
@@ -155,7 +173,7 @@ def params_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
     sd = {f"backbone.{k}": v
           for k, v in backbone_from_flax(params["backbone"], depth).items()}
     sd.update(_trainable_from_flax(params))
-    sd.update(state_from_flax(state))
+    sd.update(state_from_flax(state, batch_stats_prefix(params)))
     if probe_params is not None:
         sd.update({f"probes.{k}": v for k, v in probes_from_flax(probe_params).items()})
     return sd

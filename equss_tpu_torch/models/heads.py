@@ -2,10 +2,11 @@
 
 Counterpart of ``equss_tpu/models/heads.py``: ``ExpansionHead`` (also
 ``SegmentationHead``), ``dropout2d``, the two residual block libraries
-of the reference (``EncResBlock`` / ``DecResBlock``, and the linear
-flavour ``LinEncResBlock`` / ``LinDecResBlock``) and ``CLUBEncoder``.
-NHWC: the 1x1 convolutions are Dense layers over the channel axis, in
-f32.  Parameter names are flax's, so ``convert`` maps weights one to one.
+of the reference (``EncResBlock`` / ``DecResBlock`` / ``ResBlock``, and
+the linear flavour ``LinEncResBlock`` / ``LinDecResBlock``) and
+``CLUBEncoder``.  NHWC: the 1x1 convolutions are Dense layers over the
+channel axis, in f32.  Parameter names are flax's, so ``convert`` maps
+weights one to one.
 
 ``BatchNorm`` follows flax, not torch: the batch's biased variance as
 E[x^2] - E[x]^2 (clipped at 0), momentum 0.9 on the running averages,
@@ -17,13 +18,14 @@ them after a finite step.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from equss_tpu_torch.models.vit import Dense
+from equss_tpu_torch.models.vit import Dense, _trunc_normal
 
 
 class ExpansionHead(nn.Module):
@@ -141,6 +143,37 @@ class DecResBlock(nn.Module):
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(self.norm_shortcut(x, train, updates), f32)
         return h + x
+
+
+class Conv3x3(nn.Module):
+    """flax ``nn.Conv(out, (3, 3), padding=1)`` on NHWC input in f32:
+    ``weight (out, in, 3, 3)``, ``bias (out,)``; initialised as flax's
+    lecun-normal kernel (fan-in 9 in) and zero bias."""
+
+    def __init__(self, c_in: int, out: int, generator: torch.Generator):
+        super().__init__()
+        std = math.sqrt(1.0 / (9 * c_in)) / 0.87962566103423978
+        self.weight = nn.Parameter(_trunc_normal((out, c_in, 3, 3), std, generator))
+        self.bias = nn.Parameter(torch.zeros(out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x.float().permute(0, 3, 1, 2), self.weight, self.bias, padding=1)
+        return y.permute(0, 2, 3, 1)
+
+
+class ResBlock(nn.Module):
+    """blocks/module.py's ResBlock: LeakyReLU(0.1) -> 3x3 conv (channels)
+    -> LeakyReLU(0.1) -> 1x1 back to c_in, plus the input.  No variant
+    calls it."""
+
+    def __init__(self, c_in: int, channels: int, generator: torch.Generator):
+        super().__init__()
+        self.conv1 = Conv3x3(c_in, channels, generator)
+        self.conv2 = Dense(channels, c_in, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv1(F.leaky_relu(x, 0.1))
+        return self.conv2(F.leaky_relu(h, 0.1), torch.float32) + x
 
 
 class LinEncResBlock(nn.Module):

@@ -5,8 +5,9 @@ Counterpart of ``equss_tpu/models/registry.py``: ``register``,
 over ``wandb.name`` in ``_KEYWORD_ORDER``, and ``build_model``, which
 takes the port's ``device`` and ``seed`` beside the config.  ``pqgo`` and
 ``vq`` build ``EQUSS``, ``stego`` and ``sl`` build ``STEGOModel``,
-``probe`` builds ``ProbeOnlyModel``, and ``pqgocls``, ``cluster`` and
-``res`` build the ``models/variants.py`` families of those names.  The
+``probe`` builds ``ProbeOnlyModel``, and ``pqgocls``, ``cluster``,
+``res``, ``hihi`` (UnSeg), ``new`` (NewVQ) and ``spq`` build the
+``models/variants.py`` families of those names.  The
 other families of the JAX package's ``models/variants.py`` are
 registered under the same names, so that a config resolves as it does
 there, and their builders raise ``NotImplementedError`` naming the
@@ -31,7 +32,6 @@ _KEYWORD_ORDER = [
 # the models/variants.py families still to port: registered name ->
 # (JAX class, ROADMAP.md queue 1 item that ports it)
 VARIANTS = {
-    "hihi": ("UnSegModel", 3), "new": ("NewVQModel", 3), "spq": ("SPQModel", 3),
     "vae": ("VAEModel", 4), "info": ("InfoModel", 5), "contra": ("ContraModel", 6),
     "ema": ("EMAModel", 6),
 }
@@ -126,6 +126,27 @@ def _build_res(cfg, *, device=None, seed=0):
     from equss_tpu_torch.models.variants import ResModel
 
     return ResModel(cfg, device=device, seed=seed)
+
+
+@register("hihi")
+def _build_unseg(cfg, *, device=None, seed=0):
+    from equss_tpu_torch.models.variants import UnSegModel
+
+    return UnSegModel(cfg, device=device, seed=seed)
+
+
+@register("new")
+def _build_new_vq(cfg, *, device=None, seed=0):
+    from equss_tpu_torch.models.variants import NewVQModel
+
+    return NewVQModel(cfg, device=device, seed=seed)
+
+
+@register("spq")
+def _build_spq(cfg, *, device=None, seed=0):
+    from equss_tpu_torch.models.variants import SPQModel
+
+    return SPQModel(cfg, device=device, seed=seed)
 
 
 def _later_slice(name: str):

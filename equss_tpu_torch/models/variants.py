@@ -1,8 +1,8 @@
-"""Model variants of the EQUSS skeleton: the first slice.
+"""Model variants of the EQUSS skeleton: the first two slices.
 
 Counterpart of ``equss_tpu/models/variants.py``'s shared parts
 (``codebook_usage_percentiles``, the backbone plumbing, ``_EncStack`` and
-``_DecStack``) and three of its families:
+``_DecStack``) and six of its families:
 
 * ``ClusterModel`` ('cluster'): an encoder and the margin ranking between
   the correlation matrices of the image and its photometric view, with
@@ -16,20 +16,32 @@ Counterpart of ``equss_tpu/models/variants.py``'s shared parts
 * ``PQGOCLSModel`` ('pqgocls'): a student head and its EMA teacher; the
   quantizer's indices of the teacher are the pseudo-labels of a grouped
   per-subspace classifier on the student, with an MSE to the teacher and
-  the STEGO loss.
+  the STEGO loss;
+* ``UnSegModel`` ('hihi'): a linear-flavour encoder, a chain of
+  quantizers (each fed by a biasless projection after LeakyReLU, the next
+  link projecting ``concat(f, z_q)``), their outputs aggregated and
+  decoded back to the features through BatchNorm blocks;
+* ``NewVQModel`` ('new'): a module-flavour encoder, one quantizer, the
+  BatchNorm decoder back to the features and InfoNCE between the views'
+  codes; ``model.stage: 1`` trains on the ``n_kmeans`` pixels nearest
+  each k-means centroid of the batch's features (``ops/kmeans.py``);
+* ``SPQModel`` ('spq'): one Dense encoder and soft product quantization
+  (a softmax over the negated squared distances weighs the codewords),
+  JSD between the views' assignments and InfoNCE.
 
 Each is an ``nn.Module`` whose ``forward(img, img_pos, *, aug_img,
 training, generator, ...)`` returns ``feat``, ``code`` and ``aux`` (and
 ``z_q`` / ``indices`` where it quantizes), as the JAX ``apply`` does.
 What JAX keeps in ``model_state`` lives in buffers: the SwAV queue and
 counters, the EMA head, the CLUB encoder and its Adam moments, the
-quantizer's counts and the BatchNorm running averages.  A training
+quantizers' counts and the BatchNorm running averages.  A training
 forward never writes them: it returns their new values under ``state``
 (buffer name -> tensor), and the trainer copies them in only after a
 finite step.  The CLUB encoder and the EMA head are buffers, not
 parameters, so no optimizer of the model picks them up.  Random draws
-come from the caller's ``generator``; ``info_nce_idx`` and
-``stego_override`` replace them.
+come from the caller's ``generator``; ``info_nce_idx``,
+``stego_override`` and NewVQ's ``kmeans_first`` / ``kmeans_gumbel``
+replace them.
 """
 from __future__ import annotations
 
@@ -38,11 +50,12 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
 from equss_tpu_torch.device import DeviceLike, resolve_device
-from equss_tpu_torch.losses.basic import (club_loss, info_nce_draw, info_nce_loss,
+from equss_tpu_torch.losses.basic import (club_loss, info_nce_draw, info_nce_loss, jsd_loss,
                                           margin_ranking_loss)
 from equss_tpu_torch.losses.sinkhorn import cluster_loss
 from equss_tpu_torch.losses.stego import stego_loss
@@ -52,7 +65,8 @@ from equss_tpu_torch.models.heads import (BNUpdates, CLUBEncoder, DecResBlock, E
                                           ExpansionHead, LinDecResBlock, LinEncResBlock,
                                           as_state, dropout2d)
 from equss_tpu_torch.models.vit import Dense, VisionTransformer, make_vit_config
-from equss_tpu_torch.ops.quantizer import pq_forward, pq_init
+from equss_tpu_torch.ops.kmeans import kmeans
+from equss_tpu_torch.ops.quantizer import PQConfig, pq_forward, pq_init
 
 
 def codebook_usage_percentiles(count: torch.Tensor, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -489,3 +503,317 @@ class PQGOCLSModel(_Variant):
         state.update({f"ema_head.{k}": v for k, v in ema.items()})
         return {"feat": feat, "code": z_student, "z_q": z_q, "indices": pseudo, "aux": aux,
                 "state": state}
+
+
+# ------------------------------------------------------------------ hihi
+
+class _UnSegNet(nn.Module):
+    """UnSeg's trainable torso: the linear-flavour encoder ``enc``, the
+    projections ``vq_in_{i}`` into each quantizer (LeakyReLU 0.1 first;
+    biasless unless ``vq_in_bias``), ``vq_out_{i}`` from ``concat(f,
+    z_q)`` to the next link, ``agg`` over the quantized features (their
+    ``concat`` or ``sum``) and the linear-flavour BatchNorm decoder
+    ``dec`` back to ``feat_dim``."""
+
+    def __init__(self, feat_dim: int, hidden_dim: int, embed_dims: Tuple[int, ...],
+                 enc_num_blocks: int, dec_num_blocks: int, agg_type: str, last_norm: bool,
+                 vq_in_bias: bool, generator: torch.Generator):
+        super().__init__()
+        self.agg_type = agg_type
+        self.enc = _EncStack(feat_dim, hidden_dim, enc_num_blocks, "linear", generator)
+        for i, e in enumerate(embed_dims):
+            setattr(self, f"vq_in_{i}", Dense(hidden_dim, e, generator, bias=vq_in_bias))
+            if i < len(embed_dims) - 1:
+                setattr(self, f"vq_out_{i}", Dense(hidden_dim + e, hidden_dim, generator))
+        agg_in = sum(embed_dims) if agg_type == "concat" else embed_dims[0]
+        self.agg = Dense(agg_in, hidden_dim, generator)
+        self.dec = _DecStack(hidden_dim, hidden_dim, feat_dim, dec_num_blocks, last_norm,
+                             "linear", generator)
+
+    def vq_input(self, i: int, f: torch.Tensor) -> torch.Tensor:
+        return getattr(self, f"vq_in_{i}")(F.leaky_relu(f, 0.1), torch.float32)
+
+    def vq_output(self, i: int, f: torch.Tensor, z_q: torch.Tensor) -> torch.Tensor:
+        return getattr(self, f"vq_out_{i}")(torch.cat([f, z_q], -1), torch.float32)
+
+    def aggregate(self, feat_vqs) -> torch.Tensor:
+        x = torch.cat(feat_vqs, -1) if self.agg_type == "concat" else sum(feat_vqs)
+        return self.agg(x, torch.float32)
+
+
+class UnSegModel(_Variant):
+    """Encoder -> chain of quantizers -> aggregate -> BatchNorm decoder,
+    trained on the reconstruction of the frozen features (``recon-loss``)
+    and the quantizers' losses (``vq{i}-loss``, their mean ``vq-loss``).
+    Quantizer i has its own ``PQConfig`` from ``vq.num_pq[i]``,
+    ``num_codebooks[i]`` and ``embed_dims[i]``.  The quantizers route as
+    ``pq_forward`` does: the valid step takes the PQ kernel on CUDA,
+    training the plain route (``use_pallas: auto``).  ``vq_in_bias`` puts
+    a bias on the input projections (the contra family's)."""
+
+    vq_in_bias = False
+
+    def __init__(self, cfg: Dict[str, Any], *, device: DeviceLike = None, seed: int = 0):
+        generator = self._setup(cfg, device, seed)
+        m = cfg["model"]
+        vq = m["vq"]
+        self.hidden_dim = m.get("hidden_dim", self.feat_dim)
+        self.embed_dims = tuple(vq["embed_dims"])
+        self.num_vq = len(self.embed_dims)
+        num_pq = vq.get("num_pq", 1)
+        if isinstance(num_pq, int):
+            num_pq = [num_pq] * self.num_vq
+        self.pq_cfgs = [PQConfig(
+            num_pq=num_pq[i], num_codebook=vq["num_codebooks"][i],
+            embed_dim=self.embed_dims[i], vq_type=vq.get("vq_type", "param"),
+            assign_precision=vq.get("assign_precision", "exact"),
+            need_initialized=vq.get("need_initialized", "none"),
+            beta=vq.get("beta", 0.25), normalize=vq.get("normalize", "none"),
+            use_restart=vq.get("use_restart", False), use_split=vq.get("use_split", False),
+            use_gumbel=vq.get("use_gumbel", False), decay=vq.get("decay", 0.99),
+            eps=vq.get("eps", 1e-5)) for i in range(self.num_vq)]
+        self.net = _UnSegNet(self.feat_dim, self.hidden_dim, self.embed_dims,
+                             m.get("enc_num_blocks", 1), m.get("dec_num_blocks", 1),
+                             vq.get("agg_type", "concat"), m.get("last_norm", False),
+                             self.vq_in_bias, generator)
+        pq = [pq_init(generator, c) for c in self.pq_cfgs]
+        self.pq = nn.ModuleList([nn.ParameterDict(p) for p, _ in pq])
+        self.pq_state = nn.ModuleList([_Buffers(s) for _, s in pq])
+        self.to(self.device)
+
+    def output_dim(self, output_type: str) -> int:
+        """The probes' input width: ``feat`` probes ``code`` (the
+        aggregate, ``hidden_dim``; JAX's says ``feat_dim``, which only
+        works where the two are equal), ``vq{i}`` quantizer i's output."""
+        if output_type == "feat":
+            return self.hidden_dim
+        return self.embed_dims[int(output_type[2:])]
+
+    def forward(self, img: torch.Tensor, img_pos: Optional[torch.Tensor] = None, *,
+                training: bool = False, **_: Any) -> Dict[str, Any]:
+        """``feat``, ``code`` (the aggregate), ``z_q`` (the first
+        quantizer's output), ``feat_vqs`` and ``aux`` (``vq{i}-loss``,
+        ``vq{i}-usage`` in training, ``vq-loss``, ``recon-loss``).
+        Training: BatchNorm on the batch, the new quantizer and BatchNorm
+        state under ``state``.  Inference: running averages, no
+        autograd."""
+        with torch.no_grad() if not training else torch.enable_grad():
+            feat = self.features(img)
+            net = self.net
+            f = net.enc(feat)
+            aux: Dict[str, torch.Tensor] = {}
+            feat_vqs, pq_states = [], []
+            for i, c in enumerate(self.pq_cfgs):
+                fi = net.vq_input(i, f)
+                z_q, _, pq_aux, new_s = pq_forward(fi, dict(self.pq[i]),
+                                                   self.pq_state[i].as_dict(), c,
+                                                   training=training)
+                pq_states.append(new_s)
+                feat_vqs.append(z_q)
+                aux[f"vq{i}-loss"] = pq_aux["vq-loss"]
+                if "codebook-usage" in pq_aux:
+                    aux[f"vq{i}-usage"] = pq_aux["codebook-usage"]
+                if i < self.num_vq - 1:
+                    f = net.vq_output(i, f, z_q)
+            agg = net.aggregate(feat_vqs)
+            updates: BNUpdates = {}
+            recon = net.dec(agg, training, updates if training else None)
+            aux["recon-loss"] = torch.mean((recon - feat) ** 2)
+            aux["vq-loss"] = sum(aux[f"vq{i}-loss"] for i in range(self.num_vq)) / self.num_vq
+        out = {"feat": feat, "code": agg, "z_q": feat_vqs[0], "feat_vqs": feat_vqs, "aux": aux}
+        if training:
+            out["state"] = {f"pq_state.{i}.{k}": v
+                            for i, new_s in enumerate(pq_states) for k, v in new_s.items()}
+            out["state"].update(self._bn_state(updates))
+        return out
+
+
+# ------------------------------------------------------------------- new
+
+class _NewVQNet(nn.Module):
+    """NewVQ's torso: the module-flavour encoder ``enc`` to
+    ``hidden_dim`` and the module-flavour BatchNorm decoder ``dec`` back
+    to ``feat_dim``."""
+
+    def __init__(self, feat_dim: int, hidden_dim: int, enc_num_blocks: int,
+                 dec_num_blocks: int, generator: torch.Generator):
+        super().__init__()
+        self.enc = _EncStack(feat_dim, hidden_dim, enc_num_blocks, "module", generator)
+        self.dec = _DecStack(hidden_dim, hidden_dim, feat_dim, dec_num_blocks, False, "module",
+                             generator)
+
+
+class NewVQModel(_Variant):
+    """Encoder -> one quantizer -> BatchNorm decoder: ``recon-loss`` of
+    the frozen features over both views, the quantizer's ``vq-loss``, and
+    InfoNCE between the (image, view) halves of the code
+    (``info_nce-loss``).  ``model.stage: 1`` (with ``model.n_kmeans``;
+    ``eval.output_type: feat``) replaces the training forward: k-means
+    (10 Lloyd steps from k-means++ seeds, k = ``num_codebook``) over the
+    batch's feature pixels, the ``n_kmeans`` pixels nearest each centroid,
+    and the quantizer and decoder on those rows only.  The quantizer
+    routes as ``pq_forward`` does (the kernel in the valid step on CUDA,
+    the plain route in training)."""
+
+    consumes_aug = True
+
+    def __init__(self, cfg: Dict[str, Any], *, device: DeviceLike = None, seed: int = 0):
+        generator = self._setup(cfg, device, seed)
+        m = cfg["model"]
+        vq = m["vq"]
+        self.hidden_dim = vq["embed_dims"][0]
+        num_pq = vq.get("num_pq", 1)
+        if isinstance(num_pq, (list, tuple)):
+            num_pq = num_pq[0]
+        self.pq_cfg = PQConfig(
+            num_pq=num_pq, num_codebook=vq["num_codebooks"][0], embed_dim=self.hidden_dim,
+            vq_type=vq.get("vq_type", "param"),
+            assign_precision=vq.get("assign_precision", "exact"), beta=vq.get("beta", 0.25),
+            normalize=vq.get("normalize", "none"),
+            use_weighted_sum=vq.get("use_weighted_sum", False),
+            use_restart=vq.get("use_restart", False),
+            need_initialized=vq.get("need_initialized", "none"),
+            jsd_ts=(cfg["loss"].get("jsd", {}) or {}).get("temperature", 1.0))
+        self.net = _NewVQNet(self.feat_dim, self.hidden_dim, m.get("enc_num_blocks", 1),
+                             m.get("dec_num_blocks", 1), generator)
+        pq_params, pq_state = pq_init(generator, self.pq_cfg)
+        self.pq = nn.ParameterDict(pq_params)
+        self.pq_state = _Buffers(pq_state)
+        self.stage = int(m.get("stage", 0))
+        self.n_kmeans = int(m.get("n_kmeans", 100))
+        self.info_nce_kwargs = _info_nce_kwargs(cfg["loss"], 10)
+        self.to(self.device)
+
+    def output_dim(self, output_type: str) -> int:
+        """``hidden_dim``: ``feat`` probes ``code``, the encoder's output
+        (JAX's says ``feat_dim``, which only works where the two are
+        equal; stage 1 at the config's widths needs this), ``vq0`` z_q."""
+        return self.hidden_dim
+
+    def forward(self, img: torch.Tensor, img_pos: Optional[torch.Tensor] = None, *,
+                aug_img: Optional[torch.Tensor] = None, training: bool = False,
+                generator: Optional[torch.Generator] = None,
+                info_nce_idx: Optional[torch.Tensor] = None,
+                kmeans_first: Optional[torch.Tensor] = None,
+                kmeans_gumbel: Optional[torch.Tensor] = None, **_: Any) -> Dict[str, Any]:
+        """Training: one backbone pass over [img; aug_img] (img alone
+        without a view), the losses above, ``code``, ``z_q`` and
+        ``indices`` of the image half, the new quantizer and BatchNorm
+        state under ``state``.  Stage 1 takes its k-means draws from
+        ``generator`` unless ``kmeans_first`` / ``kmeans_gumbel`` give
+        them.  Inference: running averages, no autograd."""
+        with torch.no_grad() if not training else torch.enable_grad():
+            both = training and aug_img is not None
+            b = img.shape[0]
+            feat_dino = self.features(torch.cat([img, aug_img], 0) if both else img)
+            feat = self.net.enc(feat_dino)
+            if training and self.stage == 1:
+                return self._stage1(feat_dino, feat, b, generator, kmeans_first,
+                                    kmeans_gumbel)
+            z_q, idx, aux, pq_state = pq_forward(feat, dict(self.pq), self.pq_state.as_dict(),
+                                                 self.pq_cfg, training=training)
+            updates: BNUpdates = {}
+            recon = self.net.dec(z_q, training, updates if training else None)
+            aux["recon-loss"] = torch.mean((recon - feat_dino) ** 2)
+        out = {"feat": feat_dino[:b], "code": feat, "z_q": z_q, "indices": idx, "aux": aux}
+        if both:
+            aux["info_nce"] = aux["info_nce-loss"] = _info_nce(
+                feat[:b], feat[b:], self.info_nce_kwargs, info_nce_idx, generator)
+            out.update(code=feat[:b], z_q=z_q[:b], indices=idx[:b])
+        if training:
+            out["state"] = {**{f"pq_state.{k}": v for k, v in pq_state.items()},
+                            **self._bn_state(updates)}
+        return out
+
+    def _stage1(self, feat_dino: torch.Tensor, feat: torch.Tensor, b: int,
+                generator: Optional[torch.Generator], first: Optional[torch.Tensor],
+                gumbel_noise: Optional[torch.Tensor]) -> Dict[str, Any]:
+        flat_dino = feat_dino.reshape(-1, self.feat_dim)
+        with torch.no_grad():
+            cents, _ = kmeans(flat_dino, k=self.pq_cfg.num_codebook, n_iters=10,
+                              generator=generator, first=first, gumbel_noise=gumbel_noise)
+            d2 = ((flat_dino * flat_dino).sum(-1)[None, :]
+                  + (cents * cents).sum(-1)[:, None] - 2.0 * cents @ flat_dino.T)  # (K, n)
+            sel = torch.topk(-d2, self.n_kmeans, dim=-1).indices.reshape(-1)
+            del d2
+        feat_s = feat.reshape(-1, self.hidden_dim)[sel]
+        z_q_s, idx_s, aux, pq_state = pq_forward(feat_s, dict(self.pq), self.pq_state.as_dict(),
+                                                 self.pq_cfg, training=True)
+        updates: BNUpdates = {}
+        recon = self.net.dec(z_q_s, True, updates)
+        aux["recon-loss"] = torch.mean((recon - flat_dino[sel]) ** 2)
+        state = {**{f"pq_state.{k}": v for k, v in pq_state.items()}, **self._bn_state(updates)}
+        return {"feat": feat_dino[:b], "code": feat[:b], "z_q": z_q_s, "indices": idx_s,
+                "aux": aux, "state": state, "selected": sel}
+
+
+# ------------------------------------------------------------------- spq
+
+class SPQModel(_Variant):
+    """A Dense encoder and soft product quantization: one (K, M d)
+    xavier-uniform ``codebook`` split into M books; each pixel's book
+    vector takes the softmax(-d^2 tau) weighted sum of the book's
+    codewords (tau = 1).  Training with a view: ``jsd``, the JSD between
+    the halves' assignments averaged over the books, and InfoNCE between
+    the halves' codes (``info_nce-loss``).  No state."""
+
+    consumes_aug = True
+
+    def __init__(self, cfg: Dict[str, Any], *, device: DeviceLike = None, seed: int = 0):
+        generator = self._setup(cfg, device, seed)
+        vq = cfg["model"]["vq"]
+        self.hidden_dim = vq["embed_dims"][0]
+        num_pq = vq.get("num_pq", 1)
+        self.num_books = num_pq[0] if isinstance(num_pq, (list, tuple)) else num_pq
+        self.num_codebook = vq["num_codebooks"][0]
+        self.tau_q = 1.0
+        self.info_nce_kwargs = _info_nce_kwargs(cfg["loss"], 10)
+        self.enc = Dense(self.feat_dim, self.hidden_dim, generator)
+        bound = math.sqrt(6.0 / (self.num_codebook + self.hidden_dim))
+        self.codebook = nn.Parameter(
+            torch.rand((self.num_codebook, self.hidden_dim), generator=generator) * 2 * bound
+            - bound)
+        self.to(self.device)
+
+    def output_dim(self, output_type: str) -> int:
+        """``hidden_dim``: ``feat`` probes ``code``, the encoder's output
+        (JAX's says ``feat_dim``, which only works where the two are
+        equal), ``vq0`` z_q."""
+        return self.hidden_dim
+
+    def soft_quantize(self, z: torch.Tensor, codebook: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """z (..., M d) -> (z_q (..., M d), soft (n, M, K)), in f32."""
+        lead = z.shape[:-1]
+        dsub = self.hidden_dim // self.num_books
+        zb = z.reshape(-1, self.num_books, dsub).float()
+        cb = codebook.float().reshape(self.num_codebook, self.num_books, dsub).transpose(0, 1)
+        cross = torch.bmm(zb.transpose(0, 1), cb.transpose(1, 2)).transpose(0, 1)  # (n, M, K)
+        d2 = (zb * zb).sum(-1)[..., None] + (cb * cb).sum(-1)[None] - 2.0 * cross
+        soft = torch.softmax(-d2 * self.tau_q, dim=-1)
+        zq = torch.bmm(soft.transpose(0, 1), cb).transpose(0, 1)            # (n, M, dsub)
+        return zq.reshape(*lead, self.hidden_dim), soft
+
+    def forward(self, img: torch.Tensor, img_pos: Optional[torch.Tensor] = None, *,
+                aug_img: Optional[torch.Tensor] = None, training: bool = False,
+                generator: Optional[torch.Generator] = None,
+                info_nce_idx: Optional[torch.Tensor] = None, **_: Any) -> Dict[str, Any]:
+        """Training with a view: one backbone pass over [img; aug_img],
+        ``jsd`` and ``info_nce-loss``, ``code`` and ``z_q`` of the image
+        half.  Otherwise the codes of ``img`` and no loss; inference
+        without autograd."""
+        with torch.no_grad() if not training else torch.enable_grad():
+            both = training and aug_img is not None
+            b = img.shape[0]
+            feat_dino = self.features(torch.cat([img, aug_img], 0) if both else img)
+            feat = self.enc(feat_dino, torch.float32)
+            z_q, soft = self.soft_quantize(feat, self.codebook)
+            aux: Dict[str, torch.Tensor] = {}
+            if both:
+                half = soft.shape[0] // 2
+                # the batchmean JSD sums over the books: their mean is / M
+                aux["jsd"] = jsd_loss(soft[:half], soft[half:]) / self.num_books
+                aux["info_nce"] = aux["info_nce-loss"] = _info_nce(
+                    feat[:b], feat[b:], self.info_nce_kwargs, info_nce_idx, generator)
+        return {"feat": feat_dino[:b], "code": feat[:b], "z_q": z_q[:b], "aux": aux,
+                "state": {}}

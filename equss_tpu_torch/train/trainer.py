@@ -8,7 +8,8 @@ Counterpart of ``equss_tpu/train/trainer.py`` (``TrainConfig``,
 ``validate``, ``validate_crf`` and ``fit``).  The model comes from
 ``models/registry.py::build_model`` (EQUSS for ``pqgo`` and ``vq``,
 STEGO for ``stego`` and ``sl``, the probe-only model for ``probe``, the
-variants for ``pqgocls``, ``cluster`` and ``res``).  One
+variants for ``pqgocls``, ``cluster``, ``res``, ``hihi``, ``new`` and
+``spq``).  One
 step runs the model's training forward, the weighted loss, the probe
 losses, one backward, and three optimizers: the model's (its trainable
 parameters: head and codebook, none for the probe-only model; the frozen
@@ -51,6 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import re
 import time
 from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple
 
@@ -121,6 +123,9 @@ _METRIC_AUX_KEYS = ("stego-loss", "vq-loss", "codebook-usage", "codebook-sum", "
                     "entropy", "recon-loss", "info_nce-loss", "margin-loss", "swav-loss",
                     "club-loss", "club-enc-loss", "club-enc-loss-first", "mse-loss",
                     "cls-loss", "contra-loss-pos", "contra-loss-neg")
+
+
+_PER_VQ = re.compile(r"vq\d+-(loss|usage)")
 
 
 class Trainer:
@@ -271,9 +276,11 @@ class Trainer:
         return sel if self.supervised else sel.detach()
 
     _TRAIN_KEYS = ("img", "img_pos", "aug_img", "feat", "feat_pos", "label",
-                   "stego_coords1", "stego_coords2", "stego_perms", "info_nce_idx")
-    # what only a model with a photometric view (``consumes_aug``) reads
-    _VIEW_KEYS = ("aug_img", "info_nce_idx")
+                   "stego_coords1", "stego_coords2", "stego_perms", "info_nce_idx",
+                   "kmeans_first", "kmeans_gumbel")
+    # what only a model with a photometric view (``consumes_aug``) reads:
+    # the view, its InfoNCE negatives and NewVQ's stage-1 k-means draws
+    _VIEW_KEYS = ("aug_img", "info_nce_idx", "kmeans_first", "kmeans_gumbel")
 
     def _batch(self, batch: Mapping[str, Any], keys: Iterable[str] = _TRAIN_KEYS,
                aug: bool = False) -> Dict[str, Any]:
@@ -326,6 +333,8 @@ class Trainer:
         if "cluster_loss" in ev:
             metrics["cluster-loss"] = ev["cluster_loss"]
         metrics.update({k: aux[k] for k in _METRIC_AUX_KEYS if k in aux})
+        # UnSeg's per-quantizer terms
+        metrics.update({k: v for k, v in aux.items() if _PER_VQ.fullmatch(k)})
         # without trainable model parameters (the probe-only model) the
         # norm is a CPU zero: onto the device with the other metrics
         metrics["grad-norm"] = global_grad_norm(

@@ -393,10 +393,46 @@ def test_stego_export_round_trip_and_jax_predictor(tmp_path):
 @pytest.mark.parametrize("name", ["vq_cocostuff27", "stego_cocostuff27", "stego_potsdam",
                                   "stego_pascal", "cluster_baseline", "sl_cocostuff27",
                                   "pqgo_cls_cocostuff27", "cluster_margin_cocostuff27",
-                                  "cluster_swav_cocostuff27", "res_cocostuff27"])
+                                  "cluster_swav_cocostuff27", "res_cocostuff27",
+                                  "unseg_cocostuff27", "new_vq_cocostuff27", "spq_cocostuff27"])
 def test_chip_smoke_presets_are_the_yaml_configs(name):
     import chip_smoke
     from equss_tpu_torch.core.config import load_config
 
     assert chip_smoke.preset(name) == load_config(f"configs/{name}.yaml")
     assert chip_smoke.PQGO_COCOSTUFF27 == load_config("configs/pqgo_cocostuff27.yaml")
+
+
+# the PQ rows of chip_smoke.py's kernels line and the paths whose PQ
+# launches each takes (the path names chip_smoke's phases count under)
+_PQ_ROW_PATHS = {
+    "pq_assign": ["serve", "serve_fused_ln", "train_kernel", "train_stock", "valid_kernel",
+                  "valid_stock", "fit", "cli_train", "cli_eval", "cli_resume", "knn",
+                  "train_files", "export_requests", "custom_op_ab",
+                  "pqgo_cls_cocostuff27_train", "pqgo_cls_cocostuff27_valid",
+                  "stego_cocostuff27_valid", "cli_stego", "export_stego",
+                  "res_cocostuff27_valid", "spq_cocostuff27_valid"],
+    "pq_assign_exact": ["serve_exact", "pqgo_exact_train", "pqgo_exact_valid"],
+    "pq_assign_wide": ["vq_train", "vq_valid", "vq_serve", "cli_vq",
+                       "new_vq_cocostuff27_train", "new_vq_cocostuff27_valid",
+                       "new_vq_stage1_train"],
+    "pq_assign_wide_exact": ["vq_exact_valid", "vq_exact_serve", "unseg_cocostuff27_train",
+                             "unseg_cocostuff27_valid"],
+}
+
+
+def test_chip_smoke_kernels_line_counts_each_pq_body_once():
+    """``row_path``: each path's PQ launches count under one PQ row, its
+    body's (the narrow fast row no longer sums the wide and exact
+    launches); the other kernels' rows take every path."""
+    import chip_smoke
+
+    paths = [p for ps in _PQ_ROW_PATHS.values() for p in ps]
+    for row, mine in _PQ_ROW_PATHS.items():
+        assert [p for p in paths if chip_smoke.row_path(row, p)] == mine, row
+    pq_rows = [r for r in chip_smoke.KERNEL_SOURCES if r.startswith("pq_assign")]
+    assert sorted(pq_rows) == sorted(_PQ_ROW_PATHS)
+    for p in paths:
+        assert sum(chip_smoke.row_path(r, p) for r in pq_rows) == 1, p
+        assert all(chip_smoke.row_path(r, p) for r in chip_smoke.KERNEL_SOURCES
+                   if not r.startswith("pq_assign")), p

@@ -4,8 +4,9 @@
   file in ``configs/``, by ``model.name`` and by the run-name fallback
   alone; ``build_model`` builds ``EQUSS`` for ``pqgo`` and ``vq``,
   ``STEGOModel`` for ``stego`` and ``sl``, ``ProbeOnlyModel`` for
-  ``probe`` and the variants ``pqgocls``, ``cluster`` (margin and SwAV)
-  and ``res``, and raises ``NotImplementedError`` naming the ROADMAP item
+  ``probe`` and the variants ``pqgocls``, ``cluster`` (margin and SwAV),
+  ``res``, ``hihi`` (UnSeg), ``new`` (NewVQ) and ``spq``, and raises
+  ``NotImplementedError`` naming the ROADMAP item
   of the later slice for the other families of
   ``equss_tpu/models/variants.py``.
 * ``pq_config_from_dict`` gives JAX's ``PQConfig`` field for field for
@@ -131,7 +132,8 @@ def test_variant_families_raise_naming_the_later_slice(name):
 
 @pytest.mark.parametrize("name,config", [
     ("pqgocls", "pqgo_cls_cocostuff27"), ("cluster", "cluster_margin_cocostuff27"),
-    ("cluster", "cluster_swav_cocostuff27"), ("res", "res_cocostuff27")])
+    ("cluster", "cluster_swav_cocostuff27"), ("res", "res_cocostuff27"),
+    ("hihi", "unseg_cocostuff27"), ("new", "new_vq_cocostuff27"), ("spq", "spq_cocostuff27")])
 def test_variant_families_of_this_slice_build(name, config):
     """Each builds on the CPU, resolves by ``model.name`` and by a run name
     holding its keyword, and reports the probes' width the JAX model does."""
@@ -140,18 +142,27 @@ def test_variant_families_of_this_slice_build(name, config):
     cfg = _micro(config)
     assert registry.resolve_model_name(cfg) == name
     by_run_name = dict(cfg, model={k: v for k, v in cfg["model"].items() if k != "name"})
-    assert registry.resolve_model_name(by_run_name) == \
-        jregistry.resolve_model_name(by_run_name)   # pqgo_cls_* reads as pqgo in both
+    # pqgo_cls_* reads as pqgo in both; unseg_* names no keyword in either
+    assert _resolved(registry, by_run_name) == _resolved(jregistry, by_run_name)
     by_run_name["wandb"] = {"name": f"{name}_run"}
     assert registry.resolve_model_name(by_run_name) == name
     model = registry.build_model(cfg, device="cpu", seed=3)
     kind = {"pqgocls": variants.PQGOCLSModel, "cluster": variants.ClusterModel,
-            "res": variants.ResModel}[name]
+            "res": variants.ResModel, "hihi": variants.UnSegModel,
+            "new": variants.NewVQModel, "spq": variants.SPQModel}[name]
     assert type(model) is kind and model.device == torch.device("cpu")
     want = jregistry.build_model(cfg).output_dim(cfg["eval"]["output_type"])
     assert model.output_dim(cfg["eval"]["output_type"]) == want
     assert not any(n.startswith(("ema_head.", "club_enc.", "club_opt."))
                    for n, _ in model.named_parameters())
+
+
+def _resolved(reg, cfg):
+    """``reg.resolve_model_name(cfg)``, or the ValueError's first words."""
+    try:
+        return reg.resolve_model_name(cfg)
+    except ValueError as e:
+        return str(e).split(";")[0]
 
 
 def _quantizers(cfg):

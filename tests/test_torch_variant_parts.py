@@ -19,7 +19,8 @@ residual blocks.
   may take the other sector's formula, bounded by 1e-2.  The port's
   ``photometric_draws`` lie in the ranges JAX draws from.
 * The blocks: ``EncResBlock``, ``DecResBlock``, ``LinEncResBlock``,
-  ``LinDecResBlock`` and ``CLUBEncoder`` (with and without the residual)
+  ``LinDecResBlock``, ``ResBlock`` (its 3x3 conv's flax kernel mapped by
+  ``tree_from_flax``) and ``CLUBEncoder`` (with and without the residual)
   on flax weights: outputs within 1e-5; the BatchNorm blocks in training
   (batch statistics) and in eval (running averages), and the running
   statistics a training call returns against flax's mutated
@@ -225,6 +226,7 @@ BLOCKS = {
     "DecResBlock": (lambda: jh.DecResBlock(12), lambda g: th.DecResBlock(8, 12, g)),
     "DecResBlock_same": (lambda: jh.DecResBlock(8), lambda g: th.DecResBlock(8, 8, g)),
     "LinDecResBlock": (lambda: jh.LinDecResBlock(12), lambda g: th.LinDecResBlock(8, 12, g)),
+    "ResBlock": (lambda: jh.ResBlock(12), lambda g: th.ResBlock(8, 12, g)),
 }
 
 
