@@ -204,6 +204,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -283,6 +284,13 @@ _VARIANT_PQ = {"model.vq.embed_dims": [512], "model.vq.normalize": "none",
                "loss.info_nce": {"normalize": "l2", "neg_sample": 10, "temperature": 1.0,
                                  "cal_type": "random"},
                "loss.jsd": {"temperature": 1.0}, "optimizer.model.name": "adamw"}
+# the last variants slice's Info and Contra: 10 epochs of cosine
+# schedules, adamw with weight decay 2, clipping at 1, valid at b = 32
+_LONG_RUN = {"optimizer.model.name": "adamw", "optimizer.model.weight_decay": 2.0,
+             "scheduler": {"model": {"name": "cos"}, "cluster": {"name": "cos"},
+                           "linear": {"name": "cos"}},
+             "dataloader.val.batch_size": 32, "train.max_epochs": 10,
+             "train.valid_interval_iters": 100, "train.clip_grad": 1.0}
 # the baselines' configs as changes to the preset (dotted key: value; None
 # drops the key); tests/test_torch_baselines.py holds each against its
 # YAML file
@@ -350,6 +358,42 @@ PRESET_CHANGES = {
                            "loss.jsd_weight": 0.0},
     "spq_cocostuff27": {**_VARIANT_PQ, "model.name": "spq", "loss.vq_weight": None,
                         "loss.jsd_weight": 0.1},
+    "vae_cocostuff27": {
+        "model.name": "vae", "model.hidden_dim": 384, "model.vq.assign_precision": None,
+        "model.vq.num_codebooks": [1024, 1024], "model.vq.embed_dims": [256, 256],
+        "model.vq.normalize": "none", "model.vq.num_pq": 1, "loss.stego": None,
+        "loss.stego_weight": None, "loss.recon_weight": 1.0,
+        "loss.contra_weight": {"pos": 0.1, "neg": 0.001}, "optimizer.model.name": "adamw",
+        "optimizer.model.weight_decay": 2.0, "eval.output_type": "vq1"},
+    "info_cocostuff27": {
+        **_LONG_RUN, "model.name": "info", "visualize_path": "./visualize/info",
+        "model.pretrained.dropout": False,
+        "model.vq": {"vq_type": "ema", "num_codebooks": [1024, 1024], "embed_dims": [384, 384],
+                     "beta": 0.25, "normalize": "l2", "use_restart": False, "use_gumbel": True,
+                     "decay": 0.99, "eps": 1.0e-5},
+        "model.enc_num_blocks": 3, "model.dec_num_blocks": 3,
+        "loss": {"recon_weight": 1.0, "vq_weight": 100.0},
+        "dataloader.train.batch_size": 128},
+    "contra_cocostuff27": {
+        **_LONG_RUN, "model.name": "contra", "visualize_path": "./visualize/contra",
+        "model.pretrained.dropout": False,
+        "model.vq": {"vq_type": "ema", "num_codebooks": [1024, 1024], "embed_dims": [512, 512],
+                     "beta": 0.25, "normalize": "l2", "use_restart": False, "use_split": True,
+                     "use_weighted_sum": False, "use_gumbel": False,
+                     "need_initialized": "kmeans", "pq_dropout": 0.0, "decay": 0.99,
+                     "eps": 1.0e-5, "num_pq": [4, 16], "agg_type": "concat"},
+        "model.hidden_dim": 384, "model.enc_num_blocks": 1, "model.dec_num_blocks": 3,
+        "loss": {"recon_weight": 1.0, "vq_weight": 10.0,
+                 "contra_weight": {"pos": 0.1, "neg": 0.01}},
+        "dataloader.train.batch_size": 64, "train.num_accum": 2},
+    "ema_cocostuff27": {
+        "model.name": "ema", "model.vq.assign_precision": None, "model.hidden_dim": 70,
+        "model.encoder": {"momentum": 0.996, "temperature": 0.1},
+        "model.memory_bank": {"n_cluster": 27, "queue_size": 64, "num_support": 16,
+                              "enqueue_k": 4},
+        "loss": {"info_nce_weight": 0.5, "mse_weight": 1.0,
+                 "info_nce": {"temperature": 0.5, "num_queries": 16, "num_neg": 64}},
+        "eval.output_type": "feat"},
 }
 
 
@@ -443,11 +487,12 @@ def expected(per_unit: dict, units: int) -> dict:
     return {k: per_unit.get(k, 0) * units for k in launch_counts()}
 
 
-def device_profile(fn, calls: int, pick=()) -> dict:
+def device_profile(fn, calls: int, pick=(), sequence: Optional[str] = None) -> dict:
     """Device time by kernel and the device's busy share over ``calls``
     calls of ``fn`` (after two unprofiled ones), torch.profiler; the top
     kernels, and under ``picked`` every kernel whose name holds one of the
-    strings ``pick``."""
+    strings ``pick``; with ``sequence``, under ``sequence`` the (name, ms)
+    of every kernel whose name holds it, in the order they ran."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -468,11 +513,17 @@ def device_profile(fn, calls: int, pick=()) -> dict:
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:14]
     row = lambda e: {"name": e.key[:80], "ms": e.self_device_time_total / 1e3,  # noqa: E731
                      "calls": e.count, "ms_per_call": e.self_device_time_total / 1e3 / e.count}
-    return {"calls": calls, "wall_ms": 1e3 * wall, "device_ms": total / 1e3,
-            "device_busy_share": total / 1e3 / (1e3 * wall),
-            "kernel_launches": sum(e.count for e in events),
-            "top": [row(e) for e in top],
-            "picked": [row(e) for e in events if any(s in e.key for s in pick)]}
+    out = {"calls": calls, "wall_ms": 1e3 * wall, "device_ms": total / 1e3,
+           "device_busy_share": total / 1e3 / (1e3 * wall),
+           "kernel_launches": sum(e.count for e in events),
+           "top": [row(e) for e in top],
+           "picked": [row(e) for e in events if any(s in e.key for s in pick)]}
+    if sequence is not None:
+        ran = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and sequence in e.name),
+                     key=lambda e: e.time_range.start)
+        out["sequence"] = [(e.name[:80], e.time_range.elapsed_us() / 1e3) for e in ran]
+    return out
 
 
 # ---------------------------------------------------------------- phases
@@ -783,6 +834,8 @@ def phase_pq_wide(results: dict) -> None:
                 tag = f"{name}_n{n}_{'exact' if exact else 'fast'}"
                 rows.append(pq_row(tag, n, M, K, d, mode, exact, g))
     # the kernels line's wide rows: the VQ valid step's call in both modes
+    results["pq_wide_isolated"] = {((r["M"], r["K"], r["d"]), r["exact"]): r["ms"]
+                                   for r in rows if r["n"] == 8 * 40 * 40}
     results["pq_assign_wide"] = rows[0]
     results["pq_assign_wide_exact"] = rows[1]
     check(all(r["body"] == "wide" for r in rows if r["case"] != "contra_16_n12800_fast"),
@@ -1216,12 +1269,12 @@ def minimum_ties(tr, code: torch.Tensor) -> tuple:
 
 LOSS_TERMS = ("loss", "stego-loss", "vq-loss", "linear-loss", "cluster-loss", "margin-loss",
               "swav-loss", "recon-loss", "info_nce-loss", "club-loss", "club-enc-loss",
-              "mse-loss", "cls-loss")
+              "mse-loss", "cls-loss", "contra-loss-pos", "contra-loss-neg")
 
 
 def reference_step(make_trainer, batch: dict, grads: dict, what: str,
                    e2e_bar: bool = True, quantizer: bool = True,
-                   indices: bool = True) -> dict:
+                   indices: bool = True, reported: Optional[dict] = None) -> dict:
     """One training forward and backward of ``make_trainer(device)`` on the
     card and on the CPU (plain kernel versions) from the same seeded
     weights and batch; TF32 is off on the card (phase 1).  Bars: each loss
@@ -1236,17 +1289,19 @@ def reference_step(make_trainer, batch: dict, grads: dict, what: str,
     (a model whose indices are not of its ``code``: ``pqgocls``'s teacher)
     holds the end-to-end indices only; ``indices=False`` none (NewVQ's
     stage 1, whose indices are of the rows its k-means selects: their
-    order within a centroid follows each side's f32 rounding).  Returns
-    the row."""
+    order within a centroid follows each side's f32 rounding).
+    ``reported`` (name: prefix): gradients whose cosine is printed, not
+    held.  Returns the row."""
     from equss_tpu_torch.ops.quantizer import pq_forward
 
     runs = {}
+    everything = {**grads, **(reported or {})}
     for device in ("cuda", "cpu"):
         tr = make_trainer(device)
         metrics, out = tr.forward_backward(batch)
         flat = {name: torch.cat([p.grad.flatten() for n, p in tr.model_params
                                  if n.startswith(prefix)]).cpu()
-                for name, prefix in grads.items()}
+                for name, prefix in everything.items()}
         runs[device] = ({k: v.detach().item() for k, v in metrics.items()}, flat,
                         out.get("indices"), out["code"].detach().cpu(), tr)
     (m_g, g_g, idx_g, code_g, _), (m_c, g_c, idx_c, code_c, tr_c) = runs["cuda"], runs["cpu"]
@@ -1257,6 +1312,10 @@ def reference_step(make_trainer, batch: dict, grads: dict, what: str,
     check(all(v >= 0.98 for v in cos.values()), f"{what}: gradient cosines {cos}")
     row = {"batch": len(batch["img"]), "tf32": False, "loss_rel_err": rel, "grad_cosine": cos,
            "card": {k: m_g[k] for k in terms}, "cpu": {k: m_c[k] for k in terms}}
+    if reported:
+        row["grad_cosine_reported"] = {
+            k: torch.nn.functional.cosine_similarity(g_g[k], g_c[k], dim=0).item()
+            for k in reported}
     if idx_c is None or not indices:
         pass
     elif not quantizer:
@@ -1882,6 +1941,54 @@ def wide_in_path(prof: dict, n: int, exact: bool, what: str,
     return pq_in_path(prof, n, shape, exact,
                       "pq_wide_exact_kernel" if exact else "pq_wide_fast_kernel", "pq_wide",
                       what)
+
+
+def wide_launch_groups(sequence: list) -> list:
+    """The device ms of each wide-body launch in a profile's ``sequence``
+    of ``pq_wide`` kernels: a launch is the pre-pass, the distance body
+    and the gather pass, or the fused body alone."""
+    groups, open_group = [], None
+    for name, ms in sequence:
+        if "prep" in name:
+            open_group = [ms]
+            groups.append(open_group)
+        elif open_group is not None:
+            open_group.append(ms)
+            if "gather" in name:
+                open_group = None
+        else:
+            groups.append([ms])
+    return [sum(g) for g in groups]
+
+
+def wide_launches_in_path(prof: dict, launches: list, images: int, what: str,
+                          isolated: dict) -> dict:
+    """Each wide launch of a step with several (``launches``: ((M, K, d),
+    exact, rows per image) in the order they run) in a profile of
+    ``prof["calls"]`` steps: its device ms (mean over the steps), its
+    bound and share of it at its n, and its isolated time at n = 12 800
+    (``isolated``, phase ``pq_wide``) scaled to this n; the profile must
+    name the mode's body."""
+    ms = wide_launch_groups(prof.pop("sequence"))
+    check(len(ms) == len(launches) * prof["calls"],
+          f"{what}: {len(ms)} wide launches in the profile, not "
+          f"{len(launches) * prof['calls']}")
+    out = []
+    for i, (shape, exact, rows) in enumerate(launches):
+        n = images * rows
+        row = pq_in_path(prof, n, shape, exact,
+                         "pq_wide_exact_kernel" if exact else "pq_wide_fast_kernel", "pq_wide",
+                         what)
+        mine = ms[i::len(launches)]
+        row["pq_wide_ms_per_launch"] = sum(mine) / max(len(mine), 1)
+        row["pq_wide_share_of_bound"] = row["pq_wide_bound_ms"] / row["pq_wide_ms_per_launch"]
+        iso = isolated.get((shape, exact))
+        scaled = None if iso is None else iso * n / (8 * 40 * 40)
+        out.append({"shape": list(shape), "exact": exact, "n": n, **row,
+                    "isolated_n12800_ms": iso, "isolated_scaled_to_n_ms": scaled,
+                    "in_path_over_isolated_scaled": (None if not scaled else
+                                                     row["pq_wide_ms_per_launch"] / scaled)})
+    return {"wide_launches": out}
 
 
 def vq_valid_and_serve(tr, tag: str, results: dict, exact: bool = False) -> None:
@@ -2709,18 +2816,26 @@ VARIANTS = (
     ("unseg_cocostuff27", 16, 8, 12, {"enc": "net.enc.", "dec": "net.dec.", "pq": "pq."}),
     ("new_vq_cocostuff27", 16, 8, 12, {"enc": "net.enc.", "dec": "net.dec.", "pq": "pq."}),
     ("spq_cocostuff27", 16, 8, 12, {"enc": "enc.", "codebook": "codebook"}),
+    ("vae_cocostuff27", 16, 8, 12, {"enc": "net.enc_", "dec": "net.dec_", "pq": "pq."}),
+    ("info_cocostuff27", 128, 32, 12, {"enc": "net.enc.", "vq_in": "net.vq_in_",
+                                       "dec": "net.dec."}),
+    ("contra_cocostuff27", 64, 32, 12, {"enc": "net.enc.", "vq_in": "net.vq_in_",
+                                        "dec": "net.dec."}),
+    ("ema_cocostuff27", 16, 8, 24, {"head": "head.", "centroid": "centroid"}),
 )
-# the variants whose valid step launches the PQ kernel once, and (second
-# slice) the wide body it runs: config prefix -> None (pqgocls: the
-# narrow fast body) or ((M, K, d), exact)
-PQ_VALID = {"pqgo_cls": None, "unseg": ((1, 2048, 384), True),
-            "new_vq": ((8, 2048, 64), False)}
+# the variants whose valid step launches the PQ kernel: config prefix ->
+# (launches per valid step, the wide body's launches in order or None for
+# the narrow fast body (pqgocls): ((M, K, d), exact, rows per 320^2 image))
+PQ_VALID = {"pqgo_cls": (1, None), "unseg": (1, [((1, 2048, 384), True, 1600)]),
+            "new_vq": (1, [((8, 2048, 64), False, 1600)]),
+            "vae": (2, [((1, 1024, 256), True, 400), ((1, 1024, 256), True, 1600)]),
+            "contra": (2, [((4, 1024, 128), True, 1600), ((16, 1024, 32), True, 1600)])}
 
 
 def pq_valid(name: str):
-    """(launches per valid step, the wide body's (shape, exact) or None)."""
+    """(launches per valid step, the wide body's launches or None)."""
     key = next((k for k in PQ_VALID if name.startswith(k)), None)
-    return (0, None) if key is None else (1, PQ_VALID[key])
+    return (0, None) if key is None else PQ_VALID[key]
 
 
 def without_view(batches: list) -> list:
@@ -2744,14 +2859,28 @@ def phase_variants(results: dict) -> None:
         torch.cuda.reset_peak_memory_stats()
         batches = without_view(list(synthetic_batches(20 + i, 6, bs, res=224,
                                                       num_classes=27)))
+        init_row = {}
+        if getattr(m, "needs_data_init", False):
+            # the first batch's data-dependent init, as a fresh fit runs it
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.data_init(batches[0])
+            torch.cuda.synchronize()
+            init_row = {"data_init_s": time.perf_counter() - t0,
+                        "data_init_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+            torch.cuda.reset_peak_memory_stats()
+        if name.startswith("ema"):
+            check(int(m.bank_initialized) == 1 and bool((m.queue != 0).any()),
+                  f"{name}: data_init left the memory bank empty")
         before = {k: v.clone() for k, v in m.state_dict().items()
                   if not k.startswith("backbone.")}
         metrics, timing = timed_train(tr, batches, 2, {"attention_qkv": attn},
                                       f"{name}_train", results)
         row = {"phase": "variants", "config": name, "what": "train", "batch": bs, **timing,
-               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, **init_row,
                **{f"{k}_per_step": [x[k] for x in metrics]
-                  for k in LOSS_TERMS + ("club-enc-loss-first", "grad-norm") if k in metrics[0]}}
+                  for k in LOSS_TERMS + ("club-enc-loss-first", "grad-norm", "vq0-usage",
+                                         "vq1-usage") if k in metrics[0]}}
         if name.startswith("cluster_swav"):
             row["swav_it"], row["swav_queue_n"] = int(m.swav_it), int(m.swav_queue_n)
             check(row["swav_it"] == 6 and 0 < row["swav_queue_n"] <= m.queue_len
@@ -2784,6 +2913,23 @@ def phase_variants(results: dict) -> None:
             row["codebook_max_change"] = (m.codebook - before["codebook"]).abs().max().item()
             check(all(x["jsd"] >= 0 for x in metrics) and row["codebook_max_change"] > 0,
                   f"{name}: jsd negative or the codebook did not move {row}")
+        if name.startswith("vae"):
+            check(all(x["contra-loss-pos"] >= 0 for x in metrics),
+                  f"{name}: contra-loss-pos negative")
+        if name.startswith("info"):
+            check(all(np.isfinite(x[k]) for x in metrics for k in ("vq0-usage", "vq1-usage")),
+                  f"{name}: vq0-usage or vq1-usage not finite")
+        if name.startswith("ema"):
+            check(not torch.equal(m.queue, before["queue"])
+                  and not torch.equal(m.ema_head.cluster1.weight,
+                                      before["ema_head.cluster1.weight"])
+                  and int(m.bank_initialized) == 1,
+                  f"{name}: the queue or the EMA head did not move")
+        if name.startswith("contra"):
+            row["moved_params_ema_per_step"] = micro_steps_move(tr, batches[:2])
+            check(row["moved_params_ema_per_step"] == [[False, True], [True, True]],
+                  f"{name}: parameters must move on every second step, the EMA codebooks "
+                  f"on every step {row['moved_params_ema_per_step']}")
         emit(row)
         vb = valid_batches(4, vbs, seed=360 + i)
         pq_launches, wide = pq_valid(name)
@@ -2796,14 +2942,35 @@ def phase_variants(results: dict) -> None:
         emit({"phase": "profile", "what": f"{name}_train", "batch": bs, "steps": 2,
               **device_profile(lambda: tr.train_step(next(cycle)), 2, pick=KERNEL_PICK)})
         vcycle = iter(vb * 2)
-        prof = device_profile(lambda: tr.valid_step(next(vcycle)), 2, pick=KERNEL_PICK)
-        if wide is not None:
-            shape, exact = wide
-            prof.update(wide_in_path(prof, vbs * 40 * 40, exact, f"{name} valid", shape))
+        many = wide is not None and len(wide) > 1
+        prof = device_profile(lambda: tr.valid_step(next(vcycle)), 2, pick=KERNEL_PICK,
+                              sequence="pq_wide" if many else None)
+        if many:
+            prof.update(wide_launches_in_path(prof, wide, vbs, f"{name} valid",
+                                              results.get("pq_wide_isolated", {})))
+        elif wide is not None:
+            (shape, exact, rows), = wide
+            prof.update(wide_in_path(prof, vbs * rows, exact, f"{name} valid", shape))
         emit({"phase": "profile", "what": f"{name}_valid", "batch": vbs, "res": 320,
               "steps": 2, **prof})
         del tr, m
         torch.cuda.empty_cache()
+
+
+def micro_steps_move(tr, batches: list) -> list:
+    """Under ``train.num_accum`` 2 from the start of an update: for each
+    train step on ``batches``, whether any trainable parameter and whether
+    the first quantizer's EMA codebook moved."""
+    m = tr.model
+    check(tr.tx_model.mini_step == 0, "micro-step check: not at the start of an update")
+    moved = []
+    for b in batches:
+        params = {k: p.detach().clone() for k, p in tr.model_params}
+        ema = m.pq_state[0].ema_weight.clone()
+        tr.train_step(b)
+        moved.append([any(not torch.equal(p, params[k]) for k, p in tr.model_params),
+                      not torch.equal(m.pq_state[0].ema_weight, ema)])
+    return moved
 
 
 def stage1_config(n_kmeans: int) -> dict:
@@ -2858,19 +3025,96 @@ def phase_new_vq_stage1(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def variant_draws(name: str, batch: dict, rs) -> dict:
+    """``batch`` (b = 2 at 224^2, with its view) with a variant's random
+    draws fixed from ``rs``: the InfoNCE negatives, Info's Gumbel noise,
+    Contra's split noise, EMAModel's dropout keep masks and proxy
+    indices."""
+    n = 2 * 28 * 28
+    batch["info_nce_idx"] = rs.randint(0, n, (n, 10))
+    if name.startswith("info"):
+        for i in range(2):
+            u = rs.uniform(np.finfo(np.float32).tiny, 1.0, (n, 1, 1024))
+            batch[f"gumbel_{i}"] = (-np.log(-np.log(u))).astype(np.float32)
+    if name.startswith("contra"):
+        for i, m in enumerate((4, 16)):
+            batch[f"split_noise_{i}"] = rs.randn(m, 1024, 512 // m).astype(np.float32)
+    if name.startswith("ema"):
+        batch["dropout_keep"] = rs.uniform(size=(2, 2, 1, 1, 384)) < 0.9
+        batch["proxy_q_idx"] = rs.randint(0, 64, (27, 16))
+        batch["proxy_neg_idx"] = rs.randint(0, 26 * 64, (27, 16 * 64))
+    return batch
+
+
+def kmeans_draws(rs, levels) -> dict:
+    """k-means++ draws for ``data_init`` (``levels``: (M, rows, k) per
+    quantizer or bank): the first row and the Gumbel noise of each."""
+    draws = {}
+    for i, (M, rows, k) in enumerate(levels):
+        draws[f"kmeans_first_{i}"] = torch.from_numpy(rs.randint(0, rows, (M,)))
+        u = rs.uniform(np.finfo(np.float32).tiny, 1.0, (k - 1, M, rows))
+        draws[f"kmeans_gumbel_{i}"] = torch.from_numpy((-np.log(-np.log(u))).astype(np.float32))
+    return draws
+
+
+def data_init_reference(name: str, batch: dict, levels) -> dict:
+    """``data_init`` of ``preset(name)`` on the card and on the CPU from
+    the same seeded weights, batch and k-means draws, twice: on the CPU's
+    backbone features fed to both (``same_features``: what the card's
+    encoder, k-means and selection compute), and end to end, each on its
+    own backbone features (``end_to_end``: printed, not held; the bf16
+    backbone's ~1e-2 feature error, which k-means spreads to every
+    centroid).  For each tensor it sets: the share of rows (codewords,
+    centroids, queue entries; each cluster's queue as a set of rows, whose
+    order follows near-equal distances) within 1e-3 of the tensor's scale
+    of the CPU's, held at >= 90% on the same features (a pixel whose two
+    nearest centroids tie to rounding may join the other cluster on the
+    other device, which moves both), and the relative error."""
+    draws = kmeans_draws(np.random.RandomState(7), levels)
+    trainers = {device: preset_trainer(name, device, False)[1] for device in ("cuda", "cpu")}
+    imgs = {d: tr._batch(batch, keys=("img", "label"))["img"] for d, tr in trainers.items()}
+    with torch.no_grad():
+        feat = trainers["cpu"].model.features(imgs["cpu"])
+        new = {"cpu": trainers["cpu"].model.data_init(imgs["cpu"], None, **draws),
+               "end_to_end": trainers["cuda"].model.data_init(imgs["cuda"], None, **draws)}
+        card = trainers["cuda"].model
+        card.features = lambda img: feat.to(card.device)
+        new["same_features"] = card.data_init(imgs["cuda"], None, **draws)
+        del card.features
+    row = {}
+    for how in ("same_features", "end_to_end"):
+        row[how] = {}
+        for k, want in new["cpu"].items():
+            got, want = new[how][k].float().cpu(), want.float()
+            if k == "queue":
+                got, want = got.sort(1).values, want.sort(1).values
+            scale = want.abs().max().item()
+            rows = (got - want).abs().reshape(-1, want.shape[-1] if want.ndim else 1).amax(-1)
+            row[how][k] = {"rows_within_1e-3_of_scale":
+                           (rows <= 1e-3 * scale).float().mean().item(),
+                           "rel_err": ((got - want).norm() / want.norm()).item()}
+            if how == "same_features":
+                check(row[how][k]["rows_within_1e-3_of_scale"] >= 0.9,
+                      f"{name} data_init reference on the CPU's features: {k} {row[how][k]}")
+    return row
+
+
 def phase_variants_reference() -> None:
-    """One train step of each variant config at b = 2, dropout off, card
-    against CPU (``reference_step``), the view (the CPU's photometric
-    view of the batch), InfoNCE negatives and STEGO samples fixed in the
-    batch; then NewVQ's stage 1 (at ``n_kmeans`` 10: 20 480 selected rows,
-    which the CPU quantizes in seconds) with its k-means draws fixed in the
-    batch too."""
+    """One train step of each variant config at b = 2, dropout off (on for
+    EMAModel, its keep masks fixed), card against CPU
+    (``reference_step``), the view (the CPU's photometric view of the
+    batch), InfoNCE negatives, STEGO samples, the Gumbel and split noise
+    and the proxy indices fixed in the batch; then NewVQ at a codebook of
+    2 048 of the CPU's own codes per subspace, NewVQ's stage 1 (at
+    ``n_kmeans`` 10: 20 480 selected rows, which the CPU quantizes in
+    seconds) with its k-means draws fixed in the batch too, and the
+    ``data_init`` of Contra and EMAModel given the same k-means draws."""
     from equss_tpu_torch.data.synthetic import synthetic_batches
     from equss_tpu_torch.data.transforms import photometric_aug
     from equss_tpu_torch.train.trainer import Trainer
 
-    runs = [(name, grads, lambda device, name=name: preset_trainer(name, device, False)[1])
-            for name, _, _, _, grads in VARIANTS]
+    runs = [(name, grads, lambda device, name=name: preset_trainer(
+        name, device, name.startswith("ema"))[1]) for name, _, _, _, grads in VARIANTS]
     new_vq_grads = next(g for n, *_, g in VARIANTS if n == "new_vq_cocostuff27")
     runs.append(("new_vq_cocostuff27_stage1", new_vq_grads,
                  lambda device: Trainer(stage1_config(10), device=device, seed=0)))
@@ -2881,7 +3125,7 @@ def phase_variants_reference() -> None:
         batch["aug_img"] = photometric_aug(torch.Generator().manual_seed(i), img01).numpy()
         n = 2 * 28 * 28
         rs = np.random.RandomState(i)
-        batch["info_nce_idx"] = rs.randint(0, n, (n, 10))
+        variant_draws(name, batch, rs)
         if name.endswith("stage1"):     # k-means over both views' pixels, k = 2048
             batch["kmeans_first"] = rs.randint(0, 2 * n, (1,))
             u = rs.uniform(np.finfo(np.float32).tiny, 1.0, (2047, 1, 2 * n))
@@ -2894,6 +3138,52 @@ def phase_variants_reference() -> None:
                              e2e_bar=not own, quantizer=own,
                              indices=not name.endswith("stage1"))
         emit({"phase": "variants_reference", "config": name, **row})
+        if own:
+            new_vq_data_codebook_reference(make_trainer, batch, grads)
+        if name.startswith("contra"):
+            # k-means at K = 1024 over each subspace's 1 568 pixels
+            emit({"phase": "variants_reference", "config": name, "what": "data_init",
+                  **data_init_reference(name, batch, [(4, n, 1024), (16, n, 1024)])})
+        if name.startswith("ema"):
+            emit({"phase": "variants_reference", "config": name, "what": "data_init",
+                  **data_init_reference(name, batch, [(1, n, 27)])})
+
+
+def new_vq_data_codebook_reference(make_trainer, batch: dict, grads: dict) -> None:
+    """NewVQ's train reference at a codebook of 2 048 of the CPU's own
+    codes per subspace (8 x 2048 x 64, a data initialisation), copied into
+    both trainers' ``pq.codebook``: there the minima are mostly untied, so
+    the end-to-end bar (>= 95% on the untied pairs) holds most pairs;
+    ``cpu_untied_share`` says how many.  The loss terms and the encoder's
+    and decoder's gradients are held as in every reference row."""
+    tr0 = make_trainer("cpu")
+    b = tr0._batch(batch, aug=True)
+    with torch.no_grad():           # the codes of both views: 3 136 pixels
+        code = tr0.model(torch.cat([b["img"], b["aug_img"]]), training=False)["code"]
+    code = code.reshape(-1, 8, 64)
+    g = torch.Generator().manual_seed(9)
+    pick = torch.stack([torch.randperm(code.shape[0], generator=g)[:2048] for _ in range(8)])
+    data_cb = torch.stack([code[pick[m], m] for m in range(8)]).contiguous()   # (8, 2048, 64)
+    del tr0, code
+
+    def data_trainer(device):
+        tr = make_trainer(device)
+        with torch.no_grad():
+            tr.model.pq["codebook"].copy_(data_cb)
+        return tr
+
+    # the codebook's gradient is not held here: it is the sum of codeword
+    # minus code over the pixels, and the CPU's codes are its codewords, so
+    # the CPU's terms are exactly zero where the card's carry the bf16
+    # backbone's feature error (its cosine is printed)
+    held = {k: v for k, v in grads.items() if k != "pq"}
+    row = reference_step(data_trainer, batch, held,
+                         "new_vq_cocostuff27 train reference, data codebook", e2e_bar=False,
+                         reported={"pq": grads["pq"]})
+    check(row["untied_pairs"] > 0,
+          "new_vq_cocostuff27 train reference, data codebook: no untied pair")
+    emit({"phase": "variants_reference", "config": "new_vq_cocostuff27", "codebook": "data",
+          "untied_pairs_are_most": row["cpu_untied_share"] > 0.5, **row})
 
 
 KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
@@ -2911,7 +3201,8 @@ KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     # (pq_wide_fast_kernel) on the preset's bf16 assignments, exact
     # (pq_wide_exact_kernel) on the exact sub-run's; and of the variants'
     # valid steps, NewVQ's fast at 8 x 2048 x 64, UnSeg's exact at
-    # 1 x 2048 x 384
+    # 1 x 2048 x 384, the VAE's exact at 1 x 1024 x 256 (two levels) and
+    # Contra's exact at 4 x 1024 x 128 and 16 x 1024 x 32
     "pq_assign_wide": ("equss_tpu_torch/csrc/pq_assign.cu", "equss_tpu/ops/pq_pallas.py:443"),
     "pq_assign_wide_exact": ("equss_tpu_torch/csrc/pq_assign.cu",
                              "equss_tpu/ops/pq_pallas.py:443"),
@@ -2921,12 +3212,13 @@ KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
 def pq_body_row(path: str) -> str:
     """The kernels line's PQ row whose body ``path``'s PQ launches run:
     the narrow exact body on the preset's exact paths, the wide exact body
-    on the exact VQ sub-run's and UnSeg's, the wide fast body on the VQ
-    baseline's and NewVQ's, the narrow fast body (``pq_assign``) on every
-    other path (the preset's bf16 ones and ``pqgocls``'s)."""
+    on the exact VQ sub-run's, UnSeg's, the VAE's and Contra's, the wide
+    fast body on the VQ baseline's and NewVQ's, the narrow fast body
+    (``pq_assign``) on every other path (the preset's bf16 ones and
+    ``pqgocls``'s)."""
     if path.startswith(("pqgo_exact", "serve_exact")):
         return "pq_assign_exact"
-    if path.startswith(("vq_exact", "unseg")):
+    if path.startswith(("vq_exact", "unseg", "vae", "contra")):
         return "pq_assign_wide_exact"
     if path.startswith(("vq_", "cli_vq", "new_vq")):
         return "pq_assign_wide"

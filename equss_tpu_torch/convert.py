@@ -4,17 +4,18 @@
   registry model's ``init`` (numpy-valued: EQUSS's backbone, head, PQ
   parameters and quantizer state, param or EMA; STEGO's backbone and
   head; the probe-only model's backbone; the variants' encoders,
-  decoders, prototypes, classifier, SPQ's codebook and UnSeg's list of
-  quantizers, and their state: the SwAV queue and counters, the EMA
-  head, the CLUB encoder with its Adam moments and count, BatchNorm's
-  running averages, each list entry's quantizer state) onto the port model's
+  decoders, prototypes, classifier, SPQ's codebook, the VAE's convolutions,
+  EMAModel's centroids and the lists of quantizers, and their state: the
+  SwAV queue and counters, the EMA heads, the CLUB encoder with its Adam
+  moments and count, BatchNorm's running averages, EMAModel's memory bank,
+  each list entry's quantizer state) onto the port model's
   ``state_dict()`` names, and the Trainer's probe parameters onto
   ``Evaluator`` names under ``probes.``, so both packages compute with the
   same numbers.
 * ``train_state_from_jax`` turns a whole JAX train state (weights, the
-  three optax Adam states, the step) into ``Trainer.load_train_state``'s
-  format, so a run can continue in the port where the JAX package left
-  it.
+  three optax Adam states, wrapped in ``MultiSteps`` under gradient
+  accumulation, the step) into ``Trainer.load_train_state``'s format, so
+  a run can continue in the port where the JAX package left it.
 * ``load_dino_state_dict`` reads a local DINO ``.pth`` (the torch key
   names ``equss_tpu.models.vit.convert_dino_torch_state`` consumes) into
   the port's ``VisionTransformer`` names.
@@ -24,7 +25,12 @@ in)``, a flax norm's ``scale`` its ``weight``, and every other leaf keeps
 its name (and an integer leaf its dtype); a list's i-th entry takes the
 name ``i``; the flax patch conv ``(kh, kw, in, out)`` and the torch patch
 conv ``(out, in, kh, kw)`` both become the port's patch matmul ``(out,
-kh*kw*in)``, any other flax conv kernel torch's ``(out, in, kh, kw)``.
+kh*kw*in)``, any other flax conv kernel torch's ``(out, in, kh, kw)``,
+except the VAE's ``ConvTranspose2dTorch`` kernels (``TRANSPOSED_CONVS``):
+JAX keeps them as (kh, kw, out, in) applied as a correlation over the
+dilated input, which is torch's transposed convolution of the kernel
+flipped in both spatial axes, so they become ``(in, out, kh, kw)``
+flipped.
 """
 from __future__ import annotations
 
@@ -47,10 +53,15 @@ def _leaf(x: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.int32 if a.dtype.kind in "iu" else np.float32))
 
 
+# the flax modules whose 4-D kernel is a ConvTranspose2dTorch's
+TRANSPOSED_CONVS = ("dec_top_up", "upsample_t")
+
+
 def tree_from_flax(tree: Any, prefix: str) -> Dict[str, torch.Tensor]:
     """A flax subtree -> port names under ``prefix``: ``kernel`` becomes a
     transposed ``weight`` (a conv's (kh, kw, in, out) torch's (out, in,
-    kh, kw)), ``scale`` a ``weight``, the i-th entry of a list (UnSeg's
+    kh, kw); a ``TRANSPOSED_CONVS`` kernel torch's transposed-convolution
+    weight), ``scale`` a ``weight``, the i-th entry of a list (the
     quantizers) ``<prefix>i.``, other leaves keep their names."""
     if isinstance(tree, (list, tuple)):
         tree = {str(i): v for i, v in enumerate(tree)}
@@ -59,7 +70,10 @@ def tree_from_flax(tree: Any, prefix: str) -> Dict[str, torch.Tensor]:
         if isinstance(v, (Mapping, list, tuple)):
             sd.update(tree_from_flax(v, f"{prefix}{k}."))
         elif k == "kernel" and np.ndim(v) == 4:
-            sd[f"{prefix}weight"] = _t(v).permute(3, 2, 0, 1).contiguous()
+            w = _t(v).permute(3, 2, 0, 1)
+            if prefix.rstrip(".").rsplit(".", 1)[-1] in TRANSPOSED_CONVS:
+                w = w.flip(2, 3)
+            sd[f"{prefix}weight"] = w.contiguous()
         elif k == "kernel":
             sd[f"{prefix}weight"] = _t(v).T.contiguous()
         elif k == "scale":
@@ -136,8 +150,8 @@ def state_from_flax(state: Mapping[str, Any],
     head and the CLUB encoder by their names, the CLUB optimizer's Adam
     state under ``club_opt.``, the BatchNorm statistics under
     ``batch_stats_prefix`` (``dec.``: ``res``'s decoder; ``net.``: the
-    decoder inside UnSeg's and NewVQ's ``net``), and top-level arrays
-    (the SwAV queue and counters) as they are."""
+    BatchNorms inside a ``net`` torso), and top-level arrays (the SwAV
+    queue and counters, EMAModel's queue and flag) as they are."""
     sd: Dict[str, torch.Tensor] = {}
     for k, v in state.items():
         if k == "pq":
@@ -156,7 +170,8 @@ def state_from_flax(state: Mapping[str, Any],
 def batch_stats_prefix(params: Mapping[str, Any]) -> str:
     """Where a JAX model's ``batch_stats`` live in the port: inside
     ``net.`` for a model whose trainable torso is one flax module ``net``
-    (UnSeg, NewVQ), else under ``dec.`` (``res``'s decoder)."""
+    (UnSeg, Contra, NewVQ, Info), else under ``dec.`` (``res``'s
+    decoder)."""
     return "net." if "net" in params else "dec."
 
 
@@ -201,13 +216,19 @@ def _adam_state(opt_state: Any) -> Tuple[Any, int]:
 def _opt_from_jax(opt_state: Any, flat: Callable[[Any], Dict[str, torch.Tensor]]
                   ) -> Dict[str, Any]:
     """One optax Adam state -> ``Optimizer.state_dict()``: ``flat`` maps
-    a moment tree onto the port's parameter names (and layouts)."""
+    a moment tree onto the port's parameter names (and layouts).  A
+    ``MultiSteps`` state adds its ``mini_step`` and gradient mean
+    (``acc``)."""
     adam, count = _adam_state(opt_state)
     step = torch.tensor(float(np.asarray(adam.count)))
     mu, nu = flat(adam.mu), flat(adam.nu)
-    return {"count": count,
-            "state": {n: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
-                      for n in mu}}
+    out = {"count": count,
+           "state": {n: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                     for n in mu}}
+    if hasattr(opt_state, "mini_step"):
+        out.update(mini_step=int(np.asarray(opt_state.mini_step)),
+                   acc=flat(opt_state.acc_grads))
+    return out
 
 
 def train_state_from_jax(host_ts: Mapping[str, Any], cfg: Dict[str, Any]) -> Dict[str, Any]:

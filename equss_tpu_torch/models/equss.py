@@ -2,7 +2,7 @@
 
 Counterpart of ``equss_tpu/models/equss.py`` (``pq_config_from_dict``,
 ``stego_config_from_dict``, ``EQUSSConfig`` with ``from_config``, and
-``EQUSS.init/features/encode/apply``).  The model is an ``nn.Module``
+``EQUSS.init/features/encode/data_init/apply``).  The model is an ``nn.Module``
 holding the backbone, the head, the quantizer parameters (``pq.*``) and
 its state (``pq_state.*``); ``convert.params_from_jax`` maps the JAX
 package's pytrees onto the same names.  NHWC throughout: images (b, H, W,
@@ -20,7 +20,8 @@ from equss_tpu_torch.device import DeviceLike, resolve_device
 from equss_tpu_torch.losses.stego import StegoLossConfig, stego_loss
 from equss_tpu_torch.models.heads import ExpansionHead, dropout2d
 from equss_tpu_torch.models.vit import VisionTransformer, make_vit_config
-from equss_tpu_torch.ops.quantizer import PQConfig, ema_jsd_entropy, pq_forward, pq_init
+from equss_tpu_torch.ops.quantizer import (PQConfig, ema_jsd_entropy, needs_data_init,
+                                           pq_data_init, pq_forward, pq_init)
 
 
 def pq_config_from_dict(vq: Dict[str, Any]) -> PQConfig:
@@ -100,6 +101,25 @@ class EQUSSConfig:
             **backbone_settings(pre))
 
 
+def pq_data_init_named(zf: torch.Tensor, params: Dict[str, torch.Tensor],
+                       state: Dict[str, torch.Tensor], cfg: PQConfig,
+                       generator: Optional[torch.Generator], draws: Dict[str, Any], i: int,
+                       params_prefix: str, state_prefix: str):
+    """``pq_data_init`` of quantizer ``i`` of a model, its draws
+    ``kmeans_first_<i>``, ``kmeans_gumbel_<i>`` and ``rand_idx_<i>`` from
+    ``draws`` where given.  Returns (the new tensors by the model's
+    parameter and buffer names, the new params, the new state)."""
+    p, s = pq_data_init(zf, params, state, cfg, generator,
+                        first=draws.get(f"kmeans_first_{i}"),
+                        gumbel_noise=draws.get(f"kmeans_gumbel_{i}"),
+                        rand_idx=draws.get(f"rand_idx_{i}"))
+    if cfg.vq_type == "param":
+        new = {f"{params_prefix}codebook": p["codebook"]}
+    else:
+        new = {f"{state_prefix}{k}": s[k] for k in ("ema_weight", "ema_weight_avg")}
+    return new, p, s
+
+
 class _Buffers(nn.Module):
     """Named tensors that move with the model and sit in its state dict
     but are not parameters (the quantizer state)."""
@@ -152,6 +172,21 @@ class EQUSS(nn.Module):
     def encode(self, feat: torch.Tensor) -> torch.Tensor:
         """Expansion head: (b, gh, gw, C) -> (b, gh, gw, hidden_dim)."""
         return self.head(feat)
+
+    @property
+    def needs_data_init(self) -> bool:
+        return needs_data_init(self.cfg.pq)
+
+    @torch.no_grad()
+    def data_init(self, img: torch.Tensor, generator: Optional[torch.Generator] = None,
+                  **draws: Any) -> Dict[str, torch.Tensor]:
+        """The first batch's ``kmeans`` / ``rand`` codebook init on the
+        head's code of ``img`` (no dropout): the new tensors by name, for
+        the caller to copy in (``Trainer.data_init``)."""
+        code = self.encode(self.features(img))
+        zf = code.reshape(-1, self.cfg.pq.num_pq, self.cfg.pq.sub_dim)
+        return pq_data_init_named(zf, dict(self.pq), self.pq_state.as_dict(), self.cfg.pq,
+                                  generator, draws, 0, "pq.", "pq_state.")[0]
 
     def forward(self, img: Optional[torch.Tensor] = None,
                 img_pos: Optional[torch.Tensor] = None, *,

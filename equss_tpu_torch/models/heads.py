@@ -3,7 +3,8 @@
 Counterpart of ``equss_tpu/models/heads.py``: ``ExpansionHead`` (also
 ``SegmentationHead``), ``dropout2d``, the two residual block libraries
 of the reference (``EncResBlock`` / ``DecResBlock`` / ``ResBlock``, and
-the linear flavour ``LinEncResBlock`` / ``LinDecResBlock``) and
+the linear flavour ``LinEncResBlock`` / ``LinDecResBlock`` /
+``ReLUResBlock``), ``Conv2d``, ``ConvTranspose2dTorch`` and
 ``CLUBEncoder``.  NHWC: the 1x1 convolutions are Dense layers over the
 channel axis, in f32.  Parameter names are flax's, so ``convert`` maps
 weights one to one.
@@ -145,19 +146,46 @@ class DecResBlock(nn.Module):
         return h + x
 
 
-class Conv3x3(nn.Module):
-    """flax ``nn.Conv(out, (3, 3), padding=1)`` on NHWC input in f32:
-    ``weight (out, in, 3, 3)``, ``bias (out,)``; initialised as flax's
-    lecun-normal kernel (fan-in 9 in) and zero bias."""
+class Conv2d(nn.Module):
+    """flax ``nn.Conv(out, (k, k), strides=stride, padding=padding)`` on
+    NHWC input in f32: ``weight (out, in, k, k)``, ``bias (out,)``;
+    initialised as flax's lecun-normal kernel (fan-in k^2 in) and zero
+    bias."""
 
-    def __init__(self, c_in: int, out: int, generator: torch.Generator):
+    def __init__(self, c_in: int, out: int, generator: torch.Generator, k: int = 3,
+                 stride: int = 1, padding: int = 1):
         super().__init__()
-        std = math.sqrt(1.0 / (9 * c_in)) / 0.87962566103423978
-        self.weight = nn.Parameter(_trunc_normal((out, c_in, 3, 3), std, generator))
+        self.stride, self.padding = stride, padding
+        std = math.sqrt(1.0 / (k * k * c_in)) / 0.87962566103423978
+        self.weight = nn.Parameter(_trunc_normal((out, c_in, k, k), std, generator))
         self.bias = nn.Parameter(torch.zeros(out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.float().permute(0, 3, 1, 2), self.weight, self.bias, padding=1)
+        y = F.conv2d(x.float().permute(0, 3, 1, 2), self.weight, self.bias,
+                     stride=self.stride, padding=self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose2dTorch(nn.Module):
+    """torch ``nn.ConvTranspose2d(in, out, 4, stride=2, padding=1)`` on NHWC
+    input in f32, which doubles H and W: ``weight (in, out, 4, 4)``,
+    ``bias (out,)``.  The JAX module keeps its kernel as (kh, kw, out, in)
+    and applies it as a correlation over the stride-dilated input, which
+    is this transposed convolution with the kernel flipped in both spatial
+    axes: ``convert`` flips it on the way in.  Initialised as the JAX
+    module's lecun-normal kernel (fan-in 16 out) and zero bias."""
+
+    def __init__(self, c_in: int, out: int, generator: torch.Generator, k: int = 4,
+                 stride: int = 2, padding: int = 1):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        std = math.sqrt(1.0 / (k * k * out)) / 0.87962566103423978
+        self.weight = nn.Parameter(_trunc_normal((c_in, out, k, k), std, generator))
+        self.bias = nn.Parameter(torch.zeros(out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose2d(x.float().permute(0, 3, 1, 2), self.weight, self.bias,
+                               stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 1)
 
 
@@ -168,7 +196,7 @@ class ResBlock(nn.Module):
 
     def __init__(self, c_in: int, channels: int, generator: torch.Generator):
         super().__init__()
-        self.conv1 = Conv3x3(c_in, channels, generator)
+        self.conv1 = Conv2d(c_in, channels, generator)
         self.conv2 = Dense(channels, c_in, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -217,6 +245,22 @@ class LinDecResBlock(nn.Module):
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(self.norm_shortcut(x, train, updates), f32)
         return h + x
+
+
+class ReLUResBlock(nn.Module):
+    """blocks/resnet_linear.py's ResBlock (the VAE decoder's): ReLU -> 3x3
+    conv (channels) -> ReLU -> 1x1 back to c_in, plus relu(x): the
+    reference's in-place first ReLU rectifies the input it adds back."""
+
+    def __init__(self, c_in: int, channels: int, generator: torch.Generator):
+        super().__init__()
+        self.conv1 = Conv2d(c_in, channels, generator)
+        self.conv2 = Dense(channels, c_in, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        r = torch.relu(x.float())
+        h = torch.relu(self.conv1(r))
+        return self.conv2(h, torch.float32) + r
 
 
 class CLUBEncoder(nn.Module):

@@ -6,12 +6,11 @@ over ``wandb.name`` in ``_KEYWORD_ORDER``, and ``build_model``, which
 takes the port's ``device`` and ``seed`` beside the config.  ``pqgo`` and
 ``vq`` build ``EQUSS``, ``stego`` and ``sl`` build ``STEGOModel``,
 ``probe`` builds ``ProbeOnlyModel``, and ``pqgocls``, ``cluster``,
-``res``, ``hihi`` (UnSeg), ``new`` (NewVQ) and ``spq`` build the
-``models/variants.py`` families of those names.  The
-other families of the JAX package's ``models/variants.py`` are
-registered under the same names, so that a config resolves as it does
-there, and their builders raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them.
+``res``, ``hihi`` (UnSeg), ``new`` (NewVQ), ``spq``, ``vae``, ``info``,
+``contra`` and ``ema`` build the ``models/variants.py`` families of those
+names.  ``VARIANTS`` lists the families of the JAX package still to port
+(registered name -> (JAX class, ROADMAP.md queue 1 item)); it is empty:
+every family of ``equss_tpu/models/variants.py`` is ported.
 """
 from __future__ import annotations
 
@@ -31,10 +30,7 @@ _KEYWORD_ORDER = [
 
 # the models/variants.py families still to port: registered name ->
 # (JAX class, ROADMAP.md queue 1 item that ports it)
-VARIANTS = {
-    "vae": ("VAEModel", 4), "info": ("InfoModel", 5), "contra": ("ContraModel", 6),
-    "ema": ("EMAModel", 6),
-}
+VARIANTS: Dict[str, Any] = {}
 
 
 def register(name: str):
@@ -149,15 +145,30 @@ def _build_spq(cfg, *, device=None, seed=0):
     return SPQModel(cfg, device=device, seed=seed)
 
 
-def _later_slice(name: str):
-    cls, item = VARIANTS[name]
+@register("vae")
+def _build_vae(cfg, *, device=None, seed=0):
+    from equss_tpu_torch.models.variants import VAEModel
 
-    def build(cfg, *, device=None, seed=0):
-        raise NotImplementedError(
-            f"model '{name}' ({cls} of equss_tpu/models/variants.py) belongs to a later "
-            f"slice of the port (ROADMAP.md, queue 1, item {item})")
-    return build
+    return VAEModel(cfg, device=device, seed=seed)
 
 
-for _name in VARIANTS:
-    register(_name)(_later_slice(_name))
+@register("info")
+def _build_info(cfg, *, device=None, seed=0):
+    from equss_tpu_torch.models.variants import InfoModel
+
+    return InfoModel(cfg, device=device, seed=seed)
+
+
+@register("contra")
+def _build_contra(cfg, *, device=None, seed=0):
+    from equss_tpu_torch.models.variants import ContraModel
+
+    return ContraModel(cfg, device=device, seed=seed)
+
+
+@register("ema")
+def _build_ema(cfg, *, device=None, seed=0):
+    from equss_tpu_torch.models.variants import EMAModel
+
+    return EMAModel(cfg, device=device, seed=seed)
+

@@ -31,10 +31,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from equss_tpu_torch.ops.kmeans import gumbel, kmeans
 from equss_tpu_torch.ops.pq_assign import kernel_domain_error, normalize_vectors, pq_assign
 
 
@@ -54,7 +55,7 @@ class PQConfig:
     use_gumbel: bool = False
     use_restart: bool = False
     use_split: bool = False
-    need_initialized: str = "none"   # none | uni | normal here
+    need_initialized: str = "none"   # none | kmeans | uni | normal | rand
     pq_dropout: float = 0.0
     decay: float = 0.99              # EMA decay
     eps: float = 1.0e-5              # Laplace smoothing eps
@@ -81,12 +82,11 @@ class PQConfig:
 def pq_init(generator: torch.Generator, cfg: PQConfig
             ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(params, state) with the JAX package's init distributions: default
-    uniform(-1/K, 1/K); ``uni`` xavier-uniform; ``normal`` N(0, 2/(K+d)).
-    The numbers are drawn on the CPU from ``generator``."""
+    uniform(-1/K, 1/K); ``uni`` xavier-uniform; ``normal`` N(0, 2/(K+d));
+    ``kmeans`` and ``rand`` the default until ``pq_data_init`` overwrites
+    it on the first training batch.  The numbers are drawn on the CPU from
+    ``generator``."""
     M, K, d = cfg.num_pq, cfg.num_codebook, cfg.sub_dim
-    if cfg.need_initialized in ("kmeans", "rand"):
-        raise NotImplementedError(
-            "data-dependent codebook init belongs to the training slice")
     if cfg.need_initialized == "uni":
         bound = math.sqrt(6.0 / (K + d))
         weight = torch.rand((M, K, d), generator=generator) * 2 * bound - bound
@@ -107,6 +107,47 @@ def pq_init(generator: torch.Generator, cfg: PQConfig
     if cfg.normalize == "z_trainable":
         params["z_mean"] = torch.zeros((M, d))
         params["z_log_var"] = torch.zeros((M, d))
+    return params, state
+
+
+def needs_data_init(cfg: PQConfig) -> bool:
+    """Whether the quantizer's codebook is initialised from data."""
+    return cfg.need_initialized in ("kmeans", "rand")
+
+
+def pq_data_init(zf: torch.Tensor, params: Dict[str, torch.Tensor],
+                 state: Dict[str, torch.Tensor], cfg: PQConfig,
+                 generator: Optional[torch.Generator] = None, *,
+                 first: Optional[torch.Tensor] = None,
+                 gumbel_noise: Optional[torch.Tensor] = None,
+                 rand_idx: Optional[torch.Tensor] = None
+                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The data-dependent codebook init of the first training batch: zf
+    (n, M, d) the quantizer's raw input.  ``kmeans``: per subspace, 25
+    Lloyd steps from k-means++ seeds (``ops/kmeans.py``; its draws
+    ``first`` (M,) and ``gumbel_noise`` (K - 1, M, n)); ``rand``: the rows
+    ``rand_idx`` (M, K), each in [0, n).  Either overwrites the codebook (a
+    param one) or ``ema_weight`` and ``ema_weight_avg``; the counts stay
+    zero.  Other modes return the inputs.  New dicts; the inputs are not
+    modified."""
+    if not needs_data_init(cfg):
+        return params, state
+    M, K, d = cfg.num_pq, cfg.num_codebook, cfg.sub_dim
+    zm = zf.detach().reshape(-1, M, d).float().transpose(0, 1)        # (M, n, d)
+    if cfg.need_initialized == "kmeans":
+        weight, _ = kmeans(zm, k=K, n_iters=25, generator=generator, first=first,
+                           gumbel_noise=gumbel_noise)
+    else:
+        if rand_idx is None:
+            rand_idx = torch.randint(0, zm.shape[1], (M, K), generator=generator,
+                                     device=zm.device)
+        weight = torch.gather(zm, 1, rand_idx.to(zm.device).long()[..., None].expand(M, K, d))
+    params, state = dict(params), dict(state)
+    if cfg.vq_type == "param":
+        params["codebook"] = weight.contiguous()
+    else:
+        state["ema_weight"] = weight.contiguous()
+        state["ema_weight_avg"] = weight.clone()
     return params, state
 
 
@@ -210,6 +251,33 @@ def ema_codebook_update(state: Dict[str, torch.Tensor], count: torch.Tensor,
                 ema_weight=ema_weight_avg / smoothed[..., None])
 
 
+def split_codes(codebook: torch.Tensor, total_count: torch.Tensor,
+                current_count: torch.Tensor, noise: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split of the most used codewords into the dead ones (count 0 in
+    this batch): per subspace the j-th dead slot copies the j-th most used
+    entry by ``total_count`` plus ``0.02 noise`` (noise (M, K, d) standard
+    normal), the source loses the same noise, and both take half of the
+    source's count.  Returns (codebook, counts).  The usage order is a
+    stable sort, so entries of equal count (the slots dead from the start
+    tie at 0) keep their index order, as ``jnp.argsort`` does."""
+    M, K, d = codebook.shape
+    noise = 0.02 * noise.to(codebook.device, codebook.dtype)
+    dead = current_count == 0                                          # (M, K)
+    dead_rank = torch.cumsum(dead.long(), -1) - 1
+    order = torch.argsort(-total_count, dim=-1, stable=True)           # by descending use
+    src = torch.gather(order, -1, dead_rank.clamp(0, K - 1))
+    src_weight = torch.gather(codebook, 1, src[..., None].expand(M, K, d))
+    src_count = torch.gather(total_count, -1, src)
+    new_codebook = torch.where(dead[..., None], src_weight + noise, codebook)
+    n_dead = dead.sum(-1, keepdim=True)
+    is_src = torch.argsort(order, dim=-1) < n_dead                     # usage rank < dead
+    new_count = torch.where(dead, src_count / 2.0, total_count)
+    new_count = torch.where(is_src, new_count / 2.0, new_count)
+    new_codebook = torch.where(is_src[..., None], new_codebook - noise, new_codebook)
+    return new_codebook, new_count
+
+
 def ema_jsd_entropy(prob_a: torch.Tensor, prob_b: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """JSD and negative-entropy telemetry between two chunks of distance
@@ -244,9 +312,7 @@ def _train_route_ok(cfg: PQConfig) -> bool:
 def _check_training_supported(cfg: PQConfig) -> None:
     later = [name for name, on in (
         ("use_restart", cfg.use_restart),
-        ("use_split", cfg.use_split),
         ("pq_dropout", cfg.pq_dropout > 0.0),
-        ("use_gumbel", cfg.use_gumbel),
         ("use_weighted_sum", cfg.use_weighted_sum)) if on]
     if later:
         raise NotImplementedError(
@@ -255,11 +321,12 @@ def _check_training_supported(cfg: PQConfig) -> None:
 
 
 def _kernel_eligible(cfg: PQConfig, n: int, device: torch.device,
-                     training: bool = False) -> bool:
+                     training: bool = False, want_prob: Optional[bool] = None) -> bool:
     """The JAX package's eligibility predicate (quantizer.py:496-543)
     with the TPU backend test read as CUDA; the shape rule is
-    ``_kernel_shape_ok``.  EMA training wants the distance softmax
-    (``want_prob_eff``), so it never takes the kernel, as in JAX."""
+    ``_kernel_shape_ok``.  A call that wants the distance softmax
+    (``_want_prob``: EMA training by default) never takes the kernel, nor
+    does ``use_gumbel``, as in JAX."""
     if cfg.use_pallas == "auto":
         if device.type == "cuda":
             want = True
@@ -277,16 +344,19 @@ def _kernel_eligible(cfg: PQConfig, n: int, device: torch.device,
         want = bool(cfg.use_pallas)
     return (want
             and (not training or _train_route_ok(cfg))
-            and not _want_prob(cfg, training)
+            and not _want_prob(cfg, training, want_prob)
             and not cfg.use_weighted_sum
             and not cfg.use_gumbel
             and cfg.pq_dropout == 0.0
             and _kernel_shape_ok(cfg, device))
 
 
-def _want_prob(cfg: PQConfig, training: bool) -> bool:
-    """``want_prob_eff``: the (n, M, K) distance softmax is computed."""
-    return cfg.use_weighted_sum or (training and cfg.vq_type == "ema")
+def _want_prob(cfg: PQConfig, training: bool, want_prob: Optional[bool] = None) -> bool:
+    """``want_prob_eff``: the (n, M, K) distance softmax is computed; by
+    default in EMA training, else where the caller asks."""
+    if want_prob is None:
+        return cfg.use_weighted_sum or (training and cfg.vq_type == "ema")
+    return want_prob or cfg.use_weighted_sum
 
 
 def _kernel_shape_ok(cfg: PQConfig, device: torch.device) -> bool:
@@ -316,6 +386,10 @@ def pq_forward(
     cfg: PQConfig,
     *,
     training: bool = False,
+    want_prob: Optional[bool] = None,
+    generator: Optional[torch.Generator] = None,
+    gumbel_noise: Optional[torch.Tensor] = None,
+    split_noise: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Quantize (..., D) features in all M subspaces.
 
@@ -325,10 +399,16 @@ def pq_forward(
     in training, the usage telemetry of this batch (``codebook-usage``,
     ``current-p10/50/90``).  In training ``new_state["vq_count"]`` adds
     this batch's counts, and an EMA codebook's state (``ema_count``,
-    ``ema_weight_avg``, ``ema_weight``) takes this batch's update; EMA
-    training also returns ``aux["distance_prob"]`` (..., M, K), the
-    softmax of the negated distances over ``jsd_ts``.  z_q comes from the
-    codebook before the update.  The caller's ``state`` is not modified."""
+    ``ema_weight_avg``, ``ema_weight``) takes this batch's update, then
+    with ``use_split`` the split of its most used codewords into the dead
+    ones (``split_noise`` (M, K, d) standard normal, drawn from
+    ``generator`` unless given).  ``want_prob`` (default: EMA training)
+    adds ``aux["distance_prob"]`` (..., M, K), the softmax of the negated
+    distances over ``jsd_ts``.  With ``use_gumbel`` in training the
+    indices are the argmax of ``gumbel_noise - dist`` (gumbel_noise (n, M,
+    K), drawn from ``generator`` unless given) and z_q their raw
+    codewords.  z_q comes from the codebook before the update.  The
+    caller's ``state`` is not modified."""
     if training:
         _check_training_supported(cfg)
     if cfg.use_weighted_sum:
@@ -351,9 +431,10 @@ def pq_forward(
         codebook_norm = normalize_vectors(codebook, cfg.normalize)
 
     exact = cfg.assign_precision != "bf16"
-    want_prob = _want_prob(cfg, training)
+    want_prob = _want_prob(cfg, training, want_prob)
+    gumbel_pick = cfg.use_gumbel and training
     distance_prob = None
-    if _kernel_eligible(cfg, n, zf.device, training):
+    if _kernel_eligible(cfg, n, zf.device, training, want_prob):
         if training:
             indices, z_norm, z_q = AssignSTE.apply(
                 zf, codebook, codebook_norm, cfg.normalize, exact)
@@ -367,14 +448,24 @@ def pq_forward(
         # of the argmin alone need none
         with contextlib.nullcontext() if want_prob else torch.no_grad():
             dist = pairwise_sqdist(z_norm, codebook_norm, precision=cfg.assign_precision)
-            indices = dist.detach().argmin(-1).to(torch.int32)
             if want_prob:
                 distance_prob = torch.softmax(-dist.float() / cfg.jsd_ts, dim=-1)
+            if gumbel_pick:
+                if gumbel_noise is None:
+                    if generator is None:
+                        raise ValueError("use_gumbel requires a generator or gumbel_noise")
+                    gumbel_noise = gumbel(generator, dist.shape, dist.device)
+                indices = (gumbel_noise.to(dist.device) - dist.detach().float()
+                           ).argmax(-1).to(torch.int32)
+            else:
+                indices = dist.detach().argmin(-1).to(torch.int32)
             del dist
         # bf16: the codeword rounds to bf16; its gradient is the f32
         # scatter-add, rounded to bf16 on its way back through the cast,
-        # as XLA differentiates the one-hot einsum of bf16 operands
-        source = codebook.to(torch.bfloat16).float() if not exact else codebook.float()
+        # as XLA differentiates the one-hot einsum of bf16 operands.  The
+        # Gumbel pick gathers the raw codeword in either precision
+        source = (codebook.to(torch.bfloat16).float() if not exact and not gumbel_pick
+                  else codebook.float())
         z_q = _gather_codewords(source, indices)
 
     aux: Dict[str, torch.Tensor] = {}
@@ -403,6 +494,14 @@ def pq_forward(
                     0, flat, zf.reshape(-1, d))
                 new_state = ema_codebook_update(new_state, count,
                                                 vec_sum.reshape(M, K, d), cfg)
+                if cfg.use_split:
+                    if split_noise is None:
+                        if generator is None:
+                            raise ValueError("use_split requires a generator or split_noise")
+                        split_noise = torch.randn((M, K, d), generator=generator,
+                                                  device=zf.device)
+                    new_state["ema_weight"], new_state["ema_count"] = split_codes(
+                        new_state["ema_weight"], new_state["ema_count"], count, split_noise)
     if distance_prob is not None:
         aux["distance_prob"] = distance_prob.reshape(*lead_shape, M, K)
     z_q = z_norm + (z_q - z_norm).detach()          # the straight-through value

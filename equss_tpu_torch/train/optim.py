@@ -15,8 +15,12 @@ Counterpart of ``equss_tpu/train/optim.py``, which builds optax chains:
 
 The update rules are ``torch.optim``'s Adam, AdamW and SGD, the same
 formulas as optax's adam (eps outside the square root), adamw and sgd
-(trace momentum).  Gradient accumulation (``num_accum > 1``) belongs to a
-later slice and raises.
+(trace momentum).  Gradient accumulation (``num_accum`` k > 1) is optax's
+``MultiSteps(chain(clip, core), every_k_schedule=k)``: each ``step`` is a
+micro-step that folds the gradients into their running mean (``acc +
+(g - acc) / (mini_step + 1)``, optax's form) and leaves the parameters as
+they are, and every k-th clips the mean and updates with it; the schedule
+counts updates.
 """
 from __future__ import annotations
 
@@ -71,12 +75,15 @@ class Optimizer:
                  sched_cfg: Optional[Dict[str, Any]] = None, *,
                  iter_per_epoch: int = 1, max_epochs: int = 1,
                  num_accum: int = 1, clip_grad: Optional[float] = None):
-        if num_accum > 1:
-            raise NotImplementedError(
-                "gradient accumulation belongs to a later slice of the port")
         named = list(named_params)
         self.params: List[torch.nn.Parameter] = [p for _, p in named]
         self._names = {id(p): n for n, p in named}
+        self._named = named
+        self.num_accum = max(int(num_accum), 1)
+        # MultiSteps' micro-step within the update and its gradient mean
+        self.mini_step = 0
+        self.acc: Dict[str, torch.Tensor] = (
+            {n: torch.zeros_like(p) for n, p in named} if self.num_accum > 1 else {})
         self.schedule = build_schedule(sched_cfg or {}, opt_cfg["lr"],
                                        iter_per_epoch, max_epochs, num_accum)
         self.clip_grad = clip_grad if clip_grad is not None and clip_grad > 0 else None
@@ -113,7 +120,23 @@ class Optimizer:
         """Clip (if configured), set the scheduled rate, update.  ``norm``
         is the global gradient norm of this optimizer's parameters where
         the caller has it already.  The clip is a select on the device, as
-        optax's, so the step reads nothing back to the host."""
+        optax's, so the step reads nothing back to the host.  With
+        ``num_accum`` > 1 a micro-step: the gradients join their mean, and
+        only the last micro-step of an update clips that mean and applies
+        it (an absent gradient counts as zero, as in optax)."""
+        if self.num_accum > 1:
+            m = self.mini_step
+            for n, p in self._named:
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                self.acc[n] = self.acc[n] + (g - self.acc[n]) / (m + 1)
+            if m < self.num_accum - 1:
+                self.mini_step = m + 1
+                return
+            for n, p in self._named:
+                p.grad = self.acc[n]
+                self.acc[n] = torch.zeros_like(p)
+            self.mini_step = 0
+            norm = None                 # the mean's norm, not the micro-step's
         if self.clip_grad is not None:
             if norm is None:
                 norm = global_grad_norm(self.params)
@@ -137,13 +160,17 @@ class Optimizer:
 
     def state_dict(self) -> Dict[str, Any]:
         """``count`` (the schedule position: updates made) and ``state``,
-        each parameter's moments (and Adam's ``step``) by parameter name."""
-        if self.opt is None:
-            return {"count": self.count, "state": {}}
-        names = self._index_names()
-        inner = self.opt.state_dict()["state"]
-        return {"count": self.count,
-                "state": {names[i]: dict(s) for i, s in inner.items()}}
+        each parameter's moments (and Adam's ``step``) by parameter name;
+        with ``num_accum`` > 1 also ``mini_step`` and ``acc``, the
+        gradient mean by parameter name."""
+        out: Dict[str, Any] = {"count": self.count, "state": {}}
+        if self.num_accum > 1:
+            out.update(mini_step=self.mini_step, acc=dict(self.acc))
+        if self.opt is not None:
+            names = self._index_names()
+            inner = self.opt.state_dict()["state"]
+            out["state"] = {names[i]: dict(s) for i, s in inner.items()}
+        return out
 
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
         """Load what ``state_dict`` gave, on any device: torch moves each
@@ -153,6 +180,11 @@ class Optimizer:
         if unknown:
             raise KeyError(f"optimizer state for unknown parameters {unknown}")
         self.count = int(sd["count"])
+        if self.num_accum > 1:
+            self.mini_step = int(sd["mini_step"])
+            params = dict(self._named)
+            self.acc = {n: t.to(params[n].device, params[n].dtype).clone()
+                        for n, t in sd["acc"].items()}
         if self.opt is None:
             return
         full = self.opt.state_dict()

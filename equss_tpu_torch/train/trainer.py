@@ -8,8 +8,7 @@ Counterpart of ``equss_tpu/train/trainer.py`` (``TrainConfig``,
 ``validate``, ``validate_crf`` and ``fit``).  The model comes from
 ``models/registry.py::build_model`` (EQUSS for ``pqgo`` and ``vq``,
 STEGO for ``stego`` and ``sl``, the probe-only model for ``probe``, the
-variants for ``pqgocls``, ``cluster``, ``res``, ``hihi``, ``new`` and
-``spq``).  One
+variants of ``models/variants.py``).  One
 step runs the model's training forward, the weighted loss, the probe
 losses, one backward, and three optimizers: the model's (its trainable
 parameters: head and codebook, none for the probe-only model; the frozen
@@ -45,8 +44,17 @@ same after refining each probe's log-probabilities with the dense CRF
 ``fit`` is the epoch loop: print-interval logging, the non-finite
 streak, periodic validation, the best result keyed on ``Cluster_mIoU``
 with a checkpoint on each new best, and an exact resume from the middle
-of an epoch.  Data-dependent codebook init and the prediction dumps of
-``visualize_to`` belong to later slices of the port.
+of an epoch.  A model whose state is initialised from data
+(``needs_data_init``: a ``kmeans`` or ``rand`` codebook, EMAModel's memory
+bank) gets its ``data_init`` on the first batch of a fresh ``fit``, before
+the first step; a resumed run and ``train_step`` alone do not call it.
+
+With ``train.num_accum`` k > 1 each step is a micro-step of optax's
+``MultiSteps``: the three optimizers average k micro-steps' gradients and
+update on the k-th (``train/optim.py``), while the model state commits
+after every finite micro-step, as in JAX; a skipped micro-step leaves the
+gradient mean and the micro-step count as they were.  The prediction
+dumps of ``visualize_to`` belong to a later slice of the port.
 """
 from __future__ import annotations
 
@@ -167,6 +175,11 @@ class Trainer:
         self.loss_weights = {aux_key: float(cfg["loss"][wkey])
                              for wkey, aux_key in LOSS_WEIGHT_MAP.items()
                              if float(cfg["loss"].get(wkey, 0.0) or 0.0) > 0.0}
+        # the nested weights of the contrast variants (vae, contra)
+        contra = cfg["loss"].get("contra_weight", {}) or {}
+        for part in ("pos", "neg"):
+            if float(contra.get(part, 0.0) or 0.0) > 0.0:
+                self.loss_weights[f"contra-loss-{part}"] = float(contra[part])
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         aug_cfg = cfg.get("train", {}).get("photometric_aug", True)
         self.apply_aug = bool(getattr(self.model, "consumes_aug", False)) and aug_cfg is not False
@@ -275,9 +288,14 @@ class Trainer:
             sel = out["code"]
         return sel if self.supervised else sel.detach()
 
+    # a model's random draws that a batch may fix: the quantizers' Gumbel
+    # and split noise (``<name>_<quantizer>``), EMAModel's dropout keep
+    # masks and proxy-loss indices
+    _DRAW_KEYS = ("gumbel_0", "gumbel_1", "split_noise_0", "split_noise_1", "dropout_keep",
+                  "proxy_q_idx", "proxy_neg_idx")
     _TRAIN_KEYS = ("img", "img_pos", "aug_img", "feat", "feat_pos", "label",
                    "stego_coords1", "stego_coords2", "stego_perms", "info_nce_idx",
-                   "kmeans_first", "kmeans_gumbel")
+                   "kmeans_first", "kmeans_gumbel") + _DRAW_KEYS
     # what only a model with a photometric view (``consumes_aug``) reads:
     # the view, its InfoNCE negatives and NewVQ's stage-1 k-means draws
     _VIEW_KEYS = ("aug_img", "info_nce_idx", "kmeans_first", "kmeans_gumbel")
@@ -320,6 +338,7 @@ class Trainer:
         if "stego_coords1" in b:
             override = (b["stego_coords1"], b["stego_coords2"], b["stego_perms"])
         view = {k: b.get(k) for k in self._VIEW_KEYS} if consumes else {}
+        view.update({k: b[k] for k in self._DRAW_KEYS if k in b})
         out = self.model(b.get("img"), b.get("img_pos"), feat=b.get("feat"),
                          feat_pos=b.get("feat_pos"), training=True,
                          generator=self.generator, stego_override=override, **view)
@@ -363,6 +382,18 @@ class Trainer:
                 for name, t in out.get("state", {}).items():
                     buffers[name].copy_(t)
         return result
+
+    def data_init(self, batch: Mapping[str, Any]) -> None:
+        """The model's data-dependent init (``model.data_init``) on the
+        images of a host batch, its draws from the trainer's generator;
+        the new values are copied into the model's parameters and
+        buffers."""
+        b = self._batch(batch, keys=("img", "label"))
+        with torch.no_grad():
+            new = self.model.data_init(b["img"], self.generator)
+            tensors = self.model.state_dict(keep_vars=True)
+            for name, t in new.items():
+                tensors[name].data.copy_(t)
 
     # -------------------------------------------------------- validation
     def valid_step(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -512,8 +543,10 @@ class Trainer:
         Without ``state`` the run is fresh: from the trainer's current
         weights and optimizers, with ``self.step`` reset to 0, so a
         checkpoint's step is its place in this run (the optimizers' counts
-        carry any earlier ``train_step``).  ``state`` (a ``train_state()``,
-        as a checkpoint restores it) resumes: it is loaded, and the run
+        carry any earlier ``train_step``), and a model that
+        ``needs_data_init`` takes its ``data_init`` on the first batch.
+        ``state`` (a ``train_state()``, as a checkpoint restores it)
+        resumes: it is loaded, and the run
         continues at its step, in epoch ``step // iter_per_epoch``, after
         skipping the epoch's first ``step % iter_per_epoch`` batches; an
         epoch's batches are a function of the epoch alone, so no batch is
@@ -547,6 +580,8 @@ class Trainer:
 
         it = self.step
         start_epoch, skip_batches = divmod(it, self.iter_per_epoch)
+        pending_data_init = state is None and bool(getattr(self.model, "needs_data_init",
+                                                           False))
         nonfinite_streak = 0
         for epoch in range(start_epoch, tc.max_epochs):
             t0 = time.time()
@@ -554,6 +589,9 @@ class Trainer:
             if epoch == start_epoch and skip_batches:
                 epoch_iter = itertools.islice(epoch_iter, skip_batches, None)
             for batch in epoch_iter:
+                if pending_data_init:
+                    self.data_init(batch)
+                    pending_data_init = False
                 metrics = self.train_step(batch)
                 it += 1
                 if it % tc.print_interval_iters == 0:

@@ -394,7 +394,9 @@ def test_stego_export_round_trip_and_jax_predictor(tmp_path):
                                   "stego_pascal", "cluster_baseline", "sl_cocostuff27",
                                   "pqgo_cls_cocostuff27", "cluster_margin_cocostuff27",
                                   "cluster_swav_cocostuff27", "res_cocostuff27",
-                                  "unseg_cocostuff27", "new_vq_cocostuff27", "spq_cocostuff27"])
+                                  "unseg_cocostuff27", "new_vq_cocostuff27", "spq_cocostuff27",
+                                  "vae_cocostuff27", "info_cocostuff27", "contra_cocostuff27",
+                                  "ema_cocostuff27"])
 def test_chip_smoke_presets_are_the_yaml_configs(name):
     import chip_smoke
     from equss_tpu_torch.core.config import load_config
@@ -411,13 +413,16 @@ _PQ_ROW_PATHS = {
                   "train_files", "export_requests", "custom_op_ab",
                   "pqgo_cls_cocostuff27_train", "pqgo_cls_cocostuff27_valid",
                   "stego_cocostuff27_valid", "cli_stego", "export_stego",
-                  "res_cocostuff27_valid", "spq_cocostuff27_valid"],
+                  "res_cocostuff27_valid", "spq_cocostuff27_valid", "info_cocostuff27_valid",
+                  "ema_cocostuff27_valid"],
     "pq_assign_exact": ["serve_exact", "pqgo_exact_train", "pqgo_exact_valid"],
     "pq_assign_wide": ["vq_train", "vq_valid", "vq_serve", "cli_vq",
                        "new_vq_cocostuff27_train", "new_vq_cocostuff27_valid",
                        "new_vq_stage1_train"],
     "pq_assign_wide_exact": ["vq_exact_valid", "vq_exact_serve", "unseg_cocostuff27_train",
-                             "unseg_cocostuff27_valid"],
+                             "unseg_cocostuff27_valid", "vae_cocostuff27_train",
+                             "vae_cocostuff27_valid", "contra_cocostuff27_train",
+                             "contra_cocostuff27_valid"],
 }
 
 
@@ -436,3 +441,38 @@ def test_chip_smoke_kernels_line_counts_each_pq_body_once():
         assert sum(chip_smoke.row_path(r, p) for r in pq_rows) == 1, p
         assert all(chip_smoke.row_path(r, p) for r in chip_smoke.KERNEL_SOURCES
                    if not r.startswith("pq_assign")), p
+
+
+def test_chip_smoke_routes_the_vae_and_contra_valid_paths_to_the_wide_exact_body():
+    """The VAE's and Contra's valid steps launch the PQ kernel twice, on the
+    wide exact body (``pq_body_row``): the VAE's two levels at 1 x 1024 x
+    256 (the top at a quarter of the pixels), Contra's at 4 x 1024 x 128
+    and 16 x 1024 x 32; the shapes are those of the configs' quantizers,
+    outside the narrow exact body's domain; Info and EMAModel launch none,
+    and every variant of the script is a config of the registry."""
+    import chip_smoke
+    from equss_tpu_torch.core.config import load_config
+    from equss_tpu_torch.models.registry import build_model
+    from equss_tpu_torch.ops.pq_assign import kernel_body
+
+    for name in ("vae_cocostuff27", "contra_cocostuff27"):
+        for what in ("train", "valid"):
+            assert chip_smoke.pq_body_row(f"{name}_{what}") == "pq_assign_wide_exact"
+        launches, wide = chip_smoke.pq_valid(name)
+        assert launches == 2 and len(wide) == 2
+        cfg = load_config(f"configs/{name}.yaml")
+        cfg["model"]["pretrained"]["model_type"] = "vit_micro"
+        model = build_model(cfg, device="cpu")
+        assert [(c.num_pq, c.num_codebook, c.sub_dim) for c in model.pq_cfgs] == \
+            [shape for shape, _, _ in wide]
+        for (M, K, d), exact, _ in wide:
+            assert exact and kernel_body(d, K, exact) == "wide"
+    assert [rows for *_, rows in chip_smoke.pq_valid("vae_cocostuff27")[1]] == [400, 1600]
+    for name in ("info_cocostuff27", "ema_cocostuff27"):
+        assert chip_smoke.pq_valid(name) == (0, None)
+    assert {v[0] for v in chip_smoke.VARIANTS} >= {
+        "vae_cocostuff27", "info_cocostuff27", "contra_cocostuff27", "ema_cocostuff27"}
+    assert chip_smoke.wide_launch_groups([("pq_wide_exact_prep_kernel", 1.0),
+                                          ("pq_wide_exact_kernel<0, false>", 2.0),
+                                          ("pq_wide_exact_gather_kernel", 0.5),
+                                          ("pq_wide_exact_kernel<1, true>", 4.0)]) == [3.5, 4.0]

@@ -29,7 +29,14 @@ in interpret mode.
   within 1e-5 of their largest magnitude.
 * ``build_optimizer`` against the optax chains of ``equss_tpu.train.
   optim`` over three steps: parameters within 1e-6 (adam, adamw with its
-  decay mask, sgd with momentum and decay, cosine schedule, clipping).
+  decay mask, sgd with momentum and decay, cosine schedule, clipping);
+  gradient accumulation against ``optax.MultiSteps`` over 4 micro-steps.
+* The quantizer's training features given JAX's draws: the Gumbel
+  assignment (indices equal away from rounding-level near ties, the EMA
+  state within 1e-5 of its scale), ``_split_codes`` (codebook and counts
+  equal, with ties at zero), the EMA step with ``use_split``, the
+  ``want_prob`` rule, and ``pq_data_init`` for ``kmeans`` and ``rand``
+  (within 1e-5 of scale).
 """
 import dataclasses
 
@@ -372,13 +379,205 @@ def test_optimizer_matches_optax(opt_cfg, sched_cfg, clip):
 
 
 def test_optimizer_rejects_accumulation_and_unknown_names():
+    """Gradient accumulation is optax's ``MultiSteps`` (it no longer
+    raises): 4 micro-steps at ``num_accum`` 2 with clipping and a cosine
+    schedule against ``MultiSteps(chain(clip, adamw))``, parameters within
+    1e-6 after each, unchanged after the first of each pair, and the
+    state's micro-step and gradient mean equal; an unknown optimizer name
+    still raises."""
+    import optax
+
+    from equss_tpu.train.optim import build_optimizer as j_build
     from equss_tpu_torch.train.optim import build_optimizer, wd_mask
 
+    rng = np.random.RandomState(1)
+    shapes = {"head.w": (4, 3), "head.b": (3,)}
+    init = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+    opt_cfg = {"name": "adamw", "lr": 1e-2, "weight_decay": 0.1}
+    kw = dict(iter_per_epoch=4, max_epochs=2, num_accum=2, clip_grad=0.5)
+    tx = j_build(opt_cfg, {"name": "cos"}, **kw)
+    assert isinstance(tx, optax.MultiSteps)
+    pj = {"head": {"w": jnp.asarray(init["head.w"]), "b": jnp.asarray(init["head.b"])}}
+    state = tx.init(pj)
+    named = [(k, torch.nn.Parameter(torch.from_numpy(v.copy()))) for k, v in init.items()]
+    opt = build_optimizer(named, opt_cfg, {"name": "cos"}, **kw)
+    for i in range(4):
+        grads = {k: (3 * rng.randn(*s)).astype(np.float32) for k, s in shapes.items()}
+        before = {k: p.detach().clone() for k, p in named}
+        for k, p in named:
+            p.grad = torch.from_numpy(grads[k].copy())
+        updates, state = tx.update({"head": {"w": jnp.asarray(grads["head.w"]),
+                                             "b": jnp.asarray(grads["head.b"])}}, state, pj)
+        pj = optax.apply_updates(pj, updates)
+        opt.step()
+        for k, p in named:
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(pj["head"][k[5:]]),
+                                       rtol=0, atol=1e-6, err_msg=k)
+            assert torch.equal(p.detach(), before[k]) == (i % 2 == 0), (i, k)
+        sd = opt.state_dict()
+        assert sd["mini_step"] == int(state.mini_step) and sd["count"] == int(state.gradient_step)
+        for k in shapes:
+            np.testing.assert_allclose(sd["acc"][k].numpy(),
+                                       np.asarray(state.acc_grads["head"][k[5:]]),
+                                       rtol=0, atol=1e-6)
     p = [("head.w", torch.nn.Parameter(torch.zeros(2, 2)))]
-    with pytest.raises(NotImplementedError):
-        build_optimizer(p, {"name": "adam", "lr": 1.0}, num_accum=2)
     with pytest.raises(ValueError):
         build_optimizer(p, {"name": "lamb", "lr": 1.0})
     assert wd_mask("head.w", torch.zeros(2, 2))
     assert not wd_mask("head.b", torch.zeros(2))
     assert not wd_mask("pq.codebook", torch.zeros(2, 2, 2))
+
+
+# ------------------------------------------- quantizer training features
+
+def _ema_case(seed, **kw):
+    """An EMA quantizer (M = 2, K = 24, d = 8, l2) with a codebook on the
+    data's scale and state of a few steps' standing, z (3, 5, 4, 16)."""
+    base = dict(num_pq=2, num_codebook=24, embed_dim=16, vq_type="ema", normalize="l2", **kw)
+    cfg_j, cfg_t = jq.PQConfig(**base), tq.PQConfig(**base)
+    rng = np.random.RandomState(seed)
+    _, state = jq.pq_init(jax.random.PRNGKey(seed), cfg_j)
+    state = {k: np.array(v) for k, v in state.items()}
+    cb = rng.randn(2, 24, 8).astype(np.float32)
+    state.update(ema_weight=cb, ema_weight_avg=cb * 1.5,
+                 ema_count=(np.abs(rng.randn(2, 24)) * 3).astype(np.float32))
+    z = rng.randn(3, 5, 4, 16).astype(np.float32)
+    return cfg_j, cfg_t, state, z
+
+
+def _state_close(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        _close_to_max(got[k], want[k], 1e-5)
+
+
+def test_gumbel_assignment_matches_jax_given_its_noise():
+    """``use_gumbel`` training: given JAX's Gumbel draw the indices equal
+    JAX's wherever its top two of ``g - dist`` are more than 1e-5 apart
+    (all but rounding-level near ties), and the counts, usage and EMA
+    state follow them; z_q is the raw codeword; the eval call and a
+    ``want_prob=False`` call keep the argmin, and ``use_gumbel`` keeps
+    even the eval call off the kernel on CUDA, as JAX does."""
+    cfg_j, cfg_t, state, z = _ema_case(5, use_gumbel=True)
+    key = jax.random.PRNGKey(9)
+    n = 3 * 5 * 4
+    g = np.array(jax.random.gumbel(jax.random.split(key)[1], (n, 2, 24)))
+    zq_j, idx_j, aux_j, st_j = jq.pq_forward(jnp.asarray(z), {}, state, cfg_j, training=True,
+                                            rng=key)
+    st_t = {k: torch.from_numpy(v) for k, v in state.items()}
+    zq_t, idx_t, aux_t, new_t = tq.pq_forward(torch.from_numpy(z), {}, st_t, cfg_t,
+                                              training=True, gumbel_noise=torch.from_numpy(g))
+    zn = z.reshape(n, 2, 8) / np.linalg.norm(z.reshape(n, 2, 8), axis=-1, keepdims=True)
+    cn = state["ema_weight"] / np.linalg.norm(state["ema_weight"], axis=-1, keepdims=True)
+    score = g - ((zn[:, :, None] - cn[None]) ** 2).sum(-1)
+    two = np.sort(score, -1)[..., -2:]
+    apart = (two[..., 1] - two[..., 0] > 1e-5).reshape(3, 5, 4, 2)
+    assert apart.mean() > 0.95
+    np.testing.assert_array_equal(idx_t.numpy()[apart], np.asarray(idx_j)[apart])
+    # the argmin of the distances alone would differ in most pairs
+    plain = tq.pq_forward(torch.from_numpy(z), {}, st_t, cfg_t)[1]
+    assert (plain.numpy() != idx_t.numpy()).mean() > 0.5
+    assert apart.all()                  # this draw has no near tie: the rest follows
+    _state_close(new_t, st_j)
+    np.testing.assert_allclose(zq_t.detach().numpy(), np.asarray(zq_j), rtol=0, atol=1e-6)
+    for k in ("vq-loss", "codebook-usage"):
+        assert float(aux_t[k]) == pytest.approx(float(aux_j[k]), rel=1e-5), k
+    assert tq._kernel_eligible(dataclasses.replace(cfg_t, use_gumbel=False, use_pallas=True),
+                               10, torch.device("cuda"))
+    assert not tq._kernel_eligible(dataclasses.replace(cfg_t, use_pallas=True), 10,
+                                   torch.device("cuda"))
+    with pytest.raises(ValueError, match="use_gumbel requires"):
+        tq.pq_forward(torch.from_numpy(z), {}, st_t, cfg_t, training=True)
+    gen = torch.Generator().manual_seed(0)
+    assert tq.pq_forward(torch.from_numpy(z), {}, st_t, cfg_t, training=True,
+                         generator=gen)[1].shape == (3, 5, 4, 2)
+
+
+def test_split_codes_matches_jax_with_ties_at_zero():
+    """``_split_codes`` given JAX's noise: a count table whose dead slots
+    tie at 0 (the stable sort keeps their index order) and whose live
+    counts tie in pairs; the codebook and counts equal."""
+    rng = np.random.RandomState(2)
+    M, K, d = 3, 16, 4
+    codebook = rng.randn(M, K, d).astype(np.float32)
+    total = np.zeros((M, K), np.float32)
+    total[:, ::3] = np.repeat(np.arange(1, 7, dtype=np.float32), 2)[None, :6] * 0.5
+    total[1, 5] = 2.0
+    current = total.copy()
+    current[2, 0] = 0.0                      # dead in this batch, used before
+    key = jax.random.PRNGKey(4)
+    want_c, want_n = jq._split_codes(key, jnp.asarray(codebook), jnp.asarray(total),
+                                     jnp.asarray(current))
+    noise = np.array(jax.random.normal(key, (M, K, d)))
+    got_c, got_n = tq.split_codes(torch.from_numpy(codebook), torch.from_numpy(total),
+                                  torch.from_numpy(current), torch.from_numpy(noise))
+    np.testing.assert_array_equal(got_n.numpy(), np.asarray(want_n))
+    np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), rtol=0, atol=1e-6)
+    assert (got_c.numpy() != codebook).any(-1).sum() > M * K // 2
+
+
+def test_ema_split_training_step_matches_jax():
+    """``use_split`` inside ``pq_forward`` (after the EMA update), the
+    split's noise JAX's ``normal(split(rng)[1])``: the new EMA state within
+    1e-5 of its scale; ``want_prob=False`` drops the distance softmax of
+    EMA training and ``True`` adds it in eval, as JAX's rule."""
+    cfg_j, cfg_t, state, z = _ema_case(6, use_split=True)
+    key = jax.random.PRNGKey(3)
+    noise = np.array(jax.random.normal(jax.random.split(key)[1], (2, 24, 8)))
+    _, idx_j, aux_j, st_j = jq.pq_forward(jnp.asarray(z), {}, state, cfg_j, training=True,
+                                          rng=key)
+    st_t = {k: torch.from_numpy(v) for k, v in state.items()}
+    _, idx_t, aux_t, new_t = tq.pq_forward(torch.from_numpy(z), {}, st_t, cfg_t, training=True,
+                                           split_noise=torch.from_numpy(noise))
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+    _state_close(new_t, st_j)
+    _close_to_max(aux_t["distance_prob"], aux_j["distance_prob"], 1e-5)
+    no_prob = tq.pq_forward(torch.from_numpy(z), {}, st_t, cfg_t, training=True,
+                            want_prob=False, split_noise=torch.from_numpy(noise))[2]
+    assert "distance_prob" not in no_prob
+    ev_j = jq.pq_forward(jnp.asarray(z), {}, state, cfg_j, want_prob=True)[2]
+    ev_t = tq.pq_forward(torch.from_numpy(z), {}, st_t, cfg_t, want_prob=True)[2]
+    _close_to_max(ev_t["distance_prob"], ev_j["distance_prob"], 1e-5)
+    # the effective want_prob routes: an EMA training call without the
+    # softmax may take the kernel on CUDA only where training may
+    ema = dataclasses.replace(cfg_t, use_split=False, use_pallas=True)
+    assert not tq._kernel_eligible(ema, 10, torch.device("cuda"), training=True)
+    assert tq._kernel_eligible(ema, 10, torch.device("cuda"), want_prob=False)
+    assert not tq._kernel_eligible(ema, 10, torch.device("cuda"), want_prob=True)
+
+
+@pytest.mark.parametrize("mode,vq_type", [("kmeans", "ema"), ("kmeans", "param"),
+                                          ("rand", "ema"), ("rand", "param")])
+def test_pq_data_init_matches_jax_given_its_draws(mode, vq_type):
+    """``pq_data_init`` with JAX's draws (k-means++ ``randint`` / ``gumbel``
+    for ``kmeans``, ``randint(key, (M, K), 0, n)`` for ``rand``): the new
+    codebook (or ``ema_weight`` and ``ema_weight_avg``) within 1e-5 of its
+    scale, the counts untouched; ``pq_init`` no longer raises for either
+    mode and draws the default uniform init."""
+    from test_torch_kmeans import _blobs, jax_plus_plus_draws
+
+    M, K, d, n = 2, 12, 8, 300
+    base = dict(num_pq=M, num_codebook=K, embed_dim=M * d, vq_type=vq_type,
+                need_initialized=mode)
+    cfg_j, cfg_t = jq.PQConfig(**base), tq.PQConfig(**base)
+    pj, sj = jq.pq_init(jax.random.PRNGKey(0), cfg_j)
+    pt, st = tq.pq_init(torch.Generator().manual_seed(0), cfg_t)
+    cb = (pt.get("codebook") if vq_type == "param" else st["ema_weight"])
+    assert float(cb.abs().max()) <= 1.0 / K
+    zf = _blobs(5, M, n, d).transpose(1, 0, 2).copy()                  # (n, M, d)
+    key = jax.random.PRNGKey(11)
+    want_p, want_s = jq.pq_data_init(key, jnp.asarray(zf), pj, sj, cfg_j)
+    if mode == "kmeans":
+        first, noise = jax_plus_plus_draws(key, M, n, K)
+        draws = dict(first=first, gumbel_noise=noise)
+    else:
+        draws = dict(rand_idx=torch.from_numpy(np.array(
+            jax.random.randint(key, (M, K), 0, n))))
+    got_p, got_s = tq.pq_data_init(torch.from_numpy(zf), pt, st, cfg_t, **draws)
+    for got, want in ((got_p, want_p), (got_s, want_s)):
+        assert set(got) == set(want)
+        for k in want:
+            _close_to_max(got[k], want[k], 1e-5)
+    if vq_type == "ema":
+        assert not torch.equal(got_s["ema_weight"], st["ema_weight"])
+        assert float(got_s["ema_count"].abs().sum()) == 0.0

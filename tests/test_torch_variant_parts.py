@@ -24,8 +24,14 @@ residual blocks.
   on flax weights: outputs within 1e-5; the BatchNorm blocks in training
   (batch statistics) and in eval (running averages), and the running
   statistics a training call returns against flax's mutated
-  ``batch_stats``, within 1e-5.
+  ``batch_stats``, within 1e-5; the VAE's ``ReLUResBlock`` and strided
+  4x4 ``Conv2d``, and ``ConvTranspose2dTorch`` on the JAX kernel as
+  ``convert`` flips it, within 1e-5.
+* The blocked JSD (``jsd_loss``) at a block that does not divide the rows:
+  value rtol 1e-5 of JAX's and of ``jsd_loss_reference``, gradients
+  within 1e-5 of their scale of JAX's.
 """
+import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -65,6 +71,22 @@ def test_jsd_and_entropy_match_jax():
     q = rng.dirichlet(np.ones(16), 40).astype(np.float32)
     _close(tb.jsd_loss(_t(p), _t(q)), jb.jsd_loss(p, q), 1e-5)
     _close(tb.entropy_loss(_t(p)), jb.entropy_loss(p), 1e-5)
+
+
+def test_blocked_jsd_matches_jax_and_the_unblocked_form():
+    rng = np.random.RandomState(3)
+    p = rng.dirichlet(np.ones(24), 50).astype(np.float32)
+    q = rng.dirichlet(np.ones(24), 50).astype(np.float32)
+    want, (gp, gq) = jax.value_and_grad(jb.jsd_loss, argnums=(0, 1))(jnp.asarray(p),
+                                                                     jnp.asarray(q))
+    pt, qt = _t(p).requires_grad_(), _t(q).requires_grad_()
+    got = tb.jsd_loss(pt, qt, block=7)
+    got.backward()
+    _close(got.detach(), want, 1e-5)
+    _close(tb.jsd_loss_reference(_t(p), _t(q)), want, 1e-5)
+    for g, w in ((pt.grad, gp), (qt.grad, gq)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-5 * np.abs(np.asarray(w)).max())
 
 
 @pytest.mark.parametrize("cal_type,normalize", [
@@ -227,6 +249,9 @@ BLOCKS = {
     "DecResBlock_same": (lambda: jh.DecResBlock(8), lambda g: th.DecResBlock(8, 8, g)),
     "LinDecResBlock": (lambda: jh.LinDecResBlock(12), lambda g: th.LinDecResBlock(8, 12, g)),
     "ResBlock": (lambda: jh.ResBlock(12), lambda g: th.ResBlock(8, 12, g)),
+    "ReLUResBlock": (lambda: jh.ReLUResBlock(12), lambda g: th.ReLUResBlock(8, 12, g)),
+    "Conv4x4_stride2": (lambda: nn.Conv(6, (4, 4), strides=(2, 2), padding=[(1, 1), (1, 1)]),
+                        lambda g: th.Conv2d(8, 6, g, k=4, stride=2, padding=1)),
 }
 
 
@@ -265,6 +290,33 @@ def test_blocks_match_flax(name):
     want_eval = jm.apply(variables, x, False)
     np.testing.assert_allclose(tm(_t(x), False).detach().numpy(), want_eval, rtol=0,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("hw", [(4, 5), (14, 14)])
+def test_conv_transpose_matches_flax_through_converts_flip(hw):
+    """``ConvTranspose2dTorch`` (torch's transposed 4x4, stride 2, padding
+    1) on the JAX module's kernel as ``convert`` flips it in
+    (``TRANSPOSED_CONVS``): within 1e-5, at twice the resolution; without
+    the flip it differs."""
+
+    class Wrap(nn.Module):
+        @nn.compact
+        def __call__(self, x):
+            return jh.ConvTranspose2dTorch(6, name="upsample_t")(x)
+
+    x = np.random.RandomState(12).randn(2, *hw, 8).astype(np.float32)
+    jm = Wrap()
+    variables = jm.init(jax.random.PRNGKey(3), x)
+    want = np.asarray(jm.apply(variables, x))
+    tm = th.ConvTranspose2dTorch(8, 6, torch.Generator().manual_seed(0))
+    sd = tree_from_flax(variables["params"], "")
+    tm.load_state_dict({k[len("upsample_t."):]: v for k, v in sd.items()})
+    got = tm(_t(x)).detach().numpy()
+    assert got.shape == want.shape == (2, 2 * hw[0], 2 * hw[1], 6)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    unflipped = tree_from_flax({"other": variables["params"]["upsample_t"]}, "")
+    tm.load_state_dict({k[len("other."):]: v for k, v in unflipped.items()})
+    assert np.abs(tm(_t(x)).detach().numpy() - want).max() > 1e-3
 
 
 @pytest.mark.parametrize("residual", [True, False])

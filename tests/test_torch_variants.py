@@ -68,7 +68,8 @@ from test_torch_checkpoint import _one_intra_op_thread  # noqa: F401 (autouse)
 from test_torch_valid import _val_batches
 
 CONFIGS = ["pqgo_cls_cocostuff27", "cluster_margin_cocostuff27", "cluster_swav_cocostuff27",
-           "res_cocostuff27", "unseg_cocostuff27", "new_vq_cocostuff27", "spq_cocostuff27"]
+           "res_cocostuff27", "unseg_cocostuff27", "new_vq_cocostuff27", "spq_cocostuff27",
+           "vae_cocostuff27", "info_cocostuff27", "contra_cocostuff27", "ema_cocostuff27"]
 B, RES = 2, 32
 N = B * (RES // 8) ** 2
 
@@ -95,8 +96,32 @@ def _t(x):
 
 
 def _draws(name, cfg, rng):
-    """JAX's draws inside ``apply`` for ``rng``, as the port's overrides."""
+    """JAX's draws inside ``apply`` for ``rng``, as the port's overrides:
+    InfoNCE negatives, STEGO samples, the quantizers' Gumbel noise (Info)
+    and split noise (Contra), EMAModel's proxy indices and dropout masks."""
     kw = {}
+    vq = cfg["model"].get("vq", {})
+    if name.startswith("info"):
+        for i, k in enumerate(vq["num_codebooks"]):
+            key = jax.random.split(jax.random.fold_in(rng, i))[1]
+            kw[f"gumbel_{i}"] = _t(jax.random.gumbel(key, (N, 1, k)))
+    if name.startswith("contra"):
+        for i, (k, e, m) in enumerate(zip(vq["num_codebooks"], vq["embed_dims"], vq["num_pq"])):
+            key = jax.random.split(jax.random.fold_in(rng, i))[1]
+            kw[f"split_noise_{i}"] = _t(jax.random.normal(key, (m, k, e // m)))
+    if name.startswith("ema"):
+        keys = jax.random.split(rng, 4)
+        mb, ince = cfg["model"]["memory_bank"], cfg["loss"]["info_nce"]
+        C, Q = mb["n_cluster"], mb["queue_size"]
+        k_q, k_n = jax.random.split(keys[2])
+        kw["proxy_q_idx"] = _t(jax.random.randint(k_q, (C, ince["num_queries"]), 0, Q))
+        kw["proxy_neg_idx"] = _t(jax.random.randint(
+            k_n, (C, ince["num_queries"] * ince["num_neg"]), 0, (C - 1) * Q))
+        pre = cfg["model"]["pretrained"]
+        if pre["dropout"]:
+            feat_dim = jregistry.build_model(cfg).feat_dim
+            kw["dropout_keep"] = torch.stack([_t(jax.random.bernoulli(
+                keys[j], 1.0 - pre["drop_prob"], (B, 1, 1, feat_dim))) for j in (0, 1)])
     if name.startswith(("cluster", "res", "new_vq", "spq")):
         fold = {"cluster": 23, "res": 3}.get(name.split("_")[0], 7)
         neg = (cfg["loss"].get("info_nce", {}) or {}).get("neg_sample", 10)
@@ -152,7 +177,8 @@ _ZERO_MEAN_STATS = ("net.dec.dec_0.norm2.mean",)
     ("pqgo_cls_cocostuff27", None), ("cluster_margin_cocostuff27", None),
     ("cluster_swav_cocostuff27", 0), ("cluster_swav_cocostuff27", 200),
     ("res_cocostuff27", None), ("unseg_cocostuff27", None), ("new_vq_cocostuff27", None),
-    ("spq_cocostuff27", None)])
+    ("spq_cocostuff27", None), ("vae_cocostuff27", None), ("info_cocostuff27", None),
+    ("contra_cocostuff27", None), ("ema_cocostuff27", None)])
 def test_training_forward_matches_jax(name, swav_it):
     _training_forward_matches_jax(name, _pair(name, swav_it=swav_it), swav_it)
 
@@ -168,6 +194,9 @@ def _training_forward_matches_jax(name, pair, swav_it=None, kw=None, same_order=
     rng = jax.random.PRNGKey(1)
     weights = {aux: float(cfg["loss"][w]) for w, aux in LOSS_WEIGHT_MAP.items()
                if float(cfg["loss"].get(w, 0.0) or 0.0) > 0.0}
+    for part, w in (cfg["loss"].get("contra_weight", {}) or {}).items():
+        if float(w) > 0.0:                  # the JAX trainer's nested weights
+            weights[f"contra-loss-{part}"] = float(w)
 
     def loss_j(trainable):
         out, new_state = jm.apply(dict(params, **trainable), state, jnp.asarray(img),
@@ -228,6 +257,93 @@ def _training_forward_matches_jax(name, pair, swav_it=None, kw=None, same_order=
     if name.startswith("res"):
         assert float(out_t["aux"]["club-enc-loss"]) < float(out_t["aux"]["club-enc-loss-first"])
     return out_j, out_t
+
+
+def test_ema_with_dropout_matches_jax_given_its_masks():
+    """EMAModel with channel dropout on both views, JAX's masks
+    (``bernoulli`` of ``split(rng, 4)[0]`` and ``[1]``) fed to the port as
+    ``dropout_keep``: the training forward's bars; and a bank initialised
+    (``bank_initialized`` 1) keeps its queue's old entries where no pixel
+    clears the margin."""
+    cfg = micro("ema_cocostuff27")
+    cfg["model"]["pretrained"]["dropout"] = True
+    _training_forward_matches_jax("ema_cocostuff27", _pair("ema_cocostuff27", cfg=cfg))
+    cfg = micro("ema_cocostuff27")
+    cfg["model"]["memory_bank"]["margin"] = 10.0         # no pixel clears it
+    cfg_, jm, params, state, tm = _pair("ema_cocostuff27", cfg=cfg)
+    queue = np.random.RandomState(5).randn(*state["queue"].shape).astype(np.float32)
+    state = dict(state, queue=queue, bank_initialized=np.int32(1))
+    tm.load_state_dict(params_from_jax(params, state, _mcfg()))
+    out_j, out_t = _training_forward_matches_jax("ema_cocostuff27",
+                                                 (cfg_, jm, params, state, tm))
+    np.testing.assert_array_equal(out_t["state"]["queue"].numpy(), queue)
+
+
+def _data_init_cfg(name, mode="kmeans"):
+    """``name`` at micro widths with a data-initialised codebook of K = 16
+    (``need_initialized: mode``); EMAModel as it is."""
+    cfg = micro(name)
+    vq = cfg["model"].get("vq")
+    if vq is not None and not name.startswith("ema"):
+        vq.update(need_initialized=mode, num_codebooks=[16] * len(vq["num_codebooks"]))
+    return cfg
+
+
+def _jax_data_init_draws(name, jm, rng, n):
+    """The k-means++ / ``rand`` draws of JAX's ``data_init(rng)`` for each
+    quantizer (EMAModel: its bank's k-means), as the port's keywords."""
+    from test_torch_kmeans import jax_plus_plus_draws
+
+    if name.startswith("ema"):
+        first, noise = jax_plus_plus_draws(rng, 1, n, jm.n_cluster)
+        return {"kmeans_first_0": first, "kmeans_gumbel_0": noise}
+    if name.startswith("pqgo"):         # EQUSS: one quantizer on the key itself
+        keys, rows = [rng], [n]
+    else:                                # a chain: fold_in(rng, level)
+        keys = [jax.random.fold_in(rng, i) for i in range(len(jm.pq_cfgs))]
+        # the VAE's top level quantizes at half resolution
+        rows = [n // 4, n] if name.startswith("vae") else [n] * len(keys)
+    cfgs = jm.pq_cfgs if hasattr(jm, "pq_cfgs") else [jm.cfg.pq]
+    draws = {}
+    for i, (c, key, r) in enumerate(zip(cfgs, keys, rows)):
+        if c.need_initialized == "rand":
+            draws[f"rand_idx_{i}"] = _t(jax.random.randint(key, (c.num_pq, c.num_codebook),
+                                                           0, r))
+        else:
+            first, noise = jax_plus_plus_draws(key, c.num_pq, r, c.num_codebook)
+            draws[f"kmeans_first_{i}"], draws[f"kmeans_gumbel_{i}"] = first, noise
+    return draws
+
+
+@pytest.mark.parametrize("name,mode", [
+    ("pqgo_cocostuff27", "kmeans"), ("pqgo_cocostuff27", "rand"), ("unseg_cocostuff27", "kmeans"),
+    ("contra_cocostuff27", "kmeans"), ("vae_cocostuff27", "kmeans"),
+    ("info_cocostuff27", "kmeans"), ("ema_cocostuff27", None)])
+def test_data_init_chain_matches_jax(name, mode):
+    """``data_init`` given JAX's draws (``fold_in(rng, i)`` per quantizer in
+    the chains): every tensor it sets within 1e-5 of its scale of JAX's
+    new params and state, each level fed by the previous one's new
+    codebook (UnSeg / Contra, VAE), Info's through the running feature;
+    EMAModel's centroids, queue and flag (each cluster's queue as a set
+    of rows: the order of its supports follows each side's rounding of
+    near-equal distances)."""
+    cfg = _data_init_cfg(name, mode)
+    cfg_, jm, params, state, tm = _pair(name, cfg=cfg)
+    assert tm.needs_data_init and jm.needs_data_init
+    img = np.random.RandomState(6).randn(4, RES, RES, 3).astype(np.float32)
+    rng = jax.random.PRNGKey(8)
+    n = 4 * (RES // 8) ** 2
+    p_j, s_j = jm.data_init(params, state, jnp.asarray(img), rng)
+    want = params_from_jax(jax.device_get(p_j), jax.device_get(s_j), _mcfg())
+    got = tm.data_init(_t(img), **_jax_data_init_draws(name, jm, rng, n))
+    assert got and set(got) <= set(want)
+    sd = tm.state_dict()
+    for k, v in got.items():
+        assert v.dtype == want[k].dtype and not torch.equal(v, sd[k]), k
+        if k == "queue":
+            _rel_close(np.sort(v.numpy(), 1), np.sort(want[k].numpy(), 1), 1e-5, k)
+        else:
+            _rel_close(v.numpy(), want[k].numpy(), 1e-5, k)
 
 
 def _bf16_indices_match_jax(name):
@@ -436,6 +552,14 @@ def test_unseg_vq0_validate_matches_jax():
     _vq0_validate_matches_jax("unseg_cocostuff27")
 
 
+def test_vae_vq1_validate_matches_jax():
+    _vq0_validate_matches_jax("vae_cocostuff27")
+
+
+def test_contra_vq0_validate_matches_jax():
+    _vq0_validate_matches_jax("contra_cocostuff27")
+
+
 def _vq0_validate_matches_jax(name):
     cfg = micro(name)
     cfg["num_classes"] = 4
@@ -477,7 +601,8 @@ def _records(run_dir):
 
 @pytest.mark.parametrize("config", ["pqgo_cls_cocostuff27", "cluster_margin_cocostuff27",
                                     "unseg_cocostuff27", "new_vq_cocostuff27",
-                                    "spq_cocostuff27"])
+                                    "spq_cocostuff27", "vae_cocostuff27", "info_cocostuff27",
+                                    "contra_cocostuff27", "ema_cocostuff27"])
 def test_cli_trains_and_validates_the_variant(tmp_path, config):
     result, run_dir = _cli(tmp_path, config)
     steps = [r for r in _records(run_dir) if "loss" in r]
@@ -488,11 +613,20 @@ def test_cli_trains_and_validates_the_variant(tmp_path, config):
     assert 0.0 <= result["best"]["Cluster_mIoU"] <= 100.0
 
 
-@pytest.mark.parametrize("config", ["res_cocostuff27", "cluster_swav_cocostuff27"])
+# each resumed config's own metric and state: the CLUB encoder, the SwAV
+# queue, Contra's JSD and EMA codebooks
+_RESUME_MARKS = {"res": ("club-enc-loss", "club_enc."), "cluster": ("swav-loss", "swav_queue"),
+                 "contra": ("contra-loss-pos", "pq_state.")}
+
+
+@pytest.mark.parametrize("config", ["res_cocostuff27", "cluster_swav_cocostuff27",
+                                    "contra_cocostuff27"])
 def test_cli_mid_epoch_resume_is_bit_exact(tmp_path, config):
     """``cli.run`` for 4 steps with a checkpoint at step 2, then a run
     resumed from it: the same logs after step 2 and the same weights and
-    model state after step 4 (SwAV with its queue on from step 0)."""
+    model state after step 4 (SwAV with its queue on from step 0; Contra
+    with its k-means init on the fresh run's first batch and 2 micro-steps
+    per update)."""
     extra = ["loss.cluster.queue_start_iter=0"] if "swav" in config else []
     result, run_dir = _cli(tmp_path, config, *extra)
     ckpt = os.path.join(run_dir, "ckpt")
@@ -504,8 +638,96 @@ def test_cli_mid_epoch_resume_is_bit_exact(tmp_path, config):
                           for r in recs if "final_Cluster_mIoU" not in r]
     records = _records(run_dir)
     assert strip(_records(resumed_dir)) == [r for r in strip(records) if r["step"] > 2]
-    assert any("club-enc-loss" in r or "swav-loss" in r for r in records)
+    metric, state = _RESUME_MARKS[config.split("_")[0]]
+    assert any(metric in r for r in records)
     assert set(resumed["state"]) == set(result["state"])
     for k, v in result["state"].items():
         assert torch.equal(resumed["state"][k], v), k
-    assert any(k.startswith(("club_enc.", "swav_queue")) for k in result["state"])
+    assert any(k.startswith(state) for k in result["state"])
+
+
+def test_cli_resume_of_contra_between_two_micro_steps_is_bit_exact(tmp_path):
+    """Contra through ``cli.run`` (``num_accum`` 2), 4 steps, against the
+    same run cut after its first step (one batch; ``train.iter_per_epoch``
+    4 in both, so the schedules agree), whose checkpoint at step 1 holds
+    half an update, resumed with the 4 batches: the same logs after step 1
+    and the same weights and model state after step 4."""
+    extra = ["train.iter_per_epoch=4"]
+    result, run_dir = _cli(tmp_path, "contra_cocostuff27", *extra)
+    _, cut_dir = _cli(tmp_path, "contra_cocostuff27", *extra, "dataset.synthetic_batches=1")
+    ckpt = os.path.join(cut_dir, "ckpt")
+    assert os.listdir(ckpt) == ["1"]
+    from equss_tpu_torch.core.checkpoint import CheckpointManager
+    assert CheckpointManager(ckpt).restore()["opt"]["model"]["mini_step"] == 1
+    resumed, resumed_dir = _cli(tmp_path, "contra_cocostuff27", *extra,
+                                f"resume.checkpoint={ckpt}", "resume.mode=train")
+    strip = lambda recs: [{k: v for k, v in r.items() if k != "iter_time"}  # noqa: E731
+                          for r in recs if "final_Cluster_mIoU" not in r]
+    assert strip(_records(resumed_dir)) == [r for r in strip(_records(run_dir)) if r["step"] > 1]
+    assert set(resumed["state"]) == set(result["state"])
+    for k, v in result["state"].items():
+        assert torch.equal(resumed["state"][k], v), k
+
+
+def _contra_trainer_cfg():
+    cfg = micro("contra_cocostuff27")
+    cfg["num_classes"] = 4
+    cfg["model"]["vq"]["num_codebooks"] = [16, 16]
+    cfg["train"].update(max_epochs=1, iter_per_epoch=4, print_interval_iters=1,
+                        valid_interval_iters=100)
+    return cfg
+
+
+def test_contra_resume_between_micro_steps_is_bit_exact(tmp_path):
+    """Contra (``num_accum`` 2): a fresh ``fit`` of 4 steps against the
+    same run saved after its first micro-step (half an update: the
+    gradient mean and the micro-step count in the optimizers' state,
+    through ``CheckpointManager``) and resumed by ``fit``: the same
+    weights, model state and optimizer states; the parameters moved on
+    steps 2 and 4 only, the EMA codebooks on every step."""
+    from equss_tpu_torch.core.checkpoint import CheckpointManager
+
+    cfg = _contra_trainer_cfg()
+    batches, val = _batches(4, 7), _val_batches(1, seed=8)
+    tr = Trainer(cfg, device="cpu", seed=0)
+    tr.fit(lambda e: batches, lambda: val)
+    cut = Trainer(cfg, device="cpu", seed=0)
+    cut.data_init(batches[0])
+    moves = []
+    for b in batches[:2]:
+        params = {k: p.detach().clone() for k, p in cut.model_params}
+        ema = cut.model.pq_state[0].ema_weight.clone()
+        cut.train_step(b)
+        moves.append((any(not torch.equal(p, params[k]) for k, p in cut.model_params),
+                      not torch.equal(cut.model.pq_state[0].ema_weight, ema)))
+        if len(moves) == 1:
+            assert cut.tx_model.mini_step == 1
+            CheckpointManager(str(tmp_path)).save(1, cut.train_state())
+    assert moves == [(False, True), (True, True)]
+    resumed = Trainer(cfg, device="cpu", seed=1)
+    resumed.fit(lambda e: batches, lambda: val, state=CheckpointManager(str(tmp_path)).restore())
+    want, got = _flat(tr.train_state()), _flat(resumed.train_state())
+    assert set(got) == set(want)
+    for k, v in want.items():
+        if k != "generator":
+            assert torch.equal(got[k], v), k
+    assert tr.tx_model.count == resumed.tx_model.count == 2
+
+
+def test_fit_runs_data_init_on_a_fresh_run_only():
+    """``fit`` calls ``data_init`` once, on the first batch of a fresh run
+    (before the first step); a resumed ``fit`` and ``train_step`` do not."""
+    cfg = _contra_trainer_cfg()
+    batches, val = _batches(4, 9), _val_batches(1, seed=8)
+    tr = Trainer(cfg, device="cpu", seed=0)
+    calls = []
+    plain = tr.model.data_init
+    tr.model.data_init = lambda img, *a, **kw: calls.append(tr.step) or plain(img, *a, **kw)
+    tr.train_step(batches[0])
+    assert calls == []
+    tr.fit(lambda e: batches, lambda: val)
+    assert calls == [0]
+    state = copy.deepcopy(tr.train_state())
+    state["step"] = 2
+    tr.fit(lambda e: batches, lambda: val, state=state)
+    assert calls == [0]
