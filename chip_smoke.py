@@ -26,7 +26,9 @@ Phases, each printing JSON lines on stdout:
             exponential unit's); ``pq_wide``: the PQ kernel's wide bodies
             at the VQ baseline's calls (M = 1, K = 256, d = 1024 at
             n = 12 800 and 100 352) and at every other config's quantizer
-            outside the pqgo family, both modes, fast rows with a second
+            outside the pqgo family at the n of its valid step (VAE's
+            3 200 and 12 800, Contra's 51 200, where its 16 x 1024 x 32
+            exact launch runs fused), both modes, fast rows with a second
             yardstick (a bf16 ``torch.baddbmm`` for the distances), each
             wide row with its launch (blocks, resident blocks per SM,
             dynamic shared memory, the exact body's codeword splits and
@@ -161,7 +163,21 @@ Phases, each printing JSON lines on stdout:
             wide bodies (exact at 1 x 2048 x 384, fast at 8 x 2048 x 64,
             n = 12 800), 1 launch per valid step, and their profiles name
             the body with its device ms per launch and share of bound in
-            path (``wide_in_path``);
+            path (``wide_launches_in_path``);
+    The last slice in the same phase and with the same rows:
+            ``vae_cocostuff27`` (b = 16 + the view, valid b = 8;
+            ``contra-loss-pos`` >= 0), ``info_cocostuff27`` (b = 128,
+            valid b = 32; ``vq0-usage`` and ``vq1-usage`` finite),
+            ``contra_cocostuff27`` (b = 64 + the view, valid b = 32; its
+            first batch's k-means ``data_init`` timed, its parameters
+            moving on every second step and its EMA codebooks on every
+            step) and ``ema_cocostuff27`` (b = 16 + the view, valid
+            b = 8; 24 attention launches per train step, the
+            ``data_init`` bank, the queue and EMA head moving); the valid
+            steps of VAE and Contra launch the wide exact body twice each,
+            and their profiles give each launch's device ms, share of
+            bound and ratio to the same body's isolated time at the same
+            n (phase 3);
 22. stage1  NewVQ with ``model.stage: 1`` (``n_kmeans`` 100,
             ``eval.output_type: feat``, InfoNCE off as stage 1 computes
             none): 2 train steps after 1 at b = 16 + the view, k-means
@@ -178,7 +194,16 @@ Phases, each printing JSON lines on stdout:
             NewVQ's quantizer on the card's code >= 99.5% and its indices
             >= 95% equal end to end on the pairs whose CPU minimum is
             untied (bf16 distances at the initial codebook tie, as the
-            VQ baseline's do).
+            VQ baseline's do); NewVQ again at a codebook of 2 048 of the
+            CPU's own codes per subspace, where most minima are untied,
+            with the codebook gradient split into one term per pair (the
+            terms sum to autograd's gradient, and over the pairs both
+            devices assign alike their cosine >= 0.98; norms and cosines
+            of the pairs picked as codewords and of the others printed);
+            the last slice's four families,
+            their Gumbel, split, dropout and proxy draws fixed, and the
+            ``data_init`` of Contra and EMAModel given the same k-means
+            draws.
 The configurations of 17-23 are ``preset(name)``: the preset with the
 changes of ``PRESET_CHANGES``, which the tests hold against ``configs/``.
 In the kernels line each PQ row counts the launches of its own body's
@@ -812,34 +837,45 @@ def narrow_exact_in_path(prof: dict, n: int, what: str) -> dict:
     return pq_in_path(prof, n, (64, 256, 16), True, "pq_exact", "pq_exact", what)
 
 
-# the quantizers of the configs outside the pqgo family (M, K, d, normalize)
-WIDE_PQ = [("vq", 1, 256, 1024, "none"), ("new_vq_spq", 8, 2048, 64, "none"),
-           ("contra_4", 4, 1024, 128, "l2"), ("contra_16", 16, 1024, 32, "l2"),
-           ("unseg", 1, 2048, 384, "none"), ("vae", 1, 1024, 256, "none")]
+# the quantizers of the configs outside the pqgo family (M, K, d,
+# normalize) and the n of each of their calls: the valid step's at its
+# config's valid batch (``PQ_VALID``, ``VARIANTS``; the VAE's top at
+# 8 * 20 * 20, Contra's at 32 * 40 * 40) and the VQ baseline's b = 128
+# serving forward
+WIDE_PQ = [("vq", 1, 256, 1024, "none", (8 * 40 * 40, 128 * 28 * 28)),
+           ("new_vq_spq", 8, 2048, 64, "none", (8 * 40 * 40,)),
+           ("contra_4", 4, 1024, 128, "l2", (32 * 40 * 40,)),
+           ("contra_16", 16, 1024, 32, "l2", (32 * 40 * 40,)),
+           ("unseg", 1, 2048, 384, "none", (8 * 40 * 40,)),
+           ("vae", 1, 1024, 256, "none", (8 * 20 * 20, 8 * 40 * 40))]
 
 
 def phase_pq_wide(results: dict) -> None:
-    """The PQ kernel's wide body against its plain version: the VQ
-    baseline's call in its valid step (n = 12 800, b = 8 at 320^2) and its
-    b = 128 serving forward (n = 100 352), then each quantizer of the
-    configs outside the pqgo family at the valid step's n, every one in
-    both modes (``contra_16`` in fast mode is the narrow body's); the bars
-    and yardstick of ``pq_row``."""
+    """The PQ kernel's wide body against its plain version: each quantizer
+    of the configs outside the pqgo family at each n its paths give it
+    (``WIDE_PQ``), every one in both modes (``contra_16`` in fast mode is
+    the narrow body's; in exact mode at Contra's n the body runs fused);
+    the bars and yardstick of ``pq_row``."""
     g = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    for name, M, K, d, mode in WIDE_PQ:
-        ns = (8 * 40 * 40, 128 * 28 * 28) if name == "vq" else (8 * 40 * 40,)
+    for name, M, K, d, mode, ns in WIDE_PQ:
         for n in ns:
             for exact in (False, True):
                 tag = f"{name}_n{n}_{'exact' if exact else 'fast'}"
                 rows.append(pq_row(tag, n, M, K, d, mode, exact, g))
+    # each wide row by (M, K, d), mode and n: the in-path launches of the
+    # variants' valid steps are held beside the same body at the same n
+    results["pq_wide_isolated"] = {((r["M"], r["K"], r["d"]), r["exact"], r["n"]): r
+                                   for r in rows if r["body"] == "wide"}
     # the kernels line's wide rows: the VQ valid step's call in both modes
-    results["pq_wide_isolated"] = {((r["M"], r["K"], r["d"]), r["exact"]): r["ms"]
-                                   for r in rows if r["n"] == 8 * 40 * 40}
     results["pq_assign_wide"] = rows[0]
     results["pq_assign_wide_exact"] = rows[1]
-    check(all(r["body"] == "wide" for r in rows if r["case"] != "contra_16_n12800_fast"),
+    check(all(r["body"] == "wide" for r in rows
+              if not (r["case"].startswith("contra_16") and not r["exact"])),
           "pq_wide: a case left the wide body")
+    fused = [r for r in rows if r["case"].startswith("contra_16") and r["exact"]]
+    check(len(fused) == 1 and fused[0]["launch"]["fused"],
+          "pq_wide: Contra's 16 x 1024 x 32 exact launch does not run fused")
     fast = [r for r in rows if not r["exact"] and r["body"] == "wide"]
     exact = [r for r in rows if r["exact"]]
     emit({"phase": "pq_wide_summary",
@@ -1932,13 +1968,11 @@ def phase_vq(results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def wide_in_path(prof: dict, n: int, exact: bool, what: str,
-                 shape: tuple = (1, 256, 1024)) -> dict:
-    """``pq_in_path`` for the wide launch (all its kernels) at quantizer
-    ``shape`` (M, K, d; the VQ baseline's by default); the profile must
-    name the mode's body, ``pq_wide_exact_kernel`` or
-    ``pq_wide_fast_kernel``."""
-    return pq_in_path(prof, n, shape, exact,
+def wide_in_path(prof: dict, n: int, exact: bool, what: str) -> dict:
+    """``pq_in_path`` for the VQ baseline's wide launch (all its kernels,
+    1 x 256 x 1024); the profile must name the mode's body,
+    ``pq_wide_exact_kernel`` or ``pq_wide_fast_kernel``."""
+    return pq_in_path(prof, n, (1, 256, 1024), exact,
                       "pq_wide_exact_kernel" if exact else "pq_wide_fast_kernel", "pq_wide",
                       what)
 
@@ -1963,12 +1997,12 @@ def wide_launch_groups(sequence: list) -> list:
 
 def wide_launches_in_path(prof: dict, launches: list, images: int, what: str,
                           isolated: dict) -> dict:
-    """Each wide launch of a step with several (``launches``: ((M, K, d),
-    exact, rows per image) in the order they run) in a profile of
-    ``prof["calls"]`` steps: its device ms (mean over the steps), its
-    bound and share of it at its n, and its isolated time at n = 12 800
-    (``isolated``, phase ``pq_wide``) scaled to this n; the profile must
-    name the mode's body."""
+    """Each wide launch of a step (``launches``: ((M, K, d), exact, rows
+    per image) in the order they run) in a profile of ``prof["calls"]``
+    steps with the ``pq_wide`` ``sequence``: its device ms (mean over the
+    steps), its bound and share of it at its n, and the isolated time of
+    the same body at the same n (``isolated``, phase ``pq_wide``; whether
+    it runs fused); the profile must name the mode's body."""
     ms = wide_launch_groups(prof.pop("sequence"))
     check(len(ms) == len(launches) * prof["calls"],
           f"{what}: {len(ms)} wide launches in the profile, not "
@@ -1982,12 +2016,13 @@ def wide_launches_in_path(prof: dict, launches: list, images: int, what: str,
         mine = ms[i::len(launches)]
         row["pq_wide_ms_per_launch"] = sum(mine) / max(len(mine), 1)
         row["pq_wide_share_of_bound"] = row["pq_wide_bound_ms"] / row["pq_wide_ms_per_launch"]
-        iso = isolated.get((shape, exact))
-        scaled = None if iso is None else iso * n / (8 * 40 * 40)
+        iso = isolated.get((shape, exact, n))
+        check(iso is not None, f"{what}: no isolated row of {shape} at n = {n}")
         out.append({"shape": list(shape), "exact": exact, "n": n, **row,
-                    "isolated_n12800_ms": iso, "isolated_scaled_to_n_ms": scaled,
-                    "in_path_over_isolated_scaled": (None if not scaled else
-                                                     row["pq_wide_ms_per_launch"] / scaled)})
+                    "fused": None if iso is None else iso["launch"]["fused"],
+                    "isolated_ms": None if iso is None else iso["ms"],
+                    "in_path_over_isolated": (None if iso is None else
+                                              row["pq_wide_ms_per_launch"] / iso["ms"])})
     return {"wide_launches": out}
 
 
@@ -2942,15 +2977,11 @@ def phase_variants(results: dict) -> None:
         emit({"phase": "profile", "what": f"{name}_train", "batch": bs, "steps": 2,
               **device_profile(lambda: tr.train_step(next(cycle)), 2, pick=KERNEL_PICK)})
         vcycle = iter(vb * 2)
-        many = wide is not None and len(wide) > 1
         prof = device_profile(lambda: tr.valid_step(next(vcycle)), 2, pick=KERNEL_PICK,
-                              sequence="pq_wide" if many else None)
-        if many:
+                              sequence=None if wide is None else "pq_wide")
+        if wide is not None:
             prof.update(wide_launches_in_path(prof, wide, vbs, f"{name} valid",
-                                              results.get("pq_wide_isolated", {})))
-        elif wide is not None:
-            (shape, exact, rows), = wide
-            prof.update(wide_in_path(prof, vbs * rows, exact, f"{name} valid", shape))
+                                              results["pq_wide_isolated"]))
         emit({"phase": "profile", "what": f"{name}_valid", "batch": vbs, "res": 320,
               "steps": 2, **prof})
         del tr, m
@@ -3155,7 +3186,17 @@ def new_vq_data_codebook_reference(make_trainer, batch: dict, grads: dict) -> No
     both trainers' ``pq.codebook``: there the minima are mostly untied, so
     the end-to-end bar (>= 95% on the untied pairs) holds most pairs;
     ``cpu_untied_share`` says how many.  The loss terms and the encoder's
-    and decoder's gradients are held as in every reference row."""
+    and decoder's gradients are held as in every reference row.  The
+    codebook's gradient is the scatter of one term per (pixel, subspace)
+    pair onto the codeword each device assigns it (``codebook_gradient_
+    terms``): the terms must sum to autograd's gradient on each device
+    (cosine >= 0.9999), and over the pairs that both devices assign to the
+    same codeword the two gradients' cosine is held >= 0.98.  Printed
+    beside it, unheld: the norms and cosines over all pairs, over those
+    whose pixel was picked as a codeword and over the others, and the
+    share of the others' squared terms on pairs the devices assign
+    differently (a term on another codeword shares nothing with its
+    counterpart, so the others' cosine falls by about that share)."""
     tr0 = make_trainer("cpu")
     b = tr0._batch(batch, aug=True)
     with torch.no_grad():           # the codes of both views: 3 136 pixels
@@ -3164,26 +3205,84 @@ def new_vq_data_codebook_reference(make_trainer, batch: dict, grads: dict) -> No
     g = torch.Generator().manual_seed(9)
     pick = torch.stack([torch.randperm(code.shape[0], generator=g)[:2048] for _ in range(8)])
     data_cb = torch.stack([code[pick[m], m] for m in range(8)]).contiguous()   # (8, 2048, 64)
+    picked = torch.zeros(code.shape[:2], dtype=torch.bool)
+    picked[pick, torch.arange(8)[:, None]] = True
     del tr0, code
+    seen = {}
 
     def data_trainer(device):
         tr = make_trainer(device)
         with torch.no_grad():
             tr.model.pq["codebook"].copy_(data_cb)
+        # the encoder's output over both views: the quantizer's input
+        tr.model.net.enc.register_forward_hook(
+            lambda mod, args, out: seen.__setitem__(device, (tr, out.detach())))
         return tr
 
-    # the codebook's gradient is not held here: it is the sum of codeword
-    # minus code over the pixels, and the CPU's codes are its codewords, so
-    # the CPU's terms are exactly zero where the card's carry the bf16
-    # backbone's feature error (its cosine is printed)
+    what = "new_vq_cocostuff27 train reference, data codebook"
     held = {k: v for k, v in grads.items() if k != "pq"}
-    row = reference_step(data_trainer, batch, held,
-                         "new_vq_cocostuff27 train reference, data codebook", e2e_bar=False,
+    row = reference_step(data_trainer, batch, held, what, e2e_bar=False,
                          reported={"pq": grads["pq"]})
-    check(row["untied_pairs"] > 0,
-          "new_vq_cocostuff27 train reference, data codebook: no untied pair")
+    check(row["untied_pairs"] > 0, f"{what}: no untied pair")
+    runs = {dev: codebook_gradient_terms(*seen[dev]) for dev in ("cuda", "cpu")}
+    same = runs["cuda"]["idx"] == runs["cpu"]["idx"]
+    masks = {"all": torch.ones_like(same), "picked": picked, "other": ~picked,
+             "same_index": same, "other_same_index": ~picked & same}
+    parts = {dev: {k: r["scatter"](mask) for k, mask in masks.items()}
+             for dev, r in runs.items()}
+    cos = lambda a, b: torch.nn.functional.cosine_similarity(  # noqa: E731
+        a.flatten(), b.flatten(), dim=0).item()
+    sq = (runs["cpu"]["terms"] ** 2).sum(-1)
+    split = {**{f"{k}_pairs": int(mask.sum()) for k, mask in masks.items()},
+             **{f"{k}_norm_{dev}": parts[dev][k].norm().item()
+                for k in masks for dev in runs},
+             **{f"{k}_cosine": cos(parts["cuda"][k], parts["cpu"][k]) for k in masks},
+             **{f"terms_over_autograd_cosine_{dev}": cos(parts[dev]["all"], r["autograd"])
+                for dev, r in runs.items()},
+             "other_squared_terms_share_on_differing_pairs":
+                 (sq[~picked & ~same].sum() / sq[~picked].sum()).item()}
+    check(all(split[f"terms_over_autograd_cosine_{dev}"] >= 0.9999 for dev in runs),
+          f"{what}: the codebook gradient is not the sum of its pairs' terms {split}")
+    check(split["same_index_cosine"] >= 0.98,
+          f"{what}: codebook gradient cosine over the pairs of the same index "
+          f"{split['same_index_cosine']}")
     emit({"phase": "variants_reference", "config": "new_vq_cocostuff27", "codebook": "data",
-          "untied_pairs_are_most": row["cpu_untied_share"] > 0.5, **row})
+          "untied_pairs_are_most": row["cpu_untied_share"] > 0.5, **row,
+          "codebook_gradient": split})
+
+
+def codebook_gradient_terms(tr, z: torch.Tensor) -> dict:
+    """The codebook gradient of a trainer ``tr`` whose backward has run,
+    and its terms from ``vq-loss`` (``book`` * mean((z_q - z)^2), the
+    codebook's only term at ``jsd_weight`` 0) on the quantizer input ``z``
+    (pixels, M * d): ``autograd`` (the parameter's ``.grad``, (M, K, d)),
+    ``terms`` 2 * book * (z_q - z) / z.numel() (pixels, M, d), the
+    quantizer's ``idx`` (pixels, M) and ``scatter(mask)``, the sum of the
+    terms of the pairs ``mask`` (pixels, M) onto their codewords; all on
+    the CPU."""
+    from equss_tpu_torch.ops.quantizer import pq_forward
+
+    m = tr.model
+    cfg = model_pq_cfg(m)
+    codebook = m.pq["codebook"].detach()
+    with torch.no_grad():
+        _, idx, _, _ = pq_forward(z, {"codebook": codebook}, m.pq_state.as_dict(), cfg,
+                                  training=True)
+    zf = z.reshape(-1, cfg.num_pq, cfg.sub_dim).float()
+    idx = idx.reshape(zf.shape[:2]).long()
+    src = codebook.float() if cfg.assign_precision == "exact" else \
+        codebook.to(torch.bfloat16).float()
+    sub = torch.arange(cfg.num_pq, device=z.device).expand_as(idx)
+    terms = ((src[sub, idx] - zf) * (2.0 * cfg.book / zf.numel())).cpu()
+    flat = (sub * cfg.num_codebook + idx).reshape(-1).cpu()
+
+    def scatter(mask: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros(cfg.num_pq * cfg.num_codebook, cfg.sub_dim)
+        out.index_add_(0, flat, terms.reshape(-1, cfg.sub_dim) * mask.reshape(-1, 1).float())
+        return out.reshape(codebook.shape)
+
+    return {"autograd": m.pq["codebook"].grad.detach().float().cpu(), "terms": terms,
+            "idx": idx.cpu(), "scatter": scatter}
 
 
 KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)

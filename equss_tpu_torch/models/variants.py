@@ -52,7 +52,8 @@ parameters, so no optimizer of the model picks them up.  Random draws
 come from the caller's ``generator``; ``info_nce_idx``,
 ``stego_override``, NewVQ's ``kmeans_first`` / ``kmeans_gumbel``, the
 quantizers' ``gumbel_<i>`` / ``split_noise_<i>``, EMAModel's
-``dropout_keep`` and ``proxy_q_idx`` / ``proxy_neg_idx`` replace them.
+``dropout_keep`` and ``proxy_q_idx`` / ``proxy_neg_idx`` replace them;
+``draw_keys`` names those a model's forward reads besides the view's.
 A model whose state starts from data (``needs_data_init``: a ``kmeans``
 or ``rand`` codebook, EMAModel's bank) has ``data_init(img, generator,
 **draws)``, which returns the new tensors by name (the k-means and
@@ -150,6 +151,7 @@ class _Variant(nn.Module):
     dropout settings, and ``features``."""
 
     consumes_aug = False
+    draw_keys: Tuple[str, ...] = ()
 
     def _setup(self, cfg: Dict[str, Any], device: DeviceLike, seed: int) -> torch.Generator:
         super().__init__()
@@ -209,6 +211,11 @@ def _pq_draws(draws: Dict[str, Any], i: int) -> Dict[str, Any]:
     ``split_noise_<i>``."""
     return {"gumbel_noise": draws.get(f"gumbel_{i}"),
             "split_noise": draws.get(f"split_noise_{i}")}
+
+
+def _pq_draw_keys(num: int) -> Tuple[str, ...]:
+    """The draw keys of a chain of ``num`` quantizers (``_pq_draws``)."""
+    return tuple(f"{k}_{i}" for i in range(num) for k in ("gumbel", "split_noise"))
 
 
 def _pq_configs(vq: Dict[str, Any], num: int, num_pq, **extra) -> list:
@@ -608,6 +615,7 @@ class UnSegModel(_Variant):
         self.hidden_dim = m.get("hidden_dim", self.feat_dim)
         self.embed_dims = tuple(vq["embed_dims"])
         self.num_vq = len(self.embed_dims)
+        self.draw_keys = _pq_draw_keys(self.num_vq)
         num_pq = vq.get("num_pq", 1)
         if isinstance(num_pq, int):
             num_pq = [num_pq] * self.num_vq
@@ -1046,6 +1054,7 @@ class VAEModel(_Variant):
             num_pq = [num_pq] * 2
         elif len(num_pq) < 2:
             num_pq = list(num_pq) * 2
+        self.draw_keys = _pq_draw_keys(2)
         self.pq_cfgs = _pq_configs(vq, 2, num_pq, use_split=vq.get("use_split", False),
                                    use_weighted_sum=vq.get("use_weighted_sum", False))
         self.agg_type = vq.get("agg_type", "concat")
@@ -1167,6 +1176,7 @@ class InfoModel(_Variant):
         vq = m["vq"]
         self.embed_dims = tuple(vq["embed_dims"])
         self.num_vq = len(self.embed_dims)
+        self.draw_keys = _pq_draw_keys(self.num_vq)
         self.pq_cfgs = _pq_configs(vq, self.num_vq, [1] * self.num_vq)
         self.net = _InfoNet(self.feat_dim, self.embed_dims, m.get("enc_num_blocks", 1),
                             m.get("dec_num_blocks", 1), generator)
@@ -1261,6 +1271,7 @@ class EMAModel(_Variant):
 
     consumes_aug = True
     needs_data_init = True
+    draw_keys = ("dropout_keep", "proxy_q_idx", "proxy_neg_idx")
 
     def __init__(self, cfg: Dict[str, Any], *, device: DeviceLike = None, seed: int = 0):
         generator = self._setup(cfg, device, seed)

@@ -288,14 +288,9 @@ class Trainer:
             sel = out["code"]
         return sel if self.supervised else sel.detach()
 
-    # a model's random draws that a batch may fix: the quantizers' Gumbel
-    # and split noise (``<name>_<quantizer>``), EMAModel's dropout keep
-    # masks and proxy-loss indices
-    _DRAW_KEYS = ("gumbel_0", "gumbel_1", "split_noise_0", "split_noise_1", "dropout_keep",
-                  "proxy_q_idx", "proxy_neg_idx")
     _TRAIN_KEYS = ("img", "img_pos", "aug_img", "feat", "feat_pos", "label",
                    "stego_coords1", "stego_coords2", "stego_perms", "info_nce_idx",
-                   "kmeans_first", "kmeans_gumbel") + _DRAW_KEYS
+                   "kmeans_first", "kmeans_gumbel")
     # what only a model with a photometric view (``consumes_aug``) reads:
     # the view, its InfoNCE negatives and NewVQ's stage-1 k-means draws
     _VIEW_KEYS = ("aug_img", "info_nce_idx", "kmeans_first", "kmeans_gumbel")
@@ -329,8 +324,10 @@ class Trainer:
         value) is the model state this step would set.  Nothing is
         updated; the gradients are left in the parameters' ``.grad``."""
         consumes = getattr(self.model, "consumes_aug", False)
-        keys = self._TRAIN_KEYS if consumes else [
-            k for k in self._TRAIN_KEYS if k not in self._VIEW_KEYS]
+        # the model's own random draws that a batch may fix (``draw_keys``)
+        draws = tuple(getattr(self.model, "draw_keys", ()))
+        keys = (self._TRAIN_KEYS if consumes else tuple(
+            k for k in self._TRAIN_KEYS if k not in self._VIEW_KEYS)) + draws
         b = self._batch(batch, keys, aug=self.apply_aug)
         for tx in (self.tx_model, self.tx_cluster, self.tx_linear):
             tx.zero_grad()
@@ -338,7 +335,7 @@ class Trainer:
         if "stego_coords1" in b:
             override = (b["stego_coords1"], b["stego_coords2"], b["stego_perms"])
         view = {k: b.get(k) for k in self._VIEW_KEYS} if consumes else {}
-        view.update({k: b[k] for k in self._DRAW_KEYS if k in b})
+        view.update({k: b[k] for k in draws if k in b})
         out = self.model(b.get("img"), b.get("img_pos"), feat=b.get("feat"),
                          feat_pos=b.get("feat_pos"), training=True,
                          generator=self.generator, stego_override=override, **view)

@@ -476,3 +476,34 @@ def test_chip_smoke_routes_the_vae_and_contra_valid_paths_to_the_wide_exact_body
                                           ("pq_wide_exact_kernel<0, false>", 2.0),
                                           ("pq_wide_exact_gather_kernel", 0.5),
                                           ("pq_wide_exact_kernel<1, true>", 4.0)]) == [3.5, 4.0]
+
+
+def test_chip_smoke_holds_each_wide_launch_beside_its_isolated_row_at_the_same_n():
+    """Every wide launch of a variant's valid step (``PQ_VALID`` at the
+    valid batch of ``VARIANTS``) has a row of the ``pq_wide`` phase at its
+    quantizer shape and its own n (``WIDE_PQ``), and
+    ``wide_launches_in_path`` sets each launch of a profile beside the
+    isolated row of that shape, mode and n: one launch or two per step."""
+    import chip_smoke
+
+    measured = {((M, K, d), n) for _, M, K, d, _, ns in chip_smoke.WIDE_PQ for n in ns}
+    for name, _, vbs, _, _ in chip_smoke.VARIANTS:
+        for shape, _, rows in chip_smoke.pq_valid(name)[1] or ():
+            assert (shape, vbs * rows) in measured, (name, shape, vbs * rows)
+    iso = {((1, 1024, 256), True, 3200): {"ms": 0.5, "launch": {"fused": False}},
+           ((1, 1024, 256), True, 12800): {"ms": 1.0, "launch": {"fused": True}}}
+    seq = [("pq_wide_exact_prep_kernel", 0.1), ("pq_wide_exact_kernel<0, false>", 0.4),
+           ("pq_wide_exact_gather_kernel", 0.1), ("pq_wide_exact_kernel<1, true>", 2.0)]
+    prof = {"calls": 2, "sequence": seq * 2,
+            "picked": [{"name": "pq_wide_exact_kernel<1, true>", "ms": 4.0}]}
+    out = chip_smoke.wide_launches_in_path(prof, chip_smoke.pq_valid("vae")[1], 8, "vae",
+                                           iso)["wide_launches"]
+    assert [(r["n"], r["fused"]) for r in out] == [(3200, False), (12800, True)]
+    assert [r["pq_wide_ms_per_launch"] for r in out] == pytest.approx([0.6, 2.0])
+    assert [r["in_path_over_isolated"] for r in out] == pytest.approx([1.2, 2.0])
+    one = {"calls": 2, "sequence": seq[3:] * 2, "picked": prof["picked"]}
+    (row,) = chip_smoke.wide_launches_in_path(one, [((1, 1024, 256), True, 1600)], 8, "one",
+                                              iso)["wide_launches"]
+    assert row["pq_wide_ms_per_launch"] == pytest.approx(2.0)
+    assert row["pq_wide_share_of_bound"] == pytest.approx(row["pq_wide_bound_ms"] / 2.0)
+    assert not chip_smoke.FAILURES

@@ -501,6 +501,37 @@ def test_trainer_draws_the_view_and_a_batch_view_comes_first():
     assert kw.apply_aug and kw.aug_kwargs == {"blur_p": 0.0}
 
 
+def test_trainer_passes_the_draws_each_model_declares():
+    """A chain of three Gumbel quantizers (deeper than any config's) gets
+    all three ``gumbel_<i>`` of a batch: the forward receives them, and
+    two steps on the same fixed draws agree although the trainer's
+    generator moved on; without ``gumbel_2`` they differ."""
+    cfg = micro("info_cocostuff27")
+    cfg["num_classes"] = 4
+    cfg["model"]["vq"].update(num_codebooks=[8, 8, 8], embed_dims=[32, 32, 32])
+    tr = Trainer(cfg, device="cpu", seed=0)
+    assert tr.model.draw_keys == ("gumbel_0", "split_noise_0", "gumbel_1", "split_noise_1",
+                                  "gumbel_2", "split_noise_2")
+    rs = np.random.RandomState(0)
+    batch = _batches(1, 0)[0]
+    batch.update({f"gumbel_{i}": rs.gumbel(size=(N, 1, 8)).astype(np.float32)
+                  for i in range(3)})
+    seen, forward = {}, tr.model.forward
+
+    def recording(*args, **kwargs):
+        seen.update(kwargs)
+        return forward(*args, **kwargs)
+
+    tr.model.forward = recording
+    losses = [tr.forward_backward(batch)[0]["loss"].item() for _ in range(2)]
+    assert torch.equal(seen["gumbel_2"], torch.from_numpy(batch["gumbel_2"]))
+    assert losses[0] == losses[1]
+    del batch["gumbel_2"]
+    seen.clear()
+    losses = [tr.forward_backward(batch)[0]["loss"].item() for _ in range(2)]
+    assert "gumbel_2" not in seen and losses[0] != losses[1]
+
+
 @pytest.mark.parametrize("name", CONFIGS)
 def test_nonfinite_step_leaves_model_state_and_a_finite_one_moves_it(name):
     cfg, tr = _trainer(name)
