@@ -204,6 +204,15 @@ Phases, each printing JSON lines on stdout:
             their Gumbel, split, dropout and proxy draws fixed, and the
             ``data_init`` of Contra and EMAModel given the same k-means
             draws.
+24. distributed  the data parallelism of ``equss_tpu_torch/parallel``,
+            ranks spawned with ``torch.multiprocessing`` on a free
+            localhost port (``phase_distributed``): one rank in an NCCL
+            group against no group (bit-equal, both step medians, the
+            gradient's all-reduce alone), two ranks at the global b = 16
+            (gloo on the one card, NCCL on two cards where there are two:
+            ranks bit-equal after every step, loss terms and first-step
+            gradients against the one-process run), a vq step's EMA counts,
+            and ``build_sharded_predict_fn`` against ``build_predict_fn``.
 The configurations of 17-23 are ``preset(name)``: the preset with the
 changes of ``PRESET_CHANGES``, which the tests hold against ``configs/``.
 In the kernels line each PQ row counts the launches of its own body's
@@ -3285,6 +3294,314 @@ def codebook_gradient_terms(tr, z: torch.Tensor) -> dict:
             "idx": idx.cpu(), "scatter": scatter}
 
 
+DIST_STEPS = 3
+DIST_NCCL1_WARM, DIST_NCCL1_TIMED = 2, 8
+DIST_BATCH = 16
+DIST_TIMEOUT_S = 300
+
+
+def dist_free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dist_state(tr) -> torch.Tensor:
+    """A trainer's weights (model and probes), optimizer moments and model
+    state as one flat f32 vector on the host."""
+    parts = [t.detach().float().reshape(-1) for t in tr.state_dict().values()]
+    for tx in (tr.tx_model, tr.tx_cluster, tr.tx_linear):
+        for v in tx.state_dict()["state"].values():
+            parts += [t.float().reshape(-1) for t in (v.values() if isinstance(v, dict) else [v])
+                      if torch.is_tensor(t)]
+    return torch.cat([t.cpu() for t in parts])
+
+
+def dist_grads(tr) -> dict:
+    """The head's and the codebook's gradients after ``forward_backward``."""
+    return {n: p.grad.detach().cpu().clone() for n, p in tr.model_params
+            if n.startswith(("head.", "pq.codebook"))}
+
+
+def dist_steps(tr, batches: list, ranks_equal: bool = False) -> dict:
+    """Train steps, each timed on the host clock to its synchronised end,
+    launches counted from 0; with ``ranks_equal`` whether every rank holds
+    rank 0's state bit for bit after each step."""
+    import torch.distributed as dist
+
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    times, metrics, equal = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        metrics.append(tr.train_step(b))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if ranks_equal:
+            mine = dist_state(tr)
+            ref = mine.clone()
+            dist.broadcast(ref, src=0)
+            diff = torch.tensor([float(not torch.equal(mine, ref))])
+            dist.all_reduce(diff)
+            equal.append(diff.item() == 0.0)
+    return {"metrics": metrics, "ms": [1e3 * t for t in times], "launches": launch_counts(),
+            "ranks_equal": equal, "state": dist_state(tr)}
+
+
+def dist_child_nccl1(out_path: str, port: int) -> None:
+    """(a): the pqgo ``kernel`` step at b = 16 for 2 warm-up and 8 timed
+    steps without a process group, then the same steps in a one-rank NCCL
+    group (every collective of the distributed path runs), both with
+    deterministic algorithms so that the two may be held bit for bit, and
+    a profile of 2 more steps each way; and one all-reduce of the
+    flattened gradient's size timed alone."""
+    import torch.distributed as dist
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.allow_tf32 = False
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+    from equss_tpu_torch.parallel import mesh
+
+    batches = list(synthetic_batches(0, DIST_NCCL1_WARM + DIST_NCCL1_TIMED, DIST_BATCH,
+                                     res=224, num_classes=27))
+    _, tr = train_model("kernel")
+    alone = dist_steps(tr, batches)
+    cycle = iter(batches * 2)
+    profiles = {"alone": device_profile(lambda: tr.train_step(next(cycle)), 2,
+                                        pick=("nccl", "Memcpy", "Memset"))}
+    del tr
+    # a group of one rank (init_distributed joins none for one process)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        _, tr = train_model("kernel")
+        check(tr.distributed, "nccl1: the trainer does not see its group")
+        grouped = dist_steps(tr, batches)
+        cycle = iter(batches * 2)
+        profiles["nccl1"] = device_profile(lambda: tr.train_step(next(cycle)), 2,
+                                           pick=("nccl", "Memcpy", "Memset"))
+        bucket = torch.zeros(sum(p.numel() for _, p in (*tr.model_params, *tr.probe_params)),
+                             device="cuda")
+        with mesh.global_program():
+            bucket_ms = cuda_ms(lambda: mesh.all_reduce_sum(bucket), 20)
+    finally:
+        dist.destroy_process_group()
+    torch.save({"alone": alone, "grouped": grouped, "bucket_ms": bucket_ms,
+                "bucket_numel": bucket.numel(), "profiles": profiles}, out_path)
+    if FAILURES:
+        raise RuntimeError(f"nccl1: {FAILURES}")
+
+
+def dist_child_ranks(rank: int, world: int, backend: str, port: int, out_dir: str) -> None:
+    """(b) and (c) on one rank of ``world``: the pqgo ``kernel`` step's
+    first-step gradients and 3 steps at the global b = 16, then one vq
+    step at the global b = 16, each rank on its rows of the same global
+    batches."""
+    import torch.distributed as dist
+
+    torch.backends.cudnn.allow_tf32 = False
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+    from equss_tpu_torch.parallel import mesh
+
+    mesh.init_distributed(f"localhost:{port}", world, rank, device="cuda", backend=backend)
+    try:
+        check(mesh.world() == world and mesh.rank() == rank, "ranks: the group")
+        batches = list(synthetic_batches(0, DIST_STEPS, DIST_BATCH, res=224, num_classes=27,
+                                         process_index=rank, process_count=world))
+        dev = mesh.local_device("cuda")
+        _, tr = train_model("kernel", device=str(dev))
+        tr.forward_backward(batches[0])
+        grads = dist_grads(tr)
+        _, tr = train_model("kernel", device=str(dev))
+        steps = dist_steps(tr, batches, ranks_equal=True)
+        del tr
+        cfg = preset("vq_cocostuff27")
+        from equss_tpu_torch.train.trainer import Trainer
+
+        vq = Trainer(cfg, device=str(dev), seed=0)
+        vq_m = vq.train_step(batches[0])
+        counts = {k: vq.model.pq_state.as_dict()[k].cpu() for k in ("vq_count", "ema_count")}
+        vq_equal = torch.equal(dist_state(vq), mesh.broadcast_object(dist_state(vq),
+                                                                      is_source=rank == 0))
+    finally:
+        dist.destroy_process_group()
+    torch.save({"grads": grads, "steps": steps, "vq_metrics": vq_m, "vq_counts": counts,
+                "vq_ranks_equal": vq_equal, "device": str(dev)},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    if FAILURES:
+        raise RuntimeError(f"rank {rank}: {FAILURES}")
+
+
+def dist_spawn(ctx, targets: list, what: str) -> bool:
+    """Start every (function, args) of ``targets`` as a process, wait up
+    to ``DIST_TIMEOUT_S`` for all; a process that fails or hangs fails
+    the phase, and every one is stopped."""
+    procs = [ctx.Process(target=fn, args=args) for fn, args in targets]
+    for p in procs:
+        p.start()
+    deadline = time.time() + DIST_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.time()))
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+            p.join(30)
+    codes = [p.exitcode for p in procs]
+    return check(all(c == 0 for c in codes), f"distributed {what}: process exit codes {codes}")
+
+
+def phase_distributed(results: dict) -> None:
+    """The port's data parallelism (``parallel/mesh.py``) on the card,
+    ranks started with ``torch.multiprocessing`` (spawn) on a free
+    localhost port:
+
+    (a) one rank in an NCCL group against the same 10 pqgo ``kernel``
+        steps at b = 16 without a group: losses and state bit-equal,
+        both step medians over the last 8 and one all-reduce of the
+        gradient's size;
+    (b) two ranks (NCCL on two cards where there are two, else gloo on
+        the one card, through the host), the global b = 16, 8 rows a
+        rank: the ranks' state bit-equal after every step; against the
+        one-process run on the global batch each loss term within 1e-3
+        relative and the first step's head and codebook gradient cosine
+        >= 0.999;
+    (c) a vq step on the same two ranks: the EMA counts equal to the
+        one-process run's;
+    (d) ``build_sharded_predict_fn`` over the visible cards (two replicas
+        on the one card where there is one) against ``build_predict_fn``
+        on 8 images: >= 99.99% of pixels equal."""
+    import torch.multiprocessing as mp
+
+    from equss_tpu_torch import launch_counts, reset_launch_counts, serve
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+    from equss_tpu_torch.parallel import mesh
+    from equss_tpu_torch.train.trainer import Trainer
+
+    ctx = mp.get_context("spawn")
+    # the ranks are processes of their own: leave them the card's memory
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    smi = nvidia_smi()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    t_phase = time.perf_counter()
+    try:
+        # (a)
+        out = os.path.join(tmp, "nccl1.pt")
+        if dist_spawn(ctx, [(dist_child_nccl1, (out, dist_free_port()))], "nccl1"):
+            r = torch.load(out, weights_only=False)
+            alone, grouped = r["alone"], r["grouped"]
+            keys = ("loss", "stego-loss", "vq-loss", "linear-loss", "cluster-loss")
+            same_losses = all(a[k] == g[k] for a, g in zip(alone["metrics"], grouped["metrics"])
+                              for k in keys)
+            same_state = torch.equal(alone["state"], grouped["state"])
+            check(same_losses and same_state, "distributed nccl1: not bit-equal to the "
+                  f"steps without a group (losses {same_losses}, state {same_state})")
+            steps = DIST_NCCL1_WARM + DIST_NCCL1_TIMED
+            check(grouped["launches"] == expected(FUSED_LN_KERNELS, steps),
+                  f"distributed nccl1: launches {grouped['launches']}")
+            results["launches"]["dist_nccl1"] = grouped["launches"]
+            timed = {k: sorted(r[k]["ms"][DIST_NCCL1_WARM:]) for k in ("alone", "grouped")}
+            emit({"phase": "distributed", "case": "nccl1", "backend": "nccl", "world": 1,
+                  "batch": DIST_BATCH, "steps": steps, "steps_timed": DIST_NCCL1_TIMED,
+                  "bit_equal_losses": same_losses, "bit_equal_state": same_state,
+                  "ms_per_step_median_alone": timed["alone"][DIST_NCCL1_TIMED // 2],
+                  "ms_per_step_median_nccl1": timed["grouped"][DIST_NCCL1_TIMED // 2],
+                  "ms_per_step_alone": alone["ms"], "ms_per_step_nccl1": grouped["ms"],
+                  "gradient_all_reduce_ms": r["bucket_ms"],
+                  "gradient_numel": r["bucket_numel"], "deterministic_algorithms": True,
+                  "nvidia_smi": smi})
+            for what, prof in r["profiles"].items():
+                emit({"phase": "profile", "what": f"distributed_{what}", "batch": DIST_BATCH,
+                      "steps": 2, **prof})
+
+        # (b), (c)
+        world = 2
+        two_cards = torch.cuda.device_count() >= 2
+        backend = "nccl" if two_cards else "gloo"
+        port = dist_free_port()
+        ok = dist_spawn(ctx, [(dist_child_ranks, (r, world, backend, port, tmp))
+                              for r in range(world)], "ranks")
+        batches = list(synthetic_batches(0, DIST_STEPS, DIST_BATCH, res=224, num_classes=27))
+        _, tr = train_model("kernel")
+        tr.forward_backward(batches[0])
+        want_grads = dist_grads(tr)
+        _, tr = train_model("kernel")
+        alone = dist_steps(tr, batches)
+        cfg = preset("vq_cocostuff27")
+        vq = Trainer(cfg, device="cuda", seed=0)
+        vq.train_step(batches[0])
+        want_counts = {k: vq.model.pq_state.as_dict()[k].cpu() for k in ("vq_count", "ema_count")}
+        del vq
+        if ok:
+            ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                     for r in range(world)]
+            r0 = ranks[0]
+            equal = all(all(rk["steps"]["ranks_equal"]) for rk in ranks)
+            states_equal = all(torch.equal(rk["steps"]["state"], r0["steps"]["state"])
+                               for rk in ranks)
+            check(equal and states_equal, "distributed ranks: states differ between ranks")
+            rel = {k: max(abs(m[k] - a[k]) / max(abs(a[k]), 1e-12)
+                          for m, a in zip(r0["steps"]["metrics"], alone["metrics"]))
+                   for k in LOSS_TERMS if k in alone["metrics"][0]}
+            cos = {k: torch.nn.functional.cosine_similarity(
+                       r0["grads"][k].flatten().double(), want_grads[k].flatten().double(),
+                       dim=0).item() for k in want_grads}
+            check(all(v <= 1e-3 for v in rel.values()),
+                  f"distributed ranks: loss terms vs one process {rel}")
+            check(min(cos.values()) >= 0.999, f"distributed ranks: gradient cosine {cos}")
+            per_step = expected(FUSED_LN_KERNELS, DIST_STEPS)
+            check(all(rk["steps"]["launches"] == per_step for rk in ranks),
+                  f"distributed ranks: launches {[rk['steps']['launches'] for rk in ranks]}")
+            results["launches"]["dist_ranks"] = {
+                k: sum(rk["steps"]["launches"][k] for rk in ranks) for k in per_step}
+            counts_equal = all(torch.equal(rk["vq_counts"][k], want_counts[k])
+                               for rk in ranks for k in want_counts)
+            count_l1 = float((r0["vq_counts"]["vq_count"] - want_counts["vq_count"]).abs().sum())
+            check(counts_equal and all(rk["vq_ranks_equal"] for rk in ranks),
+                  f"distributed vq: EMA counts differ from one process (L1 {count_l1})")
+            emit({"phase": "distributed", "case": "ranks", "backend": backend, "world": world,
+                  "devices": [rk["device"] for rk in ranks], "batch_global": DIST_BATCH,
+                  "steps": DIST_STEPS, "ranks_bit_equal_each_step": equal and states_equal,
+                  "loss_rel_diff_vs_one_process": rel, "grad_cosine_vs_one_process": cos,
+                  "ms_per_step_median_ranks": sorted(r0["steps"]["ms"])[DIST_STEPS // 2],
+                  "ms_per_step_median_one_process": sorted(alone["ms"])[DIST_STEPS // 2],
+                  "ms_per_step_ranks": r0["steps"]["ms"], "ms_per_step_one_process": alone["ms"],
+                  "launches_per_step_per_rank": {k: v / DIST_STEPS for k, v in
+                                                 r0["steps"]["launches"].items()},
+                  "vq_counts_equal": counts_equal, "vq_count_l1": count_l1,
+                  "vq_count_sum": float(r0["vq_counts"]["vq_count"].sum()),
+                  "nvidia_smi": smi,
+                  "note": "gloo carries CUDA tensors through the host: not a speed figure"
+                  if backend == "gloo" else ""})
+
+        # (d)
+        devices = mesh.make_mesh() if two_cards else [torch.device("cuda", 0)] * 2
+        img = torch.rand((8, 224, 224, 3), generator=torch.Generator().manual_seed(5)).cuda()
+        want = serve.build_predict_fn(tr)(img)
+        sharded = serve.build_sharded_predict_fn(tr, devices)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = sharded(img)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        results["launches"]["dist_serve"] = counts
+        check(counts == expected(FUSED_LN_KERNELS, len(devices)),
+              f"distributed serve: launches {counts}")
+        agree = {k: (got[k] == want[k]).float().mean().item() for k in want}
+        check(set(got) == set(want) and min(agree.values()) >= 0.9999,
+              f"distributed serve: pixels equal {agree}")
+        emit({"phase": "distributed", "case": "sharded_serve",
+              "devices": [str(d) for d in devices], "batch": 8, "pixels_equal": agree,
+              "seconds_phase": time.perf_counter() - t_phase})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     "attention_qkv": ("equss_tpu_torch/csrc/attention_qkv.cu", "equss_tpu/ops/attention.py:198"),
     "attention": ("equss_tpu_torch/csrc/attention_qkv.cu", "equss_tpu/ops/attention.py:91"),
@@ -3363,6 +3680,7 @@ def main() -> int:
     phase_variants(results)
     phase_new_vq_stage1(results)
     phase_variants_reference()
+    phase_distributed(results)
 
     # launches: every main-path run (serving, serving with fused_ln, both
     # train configurations, both valid configurations, the exact sub-run's

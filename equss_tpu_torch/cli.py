@@ -30,8 +30,21 @@ The jobs that run a model (train, knn, export) build it through
 ``vq``, ``stego``, ``probe``, ``sl``) and take the CUDA card unless
 ``device`` says otherwise (``run(cfg, device="cpu")``, or the override
 ``device=cpu``; ``export.platforms`` names the export's device); crop and
-pack are host work.  Multi-process runs and ``train.profile_dir`` raise
-``NotImplementedError``.
+pack are host work.  ``train.profile_dir`` raises ``NotImplementedError``.
+
+The train job runs on several processes as one global program
+(``parallel/mesh.py``), one command per process:
+
+    python -m equss_tpu_torch.cli --config X.yaml \
+        dist.coordinator=HOST:PORT dist.num_processes=N dist.process_id=R
+
+(or ``EQUSS_COORDINATOR`` / ``EQUSS_NUM_PROCESSES`` / ``EQUSS_PROCESS_ID``
+in the environment), or under a launcher that sets ``MASTER_ADDR``,
+``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK`` (``torchrun``) with
+``dist.auto=true``.  NCCL joins CUDA ranks, each on
+``cuda:<local rank>``; gloo the CPU ones (``device=cpu``).  Each rank
+reads its rows of every global batch of ``dataloader.*.batch_size``;
+rank 0 picks the run directory, logs and writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -43,6 +56,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from equss_tpu_torch.device import DeviceLike, resolve_device
+from equss_tpu_torch.parallel import mesh
 
 JOBS = ("train", "crop", "knn", "export", "pack")
 
@@ -62,8 +76,9 @@ def _make_batch_fns(cfg: Dict[str, Any]):
     """``(train_batches(epoch), val_batches(), res)``: the corpus's
     batches (``build_data``; an epoch's order from ``seed + epoch``), or
     synthetic ones under ``dataset.synthetic``, with the JAX package's
-    seeds and counts; sets ``cfg['_iter_per_epoch']`` (the cosine
-    schedules' horizon and the resume epoch)."""
+    seeds and counts, each process's rows of them; sets
+    ``cfg['_iter_per_epoch']`` (the cosine schedules' horizon and the
+    resume epoch)."""
     seed = cfg.get("seed", 0)
     bs = cfg["dataloader"]["train"]["batch_size"]
     vbs = cfg["dataloader"]["val"]["batch_size"]
@@ -75,12 +90,14 @@ def _make_batch_fns(cfg: Dict[str, Any]):
         nb = cfg["dataset"].get("synthetic_batches", 16)
         ncls = cfg["num_classes"]
 
+        part = dict(process_index=mesh.rank(), process_count=mesh.world())
+
         def train_batches(epoch: int):
-            return synthetic_batches(seed + epoch, nb, bs, res, ncls)
+            return synthetic_batches(seed + epoch, nb, bs, res, ncls, **part)
 
         def val_batches():
             return synthetic_batches(seed + 10_000, max(nb // 4, 1), vbs, vres, ncls,
-                                     with_pos=False)
+                                     with_pos=False, **part)
 
         cfg["_iter_per_epoch"] = nb
         return train_batches, val_batches, res
@@ -141,6 +158,22 @@ def _run_dir(cfg: Dict[str, Any]) -> str:
     return path
 
 
+def _maybe_init_distributed(cfg: Dict[str, Any], device: DeviceLike) -> None:
+    """Join the process group of a multi-process run from the ``dist.*``
+    flags or the ``EQUSS_*`` environment (see the module docstring); a
+    no-op for one process or a group already joined."""
+    d = cfg.get("dist", {}) or {}
+    if d.get("auto"):
+        mesh.init_distributed(device=device, auto=True)
+        return
+    nproc = d.get("num_processes", os.environ.get("EQUSS_NUM_PROCESSES"))
+    if not nproc or int(nproc) <= 1:
+        return
+    mesh.init_distributed(d.get("coordinator", os.environ.get("EQUSS_COORDINATOR")),
+                          int(nproc), d.get("process_id", os.environ.get("EQUSS_PROCESS_ID")),
+                          device=device)
+
+
 def run(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     """The train job of a resolved config.  ``device`` (default
     ``cfg['device']``, else CUDA) is where the trainer runs.  Returns
@@ -150,16 +183,18 @@ def run(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     from equss_tpu_torch.core.logging import MetricsLogger
     from equss_tpu_torch.train.trainer import Trainer
 
-    dist = cfg.get("dist", {}) or {}
-    if int(dist.get("num_processes", 1) or 1) > 1 or dist.get("auto"):
-        raise NotImplementedError("multi-process runs (parallel/mesh.py) are not ported yet")
     if cfg.get("train", {}).get("profile_dir"):
         raise NotImplementedError("train.profile_dir is not ported yet")
     dev = resolve_device(device if device is not None else cfg.get("device"))
-    save_dir = _run_dir(cfg)
+    _maybe_init_distributed(cfg, dev)
+    dev = mesh.local_device(dev)
+    # every rank writes into rank 0's run directory
+    save_dir = mesh.broadcast_object(_run_dir(cfg) if mesh.rank() == 0 else None,
+                                     is_source=mesh.rank() == 0)
     logger = MetricsLogger(save_dir=save_dir, use_wandb=not cfg.get("debug", False),
-                           wandb_cfg=_wandb_cfg(cfg), is_master=True)
-    logger.banner(f"device: {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else dev}")
+                           wandb_cfg=_wandb_cfg(cfg), is_master=mesh.rank() == 0)
+    logger.banner(f"device: {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else dev}"
+                  f" (rank {mesh.rank()} of {mesh.world()})")
 
     train_batches, val_batches, res = _make_batch_fns(cfg)
     trainer = Trainer(cfg, device=dev)

@@ -14,6 +14,9 @@ steps before it as they were.  Only the newest ``max_to_keep`` steps are
 kept.  Loads use ``torch.load(..., weights_only=True)``: a checkpoint
 holds tensors, numbers, strings and containers, nothing that runs code.
 Saves finish before ``save`` returns, so ``wait`` has nothing to wait for.
+On several processes (``parallel/mesh.py``) every rank calls ``save``:
+rank 0 writes and the others wait at a barrier until it has, so each
+rank may then ``restore`` the step.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ import shutil
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from equss_tpu_torch.parallel import mesh
 
 STATE_FILE = "state.pt"
 METADATA_FILE = "metadata.json"
@@ -63,6 +68,12 @@ class CheckpointManager:
 
     def save(self, step: int, state: Dict[str, Any], *,
              metadata: Optional[Dict[str, Any]] = None, wait: bool = False) -> None:
+        if mesh.rank() == 0:
+            self._write(step, state, metadata)
+        mesh.barrier()
+
+    def _write(self, step: int, state: Dict[str, Any],
+               metadata: Optional[Dict[str, Any]]) -> None:
         tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)

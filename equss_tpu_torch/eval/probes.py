@@ -16,6 +16,7 @@ from torch import nn
 
 from equss_tpu_torch.models.vit import Dense
 from equss_tpu_torch.ops.resize import resize2d
+from equss_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,11 +73,17 @@ class ClusterProbe(nn.Module):
 def masked_cross_entropy(logits: torch.Tensor, label: torch.Tensor,
                          num_classes: int) -> torch.Tensor:
     """Cross-entropy over the pixels whose label lies in [0, num_classes),
-    averaged over them; logits (..., C), label (...) int."""
+    averaged over them; logits (..., C), label (...) int.  In a global
+    program the count is the global batch's, divided by the ranks: the
+    mean of the ranks' results is then the global batch's average."""
     mask = (label >= 0) & (label < num_classes)
     safe = torch.where(mask, label, torch.zeros_like(label)).long()
     ce = -torch.log_softmax(logits, dim=-1).gather(-1, safe[..., None])[..., 0]
-    return torch.where(mask, ce, torch.zeros_like(ce)).sum() / mask.sum().clamp_min(1)
+    if mesh.in_program():
+        count = mesh.all_reduce_sum(mask.sum().float()).clamp_min(1) / mesh.program_world()
+    else:
+        count = mask.sum().clamp_min(1)
+    return torch.where(mask, ce, torch.zeros_like(ce)).sum() / count
 
 
 class Evaluator(nn.Module):

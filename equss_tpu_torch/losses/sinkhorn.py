@@ -1,9 +1,11 @@
-"""SwAV-style cluster loss with Sinkhorn-Knopp targets, single process.
+"""SwAV-style cluster loss with Sinkhorn-Knopp targets.
 
-Counterpart of ``equss_tpu/losses/sinkhorn.py``.  The JAX functions take
-an ``axis_name`` to sum across devices; a multi-GPU port of that reduce
-is ROADMAP.md queue 1, item 7, and until then a non-None ``axis_name``
-raises.
+Counterpart of ``equss_tpu/losses/sinkhorn.py``.  In a global program
+(``parallel.mesh``) the sample count ``B``, the total ``sum_Q`` and the
+row sums are summed over the ranks, as the JAX functions' ``psum`` over
+``axis_name`` sums them over the data axis; each rank's scores are its
+own rows.  ``axis_name`` names that axis: ``None`` or ``"data"``, the
+only one the port has; a model axis is ROADMAP.md queue 1, item 9.
 """
 from __future__ import annotations
 
@@ -11,12 +13,14 @@ from typing import Optional
 
 import torch
 
+from equss_tpu_torch.parallel import mesh
 
-def _single_process(axis_name: Optional[str]) -> None:
-    if axis_name is not None:
+
+def _data_axis(axis_name: Optional[str]) -> None:
+    if axis_name not in (None, "data"):
         raise NotImplementedError(
-            "the cross-device Sinkhorn reduce is not ported (ROADMAP.md, queue 1, item 7: "
-            "multi-GPU)")
+            f"axis_name {axis_name!r}: the port reduces over the ranks of its data axis "
+            f"only; other axes are {mesh.TENSOR_PARALLEL_ITEM}")
 
 
 def distributed_sinkhorn(out: torch.Tensor, *, epsilon: float, n_iters: int = 3,
@@ -25,20 +29,21 @@ def distributed_sinkhorn(out: torch.Tensor, *, epsilon: float, n_iters: int = 3,
     """Sinkhorn normalisation of (n, K) assignment scores -> the (n, K)
     soft assignment.  ``valid`` (n,) bool masks samples out: their column
     of Q is zeroed, they leave the sample count B, and their rows come
-    back zero."""
-    _single_process(axis_name)
+    back zero.  In a global program ``out`` holds this rank's samples
+    and the sums run over every rank's."""
+    _data_axis(axis_name)
     Q = torch.exp(out / epsilon).T                    # (K, n)
     if valid is None:
-        B = Q.shape[1]
+        B = Q.shape[1] * mesh.program_world()
     else:
         vf = valid.to(Q.dtype)
         Q = Q * vf[None, :]
-        B = vf.sum()
+        B = mesh.all_reduce_sum(vf.sum())
     K = Q.shape[0]
-    Q = Q / Q.sum()
+    Q = Q / mesh.all_reduce_sum(Q.sum())
     tiny = torch.finfo(Q.dtype).tiny
     for _ in range(n_iters):
-        Q = Q / Q.sum(1, keepdim=True).clamp_min(tiny) / K
+        Q = Q / mesh.all_reduce_sum(Q.sum(1, keepdim=True)).clamp_min(tiny) / K
         Q = Q / Q.sum(0, keepdim=True).clamp_min(tiny) / B
     return (Q * B).T
 

@@ -6,6 +6,13 @@ pos-intra / pos-inter / neg-inter terms with shifts and zero-clamping.
 Random draws come from an explicit ``torch.Generator`` on the tensors'
 device; ``sample_override`` replaces them so both packages can be fed the
 same coordinates and permutations.
+
+In a global program (``parallel.mesh``) the loss is the global batch's,
+as in the JAX package's data mesh: the coordinates are drawn for the
+global batch and each rank keeps its rows, the negatives' permutations
+run over the global batch (a negative may be another rank's image, so
+the codes and features are gathered), and the feature correlations'
+means are taken over the ranks.
 """
 from __future__ import annotations
 
@@ -14,6 +21,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from equss_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,9 +130,11 @@ def _helper(f1, f2, c1, c2, shift: float, cfg: StegoLossConfig) -> torch.Tensor:
     with torch.no_grad():            # the feature side is frozen
         fd = tensor_correlation(_norm(f1), _norm(f2), cfg.correlation_precision)
         if cfg.pointwise:
-            old_mean = fd.mean()
-            fd = fd - fd.mean(dim=(3, 4), keepdim=True)
-            fd = fd - fd.mean() + old_mean
+            centered = fd - fd.mean(dim=(3, 4), keepdim=True)
+            # the global batch's means: every rank holds as many rows
+            old_mean, new_mean = mesh.mean_over_ranks(
+                torch.stack([fd.mean(), centered.mean()]))
+            fd = centered - new_mean + old_mean
     cd = tensor_correlation(_norm(c1), _norm(c2), cfg.correlation_precision)
     min_val = 0.0 if cfg.zero_clamp else -9999.0
     cd_c = cd.clamp(min_val, 0.8) if cfg.stabilize else cd.clamp_min(min_val)
@@ -143,7 +154,9 @@ def stego_loss(
 
     ``sample_override``: ``(coords1, coords2, perms)`` replacing the random
     draws, coords (b, fs, fs, 2) in [-1, 1] and perms (neg_samples, b)
-    int; ``generator`` may then be None."""
+    int; ``generator`` may then be None.  In a global program the
+    coordinates are this rank's rows and the perms index the global batch
+    (neg_samples, b * ranks)."""
     b = orig_feats.shape[0]
     fs = cfg.feature_samples
     device = orig_feats.device
@@ -151,9 +164,19 @@ def stego_loss(
         coords1, coords2, perms = sample_override
         perms = [p.long() for p in perms]
     else:
-        coords1 = torch.rand((b, fs, fs, 2), generator=generator, device=device) * 2 - 1
-        coords2 = torch.rand((b, fs, fs, 2), generator=generator, device=device) * 2 - 1
-        perms = [super_perm(generator, b, device) for _ in range(cfg.neg_samples)]
+        def draw(n):
+            return torch.rand((n, fs, fs, 2), generator=generator, device=device) * 2 - 1
+
+        coords1, coords2 = mesh.global_rows(draw, b), mesh.global_rows(draw, b)
+        perms = [super_perm(generator, b * mesh.program_world(), device)
+                 for _ in range(cfg.neg_samples)]
+    # the negatives: this rank's rows of each permutation of the global
+    # batch (the features frozen, the codes differentiable)
+    all_feats = mesh.gather_rows(orig_feats.detach())
+    all_code = mesh.gather_rows(orig_code)
+    if mesh.in_program():
+        lo = mesh.program_rank() * b
+        perms = [p[lo:lo + b] for p in perms]
 
     # the reference's ``sample`` swaps the two query axes first; one
     # sampler per coordinate set serves every map sampled at it
@@ -166,7 +189,7 @@ def stego_loss(
     pos_intra = _helper(feats, feats, code, code, cfg.pos_intra_shift, cfg)
     pos_inter = _helper(feats, feats_pos, code, code_pos, cfg.pos_inter_shift, cfg)
     neg_inter = torch.cat([
-        _helper(feats, at2(orig_feats[perm]), code, at2(orig_code[perm]),
+        _helper(feats, at2(all_feats[perm]), code, at2(all_code[perm]),
                 cfg.neg_inter_shift, cfg)
         for perm in perms[:cfg.neg_samples]], 0)
     return (cfg.pos_intra_weight * pos_intra.mean()

@@ -22,6 +22,7 @@ from equss_tpu_torch.models.heads import ExpansionHead, dropout2d
 from equss_tpu_torch.models.vit import VisionTransformer, make_vit_config
 from equss_tpu_torch.ops.quantizer import (PQConfig, ema_jsd_entropy, needs_data_init,
                                            pq_data_init, pq_forward, pq_init)
+from equss_tpu_torch.parallel import mesh
 
 
 def pq_config_from_dict(vq: Dict[str, Any]) -> PQConfig:
@@ -238,7 +239,7 @@ class EQUSS(nn.Module):
         if cfg.dropout:
             if generator is None:
                 raise ValueError("training with dropout requires a generator")
-            both = dropout2d(generator, both, cfg.drop_prob)
+            both = dropout2d(generator, both, cfg.drop_prob, parts=2)
         code_both = self.encode(both)
         feat, feat_pos = both[:b], both[b:]
         code, code_pos = code_both[:b], code_both[b:]
@@ -247,8 +248,11 @@ class EQUSS(nn.Module):
         aux["stego-loss"] = stego_loss(generator, feat, feat_pos, code, code_pos,
                                        cfg.stego, sample_override=stego_override)
         if cfg.pq.vq_type == "ema" and "distance_prob" in aux:
-            # telemetry between the two halves of the batch's pixels
+            # telemetry between the two halves of the global batch's
+            # pixels, which in a global program may lie on other ranks
             prob = aux["distance_prob"]
+            if mesh.in_program():
+                prob = mesh.gather_rows(prob.detach())
             flat = prob.reshape(-1, *prob.shape[-2:])
             half = flat.shape[0] // 2
             aux["jsd"], aux["entropy"] = ema_jsd_entropy(flat[:half], flat[half:2 * half])

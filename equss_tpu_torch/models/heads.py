@@ -11,7 +11,10 @@ weights one to one.
 
 ``BatchNorm`` follows flax, not torch: the batch's biased variance as
 E[x^2] - E[x]^2 (clipped at 0), momentum 0.9 on the running averages,
-and the running variance updated with the biased variance.  The running
+and the running variance updated with the biased variance.  In a global
+program (``parallel.mesh``) the statistics are the global batch's: the
+ranks' means of x and x^2 averaged over the ranks, as flax's
+``axis_name`` does.  The running
 averages are buffers that the forward never writes: a training call
 records their new values in the ``updates`` dict it is given (module ->
 (mean, var)), and the model hands them to the trainer, which commits
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from equss_tpu_torch.models.vit import Dense, _trunc_normal
+from equss_tpu_torch.parallel import mesh
 
 
 class ExpansionHead(nn.Module):
@@ -50,14 +54,20 @@ SegmentationHead = ExpansionHead
 BNUpdates = Dict[nn.Module, Tuple[torch.Tensor, torch.Tensor]]
 
 
-def dropout2d(generator: torch.Generator, x: torch.Tensor, rate: float) -> torch.Tensor:
+def dropout2d(generator: torch.Generator, x: torch.Tensor, rate: float,
+              parts: int = 1) -> torch.Tensor:
     """Channel dropout (torch ``nn.Dropout2d``) for NHWC: zeroes whole
     channels per sample and scales the survivors by 1/(1-p).  The keep
-    mask is drawn from ``generator``, which must live on ``x``'s device."""
+    mask is drawn from ``generator``, which must live on ``x``'s device.
+    In a global program the mask is drawn for the global batch and each
+    rank keeps its rows (``parallel.mesh.global_rows``; ``parts``: the
+    batch blocks stacked in ``x``, as ``[img; img_pos]`` is 2)."""
     if rate <= 0.0:
         return x
     b, _, _, c = x.shape
-    keep = torch.rand((b, 1, 1, c), generator=generator, device=x.device) < 1.0 - rate
+    keep = mesh.global_rows(
+        lambda n: torch.rand((n, 1, 1, c), generator=generator, device=x.device),
+        b, parts) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -90,8 +100,10 @@ class BatchNorm(nn.Module):
                 updates: Optional[BNUpdates] = None) -> torch.Tensor:
         if train:
             axes = tuple(range(x.ndim - 1))
-            mean = x.mean(axes)
-            var = torch.clamp_min((x * x).mean(axes) - mean * mean, 0.0)
+            mean, mean_sq = x.mean(axes), (x * x).mean(axes)
+            if mesh.in_program():
+                mean, mean_sq = mesh.mean_over_ranks(torch.stack([mean, mean_sq])).unbind(0)
+            var = torch.clamp_min(mean_sq - mean * mean, 0.0)
             if updates is not None:
                 m = self.momentum
                 updates[self] = (m * self.mean + (1 - m) * mean.detach(),

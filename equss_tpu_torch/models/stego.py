@@ -114,7 +114,7 @@ class STEGOModel(nn.Module):
         if cfg.dropout:
             if generator is None:
                 raise ValueError("training with dropout requires a generator")
-            both = dropout2d(generator, both, cfg.drop_prob)
+            both = dropout2d(generator, both, cfg.drop_prob, parts=2)
         code_both = self.head(both)
         feat, feat_pos = both[:b], both[b:]
         code, code_pos = code_both[:b], code_both[b:]

@@ -25,6 +25,12 @@ the JAX package's does.  On CUDA every (d, K) inside the JAX package's
 shape rule is inside the kernel's domain (``pq_assign.kernel_domain_error``);
 should one ever not be, the predicate raises with the reason instead of
 taking the plain route.
+
+In a global program (``parallel.mesh``) the training counts and the EMA
+sums are the global batch's, summed over the ranks as the JAX package's
+``_maybe_psum`` sums them over the data axis.  ``pallas_auto_shards``
+stays 1 there: the size gate sees each rank's own rows already, where
+the JAX step sees the global batch and divides by the shards.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ import torch
 
 from equss_tpu_torch.ops.kmeans import gumbel, kmeans
 from equss_tpu_torch.ops.pq_assign import kernel_domain_error, normalize_vectors, pq_assign
+from equss_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -484,14 +491,16 @@ def pq_forward(
             # to the host, which stalls the step on CUDA
             count = torch.zeros(M * K, device=indices.device).index_add_(
                 0, flat, torch.ones(flat.shape, device=indices.device)).reshape(M, K)
+            # the global batch's counts (JAX's ``_maybe_psum``)
+            mesh.all_reduce_sum(count)
             new_state["vq_count"] = state["vq_count"] + count
             aux.update(_usage_aux(count, K))
             if cfg.vq_type == "ema":
                 # the sums of the unnormalised z assigned to each codeword,
                 # in f32 by index_add_: a scatter, no matrix product, so no
                 # TF32 where JAX asks for precision="highest"
-                vec_sum = torch.zeros((M * K, d), device=zf.device).index_add_(
-                    0, flat, zf.reshape(-1, d))
+                vec_sum = mesh.all_reduce_sum(torch.zeros((M * K, d), device=zf.device).index_add_(
+                    0, flat, zf.reshape(-1, d)))
                 new_state = ema_codebook_update(new_state, count,
                                                 vec_sum.reshape(M, K, d), cfg)
                 if cfg.use_split:

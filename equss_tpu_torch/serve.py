@@ -29,11 +29,18 @@ exported for.  Its batch is symbolic under ``symbolic_batch="auto"``
 printed) and pinned under ``"off"``.  On CUDA the quantizer's ``auto``
 route always takes the kernel, so a symbolic artifact keeps it; on the
 CPU a symbolic trace takes the plain route, as the JAX package's does.
-Serving across several cards (``build_sharded_predict_fn``) is not
-ported yet.
+
+``build_sharded_predict_fn`` serves a request's batch split over several
+devices (``parallel.mesh.make_mesh``): one replica of the live predictor
+per device, the batch split evenly, every replica launched before any
+result is read, the predictions concatenated in order.  The forward has
+no cross-image reduction, so the replicas need no collective, as the JAX
+package's sharded jit has none.
 """
 from __future__ import annotations
 
+import copy
+import types
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -78,11 +85,50 @@ def build_predict_fn(trainer, *, normalize: bool = True) -> Predictor:
     return Predictor(trainer, normalize=normalize).eval()
 
 
-def build_sharded_predict_fn(trainer, *args, **kwargs):
-    """Serving with the batch split across several cards needs the
-    multi-card layer (``parallel/mesh.py``), which is not ported yet."""
-    raise NotImplementedError(
-        "build_sharded_predict_fn (serving across cards, parallel/mesh.py) is not ported yet")
+class ShardedPredictor:
+    """``predict(img)`` over one ``Predictor`` replica per device of
+    ``devices``: img (b, H, W, 3) with b divisible by the device count is
+    split into equal consecutive chunks, chunk i runs on device i, and the
+    outputs come back concatenated in order on the first device."""
+
+    def __init__(self, trainer, devices: Sequence[Union[str, torch.device]], *,
+                 normalize: bool = True):
+        self.devices = [torch.device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("build_sharded_predict_fn needs at least one device")
+        self.replicas = [build_predict_fn(_on(trainer, d), normalize=normalize)
+                         for d in self.devices]
+
+    def __call__(self, img) -> Dict[str, torch.Tensor]:
+        img = torch.as_tensor(img)
+        n = len(self.devices)
+        if img.shape[0] % n:
+            raise ValueError(f"batch {img.shape[0]} does not divide evenly over {n} devices")
+        outs = [predict(chunk.to(dev, non_blocking=True))
+                for predict, dev, chunk in zip(self.replicas, self.devices, img.chunk(n))]
+        return {k: torch.cat([o[k].to(self.devices[0]) for o in outs]) for k in outs[0]}
+
+
+def _on(trainer, device: torch.device):
+    """The trainer itself where it runs on ``device``, else what a
+    ``Predictor`` reads of it (model, evaluator, ``_select_out``) with
+    copies of the model and the evaluator on ``device``."""
+    home = next(trainer.evaluator.parameters()).device        # with its index
+    if device.type == home.type and (device.type == "cpu" or device.index == home.index):
+        return trainer
+    model = copy.deepcopy(trainer.model).to(device)
+    model.device = device
+    evaluator = copy.deepcopy(trainer.evaluator).to(device)
+    return types.SimpleNamespace(model=model, evaluator=evaluator,
+                                 _select_out=trainer._select_out)
+
+
+def build_sharded_predict_fn(trainer, devices: Sequence[Union[str, torch.device]], *,
+                             normalize: bool = True) -> ShardedPredictor:
+    """The live predictor of the trainer's current weights with each
+    request's batch split evenly over ``devices`` (``mesh.make_mesh()``:
+    the visible cards), one replica per device, in eval mode."""
+    return ShardedPredictor(trainer, devices, normalize=normalize)
 
 
 def export_device(platforms: Union[None, str, Sequence[str]]) -> Optional[str]:

@@ -55,6 +55,23 @@ update on the k-th (``train/optim.py``), while the model state commits
 after every finite micro-step, as in JAX; a skipped micro-step leaves the
 gradient mean and the micro-step count as they were.  The prediction
 dumps of ``visualize_to`` belong to a later slice of the port.
+
+On several processes (``torch.distributed`` initialised,
+``parallel/mesh.py``) the ranks run one global program, as the JAX
+trainer runs one over its data mesh: each rank holds its own rows of
+every batch and the same weights (rank 0's, broadcast at construction),
+and the steps run inside ``mesh.global_program()``, where the modules
+reduce what couples rows (the quantizer's counts, STEGO's negatives and
+means, the probes' pixel count, the random draws made for the global
+batch).  Each rank backpropagates its share of the global mean (its
+loss over the world size), the ranks sum their gradients in one
+all-reduce of the flattened gradient before the norm, the clip and the
+non-finite check, and the metrics are the ranks' mean: every rank takes
+the same skip decision and the same optimizer steps, and holds the same
+parameters bit for bit.  ``validate`` sums the confusion matrices over
+the ranks before the Hungarian matching.  Families that couple rows in
+ways not yet reduced raise (``registry.check_data_parallel``), as do
+``data_init`` and a weighted JSD.
 """
 from __future__ import annotations
 
@@ -73,8 +90,9 @@ from equss_tpu_torch.data.transforms import normalize_images, photometric_aug
 from equss_tpu_torch.device import DeviceLike, resolve_device
 from equss_tpu_torch.eval.metrics import UnSegMetrics, confusion_update
 from equss_tpu_torch.eval.probes import Evaluator, EvaluatorConfig
-from equss_tpu_torch.models.registry import build_model
+from equss_tpu_torch.models.registry import build_model, check_data_parallel
 from equss_tpu_torch.ops.crf import CRFConfig, batched_crf
+from equss_tpu_torch.parallel import mesh
 from equss_tpu_torch.train.optim import build_optimizer, global_grad_norm
 
 
@@ -151,6 +169,11 @@ class Trainer:
 
     def __init__(self, cfg: Dict[str, Any], *, device: DeviceLike = None,
                  seed: Optional[int] = None, model: Optional[nn.Module] = None):
+        # in a process group the steps take the distributed path, one
+        # rank included; what couples rows raises from two ranks on
+        self.world, self.distributed = mesh.world(), mesh.in_group()
+        if self.world > 1:
+            check_data_parallel(cfg)
         self.cfg = cfg
         self.tc = TrainConfig.from_config(cfg)
         self.device = resolve_device(device)
@@ -203,6 +226,13 @@ class Trainer:
                                           opt_cfg["cluster"], sch_cfg.get("cluster"), **common)
         self.tx_linear = build_optimizer(self.evaluator.linear_probe.named_parameters(),
                                          opt_cfg["linear"], sch_cfg.get("linear"), **common)
+        if self.world > 1:
+            if "jsd" in self.loss_weights:
+                raise NotImplementedError(
+                    "a weighted JSD does not run on several processes yet (ROADMAP.md "
+                    "queue 1, item 10)")
+            mesh.replicate(self.model)
+            mesh.replicate(self.evaluator)
 
     # ----------------------------------------------------------- weights
     def load_state_dict(self, sd: Mapping[str, torch.Tensor]) -> None:
@@ -301,12 +331,8 @@ class Trainer:
         device: with ``aug`` and no ``aug_img`` in the batch, the
         photometric view of the [0, 1] images; images normalised, labels
         int64, the STEGO and InfoNCE override keys as given."""
-        out: Dict[str, Any] = {}
-        for k, v in batch.items():
-            if v is None or k not in keys:
-                continue
-            t = torch.from_numpy(np.asarray(v)) if not torch.is_tensor(v) else v
-            out[k] = t.to(self.device, non_blocking=True)
+        out = mesh.shard_batch({k: v for k, v in batch.items()
+                                if v is not None and k in keys}, self.device)
         if aug and "aug_img" not in out:
             img = out["img"]
             img01 = img.float() / 255.0 if img.dtype == torch.uint8 else img
@@ -323,6 +349,10 @@ class Trainer:
         the model's training outputs, whose ``state`` (buffer name -> new
         value) is the model state this step would set.  Nothing is
         updated; the gradients are left in the parameters' ``.grad``."""
+        with mesh.global_program():
+            return self._forward_backward(batch)
+
+    def _forward_backward(self, batch: Mapping[str, Any]):
         consumes = getattr(self.model, "consumes_aug", False)
         # the model's own random draws that a batch may fix (``draw_keys``)
         draws = tuple(getattr(self.model, "draw_keys", ()))
@@ -343,7 +373,9 @@ class Trainer:
         model_loss = self._model_loss(aux)
         ev = self.evaluator(self._select_out(out), b["label"])
         total = model_loss + ev["linear_loss"] + ev.get("cluster_loss", 0.0)
-        total.backward()
+        # each rank's share of the global mean; the ranks' gradients sum
+        (total / self.world if self.distributed else total).backward()
+        self._sum_gradients()
         metrics = {"loss": total, "model-loss": model_loss,
                    "linear-loss": ev["linear_loss"]}
         if "cluster_loss" in ev:
@@ -356,7 +388,23 @@ class Trainer:
         metrics["grad-norm"] = global_grad_norm(
             p for _, p in self.model_params).to(self.device)
         metrics["probe-grad-norm"] = global_grad_norm(p for _, p in self.probe_params)
+        if self.distributed:
+            names = list(metrics)
+            means = mesh.mean_over_ranks(torch.stack(
+                [metrics[k].detach().float().reshape(()) for k in names]))
+            metrics = dict(zip(names, means.unbind(0)))
         return metrics, out
+
+    def _sum_gradients(self) -> None:
+        """The ranks' gradients summed in one all-reduce of the flattened
+        gradient (model and probes); a parameter without a gradient keeps
+        none, as on one process."""
+        if not self.distributed:
+            return
+        params = [p for _, p in (*self.model_params, *self.probe_params) if p.grad is not None]
+        flat = mesh.all_reduce_sum(torch.cat([p.grad.reshape(-1) for p in params]))
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = g.view_as(p)
 
     def train_step(self, batch: Mapping[str, Any]) -> Dict[str, float]:
         """One training step; returns its metrics as floats (``skipped`` is
@@ -385,6 +433,10 @@ class Trainer:
         images of a host batch, its draws from the trainer's generator;
         the new values are copied into the model's parameters and
         buffers."""
+        if self.world > 1:
+            raise NotImplementedError(
+                "data_init (the k-means or rand codebook, EMAModel's bank) on several "
+                "processes couples the batch's rows (ROADMAP.md queue 1, item 10)")
         b = self._batch(batch, keys=("img", "label"))
         with torch.no_grad():
             new = self.model.data_init(b["img"], self.generator)
@@ -401,9 +453,11 @@ class Trainer:
         (num_classes + extra_classes, num_classes), both int64 with rows
         = predictions; ``linear_loss`` / ``cluster_loss``;
         ``linear_preds`` / ``cluster_preds`` (b, H, W) int32; and
-        ``pq_indices`` (b, gh, gw, M)."""
+        ``pq_indices`` (b, gh, gw, M).  On several processes the batch is
+        this rank's rows and the losses its share of the global batch's
+        (``validate`` sums the matrices over the ranks)."""
         b = self._batch(batch, keys=("img", "label"))
-        with torch.no_grad():
+        with torch.no_grad(), mesh.global_program():
             out = self.model(b["img"], training=False)
             ev = self.evaluator(self._select_out(out), b["label"])
         n, e = self.tc.num_classes, self.tc.extra_classes
@@ -441,15 +495,19 @@ class Trainer:
                 if k in res:
                     sums[k] = sums.get(k, 0) + res[k]
             batches += 1
+        self._sum_over_ranks(sums)
         sums = {k: v.cpu() for k, v in sums.items()}
+        per_loss = max(batches, 1) * self.world
         if "linear_conf" in sums:
             linear_m.update_confusion(sums["linear_conf"])
         linear = linear_m.compute()
         out = {
             "Linear_mIoU": linear["iou"],
             "Linear_Accuracy": linear["accuracy"],
-            "val_linear_loss": float(sums.get("linear_loss", 0.0)) / max(batches, 1),
-            "val_cluster_loss": float(sums.get("cluster_loss", 0.0)) / max(batches, 1),
+            # a rank's loss is its share of the global batch's times the
+            # world size, and the sums run over the ranks
+            "val_linear_loss": float(sums.get("linear_loss", 0.0)) / per_loss,
+            "val_cluster_loss": float(sums.get("cluster_loss", 0.0)) / per_loss,
         }
         if has_cluster:
             if "cluster_conf" in sums:
@@ -474,7 +532,7 @@ class Trainer:
         b = self._batch(batch, keys=("img", "label"))
         crf_cfg = CRFConfig(**(self.cfg.get("eval", {}).get("crf", {}) or {}))
         n, e = self.tc.num_classes, self.tc.extra_classes
-        with torch.no_grad():
+        with torch.no_grad(), mesh.global_program():
             out = self.model(b["img"], training=False)
             ev = self.evaluator(self._select_out(out), b["label"], want_log_probs=True)
             res = {}
@@ -504,6 +562,7 @@ class Trainer:
             for k in ("cluster_conf", "linear_conf"):
                 if k in res:
                     sums[k] = sums[k] + res[k] if k in sums else res[k]
+        self._sum_over_ranks(sums)
         n, e = self.tc.num_classes, self.tc.extra_classes
         linear_m = UnSegMetrics(n, 0, compute_hungarian=False)
         if "linear_conf" in sums:
@@ -518,6 +577,13 @@ class Trainer:
             cluster = linear
         return {"Cluster_mIoU": cluster["iou"], "Cluster_Accuracy": cluster["accuracy"],
                 "Linear_mIoU": linear["iou"], "Linear_Accuracy": linear["accuracy"]}
+
+    def _sum_over_ranks(self, sums: Dict[str, Any]) -> None:
+        """Each of a valid loop's sums (device tensors) summed over the
+        ranks in place."""
+        with mesh.global_program():
+            for v in sums.values():
+                mesh.all_reduce_sum(v)
 
     # -------------------------------------------------------------- fit
     def fit(self, train_batches: Callable[[int], Iterable[Mapping[str, Any]]],

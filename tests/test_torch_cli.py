@@ -24,8 +24,9 @@
   batches (train with positives, val) equal the JAX package's
   ``_make_batch_fns`` on the same corpus and seed.
 * Without ``device`` the jobs that run a model take CUDA and raise
-  without it; multi-process runs, ``train.profile_dir`` and
-  ``build_sharded_predict_fn`` raise ``NotImplementedError``.
+  without it; a multi-process run needs its coordinator (its runs:
+  ``tests/test_torch_parallel.py``); ``train.profile_dir`` and the
+  tensor-parallel layouts raise ``NotImplementedError``.
 """
 import builtins
 import glob
@@ -149,19 +150,21 @@ def test_cli_train_checkpoint_final_crf_and_resume(tmp_path):
 
 
 def test_cli_defaults_to_cuda_and_raises_on_what_is_not_ported(tmp_path, monkeypatch):
-    from equss_tpu_torch import serve
+    from equss_tpu_torch.parallel import mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     base = ["--config", "configs/smoke_synthetic.yaml", "--debug", f"save_dir={tmp_path}"]
     for job in ("train", "knn", "export"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             cli.main([job, *base, f"export.path={tmp_path / 'm.pt2'}"])
-    with pytest.raises(NotImplementedError, match="multi-process"):
+    # several processes run (tests/test_torch_parallel.py), given their
+    # coordinator and rank
+    with pytest.raises(ValueError, match="dist.coordinator"):
         cli.main([*base, "device=cpu", "dist.num_processes=2"])
     with pytest.raises(NotImplementedError, match="profile_dir"):
         cli.main([*base, "device=cpu", f"train.profile_dir={tmp_path / 'prof'}"])
-    with pytest.raises(NotImplementedError, match="build_sharded_predict_fn"):
-        serve.build_sharded_predict_fn(None)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        mesh.shard_quantizer(None, {}, {})
 
 
 def _corpus_args(root, tmp_path):

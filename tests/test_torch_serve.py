@@ -147,8 +147,10 @@ def test_export_platforms_is_one_device(pair, tmp_path):
         serve.export_device("tpu")
     with pytest.raises(ValueError, match="trainer runs on cpu"):
         serve.export_predictor(tr, (16, 16), platforms="cuda")
-    with pytest.raises(NotImplementedError):
-        serve.build_sharded_predict_fn(tr)
+    # several devices serve through the sharded predictor, a batch that
+    # divides evenly over them (tests/test_torch_parallel.py)
+    with pytest.raises(ValueError, match="divide evenly"):
+        serve.build_sharded_predict_fn(tr, ["cpu", "cpu"])(torch.zeros(3, 16, 16, 3))
 
 
 _LOAD_ONLY_OPS = """

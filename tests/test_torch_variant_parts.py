@@ -12,7 +12,8 @@ residual blocks.
   divide n.
 * ``distributed_sinkhorn`` and ``cluster_loss`` with no queue, with a
   partly filled queue (masked slots add nothing and their rows are
-  zero) and with a full one: rtol 1e-5; a non-None ``axis_name`` raises.
+  zero) and with a full one: rtol 1e-5; an ``axis_name`` other than the
+  data axis raises.
 * ``photometric_apply`` given JAX's own draws (``photometric_aug``'s
   seven keys) against JAX's ``photometric_aug``: within 1e-5 on >= 99.9%
   of the elements; where the hue lands on an HSV sector boundary a pixel
@@ -195,8 +196,14 @@ def test_sinkhorn_cluster_loss_matches_jax(live):
 
 
 def test_sinkhorn_axis_name_raises_naming_the_multi_gpu_item():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ts.distributed_sinkhorn(torch.zeros(3, 2), epsilon=0.05, axis_name="data")
+    """The data axis is the port's one axis (its reduce:
+    tests/test_torch_parallel.py); a model axis raises, naming the
+    tensor-parallel item."""
+    with pytest.raises(NotImplementedError, match="item 9"):
+        ts.distributed_sinkhorn(torch.zeros(3, 2), epsilon=0.05, axis_name="model")
+    scores = torch.rand(6, 4, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(ts.distributed_sinkhorn(scores, epsilon=0.05, axis_name="data"),
+                       ts.distributed_sinkhorn(scores, epsilon=0.05))
 
 
 # ---------------------------------------------------------- photometric
