@@ -212,7 +212,16 @@ Phases, each printing JSON lines on stdout:
             (gloo on the one card, NCCL on two cards where there are two:
             ranks bit-equal after every step, loss terms and first-step
             gradients against the one-process run), a vq step's EMA counts,
-            and ``build_sharded_predict_fn`` against ``build_predict_fn``.
+            and ``build_sharded_predict_fn`` against ``build_predict_fn``;
+            then the variants across ranks: one NCCL rank against no
+            group for ``cluster_swav``, ``contra`` and ``ema`` (bit-equal),
+            every config of ``VARIANTS`` at its widths over two ranks at
+            the global b = 4 against one process (ranks bit-equal, loss
+            terms, first-step gradient cosines), the valid step of the
+            wide PQ paths (``unseg``, ``new_vq``, ``vae``, ``contra``)
+            across the ranks (predictions and each launch's PQ indices
+            against one process) and NewVQ's stage 1 across the ranks
+            (the selected rows and the losses).
 The configurations of 17-23 are ``preset(name)``: the preset with the
 changes of ``PRESET_CHANGES``, which the tests hold against ``configs/``.
 In the kernels line each PQ row counts the launches of its own body's
@@ -3435,14 +3444,14 @@ def dist_child_ranks(rank: int, world: int, backend: str, port: int, out_dir: st
         raise RuntimeError(f"rank {rank}: {FAILURES}")
 
 
-def dist_spawn(ctx, targets: list, what: str) -> bool:
+def dist_spawn(ctx, targets: list, what: str, timeout_s: float = DIST_TIMEOUT_S) -> bool:
     """Start every (function, args) of ``targets`` as a process, wait up
-    to ``DIST_TIMEOUT_S`` for all; a process that fails or hangs fails
-    the phase, and every one is stopped."""
+    to ``timeout_s`` for all; a process that fails or hangs fails the
+    phase, and every one is stopped."""
     procs = [ctx.Process(target=fn, args=args) for fn, args in targets]
     for p in procs:
         p.start()
-    deadline = time.time() + DIST_TIMEOUT_S
+    deadline = time.time() + timeout_s
     for p in procs:
         p.join(max(1.0, deadline - time.time()))
     for p in procs:
@@ -3451,6 +3460,348 @@ def dist_spawn(ctx, targets: list, what: str) -> bool:
             p.join(30)
     codes = [p.exitcode for p in procs]
     return check(all(c == 0 for c in codes), f"distributed {what}: process exit codes {codes}")
+
+
+# the variants across ranks: every config of ``VARIANTS`` at its widths,
+# the global batch 4 (2 rows a rank), a first step and 2 more
+DIST_VARIANT_BATCH = 4
+DIST_VARIANT_STEPS = 3
+DIST_VARIANT_TIMEOUT_S = 720
+# the wide PQ paths whose valid step runs across the ranks (320^2)
+DIST_VARIANT_VALID = ("unseg", "new_vq", "vae", "contra")
+# the families with new state collectives: one NCCL rank against no group
+DIST_VARIANT_NCCL1 = ("cluster_swav", "contra", "ema")
+DIST_STAGE1_KMEANS = 100
+DIST_LOSS_TERMS = LOSS_TERMS + ("jsd", "club-enc-loss-first")
+
+
+def dist_rows(batch: dict) -> dict:
+    """This process's rows of a global host batch (all of them without a
+    group)."""
+    from equss_tpu_torch.parallel import mesh
+
+    n = DIST_VARIANT_BATCH // mesh.world()
+    return {k: v[mesh.rank() * n:(mesh.rank() + 1) * n] for k, v in batch.items()}
+
+
+def dist_ranks_equal(tr) -> bool:
+    """Whether this rank's train state equals rank 0's bit for bit (True
+    without a group)."""
+    from equss_tpu_torch.parallel import mesh
+
+    mine = dist_state(tr)
+    return torch.equal(mine, mesh.broadcast_object(mine, is_source=mesh.rank() == 0))
+
+
+def dist_variant_case(i: int, name: str, ranks_equal: bool, valid: bool = True) -> dict:
+    """``VARIANTS[i]`` on this process's rows of the global batch of
+    ``DIST_VARIANT_BATCH``: a valid step at 320^2 first for the wide PQ
+    paths, the first batch's ``data_init`` where the model needs one, then
+    ``DIST_VARIANT_STEPS`` steps with the view drawn on the card.  Returns
+    the first batch's backbone features, the valid step's predictions and
+    PQ indices, the metrics, the first step's gradients by parameter
+    group, the launches of the steps, each step's ms (host clock to the
+    synchronised end), the train state, and with ``ranks_equal`` whether
+    every rank held rank 0's state after ``data_init`` and after each
+    step."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+    from equss_tpu_torch.parallel import mesh
+
+    groups = VARIANTS[i][4]
+    cfg, tr = preset_trainer(name, device=str(mesh.local_device("cuda")))
+    batches = [dist_rows(b) for b in without_view(list(synthetic_batches(
+        40 + i, DIST_VARIANT_STEPS, DIST_VARIANT_BATCH, res=224, num_classes=27)))]
+    out = {"equal": []}
+    # the frozen backbone's features of the first batch's images, for the
+    # comparison of a rank's rows with the one-process run's
+    with torch.no_grad():
+        out["features"] = tr.model.features(
+            tr._batch(batches[0], keys=("img", "label"))["img"]).cpu()
+    if valid and name.startswith(DIST_VARIANT_VALID):
+        from equss_tpu_torch.ops import quantizer
+
+        vb = dist_rows(valid_batches(1, DIST_VARIANT_BATCH, seed=460 + i)[0])
+        # the PQ kernel's indices of each launch, as the quantizer gets them
+        indices, plain = [], quantizer.pq_assign
+
+        def recorded(*args, **kw):
+            res = plain(*args, **kw)
+            indices.append(res[0].cpu())
+            return res
+
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        quantizer.pq_assign = recorded
+        try:
+            res = tr.valid_step(vb)
+        finally:
+            quantizer.pq_assign = plain
+        torch.cuda.synchronize()
+        out["valid"] = {"launches": launch_counts(), "pq_indices": indices,
+                        **{k: res[k].cpu() for k in ("linear_preds", "cluster_preds")}}
+    if getattr(tr.model, "needs_data_init", False):
+        tr.data_init(batches[0])
+        if ranks_equal:
+            out["equal"].append(dist_ranks_equal(tr))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    metrics, times = [], []
+    for j, b in enumerate(batches):
+        t0 = time.perf_counter()
+        metrics.append(tr.train_step(b))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if j == 0:
+            out["grads"] = {g: torch.cat([p.grad.detach().float().reshape(-1).cpu()
+                                          for n, p in tr.model_params
+                                          if n.startswith(prefix) and p.grad is not None])
+                            for g, prefix in groups.items()}
+        if ranks_equal:
+            out["equal"].append(dist_ranks_equal(tr))
+    out.update(launches=launch_counts(), metrics=metrics, ms=[1e3 * t for t in times],
+               state=dist_state(tr))
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_stage1_case() -> dict:
+    """NewVQ's stage 1 (``n_kmeans`` ``DIST_STAGE1_KMEANS``) for one step on
+    this process's rows of a global batch of ``DIST_VARIANT_BATCH`` + the
+    view: the rows it selected, the metrics and the launches."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+    from equss_tpu_torch.parallel import mesh
+    from equss_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(stage1_config(DIST_STAGE1_KMEANS), device=str(mesh.local_device("cuda")),
+                 seed=0)
+    batch = dist_rows(without_view(list(synthetic_batches(
+        50, 1, DIST_VARIANT_BATCH, res=224, num_classes=27)))[0])
+    from equss_tpu_torch.models import variants
+
+    # the k-means' input rows and centroids, as the stage gives them
+    seen, plain = {}, variants.kmeans
+
+    def recorded(x, *args, **kw):
+        res = plain(x, *args, **kw)
+        seen.update(rows=x.cpu(), centroids=res[0].cpu())
+        return res
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    variants.kmeans = recorded
+    try:
+        metrics, out = tr.forward_backward(batch)
+    finally:
+        variants.kmeans = plain
+    torch.cuda.synchronize()
+    row = {"ms": 1e3 * (time.perf_counter() - t0), "launches": launch_counts(),
+           "selected": out["selected"].cpu(), "features": out["feat"].detach().cpu(),
+           "kmeans_rows": seen["rows"], "kmeans_centroids": seen["centroids"],
+           "metrics": {k: float(v.detach()) for k, v in metrics.items()}}
+    del tr, out
+    torch.cuda.empty_cache()
+    return row
+
+
+def dist_child_variants(rank: int, world: int, backend: str, port: int, out_dir: str) -> None:
+    """(e), (g), (h) on one rank of ``world``: every variant config across
+    the ranks, then NewVQ's stage 1, under deterministic algorithms (the
+    k-means' sums are atomics otherwise, and differ from process to
+    process)."""
+    import torch.distributed as dist
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.allow_tf32 = False
+    from equss_tpu_torch.parallel import mesh
+
+    mesh.init_distributed(f"localhost:{port}", world, rank, device="cuda", backend=backend)
+    try:
+        out = {name: dist_variant_case(i, name, ranks_equal=True)
+               for i, (name, *_) in enumerate(VARIANTS)}
+        out["stage1"] = dist_stage1_case()
+        out["device"] = str(mesh.local_device("cuda"))
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f"variants_rank{rank}.pt"))
+    if FAILURES:
+        raise RuntimeError(f"variants rank {rank}: {FAILURES}")
+
+
+def dist_child_variants_nccl1(out_path: str, port: int) -> None:
+    """(f): the configs of ``DIST_VARIANT_NCCL1`` without a process group,
+    then the same in a one-rank NCCL group, under deterministic
+    algorithms."""
+    import torch.distributed as dist
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.allow_tf32 = False
+    cases = [(i, name) for i, (name, *_) in enumerate(VARIANTS)
+             if name.startswith(DIST_VARIANT_NCCL1)]
+    out = {"alone": {name: dist_variant_case(i, name, False, valid=False)
+                     for i, name in cases}}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        out["grouped"] = {name: dist_variant_case(i, name, False, valid=False)
+                          for i, name in cases}
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, out_path)
+    if FAILURES:
+        raise RuntimeError(f"variants nccl1: {FAILURES}")
+
+
+def dist_short(name: str) -> str:
+    return name.replace("_cocostuff27", "")
+
+
+def dist_variants_report(results: dict, ranks: list, alone: dict, smi: str,
+                         backend: str) -> None:
+    """(e), (g), (h): the ranks against the one-process run on the same
+    card, checked and printed, their launches into the kernels line."""
+    for name, _, _, attn, _ in VARIANTS:
+        short, want = dist_short(name), alone[name]
+        got = [rk[name] for rk in ranks]
+        equal = all(all(g["equal"]) for g in got) and all(
+            torch.equal(g["state"], got[0]["state"]) for g in got)
+        check(equal, f"dist variants {short}: ranks' states differ")
+        rel_steps = [{k: abs(m[k] - a[k]) / max(abs(a[k]), 1e-12)
+                      for k in DIST_LOSS_TERMS if k in a}
+                     for m, a in zip(got[0]["metrics"], want["metrics"])]
+        rel = {k: max(r[k] for r in rel_steps) for k in rel_steps[0]}
+        cos = {k: torch.nn.functional.cosine_similarity(
+                   got[0]["grads"][k].double(), want["grads"][k].double(), dim=0).item()
+               for k in want["grads"]}
+        check(all(v <= 1e-3 for v in rel.values()),
+              f"dist variants {short}: loss terms vs one process by step {rel_steps}")
+        check(min(cos.values()) >= 0.999, f"dist variants {short}: gradient cosine {cos}")
+        feats = torch.cat([g["features"] for g in got])
+        feat_equal = (feats == want["features"]).float().mean().item()
+        feat_diff = (feats - want["features"]).abs().max().item()
+        per_step = {"attention_qkv": attn}
+        check(all(g["launches"] == expected(per_step, DIST_VARIANT_STEPS) for g in got),
+              f"dist variants {short}: launches {[g['launches'] for g in got]}")
+        results["launches"][f"dist_variants_{short}"] = {
+            k: sum(g["launches"][k] for g in got) for k in got[0]["launches"]}
+        row = {"phase": "distributed", "case": "variants", "config": name,
+               "backend": backend, "world": len(ranks), "batch_global": DIST_VARIANT_BATCH,
+               "steps": DIST_VARIANT_STEPS, "ranks_bit_equal_each_step": equal,
+               "features_equal_share": feat_equal, "features_max_abs_diff": feat_diff,
+               "loss_rel_diff_vs_one_process": rel, "loss_rel_diff_by_step": rel_steps,
+               "losses_ranks": [{k: m[k] for k in rel} for m in got[0]["metrics"]],
+               "losses_one_process": [{k: m[k] for k in rel} for m in want["metrics"]],
+               "grad_cosine_vs_one_process": cos,
+               "ms_per_step_ranks": got[0]["ms"], "ms_per_step_one_process": want["ms"],
+               "launches_per_step_per_rank": {k: v / DIST_VARIANT_STEPS for k, v in
+                                              got[0]["launches"].items()}}
+        if "valid" in want:
+            v_want = want["valid"]
+            agree = {k: (torch.cat([g["valid"][k] for g in got]) == v_want[k]).float()
+                     .mean().item() for k in ("linear_preds", "cluster_preds")}
+            # each launch's indices: a rank's rows against the one-process
+            # run's rows of the same images
+            idx_equal, idx_share = [], []
+            for j, w in enumerate(v_want["pq_indices"]):
+                rows = w.shape[0] // len(ranks)
+                idx_equal += [torch.equal(g["valid"]["pq_indices"][j],
+                                          w[r * rows:(r + 1) * rows])
+                              for r, g in enumerate(got)]
+                idx_share.append((torch.cat([g["valid"]["pq_indices"][j] for g in got]) == w)
+                                 .float().mean().item())
+            check(min(agree.values()) >= 0.9999 and all(idx_equal),
+                  f"dist variants {short} valid: pixels equal {agree}, indices equal "
+                  f"{idx_equal} ({idx_share})")
+            pq_launches, _ = pq_valid(name)
+            per_valid = {"attention_qkv": 12, "pq_assign": pq_launches}
+            check(all(g["valid"]["launches"] == expected(per_valid, 1) for g in got),
+                  f"dist variants {short} valid: launches "
+                  f"{[g['valid']['launches'] for g in got]}")
+            valid_counts = [g["valid"]["launches"] for g in got]
+            results["launches"][f"dist_variants_{short}_valid"] = {
+                k: sum(c[k] for c in valid_counts) for k in valid_counts[0]}
+            row.update(valid_pixels_equal=agree, valid_pq_indices_equal_by_rank=idx_equal,
+                       valid_pq_indices_equal_share=idx_share)
+        emit(row)
+    got, want = [rk["stage1"] for rk in ranks], alone["stage1"]
+    feats = torch.cat([g["features"] for g in got])
+    s1_feat_equal = (feats == want["features"]).float().mean().item()
+    s1_feat_diff = (feats - want["features"]).abs().max().item()
+    same_sel = [torch.equal(g["selected"], want["selected"]) for g in got]
+    sel_share = (got[0]["selected"] == want["selected"]).float().mean().item()
+    # each centroid's n_kmeans rows as a set (their order within a
+    # centroid follows ties of the distances)
+    k = DIST_STAGE1_KMEANS
+    sets = [g["selected"].reshape(-1, k).sort(-1).values for g in got]
+    want_sets = want["selected"].reshape(-1, k).sort(-1).values
+    set_share = (sets[0] == want_sets).all(-1).float().mean().item()
+    km_rows_equal = (got[0]["kmeans_rows"] == want["kmeans_rows"]).float().mean().item()
+    km_cents_diff = (got[0]["kmeans_centroids"] - want["kmeans_centroids"]).abs().max().item()
+    rel = {k: abs(got[0]["metrics"][k] - v) / max(abs(v), 1e-12)
+           for k, v in want["metrics"].items() if k in DIST_LOSS_TERMS}
+    check(all(same_sel) and all(v <= 1e-3 for v in rel.values()),
+          f"dist variants stage1: selection equal {same_sel} ({sel_share}), losses {rel}")
+    check(all(g["launches"] == expected(STOCK_TRAIN_KERNELS, 1) for g in got),
+          f"dist variants stage1: launches {[g['launches'] for g in got]}")
+    results["launches"]["dist_variants_stage1"] = {
+        k: sum(g["launches"][k] for g in got) for k in got[0]["launches"]}
+    emit({"phase": "distributed", "case": "variants_stage1", "config": "new_vq_cocostuff27",
+          "n_kmeans": DIST_STAGE1_KMEANS, "batch_global": DIST_VARIANT_BATCH,
+          "rows_selected": int(want["selected"].numel()), "selection_equal_by_rank": same_sel,
+          "selection_equal_share": sel_share, "centroid_sets_equal_share": set_share,
+          "kmeans_rows_equal_share": km_rows_equal, "kmeans_centroids_max_abs_diff": km_cents_diff,
+          "loss_rel_diff_vs_one_process": rel,
+          "features_equal_share": s1_feat_equal, "features_max_abs_diff": s1_feat_diff,
+          "ms_ranks": got[0]["ms"], "ms_one_process": want["ms"],
+          "devices": [rk["device"] for rk in ranks], "nvidia_smi": smi,
+          "note": "gloo carries CUDA tensors through the host: not a speed figure"
+          if backend == "gloo" else ""})
+
+
+def phase_distributed_variants(results: dict, ctx, tmp: str, smi: str) -> None:
+    """(e)-(h) of ``phase_distributed``."""
+    from equss_tpu_torch.parallel import mesh
+
+    out = os.path.join(tmp, "variants_nccl1.pt")
+    if dist_spawn(ctx, [(dist_child_variants_nccl1, (out, dist_free_port()))],
+                  "variants nccl1", DIST_VARIANT_TIMEOUT_S):
+        r = torch.load(out, weights_only=False)
+        for name, alone in r["alone"].items():
+            grouped, short = r["grouped"][name], dist_short(name)
+            same_losses = all(a[k] == g[k] for a, g in zip(alone["metrics"], grouped["metrics"])
+                              for k in DIST_LOSS_TERMS if k in a)
+            same_state = torch.equal(alone["state"], grouped["state"])
+            check(same_losses and same_state, f"dist variants nccl1 {short}: not bit-equal "
+                  f"(losses {same_losses}, state {same_state})")
+            results["launches"][f"dist_variants_nccl1_{short}"] = grouped["launches"]
+            emit({"phase": "distributed", "case": "variants_nccl1", "config": name,
+                  "backend": "nccl", "world": 1, "batch": DIST_VARIANT_BATCH,
+                  "steps": DIST_VARIANT_STEPS, "bit_equal_losses": same_losses,
+                  "bit_equal_state": same_state, "ms_per_step_alone": alone["ms"],
+                  "ms_per_step_nccl1": grouped["ms"], "deterministic_algorithms": True})
+    world = 2
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    port = dist_free_port()
+    ok = dist_spawn(ctx, [(dist_child_variants, (r, world, backend, port, tmp))
+                          for r in range(world)], "variants", DIST_VARIANT_TIMEOUT_S)
+    check(not mesh.in_group(), "dist variants: the main process joined a group")
+    # the one-process run under deterministic algorithms too, as the ranks
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        alone = {name: dist_variant_case(i, name, ranks_equal=False)
+                 for i, (name, *_) in enumerate(VARIANTS)}
+        alone["stage1"] = dist_stage1_case()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    if ok:
+        ranks = [torch.load(os.path.join(tmp, f"variants_rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+        dist_variants_report(results, ranks, alone, smi, backend)
 
 
 def phase_distributed(results: dict) -> None:
@@ -3472,7 +3823,27 @@ def phase_distributed(results: dict) -> None:
         one-process run's;
     (d) ``build_sharded_predict_fn`` over the visible cards (two replicas
         on the one card where there is one) against ``build_predict_fn``
-        on 8 images: >= 99.99% of pixels equal."""
+        on 8 images: >= 99.99% of pixels equal;
+    (e)-(h) the variants across ranks (``phase_distributed_variants``):
+    (f) one rank in an NCCL group against no group, ``DIST_VARIANT_NCCL1``
+        for ``DIST_VARIANT_STEPS`` steps (``contra``'s ``data_init``
+        first), deterministic algorithms: losses and state bit-equal;
+    (e) two ranks as in (b), every config of ``VARIANTS`` at its widths,
+        the global b = ``DIST_VARIANT_BATCH`` (2 rows a rank), the first
+        batch's ``data_init`` where the model needs one and
+        ``DIST_VARIANT_STEPS`` steps, under deterministic algorithms on
+        both sides: the ranks' state bit-equal after each; against one
+        process on the same card the first batch's backbone features
+        compared, each loss term of every step within 1e-3 relative and
+        the first step's gradient of each parameter group cosine >=
+        0.999; the launches of every step;
+    (g) on the same ranks first, the valid step at 320^2 of
+        ``DIST_VARIANT_VALID``: >= 99.99% of predictions equal to the
+        one-process valid step, each rank's indices of each PQ launch
+        equal to the one-process rows of its images;
+    (h) NewVQ's stage 1 (``n_kmeans`` ``DIST_STAGE1_KMEANS``) for one step
+        on the same ranks: the selected rows equal to the one-process
+        run's, each loss term within 1e-3 relative."""
     import torch.multiprocessing as mp
 
     from equss_tpu_torch import launch_counts, reset_launch_counts, serve
@@ -3596,7 +3967,14 @@ def phase_distributed(results: dict) -> None:
         check(set(got) == set(want) and min(agree.values()) >= 0.9999,
               f"distributed serve: pixels equal {agree}")
         emit({"phase": "distributed", "case": "sharded_serve",
-              "devices": [str(d) for d in devices], "batch": 8, "pixels_equal": agree,
+              "devices": [str(d) for d in devices], "batch": 8, "pixels_equal": agree})
+        del tr, sharded
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_variants = time.perf_counter()
+        phase_distributed_variants(results, ctx, tmp, smi)
+        emit({"phase": "distributed", "case": "seconds",
+              "seconds_variants": time.perf_counter() - t_variants,
               "seconds_phase": time.perf_counter() - t_phase})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3632,6 +4010,7 @@ def pq_body_row(path: str) -> str:
     fast body on the VQ baseline's and NewVQ's, the narrow fast body
     (``pq_assign``) on every other path (the preset's bf16 ones and
     ``pqgocls``'s)."""
+    path = path.removeprefix("dist_variants_")      # the variants across ranks
     if path.startswith(("pqgo_exact", "serve_exact")):
         return "pq_assign_exact"
     if path.startswith(("vq_exact", "unseg", "vae", "contra")):

@@ -249,7 +249,10 @@ def photometric_apply(img: torch.Tensor, draws: Dict[str, torch.Tensor],
     clipped to [0, 1] as in the JAX package."""
     img = torch.clamp(img * draws["brightness"], 0.0, 1.0)
     fc = draws["contrast"]
-    mean_gray = _rgb_to_gray(img).mean(dim=(1, 2), keepdim=True)
+    # each image's mean gray summed in f64: the f32 result does not
+    # depend on how a card's reduction splits a batch of 2 or of 4 images,
+    # so that a rank's view of an image is the one-process view of it
+    mean_gray = _rgb_to_gray(img).double().mean(dim=(1, 2), keepdim=True).to(img.dtype)
     img = torch.clamp(fc * img + (1 - fc) * mean_gray, 0.0, 1.0)
     fs = draws["saturation"]
     img = torch.clamp(fs * img + (1 - fs) * _rgb_to_gray(img), 0.0, 1.0)

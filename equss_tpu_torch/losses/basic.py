@@ -28,14 +28,29 @@ JAX form would not fit on a card under eager autograd:
   correlation matrices (``roll`` along a row stays inside the row), in
   a ``torch.autograd.Function`` that keeps only the normalised features
   and forms each block's gradient again in the backward:
-  ``dF = G F + G^T F`` block by block.  ``margin_ranking_loss_reference``
+  ``dF = G F + G^T F`` block by block, the rows' and the columns' parts
+  returned apart.  ``margin_ranking_loss_reference``
   is the unblocked form.
+
+In a global program (``parallel.mesh``) each function returns its rank's
+share of the global batch's term (the mean over the ranks is the
+one-process value): the InfoNCE negatives are drawn over the global n and
+taken from the gathered rows, and ``distance`` / ``cosine`` mining ranks a
+rank's rows against every rank's; the margin ranking's rows are a rank's
+own against the gathered columns (the roll wraps over the global
+columns, and the columns' gradient goes back to their owners); CLUB's
+negative term takes the moments of x over the global rows, its mean the
+global chunks' rows; the entropy the global mean assignment.  The JSDs
+pair each row with its own and need no collective: a rank's batch mean
+is its share.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from equss_tpu_torch.parallel import mesh
 
 
 def _kl_batchmean_logtarget(log_input: torch.Tensor, log_target: torch.Tensor) -> torch.Tensor:
@@ -98,8 +113,9 @@ def jsd_loss(p: torch.Tensor, q: torch.Tensor, *, block: int = 4096) -> torch.Te
 
 
 def entropy_loss(p: torch.Tensor, q: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Negative entropy of the batch-mean assignment (only ``p`` is used)."""
-    avg_p = p.reshape(-1, p.shape[-1]).mean(0)
+    """Negative entropy of the batch-mean assignment (only ``p`` is used;
+    in a global program the global batch's mean)."""
+    avg_p = mesh.mean_over_ranks(p.reshape(-1, p.shape[-1]).mean(0))
     return -torch.sum(-avg_p * torch.log(avg_p + 1e-8), dim=-1)
 
 
@@ -119,8 +135,11 @@ def _normalize(x: torch.Tensor, mode: str) -> torch.Tensor:
 def info_nce_draw(generator: torch.Generator, n: int, neg_sample: int,
                   device) -> torch.Tensor:
     """The random negatives of ``info_nce_loss(cal_type='random')``:
-    (n, neg_sample) row indices in [0, n)."""
-    return torch.randint(0, n, (n, neg_sample), generator=generator, device=device)
+    (n, neg_sample) row indices in [0, n); in a global program this
+    rank's rows of the global batch's draw, indices into the global rows."""
+    return mesh.global_rows(
+        lambda rows: torch.randint(0, rows, (rows, neg_sample), generator=generator,
+                                   device=device), n)
 
 
 def info_nce_loss(
@@ -137,23 +156,28 @@ def info_nce_loss(
     """InfoNCE with random, farthest-by-distance or least-cosine negatives
     of x1's own rows.  x1, x2: (b, h, w, d).  ``idx`` (n, neg_sample) are
     the random negatives (``info_nce_draw``); ``distance`` and ``cosine``
-    mine them from an (n, n) matrix."""
+    mine them from an (n, n) matrix.  In a global program the negatives
+    are rows of the global batch (indices into its rows, mined from this
+    rank's rows of the global (n, n) matrix)."""
     d = x1.shape[-1]
     flat_x1 = x1.reshape(-1, d)
     flat_x2 = x2.reshape(-1, d)
+    cols = mesh.gather_rows(flat_x1)                            # the negatives' pool
     if cal_type == "random":
         if idx is None:
             raise ValueError("info_nce_loss(cal_type='random') takes its draw as idx")
     elif cal_type == "distance":
         sq = (flat_x1 ** 2).sum(-1)
-        d2 = sq[:, None] + sq[None] - 2.0 * flat_x1 @ flat_x1.T
+        sq_cols = sq if cols is flat_x1 else (cols ** 2).sum(-1)
+        d2 = sq[:, None] + sq_cols[None] - 2.0 * flat_x1 @ cols.T
         idx = torch.topk(d2, neg_sample, dim=-1).indices
     elif cal_type == "cosine":
         x_norm = _normalize(flat_x1, "l2")
-        idx = torch.topk(-(x_norm @ x_norm.T), neg_sample, dim=-1).indices
+        c_norm = x_norm if cols is flat_x1 else _normalize(cols, "l2")
+        idx = torch.topk(-(x_norm @ c_norm.T), neg_sample, dim=-1).indices
     else:
         raise ValueError(f"No support {cal_type}")
-    neg = flat_x1[idx.long()]                                   # (n, k, d)
+    neg = cols[idx.long()]                                      # (n, k, d)
     x1n = _normalize(flat_x1, normalize)
     x2n = _normalize(flat_x2, normalize)
     negn = _normalize(neg, normalize)
@@ -168,19 +192,26 @@ def club_loss(x: torch.Tensor, p_mu: torch.Tensor, p_logvar: torch.Tensor, *,
     """CLUB mutual-information upper bound, O(n d).  x: (b, h, w, d);
     p_mu, p_logvar: (bhw, d).  The mean of positive minus negative over
     the rows JAX's ``chunks`` chunks cover; each row's negative is its
-    expectation over all n rows of x, by x's mean and biased variance."""
+    expectation over all n rows of x, by x's mean and biased variance.
+    In a global program n, the chunks and the moments are the global
+    batch's, and a rank averages its rows among the covered ones, scaled
+    to its share."""
     d = x.shape[-1]
     flat_x = x.reshape(-1, d)
-    n = flat_x.shape[0]
+    rows, w = flat_x.shape[0], mesh.program_world()
+    n = rows * w
     chunk = max(n // chunks, 1)
     m = (n // chunk) * chunk             # JAX averages over whole chunks only
-    inv_var = torch.exp(-p_logvar[:m])
-    mu = p_mu[:m]
-    positive = -0.5 * (((flat_x[:m] - mu) ** 2) * inv_var).sum(-1)
-    mean = flat_x.mean(0)
-    var = ((flat_x - mean) ** 2).mean(0)
+    # this rank's rows among the first m of the global batch
+    mine = min(max(m - mesh.program_rank() * rows, 0), rows)
+    inv_var = torch.exp(-p_logvar[:mine])
+    mu = p_mu[:mine]
+    positive = -0.5 * (((flat_x[:mine] - mu) ** 2) * inv_var).sum(-1)
+    mean = mesh.mean_over_ranks(flat_x.mean(0))
+    var = mesh.mean_over_ranks(((flat_x - mean) ** 2).mean(0))
     negative = -0.5 * (((mean - mu) ** 2 + var) * inv_var).sum(-1)
-    return (positive - negative).mean()
+    share = (positive - negative).mean() if mine else positive.sum()
+    return share * (mine * w / m) if (mine, w) != (m, 1) else share
 
 
 def club_loss_reference(x: torch.Tensor, p_mu: torch.Tensor, p_logvar: torch.Tensor, *,
@@ -205,12 +236,14 @@ def club_loss_reference(x: torch.Tensor, p_mu: torch.Tensor, p_logvar: torch.Ten
     return (pos_c - negative).mean(-1).mean()
 
 
-def _margin_block(ori_n: torch.Tensor, aug_n: torch.Tensor, rows: slice):
-    """One block of rows of the margin ranking terms: (elementwise loss,
-    s * [loss > 0]) with s = sign(t1 - t2)."""
-    r1 = ori_n[rows] @ ori_n.T
+def _margin_block(ori_r: torch.Tensor, ori_c: torch.Tensor, aug_r: torch.Tensor,
+                  aug_c: torch.Tensor, rows: slice):
+    """One block of rows of the margin ranking terms, the rows ``ori_r``
+    / ``aug_r`` against the columns ``ori_c`` / ``aug_c``: (elementwise
+    loss, s * [loss > 0]) with s = sign(t1 - t2)."""
+    r1 = ori_r[rows] @ ori_c.T
     r2 = torch.roll(r1, 1, dims=1)
-    t1 = aug_n[rows] @ aug_n.T
+    t1 = aug_r[rows] @ aug_c.T
     t2 = torch.roll(t1, 1, dims=1)
     target = torch.sign(t1 - t2)
     margin = torch.abs(t1 - t2)
@@ -221,44 +254,49 @@ def _margin_block(ori_n: torch.Tensor, aug_n: torch.Tensor, rows: slice):
 
 class _MarginRanking(torch.autograd.Function):
     """mean(max(0, -target (r1 - r2'))) over blocks of ``block`` rows of
-    the (n, n) matrices; saves the normalised features only."""
+    the (rows, columns) matrices; saves the normalised features only.
+    The rows and the columns are one tensor on one process; in a global
+    program the rows are a rank's own and the columns the gathered ones,
+    and the gradient goes to both."""
 
     @staticmethod
-    def forward(ctx, ori_n, aug_n, block):
-        n = ori_n.shape[0]
-        total = torch.zeros((), dtype=torch.float32, device=ori_n.device)
+    def forward(ctx, ori_r, ori_c, aug_r, aug_c, block):
+        n, cols = ori_r.shape[0], ori_c.shape[0]
+        total = torch.zeros((), dtype=torch.float32, device=ori_r.device)
         for r0 in range(0, n, block):
-            loss, _ = _margin_block(ori_n, aug_n, slice(r0, min(r0 + block, n)))
+            loss, _ = _margin_block(ori_r, ori_c, aug_r, aug_c, slice(r0, min(r0 + block, n)))
             total = total + loss.sum()
-        ctx.save_for_backward(ori_n, aug_n)
+        ctx.save_for_backward(ori_r, ori_c, aug_r, aug_c)
         ctx.block = block
-        return total / (n * n)
+        return total / (n * cols)
 
     @staticmethod
     def backward(ctx, grad):
-        ori_n, aug_n = ctx.saved_tensors
-        n = ori_n.shape[0]
-        scale = grad / (n * n)
-        d_ori = torch.zeros_like(ori_n)
+        ori_r, ori_c, aug_r, aug_c = ctx.saved_tensors
+        n, cols = ori_r.shape[0], ori_c.shape[0]
+        scale = grad / (n * cols)
+        d_r, d_c = torch.zeros_like(ori_r), torch.zeros_like(ori_c)
         for r0 in range(0, n, ctx.block):
             rows = slice(r0, min(r0 + ctx.block, n))
-            _, sa = _margin_block(ori_n, aug_n, rows)
+            _, sa = _margin_block(ori_r, ori_c, aug_r, aug_c, rows)
             # d loss / d r1[i, j] = -sa[i, j] + sa[i, j + 1] (r2 = roll(r1))
             g = (torch.roll(sa, -1, dims=1) - sa) * scale
-            d_ori[rows] += g @ ori_n
-            d_ori += g.T @ ori_n[rows]
-        return d_ori, None, None
+            d_r[rows] += g @ ori_c
+            d_c += g.T @ ori_r[rows]
+        return d_r, d_c, None, None, None
 
 
 def margin_ranking_loss(ori: torch.Tensor, aug: torch.Tensor, *,
                         block: int = 1024) -> torch.Tensor:
     """Margin ranking between the correlation matrices of ori and aug
     (b, h, w, d), margin 0; aug carries no gradient.  Blocks of ``block``
-    rows: at most a few (block, n) f32 matrices live at a time."""
+    rows: at most a few (block, n) f32 matrices live at a time.  In a
+    global program a rank's rows against the gathered columns."""
     d = ori.shape[-1]
     ori_n = _normalize(ori.reshape(-1, d), "l2")
     aug_n = _normalize(aug.detach().reshape(-1, d), "l2")
-    return _MarginRanking.apply(ori_n, aug_n, block)
+    return _MarginRanking.apply(ori_n, mesh.gather_rows(ori_n), aug_n,
+                                mesh.gather_rows(aug_n), block)
 
 
 def margin_ranking_loss_reference(ori: torch.Tensor, aug: torch.Tensor) -> torch.Tensor:
@@ -267,7 +305,7 @@ def margin_ranking_loss_reference(ori: torch.Tensor, aug: torch.Tensor) -> torch
     d = ori.shape[-1]
     ori_n = _normalize(ori.reshape(-1, d), "l2")
     aug_n = _normalize(aug.detach().reshape(-1, d), "l2")
-    loss, _ = _margin_block(ori_n, aug_n, slice(None))
+    loss, _ = _margin_block(ori_n, ori_n, aug_n, aug_n, slice(None))
     return loss.mean()
 
 

@@ -4,8 +4,10 @@ Counterpart of ``equss_tpu/losses/sinkhorn.py``.  In a global program
 (``parallel.mesh``) the sample count ``B``, the total ``sum_Q`` and the
 row sums are summed over the ranks, as the JAX functions' ``psum`` over
 ``axis_name`` sums them over the data axis; each rank's scores are its
-own rows.  ``axis_name`` names that axis: ``None`` or ``"data"``, the
-only one the port has; a model axis is ROADMAP.md queue 1, item 9.
+own rows.  A queue that ``cluster_loss`` prepends is the same on every
+rank, and is counted once: as rank 0's samples.  ``axis_name`` names
+that axis: ``None`` or ``"data"``, the only one the port has; a model
+axis is ROADMAP.md queue 1, item 9.
 """
 from __future__ import annotations
 
@@ -54,11 +56,18 @@ def cluster_loss(out_prototypes: torch.Tensor, *, temperature: float, epsilon: f
                  axis_name: Optional[str] = None) -> torch.Tensor:
     """Cross-entropy of the (n, K) prototype scores against their Sinkhorn
     targets; ``queue_scores`` (L, K) are prepended for the Sinkhorn, with
-    ``queue_valid`` (L,) marking the live queue slots."""
+    ``queue_valid`` (L,) marking the live queue slots.  In a global
+    program the queue, which every rank holds alike, joins the Sinkhorn's
+    sums on rank 0 only."""
     n = out_prototypes.shape[0]
     scores = out_prototypes.detach()
     valid = None
     if queue_scores is not None:
+        if mesh.in_program():
+            # every rank holds the queue: it counts as rank 0's samples
+            live = (torch.ones(queue_scores.shape[:1], dtype=torch.bool, device=scores.device)
+                    if queue_valid is None else queue_valid.bool())
+            queue_valid = live & (mesh.program_rank() == 0)
         scores = torch.cat([queue_scores.detach(), scores], 0)
         if queue_valid is not None:
             valid = torch.cat([queue_valid.bool(),

@@ -248,11 +248,11 @@ class EQUSS(nn.Module):
         aux["stego-loss"] = stego_loss(generator, feat, feat_pos, code, code_pos,
                                        cfg.stego, sample_override=stego_override)
         if cfg.pq.vq_type == "ema" and "distance_prob" in aux:
-            # telemetry between the two halves of the global batch's
-            # pixels, which in a global program may lie on other ranks
-            prob = aux["distance_prob"]
-            if mesh.in_program():
-                prob = mesh.gather_rows(prob.detach())
+            # between the two halves of the global batch's pixels, which in
+            # a global program may lie on other ranks: every rank computes
+            # the global terms, and a weighted JSD's gradient goes back to
+            # the rows' owners through the gather
+            prob = mesh.gather_rows(aux["distance_prob"])
             flat = prob.reshape(-1, *prob.shape[-2:])
             half = flat.shape[0] // 2
             aux["jsd"], aux["entropy"] = ema_jsd_entropy(flat[:half], flat[half:2 * half])

@@ -12,11 +12,12 @@ names.  ``VARIANTS`` lists the families of the JAX package still to port
 (registered name -> (JAX class, ROADMAP.md queue 1 item)); it is empty:
 every family of ``equss_tpu/models/variants.py`` is ported.
 
-``check_data_parallel`` is the trainer's guard for a multi-process run
-(``parallel/mesh.py``): ``DATA_PARALLEL`` names the families that run as
-one global program over the ranks; the variants couple a batch's rows in
-ways the port does not yet reduce over the ranks (``ROW_COUPLINGS``) and
-raise, naming ROADMAP.md queue 1, item 10.
+Every family runs data-parallel, as one global program over the ranks
+of a process group (``parallel/mesh.py``): what couples a batch's rows
+(the view's and the quantizers' draws, InfoNCE, the margin, the JSDs,
+CLUB and its encoder's inner steps, BatchNorm, the Sinkhorn and the SwAV
+queue, the EMA bank, the k-means stages) reduces or gathers over the
+ranks, as ``models/variants.py`` says.
 """
 from __future__ import annotations
 
@@ -37,35 +38,6 @@ _KEYWORD_ORDER = [
 # the models/variants.py families still to port: registered name ->
 # (JAX class, ROADMAP.md queue 1 item that ports it)
 VARIANTS: Dict[str, Any] = {}
-
-
-# the families that run data-parallel, and what couples the rows of the
-# others' batches across ranks
-DATA_PARALLEL = ("pqgo", "vq", "stego", "probe", "sl")
-ROW_COUPLINGS = {
-    "pqgocls": "the view's draws",
-    "cluster": "the view's draws, the blocked margin, the SwAV queue and InfoNCE",
-    "res": "the view's draws, InfoNCE and the CLUB encoder's inner steps",
-    "hihi": "its BatchNorm decoder and quantizer chain, not yet held across ranks",
-    "new": "the view's draws, InfoNCE and stage 1's k-means",
-    "spq": "the view's draws, the JSD and InfoNCE",
-    "vae": "the view's draws and the halves' JSD",
-    "info": "InfoNCE and its BatchNorm'd projections",
-    "contra": "the view's draws, the blocked JSD and the k-means data_init",
-    "ema": "the view's draws, the EMA bank's top-k enqueue and the k-means data_init",
-}
-DATA_PARALLEL_ITEM = "ROADMAP.md queue 1, item 10 (the variants across ranks)"
-
-
-def check_data_parallel(cfg: Dict[str, Any]) -> None:
-    """Raise ``NotImplementedError`` unless the config's model family runs
-    as one global program over several processes."""
-    name = resolve_model_name(cfg)
-    if name not in DATA_PARALLEL:
-        raise NotImplementedError(
-            f"model '{name}' does not run on several processes yet: it couples the "
-            f"batch's rows through {ROW_COUPLINGS.get(name, 'parts not yet reduced')} "
-            f"({DATA_PARALLEL_ITEM})")
 
 
 def register(name: str):

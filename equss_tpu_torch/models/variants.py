@@ -59,6 +59,18 @@ or ``rand`` codebook, EMAModel's bank) has ``data_init(img, generator,
 **draws)``, which returns the new tensors by name (the k-means and
 ``rand`` draws ``kmeans_first_<i>`` / ``kmeans_gumbel_<i>`` /
 ``rand_idx_<i>`` where given), for ``Trainer.data_init`` to copy in.
+
+In a global program (``parallel.mesh``) every family runs data-parallel
+as one process runs the global batch: the losses couple rows through
+``losses/basic.py`` (InfoNCE, the margin, CLUB), the Sinkhorn and
+BatchNorm, which reduce or gather over the ranks, and the quantizers'
+counts and Gumbel noise; besides, ``ClusterModel`` fills the SwAV queue
+from the gathered codes, ``ResModel``'s CLUB encoder takes the mean of
+the ranks' inner gradients, ``EMAModel`` ranks the gathered student rows
+into its bank, and NewVQ's stage 1 runs its k-means and selection on
+the gathered rows alike on every rank and its quantizer and decoder on
+each rank's equal share of the selected rows.  ``data_init`` needs
+nothing of its own: the trainer hands it the gathered images.
 """
 from __future__ import annotations
 
@@ -85,6 +97,7 @@ from equss_tpu_torch.models.heads import (BatchNorm, BNUpdates, CLUBEncoder, Con
 from equss_tpu_torch.models.vit import Dense, VisionTransformer, make_vit_config
 from equss_tpu_torch.ops.kmeans import kmeans
 from equss_tpu_torch.ops.quantizer import PQConfig, needs_data_init, pq_forward, pq_init
+from equss_tpu_torch.parallel import mesh
 
 
 def codebook_usage_percentiles(count: torch.Tensor, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -320,10 +333,12 @@ class ClusterModel(_Variant):
                        & (it >= self.queue_start_iter))
         loss = cluster_loss(scores, temperature=self.swav_temp, epsilon=self.swav_eps,
                             queue_scores=q_scores, queue_valid=q_valid)
-        n = emb.shape[0]
+        # the strided subsample of the global batch's codes, [img; view]
+        rows = mesh.gather_rows(emb.detach(), parts=2)
+        n = rows.shape[0]
         block = max(1, min(self.queue_len // max(1, self.queue_stack_iter), n))
         idx = (torch.arange(block, device=emb.device) * n) // block
-        queue = torch.cat([emb[idx].detach(), self.swav_queue[:self.queue_len - block]], 0)
+        queue = torch.cat([rows[idx], self.swav_queue[:self.queue_len - block]], 0)
         return loss, {"swav_queue": queue,
                       "swav_queue_n": (self.swav_queue_n + block).clamp_max(self.queue_len),
                       "swav_it": it + 1}
@@ -397,7 +412,9 @@ class ResModel(_Variant):
         return 0.01 * ((flat2 - mu) ** 2 / torch.exp(logvar) + logvar).sum(-1).mean()
 
     def _club_steps(self, loc_1: torch.Tensor, loc_2: torch.Tensor):
-        """The inner loop: returns (encoder, (mu, nu, count), NLL per step)."""
+        """The inner loop: returns (encoder, (mu, nu, count), NLL per step).
+        In a global program each step's gradient is the ranks' mean, so
+        the encoder and its moments stay equal on every rank."""
         b1, b2, eps = 0.9, 0.999, 1e-8
         club = dict(self.club_enc.named_buffers())
         mu = dict(self.club_opt.mu.named_buffers())
@@ -413,6 +430,12 @@ class ResModel(_Variant):
             grads = {k: torch.zeros_like(club[k]) if g is None else g
                      for k, g in zip(leaves, grads)}
             with torch.no_grad():
+                if mesh.in_program():
+                    # the global mean NLL's gradient: the ranks' mean
+                    flat = mesh.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads.values()]))
+                    flat = flat / mesh.program_world()
+                    grads = {k: v.view_as(g) for (k, g), v in
+                             zip(grads.items(), flat.split([g.numel() for g in grads.values()]))}
                 norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
                 keep = norm < self.club_clip
                 count = count + 1
@@ -664,9 +687,11 @@ class UnSegModel(_Variant):
         return new
 
     def _chain(self, feat: torch.Tensor, training: bool, want_prob: Optional[bool],
-               generator: Optional[torch.Generator], draws: Dict[str, Any], usage: bool):
+               generator: Optional[torch.Generator], draws: Dict[str, Any], usage: bool,
+               parts: int = 1):
         """The encoder and the chain of quantizers: (f, feat_vqs, aux,
-        quantizer states, distance softmaxes)."""
+        quantizer states, distance softmaxes); ``parts``: the batch blocks
+        stacked in ``feat``."""
         net = self.net
         f = net.enc(feat)
         aux: Dict[str, torch.Tensor] = {}
@@ -675,7 +700,8 @@ class UnSegModel(_Variant):
             fi = net.vq_input(i, f)
             z_q, _, pq_aux, new_s = pq_forward(fi, dict(self.pq[i]), self.pq_state[i].as_dict(),
                                                c, training=training, want_prob=want_prob,
-                                               generator=generator, **_pq_draws(draws, i))
+                                               generator=generator, parts=parts,
+                                               **_pq_draws(draws, i))
             pq_states.append(new_s)
             feat_vqs.append(z_q)
             probs.append(pq_aux.get("distance_prob"))
@@ -743,7 +769,8 @@ class ContraModel(UnSegModel):
             both = training and aug_img is not None
             feat = self.features(torch.cat([img, aug_img], 0) if both else img)
             feat_vqs, aux, pq_states, probs = self._chain(feat, training, training, generator,
-                                                          draws, usage=False)
+                                                          draws, usage=False,
+                                                          parts=2 if both else 1)
             agg, updates = self._decode(feat, feat_vqs, aux, training)
             if both:
                 aux["contra-loss-pos"] = _halves_jsd(probs[0], self.pq_cfgs[0])
@@ -851,7 +878,7 @@ class NewVQModel(_Variant):
             feat = self.net.enc(feat_dino)
             if training and self.stage == 1:
                 return self._stage1(feat_dino, feat, b, generator, kmeans_first,
-                                    kmeans_gumbel)
+                                    kmeans_gumbel, 2 if both else 1)
             z_q, idx, aux, pq_state = pq_forward(feat, dict(self.pq), self.pq_state.as_dict(),
                                                  self.pq_cfg, training=training)
             updates: BNUpdates = {}
@@ -869,21 +896,33 @@ class NewVQModel(_Variant):
 
     def _stage1(self, feat_dino: torch.Tensor, feat: torch.Tensor, b: int,
                 generator: Optional[torch.Generator], first: Optional[torch.Tensor],
-                gumbel_noise: Optional[torch.Tensor]) -> Dict[str, Any]:
-        flat_dino = feat_dino.reshape(-1, self.feat_dim)
+                gumbel_noise: Optional[torch.Tensor], parts: int) -> Dict[str, Any]:
+        """The stage-1 forward.  In a global program the k-means and the
+        selection run alike on every rank over the gathered rows of the
+        global batch (rank 0's selection kept), and each rank runs the
+        quantizer and the decoder on its equal share of the selected rows,
+        so that the losses are each rank's share of the global
+        selection's and BatchNorm's statistics the global selection's; the
+        encoder's gradient goes back to the rows' owners."""
+        flat_dino = mesh.gather_rows(feat_dino.reshape(-1, self.feat_dim), parts)
+        flat = mesh.gather_rows(feat.reshape(-1, self.hidden_dim), parts)
         with torch.no_grad():
             cents, _ = kmeans(flat_dino, k=self.pq_cfg.num_codebook, n_iters=10,
                               generator=generator, first=first, gumbel_noise=gumbel_noise)
             d2 = ((flat_dino * flat_dino).sum(-1)[None, :]
                   + (cents * cents).sum(-1)[:, None] - 2.0 * cents @ flat_dino.T)  # (K, n)
-            sel = torch.topk(-d2, self.n_kmeans, dim=-1).indices.reshape(-1)
+            sel = mesh.broadcast_(torch.topk(-d2, self.n_kmeans, dim=-1).indices.reshape(-1))
             del d2
-        feat_s = feat.reshape(-1, self.hidden_dim)[sel]
-        z_q_s, idx_s, aux, pq_state = pq_forward(feat_s, dict(self.pq), self.pq_state.as_dict(),
-                                                 self.pq_cfg, training=True)
+        if sel.shape[0] % mesh.program_world():
+            raise ValueError(f"stage 1 splits its {sel.shape[0]} selected rows (num_codebook x "
+                             f"n_kmeans) evenly over {mesh.program_world()} ranks")
+        mine = mesh.local_rows(sel)
+        z_q_s, idx_s, aux, pq_state = pq_forward(flat[mine], dict(self.pq),
+                                                 self.pq_state.as_dict(), self.pq_cfg,
+                                                 training=True)
         updates: BNUpdates = {}
         recon = self.net.dec(z_q_s, True, updates)
-        aux["recon-loss"] = torch.mean((recon - flat_dino[sel]) ** 2)
+        aux["recon-loss"] = torch.mean((recon - flat_dino[mine]) ** 2)
         state = {**{f"pq_state.{k}": v for k, v in pq_state.items()}, **self._bn_state(updates)}
         return {"feat": feat_dino[:b], "code": feat[:b], "z_q": z_q_s, "indices": idx_s,
                 "aux": aux, "state": state, "selected": sel}
@@ -1108,7 +1147,8 @@ class VAEModel(_Variant):
             def quantize(i: int, x: torch.Tensor):
                 return pq_forward(x, dict(self.pq[i]), self.pq_state[i].as_dict(),
                                   self.pq_cfgs[i], training=training, want_prob=training,
-                                  generator=generator, **_pq_draws(draws, i))
+                                  generator=generator, parts=2 if both else 1,
+                                  **_pq_draws(draws, i))
 
             fb, ft = net.encode(feat)
             zq0, _, aux0, s0 = quantize(0, net.vq0_input(ft))
@@ -1385,7 +1425,8 @@ class EMAModel(_Variant):
         t_flat = z_teacher.reshape(-1, self.hidden_dim)
         aux: Dict[str, torch.Tensor] = {"mse-loss": torch.mean((_l2n(s_flat) - _l2n(t_flat)) ** 2)}
         with torch.no_grad():
-            queue = self._enqueue(s_flat.detach())
+            # the bank ranks the global batch's rows, alike on every rank
+            queue = self._enqueue(mesh.gather_rows(s_flat.detach()))
         C, Q = self.n_cluster, self.queue_size
         if proxy_q_idx is None:
             if generator is None:

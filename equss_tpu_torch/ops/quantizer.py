@@ -28,7 +28,10 @@ taking the plain route.
 
 In a global program (``parallel.mesh``) the training counts and the EMA
 sums are the global batch's, summed over the ranks as the JAX package's
-``_maybe_psum`` sums them over the data axis.  ``pallas_auto_shards``
+``_maybe_psum`` sums them over the data axis, and the Gumbel noise is
+drawn for the global batch's rows (``parts``: the blocks of the batch
+stacked in ``z``), of which each rank takes its own; the split noise is
+not per row and every rank draws it alike.  ``pallas_auto_shards``
 stays 1 there: the size gate sees each rank's own rows already, where
 the JAX step sees the global batch and divides by the shards.
 """
@@ -397,6 +400,7 @@ def pq_forward(
     generator: Optional[torch.Generator] = None,
     gumbel_noise: Optional[torch.Tensor] = None,
     split_noise: Optional[torch.Tensor] = None,
+    parts: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Quantize (..., D) features in all M subspaces.
 
@@ -413,7 +417,9 @@ def pq_forward(
     adds ``aux["distance_prob"]`` (..., M, K), the softmax of the negated
     distances over ``jsd_ts``.  With ``use_gumbel`` in training the
     indices are the argmax of ``gumbel_noise - dist`` (gumbel_noise (n, M,
-    K), drawn from ``generator`` unless given) and z_q their raw
+    K), drawn from ``generator`` unless given; in a global program this
+    rank's rows of the global batch's draw, ``z`` stacking ``parts``
+    blocks of the batch) and z_q their raw
     codewords.  z_q comes from the codebook before the update.  The
     caller's ``state`` is not modified."""
     if training:
@@ -461,7 +467,9 @@ def pq_forward(
                 if gumbel_noise is None:
                     if generator is None:
                         raise ValueError("use_gumbel requires a generator or gumbel_noise")
-                    gumbel_noise = gumbel(generator, dist.shape, dist.device)
+                    gumbel_noise = mesh.global_rows(
+                        lambda rows: gumbel(generator, (rows, *dist.shape[1:]), dist.device),
+                        dist.shape[0], parts)
                 indices = (gumbel_noise.to(dist.device) - dist.detach().float()
                            ).argmax(-1).to(torch.int32)
             else:

@@ -12,15 +12,36 @@ rank) and the same parameters, and the trainer's steps run inside
 couples rows:
 
 * ``all_reduce_sum``: sums over the ranks (the quantizer's counts and
-  sums, the Sinkhorn's, the confusion matrices, the flattened gradient);
+  sums, the Sinkhorn's, the confusion matrices, the flattened gradient,
+  the CLUB encoder's inner gradients);
 * ``mean_over_ranks``: the mean of equal-sized per-rank means
   (differentiable: BatchNorm's statistics, STEGO's feature-correlation
-  means);
+  means, the CLUB term's moments of x, the entropy's mean assignment);
 * ``gather_rows``: the global batch on every rank, differentiable (the
-  STEGO negatives, which may be another rank's image);
-* ``global_rows``: a random draw made at the global batch size from the
-  generator every rank holds in the same state, of which each rank keeps
-  its own rows (dropout masks, STEGO's coordinates).
+  STEGO negatives, which may be another rank's image; the InfoNCE
+  negatives and the margin ranking's columns, whose gradient flows back
+  to the rank that owns the row; the rows of the SwAV queue, the EMA
+  bank, an EMA codebook's JSD and NewVQ's stage-1 k-means);
+  ``parts`` reorders rank blocks of a stacked ``[img; aug_img]`` into the
+  one-process order;
+* ``global_rows`` / ``local_rows``: a random draw made at the global
+  batch size from the generator every rank holds in the same state, of
+  which each rank keeps its own rows (dropout masks, STEGO's coordinates,
+  the photometric view's factors, the InfoNCE negatives, the quantizers'
+  Gumbel noise).
+
+A loss term on a rank is its share of the global term: the mean over
+the ranks of their values is the one-process value on the global batch
+(the trainer backpropagates each rank's share over the world size and
+sums the gradients).  A per-row mean over a rank's equal share of rows
+is its share as it stands; a term that every rank computes alike on
+gathered rows (the EMA bank's proxy loss, an EMA codebook's JSD) is its
+own share.  The data-dependent inits (``Trainer.data_init``: the k-means
+and ``rand`` codebooks, EMAModel's bank) run on every rank, outside the
+program, on the gathered images as one process would, with the same
+draws; their results and NewVQ's stage-1 selection are then taken from
+rank 0 (``broadcast_``), so that a nondeterministic scatter on a card
+cannot set the ranks apart.
 
 Outside ``global_program()`` (serving, exports) or without a group every
 helper is the identity and no collective runs.  A group of one rank runs
@@ -315,6 +336,14 @@ def mean_over_ranks(t: torch.Tensor) -> torch.Tensor:
     return _MeanOverRanks.apply(t) if in_program() else t
 
 
+def broadcast_(t: torch.Tensor) -> torch.Tensor:
+    """Rank 0's ``t`` into ``t`` on every rank of the program, in place
+    (outside autograd); ``t`` itself outside a program."""
+    if in_program():
+        _broadcast_(t)
+    return t
+
+
 class _GatherRows(torch.autograd.Function):
     """The ranks' equal-sized row blocks concatenated in rank order; the
     gradient of a rank's block is the sum over the ranks of the gradient
@@ -334,11 +363,38 @@ class _GatherRows(torch.autograd.Function):
         return _all_reduce_(g.contiguous().clone())[r * n:(r + 1) * n]
 
 
-def gather_rows(t: torch.Tensor) -> torch.Tensor:
+def _blocks_to_parts(full: torch.Tensor, parts: int) -> torch.Tensor:
+    """Rank-ordered blocks of ``parts`` stacked parts each -> the parts'
+    global rows stacked: [a_0; b_0; a_1; b_1] -> [a_0; a_1; b_0; b_1]."""
+    if parts == 1:
+        return full
+    w = program_world()
+    per = full.shape[0] // (w * parts)
+    return full.reshape(w, parts, per, *full.shape[1:]).transpose(0, 1).reshape(full.shape)
+
+
+def gather_rows(t: torch.Tensor, parts: int = 1) -> torch.Tensor:
     """The global batch (every rank's rows of ``t``, in rank order) on
     every rank, differentiable; ``t`` itself outside a program.  Every
-    rank must hold the same number of rows."""
-    return _GatherRows.apply(t) if in_program() else t
+    rank must hold the same number of rows.  ``parts`` > 1 says the local
+    rows are that many blocks of the batch stacked (``[img; aug_img]``):
+    the result is then each part's global rows, stacked in that order, as
+    one process stacks them."""
+    if not in_program():
+        return t
+    return _blocks_to_parts(_GatherRows.apply(t), parts)
+
+
+def local_rows(full: torch.Tensor, parts: int = 1) -> torch.Tensor:
+    """This rank's rows of a tensor of the global batch's rows (``full``
+    itself outside a program).  ``parts`` as in ``global_rows``."""
+    if not in_program():
+        return full
+    w = program_world()
+    n = full.shape[0] // w
+    per = n // parts
+    return full.reshape(parts, w, per, *full.shape[1:])[:, program_rank()].reshape(
+        n, *full.shape[1:])
 
 
 def global_rows(draw: Callable[[int], torch.Tensor], n: int, parts: int = 1) -> torch.Tensor:
@@ -350,8 +406,4 @@ def global_rows(draw: Callable[[int], torch.Tensor], n: int, parts: int = 1) -> 
     step."""
     if not in_program():
         return draw(n)
-    w = program_world()
-    full = draw(n * w)
-    per = n // parts
-    return full.reshape(parts, w, per, *full.shape[1:])[:, program_rank()].reshape(
-        n, *full.shape[1:])
+    return local_rows(draw(n * program_world()), parts)

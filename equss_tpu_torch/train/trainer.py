@@ -25,8 +25,9 @@ trainer copies it into the model's buffers only after that check.  The
 step counter advances either way, as the JAX step's does.
 
 Models that consume a photometric view (``consumes_aug``) get
-``aug_img`` from ``data.transforms.photometric_aug`` in the step, on the
-device, drawn from the trainer's generator before normalisation; a
+``aug_img`` from ``data.transforms.photometric_apply`` in the step, on
+the device, its factors (``photometric_draws``) drawn from the trainer's
+generator for the global batch before normalisation; a
 batch's own ``aug_img`` takes precedence, ``train.photometric_aug:
 false`` turns the view off and a dict gives its keyword arguments.
 
@@ -63,15 +64,17 @@ every batch and the same weights (rank 0's, broadcast at construction),
 and the steps run inside ``mesh.global_program()``, where the modules
 reduce what couples rows (the quantizer's counts, STEGO's negatives and
 means, the probes' pixel count, the random draws made for the global
-batch).  Each rank backpropagates its share of the global mean (its
-loss over the world size), the ranks sum their gradients in one
+batch, the photometric view's factors among them, and each variant
+family's couplings: ``models/variants.py``).  Each rank backpropagates
+its share of the global mean (its loss over the world size), the ranks
+sum their gradients in one
 all-reduce of the flattened gradient before the norm, the clip and the
 non-finite check, and the metrics are the ranks' mean: every rank takes
 the same skip decision and the same optimizer steps, and holds the same
 parameters bit for bit.  ``validate`` sums the confusion matrices over
-the ranks before the Hungarian matching.  Families that couple rows in
-ways not yet reduced raise (``registry.check_data_parallel``), as do
-``data_init`` and a weighted JSD.
+the ranks before the Hungarian matching.  ``data_init`` runs on every
+rank on the gathered images of the global batch and keeps rank 0's
+values.  Every registered family runs so.
 """
 from __future__ import annotations
 
@@ -86,11 +89,12 @@ import torch
 from torch import nn
 
 from equss_tpu_torch.core.logging import MetricsLogger
-from equss_tpu_torch.data.transforms import normalize_images, photometric_aug
+from equss_tpu_torch.data.transforms import (normalize_images, photometric_apply,
+                                             photometric_draws)
 from equss_tpu_torch.device import DeviceLike, resolve_device
 from equss_tpu_torch.eval.metrics import UnSegMetrics, confusion_update
 from equss_tpu_torch.eval.probes import Evaluator, EvaluatorConfig
-from equss_tpu_torch.models.registry import build_model, check_data_parallel
+from equss_tpu_torch.models.registry import build_model
 from equss_tpu_torch.ops.crf import CRFConfig, batched_crf
 from equss_tpu_torch.parallel import mesh
 from equss_tpu_torch.train.optim import build_optimizer, global_grad_norm
@@ -170,10 +174,8 @@ class Trainer:
     def __init__(self, cfg: Dict[str, Any], *, device: DeviceLike = None,
                  seed: Optional[int] = None, model: Optional[nn.Module] = None):
         # in a process group the steps take the distributed path, one
-        # rank included; what couples rows raises from two ranks on
+        # rank included
         self.world, self.distributed = mesh.world(), mesh.in_group()
-        if self.world > 1:
-            check_data_parallel(cfg)
         self.cfg = cfg
         self.tc = TrainConfig.from_config(cfg)
         self.device = resolve_device(device)
@@ -227,10 +229,6 @@ class Trainer:
         self.tx_linear = build_optimizer(self.evaluator.linear_probe.named_parameters(),
                                          opt_cfg["linear"], sch_cfg.get("linear"), **common)
         if self.world > 1:
-            if "jsd" in self.loss_weights:
-                raise NotImplementedError(
-                    "a weighted JSD does not run on several processes yet (ROADMAP.md "
-                    "queue 1, item 10)")
             mesh.replicate(self.model)
             mesh.replicate(self.evaluator)
 
@@ -336,7 +334,13 @@ class Trainer:
         if aug and "aug_img" not in out:
             img = out["img"]
             img01 = img.float() / 255.0 if img.dtype == torch.uint8 else img
-            out["aug_img"] = photometric_aug(self.generator, img01, **self.aug_kwargs)
+            # each image's factors: this rank's rows of the global batch's
+            factors = {k: v for k, v in self.aug_kwargs.items() if k != "blur_kernel"}
+            draws = photometric_draws(self.generator, img.shape[0] * mesh.program_world(),
+                                      img.device, **factors)
+            draws = {k: mesh.local_rows(v) for k, v in draws.items()}
+            out["aug_img"] = photometric_apply(img01, draws,
+                                               self.aug_kwargs.get("blur_kernel", 3))
         for k in ("img", "img_pos", "aug_img"):
             if k in out:
                 out[k] = normalize_images(out[k])
@@ -432,17 +436,18 @@ class Trainer:
         """The model's data-dependent init (``model.data_init``) on the
         images of a host batch, its draws from the trainer's generator;
         the new values are copied into the model's parameters and
-        buffers."""
-        if self.world > 1:
-            raise NotImplementedError(
-                "data_init (the k-means or rand codebook, EMAModel's bank) on several "
-                "processes couples the batch's rows (ROADMAP.md queue 1, item 10)")
+        buffers.  On several processes every rank runs it on the gathered
+        images of the global batch with the same draws, as one process
+        does, and takes rank 0's values."""
         b = self._batch(batch, keys=("img", "label"))
         with torch.no_grad():
-            new = self.model.data_init(b["img"], self.generator)
+            with mesh.global_program():
+                img = mesh.gather_rows(b["img"])
+            new = self.model.data_init(img, self.generator)
             tensors = self.model.state_dict(keep_vars=True)
-            for name, t in new.items():
-                tensors[name].data.copy_(t)
+            with mesh.global_program():
+                for name, t in new.items():
+                    tensors[name].data.copy_(mesh.broadcast_(t.contiguous()))
 
     # -------------------------------------------------------- validation
     def valid_step(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -33,8 +33,11 @@ write what they computed to a file; the tests read it.
   and a resume from the step-2 checkpoint bit-exact on both ranks.
 * ``build_sharded_predict_fn`` over two CPU devices equal to
   ``build_predict_fn``; the PQ size gate of a rank equal to JAX's at the
-  global n with the shards divisor; the families and options that do
-  not run on several processes raise ``NotImplementedError``.
+  global n with the shards divisor; every registered family builds and
+  takes a step on two ranks, and only what stays unported raises
+  ``NotImplementedError``: the tensor-parallel layouts and a Sinkhorn
+  over a model axis (ROADMAP.md queue 1, item 9) and an export for more
+  than one device.
 """
 import copy
 import glob
@@ -53,7 +56,7 @@ from equss_tpu_torch import cli, serve
 from equss_tpu_torch.data.synthetic import synthetic_batches
 from equss_tpu_torch.losses import sinkhorn as tsink
 from equss_tpu_torch.models.heads import BatchNorm
-from equss_tpu_torch.models.registry import ROW_COUPLINGS
+from equss_tpu_torch.models import registry
 from equss_tpu_torch.parallel import mesh
 from equss_tpu_torch.train.trainer import Trainer
 
@@ -61,6 +64,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD, N = 2, 4                 # ranks, global batch
 ROWS = N // WORLD
 NUM_CLASSES = 4
+# the variants' registered names and the config of each
+FAMILY_CONFIGS = {"pqgocls": "pqgo_cls_cocostuff27", "cluster": "cluster_margin_cocostuff27",
+                  "res": "res_cocostuff27", "hihi": "unseg_cocostuff27",
+                  "new": "new_vq_cocostuff27", "spq": "spq_cocostuff27",
+                  "vae": "vae_cocostuff27", "info": "info_cocostuff27",
+                  "contra": "contra_cocostuff27", "ema": "ema_cocostuff27"}
 CLI_ARGS = ["--config", "configs/smoke_synthetic.yaml", "--debug", "device=cpu",
             "dataset.synthetic_batches=4", "train.print_interval_iters=1",
             "train.valid_interval_iters=2", "eval.final_crf=true",
@@ -156,25 +165,24 @@ def _rank_modules(rank, job):
     return out
 
 
-def _rank_guards(job, pqgo):
-    """The messages of what raises on several processes."""
+def _rank_guards(job):
+    """Every registered family's step on this rank's rows (whether it
+    was skipped), and the messages of what raises on several processes."""
+    batch = _rows({k: v[:, :32, :32] if k != "stego_perms" else v
+                   for k, v in job["train"][0].items()}, mesh.rank())
+    steps = {name: Trainer(cfg, device="cpu").train_step(batch)["skipped"]
+             for name, cfg in job["families"].items()}
     msgs = {}
-    for name in ROW_COUPLINGS:
+    for what, fn in (("mesh_2d", lambda: mesh.make_mesh_2d(1, 2)),
+                     ("shard_backbone", lambda: mesh.shard_backbone(None, {})),
+                     ("sinkhorn_model_axis", lambda: tsink.distributed_sinkhorn(
+                         torch.zeros(2, 3), epsilon=0.05, axis_name="model")),
+                     ("export", lambda: serve.export_device(["cuda", "cpu"]))):
         try:
-            Trainer({"model": {"name": name}}, device="cpu")
+            fn()
         except NotImplementedError as e:
-            msgs[name] = str(e)
-    try:
-        pqgo.data_init(_rows(job["train"][0], mesh.rank()))
-    except NotImplementedError as e:
-        msgs["data_init"] = str(e)
-    cfg = copy.deepcopy(job["cfgs"]["vq"])
-    cfg["loss"]["jsd_weight"] = 0.1
-    try:
-        Trainer(cfg, device="cpu")
-    except NotImplementedError as e:
-        msgs["jsd"] = str(e)
-    return msgs
+            msgs[what] = str(e)
+    return {"steps": steps, "msgs": msgs}
 
 
 def _rank(rank, port, job_path, out_path):
@@ -213,7 +221,7 @@ def _rank(rank, port, job_path, out_path):
                                          if k.startswith(("model.", "probes.", "opt."))),
                         "before": before, "after": after}
     out["modules"] = _rank_modules(rank, job)
-    out["guards"] = _rank_guards(job, tr)
+    out["guards"] = _rank_guards(job)
     torch.save(out, out_path)
 
 
@@ -265,6 +273,8 @@ def runs(tmp_path_factory):
     from test_torch_baselines import micro
     from test_torch_trainer import _flat_jax_grads, _jax_grads, _pair, micro_cfg
 
+    from test_torch_variants import micro as variant_micro
+
     torch.set_num_threads(1)
     tmp = tmp_path_factory.mktemp("parallel")
     cfg_fed, jtr, ts, tr_fed = _pair(bf16=False)
@@ -276,6 +286,9 @@ def runs(tmp_path_factory):
            "cfgs": {"pqgo": pqgo, "fed": cfg_fed,
                     **{n: micro(n) for n in ("vq", "stego", "probe", "sl")}},
            "jax_init": tr_fed.state_dict(),
+           # every registered family at vit_micro, by its config
+           "families": {**{n: micro(n) for n in ("vq", "stego", "probe", "sl")}, "pqgo": pqgo,
+                        **{n: variant_micro(c) for n, c in FAMILY_CONFIGS.items()}},
            "train": _global_batches(3, seed=0), "fed": _global_batches(3, seed=1, fed=True),
            "val": _val_batches(2), "val_crf": _val_batches(1, res=32),
            "modules": {"scores": rs.uniform(-1, 1, (24, 12)).astype(np.float32),
@@ -541,11 +554,16 @@ def test_cli_two_processes_share_one_run_and_resume_bit_exact(runs):
 
 
 def test_families_and_options_that_couple_rows_raise_on_two_ranks(runs):
+    """No family raises on two ranks any more: each registered one builds
+    and takes a finite step; what raises is what stays unported."""
     for out in runs["ranks"]:
-        msgs = out["guards"]
-        assert set(msgs) == set(ROW_COUPLINGS) | {"data_init", "jsd"}
-        for name, msg in msgs.items():
-            assert "item 10" in msg, (name, msg)
+        steps, msgs = out["guards"]["steps"], out["guards"]["msgs"]
+        assert set(steps) == set(registry.available_models())
+        assert all(v == 0.0 for v in steps.values()), steps
+        assert set(msgs) == {"mesh_2d", "shard_backbone", "sinkhorn_model_axis", "export"}
+        for what in ("mesh_2d", "shard_backbone", "sinkhorn_model_axis"):
+            assert "item 9" in msgs[what], (what, msgs[what])
+        assert "one device" in msgs["export"]
 
 
 def test_sharded_predictor_matches_build_predict_fn():
