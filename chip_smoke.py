@@ -222,6 +222,24 @@ Phases, each printing JSON lines on stdout:
             across the ranks (predictions and each launch's PQ indices
             against one process) and NewVQ's stage 1 across the ranks
             (the selected rows and the losses).
+25. rest    (run after 10, cli) the last single-device slice on the
+            preset at full width: ``validate(visualize_to=...)`` at b = 8,
+            320^2 (12 attention + 1 PQ launches a valid step, as without
+            PNGs; 1 072 PNGs; the cluster and codeword PNGs read back as
+            the remapped predictions and the upsampled ids; host seconds
+            per batch); ``cli.run`` with ``train.profile_dir`` and
+            ``is_visualize`` (the trace's size, its ``equss::`` ops and
+            kernel events; the final evaluation's PNGs); the feature
+            cache of 32 images at b = 32, 224^2 (12 attention launches;
+            img/s with and without the compressed write) and the train
+            step from cached features against the image step at b = 16;
+            the ViT's ``want_attn`` / ``n_last`` forward at b = 8 (no
+            attention launch; ``dense`` within the serving class) against
+            the fused one, and ``ln_stats: bf16`` against f32 statistics
+            at b = 128 (ms in turns, the features' relative error); the
+            quantizer options (restart with dropout and the weighted sum
+            on the preset, restart with dropout on ``vq_cocostuff27``'s
+            EMA codebook) at b = 16 on the plain PQ route.
 The configurations of 17-23 are ``preset(name)``: the preset with the
 changes of ``PRESET_CHANGES``, which the tests hold against ``configs/``.
 In the kernels line each PQ row counts the launches of its own body's
@@ -1869,6 +1887,374 @@ def phase_cli(results: dict) -> None:
     finally:
         Trainer.valid_crf_step = plain_step
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ------------------------------------------------ the last single-device slice
+
+def png_rgb(path: str) -> np.ndarray:
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def colored(arr: np.ndarray, cmap: np.ndarray) -> np.ndarray:
+    """``utils/visualize.py``'s colouring of an id map."""
+    rgb = cmap[np.clip(arr, 0, len(cmap) - 1)].astype(np.uint8)
+    rgb[arr < 0] = 0
+    return rgb
+
+
+def rest_visualize(results: dict) -> None:
+    """``Trainer.validate(visualize_to=...)`` of the preset (stock) over 2
+    batches of b = 8 at 320^2, counted from 0: 12 attention and 1 PQ
+    launches per valid step, as without PNGs; the metrics equal to a
+    validate without PNGs; 16 PNGs in each of linear, cluster, label and
+    the 64 ``pq_<m>``; every cluster PNG the colour of the predictions
+    remapped by the Hungarian matching, every ``pq_<m>`` PNG the colour
+    of the codeword ids upsampled by 8; the host seconds the PNGs add per
+    batch."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+    from equss_tpu_torch.core.config import resolve_config
+    from equss_tpu_torch.data.catalog import create_pascal_label_colormap, create_pq_colormap
+    from equss_tpu_torch.eval.metrics import UnSegMetrics
+    from equss_tpu_torch.train.trainer import Trainer
+
+    steps = 2
+    batches = valid_batches(steps + 1, 8, seed=321)
+    # resolved, so that dataset.val.dataset_name names the colormap
+    tr = Trainer(resolve_config(train_config("stock")), device="cuda")
+    tr.valid_step(batches[0])
+    torch.cuda.synchronize()
+    out_dir = tempfile.mkdtemp(prefix="equss_viz_")
+    try:
+        t0 = time.perf_counter()
+        plain = tr.validate(batches[1:])
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        val = tr.validate(batches[1:], visualize_to=out_dir)
+        torch.cuda.synchronize()
+        viz_s = time.perf_counter() - t0
+        counts = launch_counts()
+        results["launches"]["rest_visualize"] = counts
+        check(counts == expected(SERVE_KERNELS, steps), f"rest visualize: launches {counts}")
+        check(val == plain, f"rest visualize: metrics {val} vs {plain}")
+        dirs = sorted(os.listdir(out_dir))
+        want_dirs = sorted(["linear", "cluster", "label", *(f"pq_{m}" for m in range(64))])
+        pngs = {d: len(os.listdir(os.path.join(out_dir, d))) for d in dirs}
+        check(dirs == want_dirs and set(pngs.values()) == {8 * steps},
+              f"rest visualize: PNG directories {pngs}")
+        res = [tr.valid_step(b) for b in batches[1:]]
+        cluster_m = UnSegMetrics(27, 0, compute_hungarian=True)
+        cluster_m.update_confusion(sum(r["cluster_conf"] for r in res).cpu())
+        cluster_m.compute()
+        mapped = cluster_m.map_clusters(torch.cat([r["cluster_preds"] for r in res]).cpu().numpy())
+        idx = torch.cat([r["pq_indices"] for r in res]).cpu().numpy()
+        cmap, pq_cmap = create_pascal_label_colormap(), create_pq_colormap()
+        cluster_equal = [np.array_equal(png_rgb(f"{out_dir}/cluster/{i}.png"),
+                                        colored(mapped[i], cmap)) for i in range(8 * steps)]
+        pq_equal = [np.array_equal(png_rgb(f"{out_dir}/pq_{m}/{i}.png"), colored(
+            np.repeat(np.repeat(idx[i, :, :, m] % len(pq_cmap), 8, 0), 8, 1), pq_cmap))
+            for i in (0, 8 * steps - 1) for m in (0, 63)]
+        check(all(cluster_equal) and all(pq_equal),
+              f"rest visualize: PNGs read back {cluster_equal} {pq_equal}")
+        emit({"phase": "rest", "what": "visualize", "batch": 8, "res": 320, "batches": steps,
+              "validate_seconds": viz_s, "validate_seconds_without_pngs": plain_s,
+              "png_host_seconds_per_batch": (viz_s - plain_s) / steps,
+              "pngs": sum(pngs.values()), "png_bytes": sum(
+                  os.path.getsize(os.path.join(out_dir, d, f)) for d in dirs
+                  for f in os.listdir(os.path.join(out_dir, d))),
+              "launches_per_valid_step": {k: v / steps for k, v in counts.items()},
+              "cluster_pngs_equal": sum(cluster_equal), "pq_pngs_checked": len(pq_equal)})
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    del tr
+    torch.cuda.empty_cache()
+
+
+def rest_cli_profile(results: dict) -> None:
+    """``cli.run`` on the preset with synthetic data, ``train.profile_dir``
+    and ``is_visualize``: 2 train steps at b = 16, a validation at step 2
+    and at the epoch's end and the final evaluation (one batch of b = 8 at
+    320^2 each), no final CRF.  Launches counted from 0 (12 attention per
+    step, 12 + 1 per valid step); the Chrome trace's size, its ``equss::``
+    op names (both kernels' ops must be there) and its kernel events; the
+    final evaluation's PNGs under ``<visualize_path>/<step>/``."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+    from equss_tpu_torch.cli import run
+    from equss_tpu_torch.core.config import resolve_config
+
+    root = tempfile.mkdtemp(prefix="equss_prof_")
+    try:
+        cfg = resolve_config(with_overrides(PQGO_COCOSTUFF27, {
+            "dataset.synthetic": True, "dataset.synthetic_batches": 2, "train.max_epochs": 1,
+            "train.valid_interval_iters": 2, "train.print_interval_iters": 1,
+            "save_dir": f"{root}/runs", "train.profile_dir": f"{root}/prof",
+            "is_visualize": True, "visualize_path": f"{root}/viz", "eval.final_crf": False,
+            "eval.visualize_pq_subspaces": [0, 63]}))
+        cfg["debug"] = True
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run(cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        results["launches"]["rest_cli_profile"] = counts
+        train_l, valid_l = expected(STOCK_TRAIN_KERNELS, 2), expected(SERVE_KERNELS, 3)
+        want = {k: train_l[k] + valid_l[k] for k in train_l}
+        check(counts == want, f"rest cli profile: launches {counts}, expected {want}")
+        trace = f"{root}/prof/trace_rank0.json"
+        size = os.path.getsize(trace) if os.path.exists(trace) else 0
+        ops, kernel_events = {}, 0
+        if size:
+            with open(trace) as f:
+                events = json.load(f)["traceEvents"]
+            for e in events:
+                name = str(e.get("name", ""))
+                if name.startswith("equss::"):
+                    ops[name] = ops.get(name, 0) + 1
+                kernel_events += e.get("cat") == "kernel"
+        check({"equss::attention_qkv", "equss::pq_assign"} <= set(ops) and kernel_events > 0,
+              f"rest cli profile: trace {size} bytes, ops {ops}, kernels {kernel_events}")
+        viz = f"{root}/viz/{out['best']['iter']}"
+        pngs = ({d: len(os.listdir(os.path.join(viz, d))) for d in sorted(os.listdir(viz))}
+                if os.path.isdir(viz) else {})
+        check(pngs == {d: 8 for d in ("cluster", "label", "linear", "pq_0", "pq_63")},
+              f"rest cli profile: PNGs {pngs}")
+        emit({"phase": "rest", "what": "cli_profile", "wall_seconds": seconds,
+              "trace_bytes": size, "equss_ops": ops, "kernel_events": kernel_events,
+              "pngs": pngs, "launches": counts})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def rest_cache(results: dict) -> None:
+    """The frozen-feature cache of the preset: ``precompute_features`` of
+    one batch of 32 synthetic 224^2 images (12 attention launches,
+    counted from 0; images per second with and without the compressed
+    write), then the preset's train step at b = 16 from the cached
+    features (kNN positives from a seeded table; no backbone, so no
+    attention launch) against the image train step, in turns, 6 steps
+    each: each step's median."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+    from equss_tpu_torch.data import feature_cache
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+    from equss_tpu_torch.data.transforms import normalize_images
+
+    class Images:
+        def batches(self, batch_size, shuffle=False, drop_last=False):
+            return synthetic_batches(11, 1, batch_size, res=224, num_classes=27, with_pos=False)
+
+    _, tr = train_model("stock")
+    root = tempfile.mkdtemp(prefix="equss_cache_")
+    write = np.savez_compressed
+    written = []
+
+    def timed_write(*args, **kwargs):
+        t0 = time.perf_counter()
+        write(*args, **kwargs)
+        written.append(time.perf_counter() - t0)
+
+    try:
+        warm = next(iter(Images().batches(32)))["img"]
+        tr.model.features(normalize_images(torch.as_tensor(warm).to("cuda")))
+        feature_cache.np.savez_compressed = timed_write
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        path = feature_cache.precompute_features(tr.model, Images(), f"{root}/feats.npz",
+                                                 batch_size=32)
+        seconds = time.perf_counter() - t0
+        feature_cache.np.savez_compressed = write
+        counts = launch_counts()
+        results["launches"]["rest_cache"] = counts
+        check(counts == expected({"attention_qkv": 12}, 1), f"rest cache: launches {counts}")
+        blob = np.load(path)
+        feats = blob["feats"]
+        check(feats.shape == (32, 28, 28, 384) and feats.dtype == np.float32
+              and bool(np.isfinite(feats).all()) and blob["labels"].shape == (32, 224, 224),
+              f"rest cache: {feats.shape} {feats.dtype}")
+        nns = np.random.RandomState(0).randint(0, 32, (32, 8))
+        cached = list(feature_cache.cached_feature_batches(path, nns, 16, seed=0))
+        images = list(synthetic_batches(12, 2, 16, res=224, num_classes=27))
+        times = {"cached": [], "image": []}
+        for b in cached[:2] + images[:2]:
+            tr.train_step(b)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        for rnd in range(3):
+            for kind in (("cached", "image") if rnd % 2 == 0 else ("image", "cached")):
+                for b in (cached if kind == "cached" else images):
+                    t0 = time.perf_counter()
+                    m = tr.train_step(b)
+                    torch.cuda.synchronize()
+                    times[kind].append(time.perf_counter() - t0)
+                    check(m["skipped"] == 0.0 and np.isfinite(m["loss"]),
+                          f"rest cache: {kind} step {m}")
+        steps_counts = launch_counts()
+        check(steps_counts == expected(STOCK_TRAIN_KERNELS, 6),
+              f"rest cache: 6 image and 6 cached steps launched {steps_counts}")
+        med = {k: 1e3 * sorted(v)[len(v) // 2] for k, v in times.items()}
+        emit({"phase": "rest", "what": "feature_cache", "images": 32, "batch": 32, "res": 224,
+              "seconds": seconds, "images_per_second": 32 / seconds,
+              "write_seconds": sum(written),
+              "images_per_second_without_write": 32 / (seconds - sum(written)),
+              "file_bytes": os.path.getsize(path),
+              "launches_per_batch": counts,
+              "train_batch": 16, "cached_step_ms_median": med["cached"],
+              "image_step_ms_median": med["image"],
+              "image_over_cached": med["image"] / med["cached"], "steps_each": 6})
+    finally:
+        feature_cache.np.savez_compressed = write
+        shutil.rmtree(root, ignore_errors=True)
+    del tr
+    torch.cuda.empty_cache()
+
+
+def rest_backbone(results: dict) -> None:
+    """The preset's ViT-S/8 (bf16, fused attention) at 224^2: at b = 8 the
+    forward with ``want_attn`` and ``n_last=4`` (the plain attention
+    path: no attention launch; the maps (8, 6, 785, 785), rows summing to
+    1) against the fused forward (12 launches), ``dense`` within the
+    serving class (mean relative error <= 2e-2, max abs <= 0.25), device
+    ms of each in turns; at b = 128 the forward with ``ln_stats: bf16``
+    against f32 statistics (the same weights, 12 launches each): device
+    ms in turns and the relative error of the features."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+    from equss_tpu_torch.data.transforms import normalize_images
+    from equss_tpu_torch.models.equss import EQUSS, EQUSSConfig
+
+    models = {}
+    for stats in ("f32", "bf16"):
+        cfg = with_overrides(PQGO_COCOSTUFF27, {"model.pretrained.ln_stats": stats})
+        models[stats] = EQUSS(EQUSSConfig.from_config(cfg), device="cuda", seed=0).eval()
+    models["bf16"].load_state_dict(models["f32"].state_dict())
+    vit = models["f32"].backbone
+    img8 = normalize_images(requests(8, 1, seed=21)[0].to("cuda"))
+    img128 = normalize_images(requests(128, 1, seed=22)[0].to("cuda"))
+    with torch.no_grad():
+        reset_launch_counts()
+        maps = vit(img8, want_attn=True, n_last=4)
+        torch.cuda.synchronize()
+        attn_launches = launch_counts()["attention_qkv"]
+        reset_launch_counts()
+        fused = vit(img8)
+        dense = {s: m.backbone(img128)["dense"].float() for s, m in models.items()}
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        results["launches"]["rest_backbone"] = counts
+        check(attn_launches == 0 and counts == expected({"attention_qkv": 36}, 1),
+              f"rest backbone: {attn_launches} launches with maps, {counts} without")
+        a, f_ = maps["dense"].float(), fused["dense"].float()
+        rel = ((a - f_).abs().mean() / f_.abs().mean()).item()
+        mx = (a - f_).abs().max().item()
+        rows = max((m.float().sum(-1) - 1).abs().max().item() for m in maps["attn"])
+        check(len(maps["attn"]) == len(maps["intermediates"]) == 4
+              and tuple(maps["attn"][0].shape) == (8, 6, 785, 785)
+              and maps["intermediates"][-1] is maps["tokens"] and rows <= 2e-2
+              and rel <= 2e-2 and mx <= 0.25,
+              f"rest backbone: want_attn dense rel {rel} max {mx}, rows {rows}")
+        stats_rel = (torch.linalg.vector_norm(dense["bf16"] - dense["f32"])
+                     / torch.linalg.vector_norm(dense["f32"])).item()
+        stats_mean = ((dense["bf16"] - dense["f32"]).abs().mean()
+                      / dense["f32"].abs().mean()).item()
+        check(np.isfinite(stats_rel) and stats_rel <= 0.1,
+              f"rest backbone: bf16 LayerNorm statistics rel err {stats_rel}")
+        del maps, fused, dense
+        ms8 = in_turns({"want_attn": lambda: vit(img8, want_attn=True, n_last=4),
+                        "fused": lambda: vit(img8)}, iters=5, rounds=2)
+        ms128 = in_turns({"ln_f32": lambda: models["f32"].backbone(img128),
+                          "ln_bf16": lambda: models["bf16"].backbone(img128)},
+                         iters=3, rounds=2)
+    emit({"phase": "rest", "what": "backbone", "res": 224,
+          "want_attn_b8_ms": ms8["want_attn"], "fused_b8_ms": ms8["fused"],
+          "want_attn_dense_mean_rel_err": rel, "want_attn_dense_max_abs_err": mx,
+          "attn_row_sum_max_err": rows, "ln_f32_b128_ms": ms128["ln_f32"],
+          "ln_bf16_b128_ms": ms128["ln_bf16"],
+          "ln_f32_over_bf16": ms128["ln_f32"] / ms128["ln_bf16"],
+          "ln_bf16_features_rel_err": stats_rel, "ln_bf16_features_mean_rel_err": stats_mean})
+    del models, vit
+    torch.cuda.empty_cache()
+
+
+REST_OPTIONS = (
+    ("pqgo_restart_dropout", "pqgo", {"model.vq.use_restart": True, "model.vq.pq_dropout": 0.1}),
+    ("pqgo_weighted_sum", "pqgo", {"model.vq.use_weighted_sum": True,
+                                   "model.vq.normalize": "none"}),
+    ("ema_restart_dropout", "vq_cocostuff27", {"model.vq.use_restart": True,
+                                               "model.vq.pq_dropout": 0.1}),
+)
+
+
+def rest_quantizer_options(results: dict) -> None:
+    """The quantizer options on the preset (param codebook) and on
+    ``vq_cocostuff27`` (EMA), 1 warm-up and 2 steps at b = 16: the plain
+    PQ route (12 attention launches and no PQ launch per step), finite
+    and taken steps; restart: the param codebook's restart in the
+    forward's aux, an EMA step with dead codewords resets the counts;
+    weighted sum: z_q is no codeword; step medians beside each other."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+    from equss_tpu_torch.train.trainer import Trainer
+
+    batches = list(synthetic_batches(13, 3, 16, res=224, num_classes=27))
+    for name, base, changes in REST_OPTIONS:
+        cfg = with_overrides(PQGO_COCOSTUFF27 if base == "pqgo" else preset(base), changes)
+        tr = Trainer(cfg, device="cuda")
+        _, out = tr.forward_backward(batches[0])
+        extra = {}
+        if name == "pqgo_restart_dropout":
+            rc = out["aux"].get("restarted-codebook")
+            check(rc is not None and tuple(rc.shape) == (64, 256, 16)
+                  and bool(torch.isfinite(rc).all()), f"rest {name}: restarted codebook")
+            if rc is not None:
+                extra["restarted_codewords"] = int((rc != tr.model.pq.codebook).any(-1).sum())
+        elif name == "pqgo_weighted_sum":
+            zq = out["z_q"].reshape(-1, 64, 16)
+            cb = tr.model.pq.codebook.detach()
+            nearest = cb[torch.arange(64, device=cb.device), out["indices"].reshape(-1, 64).long()]
+            extra["z_q_max_distance_to_its_codeword"] = (zq - nearest).abs().max().item()
+            check(extra["z_q_max_distance_to_its_codeword"] > 0, f"rest {name}: z_q a codeword")
+        del out
+        tr.train_step(batches[0])
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        times, metrics = [], []
+        for b in batches[1:]:
+            t0 = time.perf_counter()
+            metrics.append(tr.train_step(b))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        results["launches"][f"rest_{name}"] = counts
+        check(counts == expected(STOCK_TRAIN_KERNELS, 2), f"rest {name}: launches {counts}")
+        check(all(m["skipped"] == 0.0 and np.isfinite(m["loss"]) for m in metrics),
+              f"rest {name}: steps {metrics}")
+        if name == "ema_restart_dropout":
+            dead = int((tr.model.pq_state.vq_count == 0).sum())
+            new = tr.forward_backward(batches[1])[1]["state"]
+            step_dead = int((new["pq_state.vq_count"] - tr.model.pq_state.vq_count == 0).sum())
+            reset = float(new["pq_state.ema_count"].abs().sum()) == 0.0
+            check(reset == (step_dead > 0), f"rest {name}: {step_dead} dead, counts reset {reset}")
+            extra.update(never_used_codewords=dead, dead_in_step=step_dead, counts_reset=reset)
+        emit({"phase": "rest", "what": "quantizer_option", "config": name, "batch": 16,
+              "ms_per_step": [1e3 * t for t in times], "losses": [m["loss"] for m in metrics],
+              "codebook_usage": [m["codebook-usage"] for m in metrics],
+              "launches_per_step": {k: v / 2 for k, v in counts.items()}, **extra})
+        del tr
+        torch.cuda.empty_cache()
+
+
+def phase_rest(results: dict) -> None:
+    """The last single-device slice at the preset's full width
+    (``rest_visualize``, ``rest_cli_profile``, ``rest_cache``,
+    ``rest_backbone``, ``rest_quantizer_options``)."""
+    rest_visualize(results)
+    rest_cli_profile(results)
+    rest_cache(results)
+    rest_backbone(results)
+    rest_quantizer_options(results)
 
 
 # ------------------------------------------------ the registry's baselines
@@ -4049,6 +4435,7 @@ def main() -> int:
     phase_fit(results)
     phase_crf()
     phase_cli(results)
+    phase_rest(results)
     phase_custom_op_ab(results)
     phase_own_data(results)
     phase_vq(results)
@@ -4065,8 +4452,9 @@ def main() -> int:
     # train configurations, both valid configurations, the exact sub-run's
     # train and valid steps, fit, the three CLI runs, the variants' train
     # and valid steps, NewVQ's stage 1, the kNN job, the train job on
-    # files, the exported artifact's requests and the custom-op side of the
-    # A/B), each counted from 0, each PQ launch under its body's row;
+    # files, the exported artifact's requests, the custom-op side of the
+    # A/B and the rest phase's paths), each counted from 0, each PQ launch
+    # under its body's row;
     # ``attention`` has no caller on any path and is launched by its
     # kernel phase only
     by_path = results["launches"]

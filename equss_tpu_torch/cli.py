@@ -30,7 +30,13 @@ The jobs that run a model (train, knn, export) build it through
 ``vq``, ``stego``, ``probe``, ``sl``) and take the CUDA card unless
 ``device`` says otherwise (``run(cfg, device="cpu")``, or the override
 ``device=cpu``; ``export.platforms`` names the export's device); crop and
-pack are host work.  ``train.profile_dir`` raises ``NotImplementedError``.
+pack are host work.  ``train.profile_dir`` traces the train job from the
+start of training to its end, the final evaluation included, with
+``torch.profiler`` (host ops and, on CUDA, the kernels; the port's
+kernels appear as their ops, ``equss::attention_qkv``,
+``equss::pq_assign``, ...), and writes the Chrome trace
+``<profile_dir>/trace_rank<r>.json`` when the run ends, also where it
+raises.
 
 The train job runs on several processes as one global program
 (``parallel/mesh.py``), one command per process:
@@ -48,6 +54,7 @@ rank 0 picks the run directory, logs and writes the checkpoints.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -174,6 +181,32 @@ def _maybe_init_distributed(cfg: Dict[str, Any], device: DeviceLike) -> None:
                           device=device)
 
 
+@contextlib.contextmanager
+def profiled(profile_dir: Optional[str], device: torch.device):
+    """``torch.profiler`` over the body (host ops, and the CUDA kernels
+    on a CUDA device) when ``profile_dir`` is set: its Chrome trace goes
+    to ``<profile_dir>/trace_rank<r>.json`` on the way out, also when the
+    body raises.  Without ``profile_dir`` a no-op."""
+    if not profile_dir:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"trace_rank{mesh.rank()}.json")
+        prof.export_chrome_trace(path)
+        print(f"profile: {path}", flush=True)
+
+
 def run(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     """The train job of a resolved config.  ``device`` (default
     ``cfg['device']``, else CUDA) is where the trainer runs.  Returns
@@ -183,8 +216,6 @@ def run(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
     from equss_tpu_torch.core.logging import MetricsLogger
     from equss_tpu_torch.train.trainer import Trainer
 
-    if cfg.get("train", {}).get("profile_dir"):
-        raise NotImplementedError("train.profile_dir is not ported yet")
     dev = resolve_device(device if device is not None else cfg.get("device"))
     _maybe_init_distributed(cfg, dev)
     dev = mesh.local_device(dev)
@@ -215,13 +246,14 @@ def run(cfg: Dict[str, Any], device: DeviceLike = None) -> Dict[str, Any]:
         resume_state = restored
 
     ckpt = CheckpointManager(os.path.join(save_dir, "ckpt"))
-    result = trainer.fit(train_batches, val_batches, logger=logger, checkpointer=ckpt,
-                         img_hw=(res, res), state=resume_state)
-    logger.banner(f"best: {result['best']}")
-    # fit saves on each new best only, so the latest step saved is the best
-    if ckpt.latest_step() is not None:
-        trainer.load_train_state(ckpt.restore(), resume_training=False)
-    _final_eval(cfg, trainer, val_batches, logger)
+    with profiled(cfg.get("train", {}).get("profile_dir"), dev):
+        result = trainer.fit(train_batches, val_batches, logger=logger, checkpointer=ckpt,
+                             img_hw=(res, res), state=resume_state)
+        logger.banner(f"best: {result['best']}")
+        # fit saves on each new best only, so the latest step saved is the best
+        if ckpt.latest_step() is not None:
+            trainer.load_train_state(ckpt.restore(), resume_training=False)
+        _final_eval(cfg, trainer, val_batches, logger)
     ckpt.close()
     logger.close()
     return result

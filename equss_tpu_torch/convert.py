@@ -13,8 +13,8 @@
   ``Evaluator`` names under ``probes.``, so both packages compute with the
   same numbers.
 * ``train_state_from_jax`` turns a whole JAX train state (weights, the
-  three optax Adam states, wrapped in ``MultiSteps`` under gradient
-  accumulation, the step) into ``Trainer.load_train_state``'s format, so
+  three optax states, adam, adamw or sgd, wrapped in ``MultiSteps`` under
+  gradient accumulation, the step) into ``Trainer.load_train_state``'s format, so
   a run can continue in the port where the JAX package left it.
 * ``load_dino_state_dict`` reads a local DINO ``.pth`` (the torch key
   names ``equss_tpu.models.vit.convert_dino_torch_state`` consumes) into
@@ -138,7 +138,7 @@ def _trainable_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 def _adam_moments(opt_state: Any, prefix: str) -> Dict[str, torch.Tensor]:
     """An optax Adam state kept as model state (the CLUB encoder's) ->
     ``<prefix>mu.*``, ``<prefix>nu.*`` and the int32 ``<prefix>count``."""
-    adam, _ = _adam_state(opt_state)
+    adam, _ = _core_state(opt_state)
     return {**tree_from_flax(adam.mu, f"{prefix}mu."), **tree_from_flax(adam.nu, f"{prefix}nu."),
             f"{prefix}count": _leaf(adam.count)}
 
@@ -194,37 +194,48 @@ def params_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
     return sd
 
 
-def _adam_state(opt_state: Any) -> Tuple[Any, int]:
-    """The ``ScaleByAdamState`` (``mu``, ``nu``, ``count``) of an optax
-    chain's state and the ``ScaleByScheduleState`` count beside it."""
-    adam, sched = None, None
+def _core_state(opt_state: Any) -> Tuple[Any, int]:
+    """The update rule's state in an optax chain's state: the
+    ``ScaleByAdamState`` (``mu``, ``nu``, ``count``) of adam and adamw, or
+    the ``TraceState`` (``trace``) of sgd, whose momentum optax keeps in
+    ``trace(momentum)`` before the learning rate; and the count of the
+    ``ScaleByScheduleState`` beside it (updates made)."""
+    core, sched = None, None
     stack = [opt_state]
     while stack:
         node = stack.pop()
-        if hasattr(node, "mu") and hasattr(node, "nu"):
-            adam = adam or node
+        if (hasattr(node, "mu") and hasattr(node, "nu")) or type(node).__name__ == "TraceState":
+            core = core or node
         elif type(node).__name__ == "ScaleByScheduleState":
             sched = sched if sched is not None else node
         elif isinstance(node, (tuple, list)):
             stack.extend(reversed(node))
-    if adam is None:
-        raise NotImplementedError("only adam and adamw optimizer states convert")
-    count = int(np.asarray(sched.count if sched is not None else adam.count))
-    return adam, count
+    if core is None:
+        raise ValueError("no adam, adamw or sgd state in this optax state")
+    if sched is None and not hasattr(core, "count"):
+        raise ValueError("an sgd state without its schedule's count")
+    count = int(np.asarray(sched.count if sched is not None else core.count))
+    return core, count
 
 
 def _opt_from_jax(opt_state: Any, flat: Callable[[Any], Dict[str, torch.Tensor]]
                   ) -> Dict[str, Any]:
-    """One optax Adam state -> ``Optimizer.state_dict()``: ``flat`` maps
-    a moment tree onto the port's parameter names (and layouts).  A
-    ``MultiSteps`` state adds its ``mini_step`` and gradient mean
-    (``acc``)."""
-    adam, count = _adam_state(opt_state)
-    step = torch.tensor(float(np.asarray(adam.count)))
-    mu, nu = flat(adam.mu), flat(adam.nu)
-    out = {"count": count,
-           "state": {n: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
-                     for n in mu}}
+    """One optax state -> ``Optimizer.state_dict()``: ``flat`` maps a
+    moment tree onto the port's parameter names (and layouts).  Adam's
+    moments and count become ``torch.optim.Adam``'s ``exp_avg``,
+    ``exp_avg_sq`` and ``step``; sgd's trace becomes ``torch.optim.SGD``'s
+    ``momentum_buffer`` (the same recursion ``b = g + momentum * b``, from
+    zero, as optax's).  A ``MultiSteps`` state adds its ``mini_step`` and
+    gradient mean (``acc``)."""
+    core, count = _core_state(opt_state)
+    if hasattr(core, "trace"):
+        state = {n: {"momentum_buffer": t} for n, t in flat(core.trace).items()}
+    else:
+        step = torch.tensor(float(np.asarray(core.count)))
+        mu, nu = flat(core.mu), flat(core.nu)
+        state = {n: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                 for n in mu}
+    out = {"count": count, "state": state}
     if hasattr(opt_state, "mini_step"):
         out.update(mini_step=int(np.asarray(opt_state.mini_step)),
                    acc=flat(opt_state.acc_grads))
@@ -236,7 +247,8 @@ def train_state_from_jax(host_ts: Mapping[str, Any], cfg: Dict[str, Any]) -> Dic
     port's ``Trainer.train_state()`` format: the weights (``params``,
     ``model_state``, ``probe_params``), each optimizer's moments by the
     port's parameter names (a flax kernel's moments transposed with it)
-    with Adam's count and the schedule position, and ``step``.  JAX's
+    with Adam's count, or sgd's momentum, and the schedule position, and
+    ``step``.  JAX's
     PRNG key has no torch counterpart, so the state carries no generator
     and ``load_train_state`` keeps the trainer's own.  Any registry model
     converts: an optimizer over nothing (the probe-only model's, or the

@@ -7,13 +7,20 @@ the JAX package's format.  ``use_wandb`` also passes each call to wandb
 (``wandb.init(**wandb_cfg)``), imported when asked for and optional: the
 JSONL file stays the record.  A logger with ``is_master=False`` (any
 process but the first of a multi-process run) writes nothing.
+
+``count_params`` and ``compute_param_norm`` are the counterparts of the
+JAX package's helpers of the same names, over an ``nn.Module`` (its
+parameters) or a dict of tensors.
 """
 from __future__ import annotations
 
 import datetime
 import json
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional, Union
+
+import torch
+from torch import nn
 
 
 def time_log() -> str:
@@ -68,3 +75,27 @@ class MetricsLogger:
             self._file.close()
         if self._wandb is not None:
             self._wandb.finish()
+
+
+def _tensors(tree: Union[nn.Module, Mapping[str, Any]]):
+    if isinstance(tree, nn.Module):
+        return list(tree.parameters())
+    out = []
+    for v in tree.values():
+        out.extend(_tensors(v) if isinstance(v, Mapping) else [v])
+    return out
+
+
+def count_params(tree: Union[nn.Module, Mapping[str, Any]]) -> int:
+    """The number of parameter values: an ``nn.Module``'s parameters, or
+    every tensor of a (nested) dict."""
+    return sum(int(t.numel()) for t in _tensors(tree))
+
+
+def compute_param_norm(tree: Union[nn.Module, Mapping[str, Any]]) -> float:
+    """The global L2 norm over the same tensors, summed in f32 on their
+    device."""
+    tensors = _tensors(tree)
+    if not tensors:
+        return 0.0
+    return float(torch.sqrt(sum((t.detach().float() ** 2).sum() for t in tensors)))

@@ -61,16 +61,15 @@ def stego_config_from_dict(stego: Dict[str, Any]) -> StegoLossConfig:
 def backbone_settings(pre: Dict[str, Any]) -> Dict[str, Any]:
     """``cfg['model']['pretrained']`` -> the backbone fields every model
     config shares, as the JAX package reads them:
-    ``precision: bf16`` selects the bf16 backbone with bf16 attention.
+    ``precision: bf16`` selects the bf16 backbone with bf16 attention, and
+    ``ln_stats`` (``f32`` or ``bf16``) its LayerNorm statistics.
     ``freeze_backbone`` changes nothing that trains (the backbone is never
     among the trained parameters), so the port always runs the backbone
     without autograd."""
-    if pre.get("ln_stats", "f32") != "f32":
-        raise NotImplementedError("model.pretrained.ln_stats is not ported")
     bf16 = pre.get("precision", "f32") == "bf16"
     return dict(model_type=pre["model_type"], patch_size=pre["dino_patch_size"],
                 backbone_dtype=torch.bfloat16 if bf16 else torch.float32,
-                attn_bf16=bf16, gelu=pre.get("gelu"))
+                attn_bf16=bf16, gelu=pre.get("gelu"), ln_stats=pre.get("ln_stats", "f32"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +83,7 @@ class EQUSSConfig:
     attn_bf16: bool = False
     gelu: Any = None                 # None (auto) | 'erf' | 'tanh'
     fused_ln: bool = False           # ViTConfig.fused_ln (no YAML key)
+    ln_stats: str = "f32"            # 'f32' | 'bf16' (BF16StatsLayerNorm)
     pq: PQConfig = dataclasses.field(default_factory=PQConfig)
     stego: StegoLossConfig = dataclasses.field(default_factory=StegoLossConfig)
 
@@ -149,7 +149,8 @@ class EQUSS(nn.Module):
         self.cfg = cfg
         self.vit_cfg = make_vit_config(
             cfg.model_type, cfg.patch_size, dtype=cfg.backbone_dtype,
-            attn_bf16=cfg.attn_bf16, gelu=cfg.gelu, fused_ln=cfg.fused_ln)
+            attn_bf16=cfg.attn_bf16, gelu=cfg.gelu, fused_ln=cfg.fused_ln,
+            ln_stats=cfg.ln_stats)
         self.backbone = VisionTransformer(self.vit_cfg, device=self.device,
                                           generator=generator)
         self.backbone.requires_grad_(False)          # frozen
@@ -244,7 +245,8 @@ class EQUSS(nn.Module):
         feat, feat_pos = both[:b], both[b:]
         code, code_pos = code_both[:b], code_both[b:]
         z_q, indices, aux, pq_state = pq_forward(
-            code, dict(self.pq), self.pq_state.as_dict(), cfg.pq, training=True)
+            code, dict(self.pq), self.pq_state.as_dict(), cfg.pq, training=True,
+            generator=generator)
         aux["stego-loss"] = stego_loss(generator, feat, feat_pos, code, code_pos,
                                        cfg.stego, sample_override=stego_override)
         if cfg.pq.vq_type == "ema" and "distance_prob" in aux:

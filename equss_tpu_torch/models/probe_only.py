@@ -26,6 +26,7 @@ class ProbeOnlyConfig:
     attn_bf16: bool = False
     gelu: Any = None                 # None (auto) | 'erf' | 'tanh'
     fused_ln: bool = False           # ViTConfig.fused_ln (no YAML key)
+    ln_stats: str = "f32"            # 'f32' | 'bf16' (BF16StatsLayerNorm)
 
     @staticmethod
     def from_config(cfg: Dict[str, Any]) -> "ProbeOnlyConfig":
@@ -43,7 +44,7 @@ class ProbeOnlyModel(nn.Module):
         self.cfg = cfg
         self.vit_cfg = make_vit_config(cfg.model_type, cfg.patch_size, dtype=cfg.backbone_dtype,
                                        attn_bf16=cfg.attn_bf16, gelu=cfg.gelu,
-                                       fused_ln=cfg.fused_ln)
+                                       fused_ln=cfg.fused_ln, ln_stats=cfg.ln_stats)
         self.backbone = VisionTransformer(self.vit_cfg, device=self.device,
                                           generator=torch.Generator().manual_seed(seed))
         self.backbone.requires_grad_(False)          # frozen

@@ -33,6 +33,7 @@ class STEGOConfig:
     attn_bf16: bool = False
     gelu: Any = None                 # None (auto) | 'erf' | 'tanh'
     fused_ln: bool = False           # ViTConfig.fused_ln (no YAML key)
+    ln_stats: str = "f32"            # 'f32' | 'bf16' (BF16StatsLayerNorm)
     stego: StegoLossConfig = dataclasses.field(default_factory=StegoLossConfig)
 
     @staticmethod
@@ -63,7 +64,7 @@ class STEGOModel(nn.Module):
         self.cfg = cfg
         self.vit_cfg = make_vit_config(cfg.model_type, cfg.patch_size, dtype=cfg.backbone_dtype,
                                        attn_bf16=cfg.attn_bf16, gelu=cfg.gelu,
-                                       fused_ln=cfg.fused_ln)
+                                       fused_ln=cfg.fused_ln, ln_stats=cfg.ln_stats)
         self.backbone = VisionTransformer(self.vit_cfg, device=self.device, generator=generator)
         self.backbone.requires_grad_(False)          # frozen
         self.feat_dim = self.vit_cfg.embed_dim

@@ -174,7 +174,7 @@ class _Variant(nn.Module):
         s = backbone_settings(pre)
         self.vit_cfg = make_vit_config(s["model_type"], s["patch_size"],
                                        dtype=s["backbone_dtype"], attn_bf16=s["attn_bf16"],
-                                       gelu=s["gelu"])
+                                       gelu=s["gelu"], ln_stats=s["ln_stats"])
         self.backbone = VisionTransformer(self.vit_cfg, device=self.device,
                                           generator=generator)
         self.backbone.requires_grad_(False)          # frozen
@@ -566,7 +566,7 @@ class PQGOCLSModel(_Variant):
         z_teacher = self._teacher(feat_aug, ema)
         z_q, pseudo, aux, pq_state = pq_forward(z_teacher, dict(self.pq),
                                                 self.pq_state.as_dict(), self.pq_cfg,
-                                                training=True)
+                                                training=True, generator=generator)
         aux["mse-loss"] = torch.mean((_l2n(z_student) - _l2n(z_teacher)) ** 2)
         feat_pos = drop(self.features(img_pos))
         code_pos = self.head(feat_pos)
@@ -880,7 +880,8 @@ class NewVQModel(_Variant):
                 return self._stage1(feat_dino, feat, b, generator, kmeans_first,
                                     kmeans_gumbel, 2 if both else 1)
             z_q, idx, aux, pq_state = pq_forward(feat, dict(self.pq), self.pq_state.as_dict(),
-                                                 self.pq_cfg, training=training)
+                                                 self.pq_cfg, training=training,
+                                                 generator=generator, parts=2 if both else 1)
             updates: BNUpdates = {}
             recon = self.net.dec(z_q, training, updates if training else None)
             aux["recon-loss"] = torch.mean((recon - feat_dino) ** 2)
@@ -919,7 +920,7 @@ class NewVQModel(_Variant):
         mine = mesh.local_rows(sel)
         z_q_s, idx_s, aux, pq_state = pq_forward(flat[mine], dict(self.pq),
                                                  self.pq_state.as_dict(), self.pq_cfg,
-                                                 training=True)
+                                                 training=True, generator=generator)
         updates: BNUpdates = {}
         recon = self.net.dec(z_q_s, True, updates)
         aux["recon-loss"] = torch.mean((recon - flat_dino[mine]) ** 2)

@@ -7,7 +7,10 @@ qkv-bias attention, NHWC images in and (b, gh, gw, C) dense features out.
 Numerics follow the JAX package:
 * ``dtype`` is the compute dtype; parameters stay f32 and every Dense
   casts its input and weights to ``dtype`` (flax ``Dense(dtype=...)``).
-* LayerNorm takes f32 statistics (eps 1e-6) and returns ``dtype``.
+* LayerNorm takes f32 statistics (eps 1e-6) and returns ``dtype``;
+  ``ln_stats: bf16`` (a bf16 backbone only) takes them in bf16 instead
+  (``BF16StatsLayerNorm``), an opt-in speed mode outside the autocast
+  class.
 * GELU is tanh-approximated in bf16 and exact erf in f32, unless
   ``gelu_tanh`` says otherwise.
 * The patch embedding is a reshape and a matmul, exact for stride =
@@ -16,7 +19,11 @@ Numerics follow the JAX package:
   ``attn_bf16`` holds, the dtype is bf16 and the token count is at least
   ``fused_attn_min_n``; otherwise plain matmuls with f32 logits (bf16
   logits in ``attn_bf16`` mode).  The kernel masks keys by count, so the
-  token stream is not padded.
+  token stream is not padded.  ``want_attn`` takes the plain matmuls in
+  every block and returns the softmax maps: the kernel returns none, so
+  it is not launched then, as in the JAX package.
+* ``n_last`` collects the final norm of the last n blocks' outputs under
+  ``intermediates`` (``dense`` is the last).
 * ``fused_ln`` (bf16 only, off by default) puts every LayerNorm on the
   kernels of ``ops/layernorm.py``: each block's residual adds ride inside
   the add + LayerNorm kernel, and the MLP output travels as a pending
@@ -27,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +61,7 @@ class ViTConfig:
     fused_attn_min_n: int = 512
     gelu_tanh: Any = None         # None: tanh in bf16, erf in f32
     fused_ln: bool = False        # LayerNorm kernels in bf16 (use_fused_ln)
+    ln_stats_bf16: bool = False   # bf16 LayerNorm statistics (ln_stats: bf16)
 
     @property
     def head_dim(self) -> int:
@@ -78,10 +86,14 @@ VIT_PRESETS = {
 def make_vit_config(model_type: str, patch_size: int,
                     dtype: torch.dtype = torch.float32, img_size: int = 224,
                     attn_bf16: bool = False, gelu: Any = None,
-                    fused_ln: bool = False) -> ViTConfig:
-    """gelu: None (auto), 'erf'/False or 'tanh'/True."""
+                    fused_ln: bool = False, ln_stats: str = "f32") -> ViTConfig:
+    """gelu: None (auto), 'erf'/False or 'tanh'/True.  ln_stats: 'f32'
+    (the default, torch autocast's class) or 'bf16' (``BF16StatsLayerNorm``
+    in a bf16 backbone)."""
     if model_type not in VIT_PRESETS:
         raise ValueError(f"Unknown arch {model_type}")
+    if ln_stats not in ("f32", "bf16"):
+        raise ValueError(f"model.pretrained.ln_stats must be f32|bf16, got {ln_stats}")
     dim, depth, heads = VIT_PRESETS[model_type]
     if isinstance(gelu, str):
         if gelu not in ("erf", "tanh"):
@@ -90,7 +102,7 @@ def make_vit_config(model_type: str, patch_size: int,
     return ViTConfig(patch_size=patch_size, embed_dim=dim, depth=depth,
                      num_heads=heads, pos_grid=img_size // patch_size,
                      dtype=dtype, attn_bf16=attn_bf16, gelu_tanh=gelu,
-                     fused_ln=fused_ln)
+                     fused_ln=fused_ln, ln_stats_bf16=ln_stats == "bf16")
 
 
 def use_fused_ln(cfg: ViTConfig) -> bool:
@@ -156,9 +168,30 @@ class FusedLayerNorm(nn.Module):
         return fused_add_layernorm(x, y, self.weight, self.bias, self.eps)
 
 
+class BF16StatsLayerNorm(LayerNorm):
+    """LayerNorm with bf16 statistics (``ln_stats: bf16``): the input
+    rounds to bf16, the mean and the variance are f32 sums rounded to bf16
+    (jnp.mean's rule for a bf16 operand), and the centring, scaling and
+    affine run in bf16 with the parameters (f32, the names of
+    ``LayerNorm``) rounded to bf16.  An opt-in speed mode: the numbers
+    leave torch autocast's class, which keeps layer_norm in f32."""
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        xb = x.to(torch.bfloat16)
+        mean = xb.float().mean(-1, keepdim=True).to(torch.bfloat16)
+        xc = xb - mean
+        var = (xc * xc).float().mean(-1, keepdim=True).to(torch.bfloat16)
+        y = xc * torch.rsqrt(var + torch.tensor(self.eps, dtype=torch.bfloat16))
+        return (y * self.weight.to(torch.bfloat16) + self.bias.to(torch.bfloat16)).to(dtype)
+
+
 def _make_norm(cfg: ViTConfig) -> nn.Module:
+    """The JAX package's precedence: the fused kernels, then bf16
+    statistics (a bf16 backbone only), then f32 statistics."""
     if use_fused_ln(cfg):
         return FusedLayerNorm(cfg.embed_dim, cfg.ln_eps, cfg.dtype)
+    if cfg.ln_stats_bf16 and cfg.dtype == torch.bfloat16:
+        return BF16StatsLayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
     return LayerNorm(cfg.embed_dim, eps=cfg.ln_eps)
 
 
@@ -170,12 +203,17 @@ class Attention(nn.Module):
         self.qkv = Dense(C, 3 * C, generator, bias=cfg.qkv_bias)
         self.proj = Dense(C, C, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, want_attn: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(B, N, C) -> (out, attn): attn the (B, H, N, N) softmax with
+        ``want_attn`` (the plain path, in the logits' dtype), else None."""
         cfg = self.cfg
         B, N, C = x.shape
         qkv = self.qkv(x, cfg.dtype)                           # (B, N, 3C)
         scale = cfg.head_dim ** -0.5
-        if N >= cfg.fused_attn_min_n and cfg.attn_bf16 and cfg.dtype == torch.bfloat16:
+        attn = None
+        if (not want_attn and N >= cfg.fused_attn_min_n and cfg.attn_bf16
+                and cfg.dtype == torch.bfloat16):
             out = attention_qkv(qkv, cfg.num_heads, scale)
         else:
             q, k, v = qkv.reshape(B, N, 3, cfg.num_heads, cfg.head_dim).unbind(2)
@@ -184,10 +222,12 @@ class Attention(nn.Module):
                 logits = torch.matmul(q, k.transpose(-1, -2)) * scale
             else:
                 logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-            attn = torch.softmax(logits, dim=-1)
-            out = torch.matmul(attn.to(cfg.dtype), v).to(cfg.dtype)
+            probs = torch.softmax(logits, dim=-1)
+            out = torch.matmul(probs.to(cfg.dtype), v).to(cfg.dtype)
+            if want_attn:
+                attn = probs
             out = out.transpose(1, 2).reshape(B, N, C)
-        return self.proj(out, cfg.dtype)
+        return self.proj(out, cfg.dtype), attn
 
 
 class Mlp(nn.Module):
@@ -206,10 +246,11 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    """Returns ``(x, pending)``.  Under ``use_fused_ln`` the MLP output is
-    the pending residual that the next block's norm1 (or the final norm)
-    adds inside its add + LayerNorm kernel; on the stock path the adds
-    happen here and pending is None."""
+    """Returns ``(x, pending, attn)``.  Under ``use_fused_ln`` the MLP
+    output is the pending residual that the next block's norm1 (or the
+    final norm) adds inside its add + LayerNorm kernel; on the stock path
+    the adds happen here and pending is None.  attn is the attention's
+    maps with ``want_attn``, else None."""
 
     def __init__(self, cfg: ViTConfig, generator: torch.Generator):
         super().__init__()
@@ -220,22 +261,29 @@ class Block(nn.Module):
         self.norm2 = _make_norm(cfg)
         self.mlp = Mlp(cfg, generator)
 
-    def forward(self, x: torch.Tensor, pending: Optional[torch.Tensor] = None):
+    def forward(self, x: torch.Tensor, pending: Optional[torch.Tensor] = None,
+                want_attn: bool = False):
         if self.fused_ln:
             if pending is None:
                 h1 = self.norm1(x)
             else:
                 x, h1 = self.norm1(x, pending)
-            x, h2 = self.norm2(x, self.attn(h1))
-            return x, self.mlp(h2)
-        x = x + self.attn(self.norm1(x, self.cfg.dtype))
-        return x + self.mlp(self.norm2(x, self.cfg.dtype)), None
+            y, attn = self.attn(h1, want_attn)
+            x, h2 = self.norm2(x, y)
+            return x, self.mlp(h2), attn
+        y, attn = self.attn(self.norm1(x, self.cfg.dtype), want_attn)
+        x = x + y
+        return x + self.mlp(self.norm2(x, self.cfg.dtype)), None, attn
 
 
 class VisionTransformer(nn.Module):
     """DINO ViT.  ``forward(img)`` with img (b, H, W, 3) NHWC, H and W
     divisible by the patch size -> dict with ``dense`` (b, gh, gw, C),
-    ``cls`` (b, C) and ``tokens`` (b, 1 + gh*gw, C), after the final norm.
+    ``cls`` (b, C) and ``tokens`` (b, 1 + gh*gw, C), after the final norm,
+    and ``intermediates``: the final norm of each of the last ``n_last``
+    blocks' outputs (b, 1 + gh*gw, C), the last of which is ``tokens``.
+    ``want_attn`` adds ``attn``, those blocks' (b, H, N, N) attention
+    maps.
 
     Weights are drawn on the CPU from ``generator`` (seed 0 when none is
     given) and then moved to ``device``: ``None`` means CUDA, which must
@@ -269,8 +317,11 @@ class VisionTransformer(nn.Module):
         patch_pe = resize2d(patch_pe, (gh, gw), method="bicubic", scale_factor=sf)
         return torch.cat([pos_embed[:, :1], patch_pe.reshape(1, gh * gw, -1)], 1)
 
-    def forward(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, img: torch.Tensor, *, n_last: int = 1,
+                want_attn: bool = False) -> Dict[str, Any]:
         cfg = self.cfg
+        if not 1 <= n_last <= cfg.depth:
+            raise ValueError(f"n_last must be in [1, {cfg.depth}], got {n_last}")
         b, H, W, _ = img.shape
         p = cfg.patch_size
         gh, gw = H // p, W // p
@@ -282,14 +333,25 @@ class VisionTransformer(nn.Module):
         x = x + self._interpolate_pos_embed(gh, gw).to(cfg.dtype)
 
         pending = None
-        for blk in self.blocks:
-            x, pending = blk(x, pending)
-        if pending is None:
-            tokens = self.norm(x, cfg.dtype)
-        else:   # only under use_fused_ln, where the final norm is fused too
-            tokens = self.norm(x, pending)[1]
-        return {
+        feats: List[torch.Tensor] = []
+        attns: List[torch.Tensor] = []
+        for i, blk in enumerate(self.blocks):
+            x, pending, attn = blk(x, pending, want_attn)
+            if cfg.depth - i > n_last:
+                continue
+            if pending is None:
+                feats.append(self.norm(x, cfg.dtype))
+            else:   # only under use_fused_ln, where the final norm is fused too
+                feats.append(self.norm(x, pending)[1])
+            if want_attn:
+                attns.append(attn)
+        tokens = feats[-1]
+        out: Dict[str, Any] = {
             "dense": tokens[:, 1:].reshape(b, gh, gw, cfg.embed_dim),
             "cls": tokens[:, 0],
             "tokens": tokens,
+            "intermediates": feats,
         }
+        if want_attn:
+            out["attn"] = attns
+        return out

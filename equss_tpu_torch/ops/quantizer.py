@@ -10,8 +10,12 @@ other like for like; ``pq_forward`` returns the new state and leaves the
 caller's untouched.  Training covers param codebooks (``vq_type="param"``)
 and EMA codebooks (``"ema"``: the Laplace-smoothed moving averages of the
 assigned vectors, and the softmax of the distances for the JSD and
-entropy telemetry); restart, split, dropout, Gumbel and the weighted-sum
-output belong to a later slice and raise.
+entropy telemetry), with every option of the JAX package: the split and
+the restart of dead codewords, codeword dropout, the Gumbel assignment
+and the weighted-sum output.  Each option's random draw comes from the
+caller's ``torch.Generator``, or is passed in (``keep``, ``cand_idx``,
+``gumbel_noise``, ``split_noise``), which is how the tests give the port
+JAX's draws.
 
 Routing keeps the JAX package's rule: the fused kernel
 (``ops/pq_assign.py``) runs whenever the eligibility predicate holds and
@@ -30,8 +34,10 @@ In a global program (``parallel.mesh``) the training counts and the EMA
 sums are the global batch's, summed over the ranks as the JAX package's
 ``_maybe_psum`` sums them over the data axis, and the Gumbel noise is
 drawn for the global batch's rows (``parts``: the blocks of the batch
-stacked in ``z``), of which each rank takes its own; the split noise is
-not per row and every rank draws it alike.  ``pallas_auto_shards``
+stacked in ``z``), of which each rank takes its own; the restart draws
+its candidates among the global batch's rows, gathered on every rank
+(JAX's "explicit key + global batch"); the split noise and the dropout
+mask are not per row and every rank draws them alike.  ``pallas_auto_shards``
 stays 1 there: the size gate sees each rank's own rows already, where
 the JAX step sees the global batch and divides by the shards.
 """
@@ -261,6 +267,29 @@ def ema_codebook_update(state: Dict[str, torch.Tensor], count: torch.Tensor,
                 ema_weight=ema_weight_avg / smoothed[..., None])
 
 
+def restart_dead_codes(codebook: torch.Tensor, count: torch.Tensor, z: torch.Tensor,
+                       cand_idx: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None,
+                       parts: int = 1) -> torch.Tensor:
+    """The codewords unused in this batch (``count`` (M, K) == 0) replaced
+    by rows of the batch: codeword k of subspace m becomes row
+    ``cand_idx[m, k]`` of z (n, M, d) in subspace m, drawn with
+    replacement from ``generator`` unless given.  In a global program the
+    rows are the global batch's (``parts`` as in ``mesh.gather_rows``),
+    so every rank computes the same codebook.  Returns the new (M, K, d)
+    codebook."""
+    M, K, d = codebook.shape
+    rows = mesh.gather_rows(z.detach(), parts)
+    if cand_idx is None:
+        if generator is None:
+            raise ValueError("use_restart requires a generator or cand_idx")
+        cand_idx = torch.randint(0, rows.shape[0], (M, K), generator=generator,
+                                 device=z.device)
+    idx = cand_idx.to(z.device).long()[..., None].expand(M, K, d)
+    candidates = torch.gather(rows.transpose(0, 1), 1, idx)            # (M, K, d)
+    return torch.where((count == 0)[..., None], candidates.to(codebook.dtype), codebook)
+
+
 def split_codes(codebook: torch.Tensor, total_count: torch.Tensor,
                 current_count: torch.Tensor, noise: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -317,17 +346,6 @@ def _train_route_ok(cfg: PQConfig) -> bool:
             and not cfg.use_restart
             and not cfg.use_split
             and cfg.normalize != "z_trainable")
-
-
-def _check_training_supported(cfg: PQConfig) -> None:
-    later = [name for name, on in (
-        ("use_restart", cfg.use_restart),
-        ("pq_dropout", cfg.pq_dropout > 0.0),
-        ("use_weighted_sum", cfg.use_weighted_sum)) if on]
-    if later:
-        raise NotImplementedError(
-            "pq_forward(training=True) is ported for param and EMA codebooks "
-            f"without {', '.join(later)}, which belong to a later slice of the port")
 
 
 def _kernel_eligible(cfg: PQConfig, n: int, device: torch.device,
@@ -400,6 +418,8 @@ def pq_forward(
     generator: Optional[torch.Generator] = None,
     gumbel_noise: Optional[torch.Tensor] = None,
     split_noise: Optional[torch.Tensor] = None,
+    keep: Optional[torch.Tensor] = None,
+    cand_idx: Optional[torch.Tensor] = None,
     parts: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Quantize (..., D) features in all M subspaces.
@@ -420,13 +440,21 @@ def pq_forward(
     K), drawn from ``generator`` unless given; in a global program this
     rank's rows of the global batch's draw, ``z`` stacking ``parts``
     blocks of the batch) and z_q their raw
-    codewords.  z_q comes from the codebook before the update.  The
-    caller's ``state`` is not modified."""
-    if training:
-        _check_training_supported(cfg)
-    if cfg.use_weighted_sum:
-        raise NotImplementedError(
-            "the weighted-sum quantizer output is not ported yet")
+    codewords.  z_q comes from the codebook before the update.
+
+    The other options, in training: ``pq_dropout`` p masks each codeword
+    (M, K) to an infinite distance with probability p, entry 0 of each
+    subspace kept (``keep`` (M, K) bool, drawn as ``uniform > p`` unless
+    given); ``use_restart`` replaces the codewords this batch left unused
+    by rows of the batch (``restart_dead_codes``, its draw ``cand_idx``):
+    an EMA codebook's ``ema_weight`` after the update, its
+    ``ema_weight_avg`` set to it and ``ema_count`` to zero where any
+    codeword was dead; a param codebook's restart goes to
+    ``aux["restarted-codebook"]`` from the normalised rows, for the caller
+    to apply.  ``use_weighted_sum`` (inference too; ``normalize: none``)
+    makes z_q the distance softmax's mean of the codebook, with no
+    straight-through step.  Each of these options takes the plain route,
+    as in the JAX package.  The caller's ``state`` is not modified."""
     M, K, d = cfg.num_pq, cfg.num_codebook, cfg.sub_dim
     lead_shape = z.shape[:-1]
     zf = z.reshape(-1, M, d).float()
@@ -461,6 +489,15 @@ def pq_forward(
         # of the argmin alone need none
         with contextlib.nullcontext() if want_prob else torch.no_grad():
             dist = pairwise_sqdist(z_norm, codebook_norm, precision=cfg.assign_precision)
+            if cfg.pq_dropout > 0.0 and training:
+                if keep is None:
+                    if generator is None:
+                        raise ValueError("pq_dropout requires a generator or keep")
+                    keep = torch.rand((M, K), generator=generator,
+                                      device=dist.device) > cfg.pq_dropout
+                keep = keep.to(dist.device, torch.bool).clone()
+                keep[:, 0] = True
+                dist = torch.where(keep[None], dist, torch.inf)
             if want_prob:
                 distance_prob = torch.softmax(-dist.float() / cfg.jsd_ts, dim=-1)
             if gumbel_pick:
@@ -479,9 +516,12 @@ def pq_forward(
         # scatter-add, rounded to bf16 on its way back through the cast,
         # as XLA differentiates the one-hot einsum of bf16 operands.  The
         # Gumbel pick gathers the raw codeword in either precision
-        source = (codebook.to(torch.bfloat16).float() if not exact and not gumbel_pick
-                  else codebook.float())
-        z_q = _gather_codewords(source, indices)
+        if cfg.use_weighted_sum:
+            z_q = torch.einsum("nmk,mkd->nmd", distance_prob, codebook_norm.float())
+        else:
+            source = (codebook.to(torch.bfloat16).float() if not exact and not gumbel_pick
+                      else codebook.float())
+            z_q = _gather_codewords(source, indices)
 
     aux: Dict[str, torch.Tensor] = {}
     new_state = dict(state)
@@ -511,6 +551,18 @@ def pq_forward(
                     0, flat, zf.reshape(-1, d)))
                 new_state = ema_codebook_update(new_state, count,
                                                 vec_sum.reshape(M, K, d), cfg)
+                if cfg.use_restart:
+                    restarted = restart_dead_codes(new_state["ema_weight"], count, zf,
+                                                   cand_idx, generator, parts)
+                    any_dead = (count == 0).any()
+                    new_state["ema_weight"] = restarted
+                    # the reference resets the average to the weight and the
+                    # counts to zero on a restart
+                    new_state["ema_weight_avg"] = torch.where(
+                        any_dead, restarted, new_state["ema_weight_avg"])
+                    new_state["ema_count"] = torch.where(
+                        any_dead, torch.zeros_like(new_state["ema_count"]),
+                        new_state["ema_count"])
                 if cfg.use_split:
                     if split_noise is None:
                         if generator is None:
@@ -519,8 +571,13 @@ def pq_forward(
                                                   device=zf.device)
                     new_state["ema_weight"], new_state["ema_count"] = split_codes(
                         new_state["ema_weight"], new_state["ema_count"], count, split_noise)
+            elif cfg.use_restart:
+                # a param codebook is trained: its restart goes to the caller
+                aux["restarted-codebook"] = restart_dead_codes(
+                    codebook.detach(), count, z_norm, cand_idx, generator, parts)
     if distance_prob is not None:
         aux["distance_prob"] = distance_prob.reshape(*lead_shape, M, K)
-    z_q = z_norm + (z_q - z_norm).detach()          # the straight-through value
+    if not cfg.use_weighted_sum:
+        z_q = z_norm + (z_q - z_norm).detach()      # the straight-through value
     return (z_q.reshape(*lead_shape, M * d), indices.reshape(*lead_shape, M),
             aux, new_state)

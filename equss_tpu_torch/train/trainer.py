@@ -54,8 +54,9 @@ With ``train.num_accum`` k > 1 each step is a micro-step of optax's
 ``MultiSteps``: the three optimizers average k micro-steps' gradients and
 update on the k-th (``train/optim.py``), while the model state commits
 after every finite micro-step, as in JAX; a skipped micro-step leaves the
-gradient mean and the micro-step count as they were.  The prediction
-dumps of ``visualize_to`` belong to a later slice of the port.
+gradient mean and the micro-step count as they were.  ``validate`` and
+``validate_crf`` with ``visualize_to`` write the prediction and codeword
+PNGs (``utils/visualize.py``).
 
 On several processes (``torch.distributed`` initialised,
 ``parallel/mesh.py``) the ranks run one global program, as the JAX
@@ -88,7 +89,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from equss_tpu_torch.core.logging import MetricsLogger
+from equss_tpu_torch.core.logging import MetricsLogger, count_params
 from equss_tpu_torch.data.transforms import (normalize_images, photometric_apply,
                                              photometric_draws)
 from equss_tpu_torch.device import DeviceLike, resolve_device
@@ -484,21 +485,25 @@ class Trainer:
         matched) in percent from the summed confusion matrices, and the
         mean probe losses ``val_linear_loss`` / ``val_cluster_loss``.
         Without a cluster probe the Cluster keys repeat the Linear ones.
-        The sums stay on the device until the end."""
-        if visualize_to is not None:
-            raise NotImplementedError("visualize_to (utils/visualize.py) is not ported yet")
+        The sums stay on the device until the end.  ``visualize_to`` writes
+        the PNGs of ``_visualize`` there (with a cluster probe): each
+        batch's predictions, labels and codeword indices are copied to the
+        host as it is saved."""
         n, e = self.tc.num_classes, self.tc.extra_classes
         cluster_m = UnSegMetrics(n, e, compute_hungarian=True)
         linear_m = UnSegMetrics(n, 0, compute_hungarian=False)
         sums: Dict[str, Any] = {}
         batches = 0
         has_cluster = True
+        saved: Dict[str, list] = {}
         for batch in val_iter:
             res = self.valid_step(batch)
             has_cluster = "cluster_conf" in res
             for k in ("linear_conf", "cluster_conf", "linear_loss", "cluster_loss"):
                 if k in res:
                     sums[k] = sums.get(k, 0) + res[k]
+            if visualize_to is not None and has_cluster:
+                self._save_for_visualize(saved, res, batch)
             batches += 1
         self._sum_over_ranks(sums)
         sums = {k: v.cpu() for k, v in sums.items()}
@@ -520,6 +525,8 @@ class Trainer:
             cluster = cluster_m.compute()
             out["Cluster_mIoU"] = cluster["iou"]
             out["Cluster_Accuracy"] = cluster["accuracy"]
+            if saved:
+                self._visualize(visualize_to, saved, cluster_m)
         else:
             # keeps fit's best-result key defined without a cluster probe
             out["Cluster_mIoU"] = linear["iou"]
@@ -558,15 +565,17 @@ class Trainer:
         matrices, which stay on the device until the end.  Without a
         cluster probe the Cluster keys repeat the Linear ones, as in
         ``validate`` (the JAX package's CRF step has no such case: it
-        reads the cluster probe unconditionally)."""
-        if visualize_to is not None:
-            raise NotImplementedError("visualize_to (utils/visualize.py) is not ported yet")
+        reads the cluster probe unconditionally).  ``visualize_to`` writes
+        the refined predictions' PNGs there, as ``validate`` does."""
         sums: Dict[str, torch.Tensor] = {}
+        saved: Dict[str, list] = {}
         for batch in val_iter:
             res = self.valid_crf_step(batch)
             for k in ("cluster_conf", "linear_conf"):
                 if k in res:
                     sums[k] = sums[k] + res[k] if k in sums else res[k]
+            if visualize_to is not None and "cluster_preds" in res:
+                self._save_for_visualize(saved, res, batch)
         self._sum_over_ranks(sums)
         n, e = self.tc.num_classes, self.tc.extra_classes
         linear_m = UnSegMetrics(n, 0, compute_hungarian=False)
@@ -578,10 +587,42 @@ class Trainer:
             if "cluster_conf" in sums:
                 cluster_m.update_confusion(sums["cluster_conf"].cpu())
             cluster = cluster_m.compute()
+            if saved:
+                self._visualize(visualize_to, saved, cluster_m)
         else:
             cluster = linear
         return {"Cluster_mIoU": cluster["iou"], "Cluster_Accuracy": cluster["accuracy"],
                 "Linear_mIoU": linear["iou"], "Linear_Accuracy": linear["accuracy"]}
+
+    def _save_for_visualize(self, saved: Dict[str, list], res: Dict[str, torch.Tensor],
+                            batch: Mapping[str, Any]) -> None:
+        """A valid step's predictions, codeword indices (where the model
+        quantizes) and the batch's labels, the global batch's rows
+        gathered over the ranks, copied to the host into ``saved``."""
+        parts = {k: res[k] for k in ("linear_preds", "cluster_preds", "pq_indices") if k in res}
+        parts["label"] = torch.as_tensor(batch["label"]).to(self.device)
+        with mesh.global_program():
+            for k, v in parts.items():
+                saved.setdefault(k, []).append(mesh.gather_rows(v).cpu())
+
+    def _visualize(self, out_dir: str, saved: Dict[str, list], cluster_m: UnSegMetrics) -> None:
+        """The PNG dumps (``utils/visualize.py``), written by rank 0: each
+        image's linear, cluster (remapped by ``cluster_m``'s Hungarian
+        assignment) and label maps in the colormap of
+        ``dataset.val.dataset_name``, and each subspace's codeword map
+        (``eval.visualize_pq_subspaces``, default all) upsampled by the
+        patch size."""
+        from equss_tpu_torch.utils.visualize import pq_visualization, visualization
+
+        if mesh.rank() != 0:
+            return
+        data = {k: torch.cat(v) for k, v in saved.items()}
+        name = self.cfg.get("dataset", {}).get("val", {}).get("dataset_name", "cocostuff27")
+        visualization(out_dir, name, data, cluster_m)
+        if "pq_indices" in data:
+            pq_visualization(out_dir, data["pq_indices"],
+                             subspaces=self.cfg.get("eval", {}).get("visualize_pq_subspaces"),
+                             upsample=self.model.vit_cfg.patch_size)
 
     def _sum_over_ranks(self, sums: Dict[str, Any]) -> None:
         """Each of a valid loop's sums (device tensors) summed over the
@@ -631,10 +672,8 @@ class Trainer:
             self.load_train_state(state)
         else:
             self.step = 0
-        logger.banner(
-            f"params: {sum(p.numel() for p in self.model.parameters())} "
-            f"(head+pq trainable), probes: "
-            f"{sum(p.numel() for p in self.evaluator.parameters())}")
+        logger.banner(f"params: {count_params(self.model)} (head+pq trainable), "
+                      f"probes: {count_params(self.evaluator)}")
         best: Dict[str, Any] = {"Cluster_mIoU": -1.0}
 
         def validate_and_keep_best(epoch: int, it: int) -> None:

@@ -414,7 +414,13 @@ _PQ_ROW_PATHS = {
                   "pqgo_cls_cocostuff27_train", "pqgo_cls_cocostuff27_valid",
                   "stego_cocostuff27_valid", "cli_stego", "export_stego",
                   "res_cocostuff27_valid", "spq_cocostuff27_valid", "info_cocostuff27_valid",
-                  "ema_cocostuff27_valid"],
+                  "ema_cocostuff27_valid",
+                  # the rest phase: PQ launches only in the visualised valid
+                  # steps and the profiled CLI run (narrow fast), none in
+                  # the option steps (the plain route)
+                  "rest_visualize", "rest_cli_profile", "rest_cache", "rest_backbone",
+                  "rest_pqgo_restart_dropout", "rest_pqgo_weighted_sum",
+                  "rest_ema_restart_dropout"],
     "pq_assign_exact": ["serve_exact", "pqgo_exact_train", "pqgo_exact_valid"],
     "pq_assign_wide": ["vq_train", "vq_valid", "vq_serve", "cli_vq",
                        "new_vq_cocostuff27_train", "new_vq_cocostuff27_valid",

@@ -17,7 +17,11 @@
   another device type's generator, and restores for evaluation.
 * ``convert.train_state_from_jax``: 2 JAX train steps, the state
   converted, then step 3 on both sides: losses rtol 1e-5, parameters
-  within the bars of ``tests/test_torch_trainer.py``.
+  within the bars of ``tests/test_torch_trainer.py``; the same with sgd
+  (momentum, weight decay, a cosine schedule) in all three optimizers,
+  whose optax trace becomes ``torch.optim.SGD``'s momentum buffer: the
+  round trip through the trainer bit-equal, the buffers after step 3
+  within 1e-5 of their scale of JAX's trace.
 """
 import copy
 import itertools
@@ -27,10 +31,16 @@ import jax
 import pytest
 import torch
 
+import numpy as np
+
 from equss_tpu.core.checkpoint import CheckpointManager as JCheckpointManager
-from equss_tpu_torch.convert import params_from_jax, train_state_from_jax
+from equss_tpu.models.registry import build_model as jbuild_model
+from equss_tpu.parallel.mesh import make_mesh
+from equss_tpu.train.trainer import Trainer as JTrainer
+from equss_tpu_torch.convert import _dense, params_from_jax, train_state_from_jax
 from equss_tpu_torch.core.checkpoint import METADATA_FILE, CheckpointManager
 from equss_tpu_torch.data.synthetic import synthetic_batches
+from equss_tpu_torch.models.equss import EQUSS, EQUSSConfig
 from equss_tpu_torch.train.trainer import Trainer
 from test_torch_trainer import LR_MODEL, _batches, micro_cfg
 from test_torch_trainer import _pair as _train_pair
@@ -242,3 +252,49 @@ def test_train_state_from_jax_continues_the_jax_run():
         assert diff.max() <= 2 * lr + 1e-6, k
         assert (diff > 1e-6).float().mean() <= 0.01, k
     assert tr.step == 3 and tr.tx_model.count == 3
+
+
+def test_sgd_train_state_from_jax_round_trip_and_step():
+    cfg = micro_cfg(bf16=False)
+    sgd = {"name": "sgd", "lr": 1e-2, "momentum": 0.9, "weight_decay": 0.05}
+    cfg["optimizer"] = {k: dict(sgd) for k in ("model", "cluster", "linear")}
+    cfg["scheduler"]["model"] = {"name": "cos"}
+    jtr = JTrainer(cfg, mesh=make_mesh(2), model=jbuild_model(cfg))
+    ts = jtr.init_state(jax.random.PRNGKey(0), img_hw=(64, 64))
+    mcfg = EQUSSConfig.from_config(cfg)
+    tr = Trainer(cfg, device="cpu", model=EQUSS(mcfg, device="cpu"))
+    batches = _batches(3, seed=4)
+    for batch in batches[:2]:
+        ts, _ = jtr.train_step(ts, batch)
+    state = train_state_from_jax(jax.device_get(ts), cfg)
+    assert state["step"] == 2
+    for name in ("model", "cluster", "linear"):
+        opt = state["opt"][name]
+        assert opt["count"] == 2 and opt["state"]
+        assert all(set(v) == {"momentum_buffer"} for v in opt["state"].values()), name
+    linear = jax.device_get(ts)["opt"]["linear"]
+    trace = next(n for n in jax.tree.leaves(linear, is_leaf=lambda x: hasattr(x, "trace"))
+                 if hasattr(n, "trace")).trace
+    want = _dense(trace["linear"], "linear")
+    for k, v in want.items():
+        assert torch.equal(state["opt"]["linear"]["state"][k]["momentum_buffer"], v), k
+    tr.load_train_state(copy.deepcopy(state))
+    back = tr.train_state()["opt"]
+    for name in ("model", "cluster", "linear"):
+        assert back[name]["count"] == 2
+        for k, v in state["opt"][name]["state"].items():
+            assert torch.equal(back[name]["state"][k]["momentum_buffer"],
+                               v["momentum_buffer"]), (name, k)
+    ts, m_j = jtr.train_step(ts, batches[2])
+    m_t = tr.train_step(batches[2])
+    for key in ("loss", "model-loss", "linear-loss", "cluster-loss", "grad-norm"):
+        assert m_t[key] == pytest.approx(float(m_j[key]), rel=1e-5, abs=1e-7), key
+    after = train_state_from_jax(jax.device_get(ts), cfg)["opt"]
+    mine = tr.train_state()["opt"]
+    for name in ("model", "cluster", "linear"):
+        for k, v in after[name]["state"].items():
+            got = mine[name]["state"][k]["momentum_buffer"].numpy()
+            ref = v["momentum_buffer"].numpy()
+            np.testing.assert_allclose(got, ref, rtol=0,
+                                       atol=1e-5 * max(np.abs(ref).max(), 1.0), err_msg=k)
+    assert tr.tx_model.count == 3

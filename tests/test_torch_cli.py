@@ -25,8 +25,13 @@
   ``_make_batch_fns`` on the same corpus and seed.
 * Without ``device`` the jobs that run a model take CUDA and raise
   without it; a multi-process run needs its coordinator (its runs:
-  ``tests/test_torch_parallel.py``); ``train.profile_dir`` and the
-  tensor-parallel layouts raise ``NotImplementedError``.
+  ``tests/test_torch_parallel.py``); the tensor-parallel layouts raise
+  ``NotImplementedError``.
+* ``train.profile_dir`` and ``is_visualize`` through ``cli.main``: the
+  Chrome trace names the port's custom op (``equss::pq_assign``, on its
+  kernel route), and is written also when the traced body raises; the
+  final evaluation writes the prediction and codeword PNGs under
+  ``<visualize_path>/<step>/``.
 """
 import builtins
 import glob
@@ -149,6 +154,22 @@ def test_cli_train_checkpoint_final_crf_and_resume(tmp_path):
         assert torch.equal(resumed_result["state"][k], v), k
 
 
+def test_cli_profile_dir_writes_a_trace_and_is_visualize_the_pngs(tmp_path):
+    viz = tmp_path / "viz"
+    result, _ = _main(tmp_path, f"train.profile_dir={tmp_path / 'prof'}", "is_visualize=true",
+                      f"visualize_path={viz}", "eval.final_crf=false",
+                      "model.vq.num_codebooks=[128]", "model.vq.use_pallas=true")
+    with open(tmp_path / "prof" / "trace_rank0.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "equss::pq_assign" in names and "aten::linear" in names
+    (step,) = os.listdir(viz)
+    assert int(step) == result["best"]["iter"]
+    subdirs = sorted(os.listdir(viz / step))
+    assert subdirs == sorted(["cluster", "label", "linear", *(f"pq_{m}" for m in range(8))])
+    for sub in subdirs:
+        assert len(os.listdir(viz / step / sub)) == 8, sub    # the val batch of 8
+
+
 def test_cli_defaults_to_cuda_and_raises_on_what_is_not_ported(tmp_path, monkeypatch):
     from equss_tpu_torch.parallel import mesh
 
@@ -161,8 +182,14 @@ def test_cli_defaults_to_cuda_and_raises_on_what_is_not_ported(tmp_path, monkeyp
     # coordinator and rank
     with pytest.raises(ValueError, match="dist.coordinator"):
         cli.main([*base, "device=cpu", "dist.num_processes=2"])
-    with pytest.raises(NotImplementedError, match="profile_dir"):
-        cli.main([*base, "device=cpu", f"train.profile_dir={tmp_path / 'prof'}"])
+    # train.profile_dir traces the run (tests/test_torch_cli.py::
+    # test_cli_profile_dir_writes_a_trace); a raising run still writes it
+    with pytest.raises(RuntimeError, match="inside"):
+        with cli.profiled(str(tmp_path / "prof"), torch.device("cpu")):
+            torch.ones(3).sum()
+            raise RuntimeError("inside")
+    with open(tmp_path / "prof" / "trace_rank0.json") as f:
+        assert any(e.get("name") == "aten::sum" for e in json.load(f)["traceEvents"])
     with pytest.raises(NotImplementedError, match="item 9"):
         mesh.shard_quantizer(None, {}, {})
 

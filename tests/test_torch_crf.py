@@ -30,12 +30,17 @@ the JAX package, and its native lattice binding.
 * ``Trainer.validate_crf`` on vit_micro, b = 2 at 64^2, ``max_iter`` 2,
   against the JAX ``Trainer.validate_crf`` (weights shared as in
   ``tests/test_torch_valid.py``): predictions >= 99.9% equal, the four
-  metrics within 0.1 percentage points.
+  metrics within 0.1 percentage points; with ``visualize_to`` the same
+  PNG files as JAX's, the linear and label maps read back as the
+  colormap of the refined predictions and labels, the cluster maps as
+  that of the predictions remapped by the Hungarian matching, and the
+  maps >= 99.9% equal to JAX's pixel for pixel.
 * The native lattice (``ops/crf_native.py``, built from
   ``native/permutohedral.cpp``) against ``dense_crf``: argmax agreement
   > 0.95, as ``tests/test_crf_native.py`` holds the JAX binding.
 """
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -210,7 +215,7 @@ def test_want_log_probs_match_jax(probe_res):
         assert "linear_log_probs" not in ev(torch.from_numpy(feats), torch.from_numpy(label))
 
 
-def test_validate_crf_matches_jax():
+def test_validate_crf_matches_jax(tmp_path):
     cfg = _cfg()
     cfg["eval"]["crf"] = {"max_iter": 2}
     jtr, ts, tr = _pair(cfg)
@@ -225,5 +230,38 @@ def test_validate_crf_matches_jax():
     assert set(val_t) == set(val_j)
     for k, v in val_j.items():
         assert val_t[k] == pytest.approx(v, abs=0.1), k
-    with pytest.raises(NotImplementedError):
-        tr.validate_crf(batches, visualize_to="out")
+    _validate_crf_pngs(tmp_path, jtr, ts, tr, batches)
+
+
+def _validate_crf_pngs(tmp_path, jtr, ts, tr, batches):
+    """``validate_crf(visualize_to=...)`` of both packages: the file sets
+    equal, the port's maps the colormap of its own refined predictions
+    (the cluster ones remapped), >= 99.9% of pixels equal to JAX's."""
+    from PIL import Image
+
+    from equss_tpu_torch.data.catalog import create_pascal_label_colormap
+    from equss_tpu_torch.eval.metrics import UnSegMetrics
+
+    jtr.validate_crf(ts, batches, visualize_to=str(tmp_path / "jax"))
+    tr.validate_crf(batches, visualize_to=str(tmp_path / "port"))
+    read = lambda root, sub, i: np.asarray(Image.open(root / sub / f"{i}.png"))  # noqa: E731
+    names = lambda root: sorted(os.listdir(root))                               # noqa: E731
+    assert names(tmp_path / "jax") == names(tmp_path / "port") == ["cluster", "label", "linear"]
+    steps = [tr.valid_crf_step(b) for b in batches]
+    cluster_m = UnSegMetrics(tr.tc.num_classes, tr.tc.extra_classes, compute_hungarian=True)
+    cluster_m.update_confusion(sum(s["cluster_conf"] for s in steps))
+    cluster_m.compute()
+    cmap = create_pascal_label_colormap()
+    maps = {"linear": np.concatenate([s["linear_preds"].numpy() for s in steps]),
+            "cluster": cluster_m.map_clusters(
+                np.concatenate([s["cluster_preds"].numpy() for s in steps])),
+            "label": np.concatenate([b["label"] for b in batches])}
+    for sub, arr in maps.items():
+        assert len(os.listdir(tmp_path / "port" / sub)) == len(arr) == 4
+        for i in range(len(arr)):
+            want = cmap[np.clip(arr[i], 0, None)].astype(np.uint8)
+            want[arr[i] < 0] = 0
+            got = read(tmp_path / "port", sub, i)
+            np.testing.assert_array_equal(got, want, err_msg=f"{sub}/{i}")
+            same = (got == read(tmp_path / "jax", sub, i)).all(-1).mean()
+            assert same >= 0.999, (sub, i, same)

@@ -24,6 +24,11 @@ write what they computed to a file; the tests read it.
 * vq (EMA): the counts equal to the one-process run's, the EMA state
   within rtol 1e-5, the JSD and entropy telemetry within 1e-5; stego,
   probe and sl: 2 steps and ``validate`` against the one-process run.
+* vq (EMA) with ``use_restart`` and ``pq_dropout``: the ranks bit-equal
+  after every step (the restart draws its rows from the gathered global
+  batch, the dropout mask is the same on every rank), the counts equal to
+  the one-process run's, the codebook and the rest of the EMA state
+  within rtol 1e-5 of it.
 * A non-finite step on one rank is skipped on both.
 * The Sinkhorn targets, ``cluster_loss`` and ``BatchNorm`` (output,
   running averages, gradients) across the ranks against JAX's on the
@@ -208,6 +213,8 @@ def _rank(rank, port, job_path, out_path):
         tr = Trainer(job["cfgs"][name], device="cpu")
         out[name] = {"validate": tr.validate(rows(job["val"])),
                      **_steps(tr, rows(job["train"][:2]))}
+    out["vq_options"] = _steps(Trainer(job["cfgs"]["vq_options"], device="cpu"),
+                               rows(job["train"][:2]))
 
     tr = Trainer(job["cfgs"]["pqgo"], device="cpu")
     before = _snapshot(tr)
@@ -281,9 +288,11 @@ def runs(tmp_path_factory):
     cfg_fed["eval"]["crf"] = {"max_iter": 2, "block": 256}
     pqgo = micro_cfg(bf16=False)
     pqgo["model"]["pretrained"]["dropout"] = True
+    vq_options = micro("vq")
+    vq_options["model"]["vq"].update(use_restart=True, pq_dropout=0.2)
     rs = np.random.RandomState(0)
     job = {"save_dir": str(tmp / "runs"),
-           "cfgs": {"pqgo": pqgo, "fed": cfg_fed,
+           "cfgs": {"pqgo": pqgo, "fed": cfg_fed, "vq_options": vq_options,
                     **{n: micro(n) for n in ("vq", "stego", "probe", "sl")}},
            "jax_init": tr_fed.state_dict(),
            # every registered family at vit_micro, by its config
@@ -315,6 +324,7 @@ def runs(tmp_path_factory):
         for name in ("vq", "stego", "probe", "sl"):
             tr = Trainer(job["cfgs"][name], device="cpu")
             ref[name] = {"validate": tr.validate(job["val"]), **_steps(tr, job["train"][:2])}
+        ref["vq_options"] = _steps(Trainer(vq_options, device="cpu"), job["train"][:2])
         jax_ref = {"validate": jtr.validate(ts, job["val"]),
                    "grads": _flat_jax_grads(_jax_grads(jtr, ts, job["fed"][0])[0])}
         metrics = []
@@ -380,7 +390,7 @@ def test_group_broadcast_replicate_and_barrier(runs):
         assert torch.equal(out["helpers"]["weight"], torch.ones(2, 3)), r
 
 
-@pytest.mark.parametrize("name", ["pqgo", "fed", "vq", "stego", "probe", "sl"])
+@pytest.mark.parametrize("name", ["pqgo", "fed", "vq", "stego", "probe", "sl", "vq_options"])
 def test_ranks_hold_the_same_state_after_every_step(runs, name):
     a, b = (out[name]["states"] for out in runs["ranks"])
     assert len(a) == len(b) >= 2
@@ -468,6 +478,26 @@ def test_vq_two_ranks_ema_state_equals_one_process(runs):
         for name in ("ema_weight", "ema_weight_avg"):
             k = f"model.pq_state.{name}"
             _close(s_got[k].numpy(), s_ref[k].numpy(), 1e-5)
+
+
+def test_vq_restart_and_dropout_two_ranks_equal_one_process(runs):
+    got, ref = runs["ranks"][0]["vq_options"], runs["ref"]["vq_options"]
+    for m_got, m_ref in zip(got["metrics"], ref["metrics"]):
+        assert m_got["skipped"] == m_ref["skipped"] == 0.0
+        for k in ("codebook-usage", "vq-loss", "loss"):
+            assert m_got[k] == pytest.approx(m_ref[k], rel=1e-5, abs=1e-7), k
+    before = runs["job"]["cfgs"]["vq_options"]
+    assert before["model"]["vq"]["use_restart"]
+    for step, (s_got, s_ref) in enumerate(zip(got["states"], ref["states"])):
+        for name in ("vq_count", "ema_count"):
+            k = f"model.pq_state.{name}"
+            assert torch.equal(s_got[k], s_ref[k]), (step, k)
+        # a restart reset the counts: 256 pixels over 128 codewords
+        assert float(s_ref["model.pq_state.ema_count"].abs().sum()) == 0.0
+        for name in ("ema_weight", "ema_weight_avg"):
+            k = f"model.pq_state.{name}"
+            _close(s_got[k].numpy(), s_ref[k].numpy(), 1e-5)
+        assert torch.equal(s_got["generator"], s_ref["generator"])
 
 
 @pytest.mark.parametrize("name", ["stego", "probe", "sl"])

@@ -16,6 +16,9 @@
   its kernel (d % 8 == 0, K % 128 == 0), and a ``ValueError`` with the
   reason, never a quiet False, should the kernel's domain leave such a
   shape out; outside the predicate the kernel's domain decides.
+* ``model.pretrained.ln_stats: bf16`` reaches the backbone of every
+  model that reads it in JAX (EQUSS, STEGO, the probe-only model and
+  the variants): its norms take bf16 statistics.
 """
 import dataclasses
 import glob
@@ -87,10 +90,11 @@ def test_model_configs_match_jax(name):
     cfg = load_config(f"configs/{name}.yaml")
     if name == "cluster_baseline":
         mine, want = ProbeOnlyConfig.from_config(cfg), JProbeOnlyConfig.from_config(cfg)
-        shared = ("model_type", "patch_size", "attn_bf16", "gelu")
+        shared = ("model_type", "patch_size", "attn_bf16", "gelu", "ln_stats")
     else:
         mine, want = STEGOConfig.from_config(cfg), JSTEGOConfig.from_config(cfg)
-        shared = ("model_type", "patch_size", "dim", "dropout", "drop_prob", "attn_bf16", "gelu")
+        shared = ("model_type", "patch_size", "dim", "dropout", "drop_prob", "attn_bf16", "gelu",
+                  "ln_stats")
         assert dataclasses.asdict(mine.stego) == dataclasses.asdict(want.stego)
     for field in shared:
         assert getattr(mine, field) == getattr(want, field), field
@@ -152,6 +156,22 @@ def test_variant_families_of_this_slice_build(name, config):
     assert not any(n.startswith(("ema_head.", "club_enc.", "club_opt."))
                    for n, _ in model.named_parameters())
     assert registry.VARIANTS == {}
+
+
+@pytest.mark.parametrize("name", ["pqgo_cocostuff27", "stego_cocostuff27", "cluster_baseline",
+                                  "contra_cocostuff27"])
+def test_ln_stats_reaches_every_model(name):
+    from equss_tpu_torch.models.vit import BF16StatsLayerNorm, LayerNorm
+
+    cfg = _micro(name)
+    cfg["model"]["pretrained"].update(precision="bf16", ln_stats="bf16")
+    model = registry.build_model(cfg, device="cpu", seed=3)
+    assert type(model.backbone.norm) is BF16StatsLayerNorm
+    assert type(model.backbone.blocks[0].norm1) is BF16StatsLayerNorm
+    assert model.vit_cfg.ln_stats_bf16
+    assert tequss.backbone_settings(cfg["model"]["pretrained"])["ln_stats"] == "bf16"
+    cfg["model"]["pretrained"]["ln_stats"] = "f32"
+    assert type(registry.build_model(cfg, device="cpu", seed=3).backbone.norm) is LayerNorm
 
 
 def _resolved(reg, cfg):

@@ -234,10 +234,14 @@ def test_trainer_defaults_to_cuda(monkeypatch):
     bad = copy.deepcopy(micro_cfg(bf16=False))
     bad["model"]["vq"]["vq_type"] = "ema"
     bad["model"]["vq"]["normalize"] = "none"
-    bad["model"]["vq"]["use_restart"] = True           # EMA trains; restart is later
+    bad["model"]["vq"]["use_restart"] = True           # EMA with restart trains
     tr = Trainer(bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="use_restart"):
-        tr.train_step(_batches(1)[0])
+    before = tr.model.pq_state.ema_weight.clone()
+    assert tr.train_step(_batches(1)[0])["skipped"] == 0.0
+    # 2 x 8 x 8 pixels over 128 codewords per subspace leave some dead:
+    # restarted, with the counts reset
+    assert not torch.equal(tr.model.pq_state.ema_weight, before)
+    assert float(tr.model.pq_state.ema_count.abs().sum()) == 0.0
 
 
 def test_loss_weight_without_aux_key_raises():

@@ -12,7 +12,9 @@ package.
   (f32 sums in another order).
 * ``validate`` over 2 batches: the same keys, the four mIoU / Accuracy
   values equal (equal confusion matrices), losses rtol 1e-5; without a
-  cluster probe the Cluster keys repeat the Linear ones.
+  cluster probe the Cluster keys repeat the Linear ones, and
+  ``visualize_to`` writes nothing, as in JAX (the PNGs themselves:
+  tests/test_torch_visualize.py).
 * ``fit``: one epoch of 2 steps, a log every step and a validation after
   step 2 and at the epoch's end, against the JAX ``fit``; a run of
   non-finite steps raises after ``nonfinite_patience`` samples.
@@ -136,7 +138,7 @@ def test_valid_step_and_validate_match_jax(probe_res):
         assert val_t[k] == pytest.approx(val_j[k], rel=1e-5), k
 
 
-def test_validate_without_cluster_probe_reports_linear_metrics():
+def test_validate_without_cluster_probe_reports_linear_metrics(tmp_path):
     """The JAX supervised Trainer has no cluster probe; the port's
     Trainer with its cluster probe removed validates as it does."""
     cfg = _cfg()
@@ -150,8 +152,10 @@ def test_validate_without_cluster_probe_reports_linear_metrics():
     assert val_t["Cluster_Accuracy"] == val_t["Linear_Accuracy"] == val_j["Linear_Accuracy"]
     assert val_t["val_cluster_loss"] == val_j["val_cluster_loss"] == 0.0
     assert val_t["val_linear_loss"] == pytest.approx(val_j["val_linear_loss"], rel=1e-5)
-    with pytest.raises(NotImplementedError):
-        tr.validate(batches, visualize_to="out")
+    # as JAX's: the prediction PNGs need the cluster probe, so none are written
+    tr.validate(batches, visualize_to=str(tmp_path / "port"))
+    jtr.validate(ts, batches, visualize_to=str(tmp_path / "jax"))
+    assert not (tmp_path / "port").exists() and not (tmp_path / "jax").exists()
 
 
 class _Recorder:
