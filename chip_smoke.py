@@ -1237,9 +1237,10 @@ def phase_serve_fused_ln(model, cfg, results: dict) -> None:
           **device_profile(lambda: fused(img), 2, pick=KERNEL_PICK)})
 
 
-def train_model(kind: str, device: str = "cuda", dropout: bool = True, **train):
+def train_model(kind: str, device: str = "cuda", dropout: bool = True, grid=None, **train):
     """(config, Trainer) of one train configuration, weights from seed 0;
-    ``train`` overrides keys of its ``train`` section."""
+    ``train`` overrides keys of its ``train`` section; ``grid`` the
+    process's (data, model) grid."""
     from equss_tpu_torch.models.equss import EQUSS, EQUSSConfig
     from equss_tpu_torch.train.trainer import Trainer
 
@@ -1247,7 +1248,8 @@ def train_model(kind: str, device: str = "cuda", dropout: bool = True, **train):
     cfg["model"]["pretrained"]["dropout"] = dropout
     cfg["train"].update(train)
     mcfg = dataclasses.replace(EQUSSConfig.from_config(cfg), fused_ln=kind == "kernel")
-    return cfg, Trainer(cfg, device=device, model=EQUSS(mcfg, device=device, seed=0))
+    return cfg, Trainer(cfg, device=device, model=EQUSS(mcfg, device=device, seed=0),
+                        mesh=grid)
 
 
 def phase_train(results: dict) -> None:
@@ -4366,6 +4368,569 @@ def phase_distributed(results: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------- tensor parallelism
+# the kernel against itself: (name, n, M, K, d, normalize, exact); each
+# runs on 2 and 4 K-shards, merged, against one launch over the codebook
+TP_KERNEL_CASES = [
+    ("narrow_fast_n12544", 12544, 64, 256, 16, "l2", False),
+    ("narrow_fast_n100352", 100352, 64, 256, 16, "l2", False),
+    ("narrow_exact_n12544", 12544, 64, 256, 16, "l2", True),
+    ("fast_k512", 16384, 64, 512, 16, "l2", False),
+    ("z_trainable_fast", 12544, 64, 256, 16, "z_trainable", False),
+    ("wide_fast_vq", 12800, 1, 256, 1024, "none", False),
+    ("wide_fast_new_vq", 12800, 8, 2048, 64, "none", False),
+    ("wide_exact_unseg", 12800, 1, 2048, 384, "none", True),
+    ("wide_exact_contra", 51200, 4, 1024, 128, "l2", True),
+]
+# the kernels line's shard row: the preset's train step on a 1 x 2 grid,
+# each rank's launch on its half of the codebook
+TP_ROW_CASE = ("train_fast_l2_half", 16 * 28 * 28, 64, 256, 16, "l2", False)
+
+
+def tp_merge(outs: list, K: int, exact: bool):
+    """One process's merge of shard launches ``outs`` ((idx, z_norm, z_q,
+    key) each): the least ``merge_key``, its index, and z_q from the shard
+    that owns it."""
+    from equss_tpu_torch.ops.pq_assign import merge_key, packed_keys
+
+    packed = packed_keys(K, exact)
+    win = torch.stack([merge_key(o[3], o[0], packed) for o in outs]).amin(0)
+    idx = (win & 0xFFFFFFFF).to(torch.int32)
+    owner = torch.stack([o[0] for o in outs]) == idx
+    zq = torch.stack([o[2] for o in outs])
+    return idx, zq.gather(0, owner.int().argmax(0)[None, ..., None].expand(1, *zq.shape[1:]))[0]
+
+
+def phase_tp_kernel(results: dict) -> None:
+    """``pq_assign_shard`` on 2 and 4 K-shards of each ``TP_KERNEL_CASES``
+    codebook, merged (``tp_merge``), against one ``pq_assign`` launch over
+    the whole codebook: indices and z_q bit-equal, z_norm bit-equal on
+    every shard; each shard launch against its plain version
+    (``pq_assign_shard_reference``): index agreement >= 99.99% (exact) or
+    99.5% (fast); a packed key's low byte is its index, an ordered key a
+    finite distance's.  Then the kernels
+    line's row ``TP_ROW_CASE``: the shard launch's time, its plain
+    version's, normalise + ``torch.cdist`` + ``argmin`` + gather on the
+    shard (the library call) and the bound."""
+    from equss_tpu_torch.ops.pq_assign import (
+        KEY_INF,
+        kernel_body,
+        packed_keys,
+        pq_assign,
+        pq_assign_shard,
+        pq_assign_shard_reference,
+    )
+    from equss_tpu_torch.tools.pq_ab import case_inputs, library_call
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    t0 = time.perf_counter()
+    rows = []
+    for name, n, M, K, d, mode, exact in TP_KERNEL_CASES:
+        z, cn, cb, zm, zs = case_inputs(n, M, K, d, mode, g)
+        kw = dict(normalize=mode, z_mean=zm, z_std=zs, exact=exact)
+        idx, zn, zq = pq_assign(z, cn, cb, **kw)
+        row = {"case": name, "n": n, "M": M, "K": K, "d": d, "normalize": mode, "exact": exact,
+               "body": kernel_body(d, K, exact)}
+        for m in (2, 4):
+            Kp = K // m
+            outs, agree = [], []
+            for r in range(m):
+                part = slice(r * Kp, (r + 1) * Kp)
+                args = (z, cn[:, part].contiguous(), cb[:, part].contiguous(), r * Kp, K)
+                out = pq_assign_shard(*args, **kw)
+                ref = pq_assign_shard_reference(*args, **kw)
+                agree.append((out[0] == ref[0]).float().mean().item())
+                check(torch.equal(out[1], zn), f"tp kernel {name}/{m}: z_norm of shard {r}")
+                # a packed key carries its index; an ordered one a finite distance
+                if packed_keys(K, exact):
+                    keys_ok = torch.equal(out[3] & 0xFF, out[0].long() & 0xFF)
+                else:
+                    keys_ok = bool((out[3] < KEY_INF).all())
+                check(keys_ok, f"tp kernel {name}/{m}: keys of shard {r}")
+                outs.append(out)
+            need = 0.9999 if exact else 0.995
+            check(min(agree) >= need, f"tp kernel {name}/{m}: index agreement {agree}")
+            m_idx, m_zq = tp_merge(outs, K, exact)
+            idx_eq, zq_eq = torch.equal(m_idx, idx), torch.equal(m_zq, zq)
+            check(idx_eq and zq_eq, f"tp kernel {name}/{m}: merged shards not bit-equal to one "
+                  f"launch (indices {idx_eq}, z_q {zq_eq}, "
+                  f"{int((m_idx != idx).sum())} indices differ)")
+            row[f"shards_{m}"] = {"indices_bit_equal": idx_eq, "z_q_bit_equal": zq_eq,
+                                  "index_agreement_vs_plain": agree}
+        emit({"phase": "tensor_parallel", "case": "kernel", **row})
+        rows.append(row)
+        del z, cn, cb, idx, zn, zq, outs
+        torch.cuda.empty_cache()
+    results["tp_kernel_rows"] = rows
+
+    name, n, M, K, d, mode, exact = TP_ROW_CASE
+    z, cn, cb, zm, zs = case_inputs(n, M, K, d, mode, g)
+    Kp = K // 2
+    args = (z, cn[:, :Kp].contiguous(), cb[:, :Kp].contiguous(), 0, K)
+    kw = dict(normalize=mode, exact=exact)
+    out, ref = pq_assign_shard(*args, **kw), pq_assign_shard_reference(*args, **kw)
+    agree = (out[0] == ref[0]).float().mean().item()
+    ms = cuda_ms(lambda: pq_assign_shard(*args, **kw), iters=10)
+    plain = cuda_ms(lambda: pq_assign_shard_reference(*args, **kw), iters=3)
+    lib = cuda_ms(lambda: library_call(z, args[1], args[2], mode), iters=3)
+    nbytes = 4.0 * (n * M * d + 2 * M * Kp * d + n * M + 2 * n * M * d) + 8.0 * n * M
+    bnd, by = bound_ms(2.0 * n * M * Kp * d, PEAK_BF16_FLOPS, nbytes)
+    row = {"phase": "kernel", "kernel": "pq_assign_shard", "case": name, "n": n, "M": M,
+           "K_shard": Kp, "K_total": K, "d": d, "normalize": mode, "exact": exact,
+           "index_agreement": agree, "max_abs_err": (out[1] - ref[1]).abs().max().item(),
+           "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd, "bound_by": by,
+           "share_of_bound": bnd / ms}
+    check(agree >= 0.995, f"tp kernel row: index agreement {agree}")
+    emit(row)
+    results["pq_assign_shard"] = row
+    emit({"phase": "tensor_parallel", "case": "kernel_seconds",
+          "seconds": time.perf_counter() - t0})
+
+
+# the preset on (data, model) grids of ranks on the card(s)
+TP_GRIDS = ((1, 2), (2, 2))
+TP_LAYOUTS = ("quantizer", "quantizer_backbone")
+TP_SERVE, TP_VALID, TP_TRAIN = 16, 8, 16      # global batches: serving, valid, train
+TP_STEPS = 3
+TP_TIMEOUT_S = 420
+# the kernels of each path, per forward or step, with the quantizer sharded
+TP_KERNELS = {"attention_qkv": 12, "layernorm": 1, "add_layernorm": 24, "pq_assign_shard": 1}
+
+
+def tp_inputs() -> dict:
+    """The global inputs of the phase: serving images (uint8, 224^2), the
+    valid batch (320^2) and the train batches (224^2 with positives)."""
+    from equss_tpu_torch.data.synthetic import synthetic_batches
+
+    return {"serve": requests(TP_SERVE, 1, 20)[0], "valid": valid_batches(1, TP_VALID, 21)[0],
+            "train": list(synthetic_batches(22, TP_STEPS, TP_TRAIN, res=224, num_classes=27))}
+
+
+def tp_rows(batch, index: int, parts: int):
+    """Rows ``index`` of ``parts`` of a batch (a tensor or a dict of arrays)."""
+    if torch.is_tensor(batch) or isinstance(batch, np.ndarray):
+        n = batch.shape[0] // parts
+        return batch[index * n:(index + 1) * n]
+    return {k: tp_rows(v, index, parts) for k, v in batch.items()}
+
+
+def tp_infer(tr, inputs: dict, index: int, parts: int) -> dict:
+    """Serving, the exact-mode indices of the same images and the valid
+    step of one trainer on rows ``index`` of ``parts`` of the global
+    inputs (the whole batch with parts = 1, so one process runs the same
+    function), inside the global program; the launches of each path."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts, serve
+    from equss_tpu_torch.data.transforms import normalize_images
+    from equss_tpu_torch.ops.quantizer import pq_forward
+    from equss_tpu_torch.parallel import mesh
+
+    out = {}
+    model = tr.model
+    img = tp_rows(inputs["serve"], index, parts).to(tr.device)
+    predict = serve.build_predict_fn(tr)
+    torch.cuda.synchronize()
+    with mesh.global_program():
+        reset_launch_counts()
+        preds = predict(img.float() / 255.0)
+        torch.cuda.synchronize()
+        out["serve_launches"] = launch_counts()
+        with torch.no_grad():
+            feat = model.features(normalize_images(img))
+            code = model.encode(feat)
+            pq_cfg = dataclasses.replace(model.cfg.pq, assign_precision="exact")
+            exact_idx = pq_forward(code, dict(model.pq), model.pq_state.as_dict(), pq_cfg)[1]
+            indices = model(normalize_images(img), training=False)["indices"]
+    out["serve"] = {k: v.cpu() for k, v in preds.items()}
+    out["feat"], out["exact_indices"], out["indices"] = feat.cpu(), exact_idx.cpu(), indices.cpu()
+    reset_launch_counts()
+    res = tr.valid_step(tp_rows(inputs["valid"], index, parts))
+    torch.cuda.synchronize()
+    out["valid_launches"] = launch_counts()
+    out["valid"] = {k: res[k].cpu() for k in ("linear_preds", "cluster_preds", "pq_indices")}
+    return out
+
+
+def tp_train(tr, inputs: dict, index: int, parts: int) -> dict:
+    """``TP_STEPS`` train steps on rows ``index`` of ``parts`` of the global
+    train batches: the metrics, the launches and the first step's head and
+    codebook gradients (the codebook's gathered whole)."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+    from equss_tpu_torch.parallel import mesh
+
+    reset_launch_counts()
+    metrics, grads = [], None
+    for i, b in enumerate(inputs["train"]):
+        t0 = time.perf_counter()
+        metrics.append(tr.train_step(tp_rows(b, index, parts)))
+        torch.cuda.synchronize()
+        metrics[-1]["ms"] = 1e3 * (time.perf_counter() - t0)
+        if i == 0:
+            grads = {n: p.grad.detach() for n, p in tr.model_params
+                     if n.startswith(("head.", "pq.codebook")) and p.grad is not None}
+            grads = {n: g.cpu() for n, g in
+                     mesh.gather_sharded(grads, mesh.sharded_layout(tr.model)).items()}
+    return {"train_launches": launch_counts(), "metrics": metrics, "grads": grads}
+
+
+class tp_split_mlp:
+    """Inside: every ViT MLP of one process computes what ``parts`` model
+    ranks compute after ``shard_backbone`` (``models/vit.py::Mlp``'s
+    sharded branch): fc1 and GELU on each part of the hidden units, fc2's
+    parts as f32 products of the bf16 operands, summed in rank order in
+    f32, the bias added, one rounding.  ``parts`` = 1 is the control: the
+    stock MLP with only fc2's f32 summation order changed."""
+
+    def __init__(self, parts: int):
+        self.parts = parts
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        from equss_tpu_torch.models import vit
+
+        parts = self.parts
+
+        def forward(mlp, x):
+            dt = mlp.cfg.dtype
+            k = mlp.hidden // parts
+            acc = None
+            for r in range(parts):
+                cut = slice(r * k, (r + 1) * k)
+                h = F.gelu(F.linear(x.to(dt), mlp.fc1.weight[cut].to(dt), mlp.fc1.bias[cut].to(dt)),
+                           approximate="tanh" if mlp.cfg.gelu_approximate else "none")
+                part = F.linear(h.float(), mlp.fc2.weight[:, cut].to(dt).float())
+                acc = part if acc is None else acc + part
+            return (acc + mlp.fc2.bias.to(dt).float()).to(dt)
+
+        self.saved = vit.Mlp.forward
+        vit.Mlp.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        from equss_tpu_torch.models import vit
+
+        vit.Mlp.forward = self.saved
+
+
+def tp_replicated_equal(tr) -> bool:
+    """Whether every whole tensor of the trainer (model, probes, optimizer
+    moments) equals the first rank's of its model group bit for bit."""
+    import torch.distributed as dist
+
+    from equss_tpu_torch.parallel import mesh
+
+    layout = mesh.sharded_layout(tr.model)
+    parts = [t.detach().float().reshape(-1) for n, t in tr.model.state_dict().items()
+             if n not in layout]
+    parts += [t.detach().float().reshape(-1) for t in tr.evaluator.state_dict().values()]
+    for name, st in tr.tx_model.state_dict()["state"].items():
+        if name not in layout:
+            parts += [t.float().reshape(-1) for t in st.values() if torch.is_tensor(t)]
+    mine = torch.cat([t.cpu() for t in parts])
+    ref = mine.clone()
+    group = mesh.grid().model_group
+    dist.broadcast(ref, src=dist.get_global_rank(group, 0), group=group)
+    return torch.equal(mine, ref)
+
+
+def tp_child(rank: int, world: int, data: int, model: int, backend: str, port: int,
+             out_dir: str) -> None:
+    """One rank of a ``data`` x ``model`` grid: for each of ``TP_LAYOUTS``
+    the preset (``kernel``: the PQ kernel's training route, fused LN) with
+    its quantizer sharded (and its backbone's MLPs), ``tp_infer`` and
+    ``tp_train`` on this data rank's rows, whether its whole state equals
+    its model group's first rank's, and (rank 0) the gathered
+    ``state_dict``."""
+    import torch.distributed as dist
+
+    from equss_tpu_torch.parallel import mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    mesh.init_distributed(f"localhost:{port}", world, rank, device="cuda", backend=backend)
+    try:
+        grid = mesh.make_mesh_2d(data, model)
+        dev = str(mesh.local_device("cuda"))
+        inputs = tp_inputs()
+        out = {"place": (grid.data_index, grid.model_index), "device": dev}
+        for layout in TP_LAYOUTS:
+            _, tr = train_model("kernel", device=dev, grid=grid)
+            mesh.shard_quantizer(grid, tr.model)
+            if layout == "quantizer_backbone":
+                mesh.shard_backbone(grid, tr.model)
+            res = tp_infer(tr, inputs, grid.data_index, grid.data)
+            res.update(tp_train(tr, inputs, grid.data_index, grid.data))
+            if layout == "quantizer":
+                # the shard launches in path: every rank runs the profiled steps
+                vrows = tp_rows(inputs["valid"], grid.data_index, grid.data)
+                res["valid_profile"] = device_profile(lambda: tr.valid_step(vrows), 2,
+                                                      pick=("pq_",))
+            res["replicated_equal"] = tp_replicated_equal(tr)
+            res["layout"] = mesh.sharded_layout(tr.model)
+            sd = tr.state_dict()
+            if rank == 0:
+                torch.save({k: v.cpu() for k, v in sd.items()},
+                           os.path.join(out_dir, f"tp_{data}x{model}_{layout}_sd.pt"))
+            out[layout] = res
+            del tr, sd
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f"tp_{data}x{model}_{rank}.pt"))
+    if FAILURES:
+        raise RuntimeError(f"tp rank {rank}: {FAILURES}")
+
+
+def tp_agree(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a == b).float().mean().item()
+
+
+def tp_check_grid(results: dict, data: int, model: int, ranks: list, one: dict, smi: str,
+                  backend: str) -> None:
+    """The bars of one grid against one process on the same rows (serving,
+    exact indices, valid) and on the global batch (train)."""
+    g = f"{data}x{model}"
+    for layout in TP_LAYOUTS:
+        sharded_bb = layout == "quantizer_backbone"
+        rows = {}
+        for r, rk in enumerate(ranks):
+            res, i = rk[layout], rk["place"][0]
+            ref = one[("rows", i, data)]
+            first = ranks[i * model][layout]
+            same_group = all(torch.equal(res[k], first[k])
+                             for k in ("feat", "indices", "exact_indices")) and all(
+                torch.equal(res["serve"][k], first["serve"][k]) for k in res["serve"])
+            check(same_group and res["replicated_equal"],
+                  f"tp {g} {layout} rank {r}: not alike its model group's first rank")
+            pixels = min(tp_agree(res["serve"][k], ref["serve"][k]) for k in ref["serve"])
+            idx = tp_agree(res["indices"], ref["indices"])
+            valid = min(tp_agree(res["valid"][k], ref["valid"][k])
+                        for k in ("linear_preds", "cluster_preds"))
+            valid_idx = tp_agree(res["valid"]["pq_indices"], ref["valid"]["pq_indices"])
+            feat_err = (res["feat"] - ref["feat"]).abs().max().item()
+            ulp = bf16_ulp(ref["feat"])
+            extra = {}
+            if sharded_bb:
+                # bit-equal to one process running the same split arithmetic;
+                # against the stock MLP the serving correctness class
+                split = one[("split", i, data)]
+                same = (torch.equal(res["feat"], split["feat"])
+                        and torch.equal(res["indices"], split["indices"])
+                        and torch.equal(res["valid"]["pq_indices"], split["valid"]["pq_indices"])
+                        and all(torch.equal(res["serve"][k], split["serve"][k])
+                                for k in split["serve"]))
+                rel_err = ((res["feat"] - ref["feat"]).abs().mean()
+                           / ref["feat"].abs().mean()).item()
+                check(same, f"tp {g} {layout}: not bit-equal to one process's split MLPs")
+                check(idx >= 0.95 and rel_err <= 2e-2,
+                      f"tp {g} {layout}: vs the stock MLPs indices {idx}, rel. error {rel_err}")
+                extra = {"bit_equal_to_split_one_process": same, "feature_mean_rel_err": rel_err,
+                         "one_ulp_bar_met": feat_err <= ulp and idx >= 0.999 and valid_idx >= 0.999}
+            else:
+                exact_eq = torch.equal(res["exact_indices"], ref["exact_indices"])
+                check(exact_eq and torch.equal(res["feat"], ref["feat"]),
+                      f"tp {g} {layout}: exact indices bit-equal {exact_eq}")
+                check(pixels >= 0.9999 and valid >= 0.9999,
+                      f"tp {g} {layout}: pixels equal {pixels}, valid {valid} < 99.99%")
+            rows[r] = {"serve_pixels_equal": pixels, "indices_equal": idx,
+                       "exact_indices_bit_equal": torch.equal(res["exact_indices"],
+                                                              ref["exact_indices"]),
+                       "valid_pixels_equal": valid, "valid_indices_equal": valid_idx,
+                       "feature_max_abs_diff": feat_err, "feature_bf16_ulp": ulp, **extra}
+            for what, per in (("serve", 1), ("valid", 1), ("train", TP_STEPS)):
+                check(res[f"{what}_launches"] == expected(TP_KERNELS, per),
+                      f"tp {g} {layout} {what}: launches {res[f'{what}_launches']}")
+        r0, whole = ranks[0][layout], one["global"]
+        rel = {k: max(abs(m[k] - a[k]) / max(abs(a[k]), 1e-12)
+                      for m, a in zip(r0["metrics"], whole["metrics"]))
+               for k in LOSS_TERMS if k in whole["metrics"][0]}
+        cos = {k: torch.nn.functional.cosine_similarity(
+                   r0["grads"][k].flatten().double(), whole["grads"][k].flatten().double(),
+                   dim=0).item() for k in whole["grads"]}
+        check(all(v <= 1e-3 for v in rel.values()), f"tp {g} {layout}: loss terms {rel}")
+        check(min(cos.values()) >= 0.999, f"tp {g} {layout}: gradient cosine {cos}")
+        for what in ("serve", "valid", "train"):
+            results["launches"][f"tp_{g}_{layout}_{what}"] = {
+                k: sum(rk[layout][f"{what}_launches"][k] for rk in ranks)
+                for k in ranks[0][layout][f"{what}_launches"]}
+        if "valid_profile" in r0:
+            # the shard launch of the valid step (rows of one data rank) in path
+            n = TP_VALID // data * 40 * 40
+            kp = 256 // model
+            picked = [e for e in r0["valid_profile"]["picked"] if "pq_fast" in e["name"]]
+            bnd, by = bound_ms(2.0 * n * 64 * kp * 16, PEAK_BF16_FLOPS,
+                               4.0 * (n * 64 * 16 + 2 * 64 * kp * 16 + n * 64 + 2 * n * 64 * 16)
+                               + 8.0 * n * 64)
+            in_path = picked[0]["ms_per_call"] if picked else None
+            check(in_path is not None, f"tp {g}: no shard launch in the valid profile")
+            results.setdefault("tp_in_path", {})[g] = {
+                "n": n, "K_shard": kp, "ms_per_launch": in_path, "bound_ms": bnd, "bound_by": by,
+                "share_of_bound": bnd / in_path if in_path else None,
+                "device_busy_share": r0["valid_profile"]["device_busy_share"]}
+            emit({"phase": "profile", "what": f"tp_{g}_valid", **r0["valid_profile"],
+                  "pq_assign_shard_in_path": results["tp_in_path"][g]})
+        emit({"phase": "tensor_parallel", "case": f"grid_{g}", "layout": layout,
+              "backend": backend, "devices": sorted({rk["device"] for rk in ranks}),
+              "sharded": sorted(r0["layout"]), "ranks": rows,
+              "loss_rel_diff_vs_one_process": rel, "grad_cosine_vs_one_process": cos,
+              "ms_per_step_ranks": [m["ms"] for m in r0["metrics"]],
+              "ms_per_step_one_process": [m["ms"] for m in whole["metrics"]],
+              "launches_per_rank": {w: r0[f"{w}_launches"] for w in ("serve", "valid", "train")},
+              "nvidia_smi": smi,
+              "note": "gloo carries CUDA tensors through the host: not a speed figure"
+              if backend == "gloo" else ""})
+
+
+def tp_export(results: dict, tr, tmp: str) -> None:
+    """A two-device artifact (``export.platforms=cuda,cpu``) of the preset,
+    traced on the card: its CUDA member bit-equal to the live CUDA
+    predictor, its CPU member equal to the live predictor of the same
+    weights on the CPU, a device it does not list raises."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts, serve
+    from equss_tpu_torch.models.equss import EQUSS
+    from equss_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    img = requests(2, 1, 23)[0].float() / 255.0
+    path = serve.save_predictor(serve.export_predictor(tr, (224, 224), batch_size=2,
+                                                       platforms="cuda,cpu"),
+                                os.path.join(tmp, "two.pt2"))
+    live = serve.build_predict_fn(tr)(img.cuda())
+    on_cuda = serve.load_predictor(path, device="cuda")
+    reset_launch_counts()
+    got = on_cuda(img)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    results["launches"]["export_two_devices"] = counts
+    cuda_eq = all(torch.equal(got[k], live[k]) for k in live)
+    cpu_tr = Trainer(tr.cfg, device="cpu", model=EQUSS(tr.model.cfg, device="cpu", seed=0))
+    cpu_tr.load_state_dict({k: v.cpu() for k, v in tr.state_dict().items()})
+    live_cpu = serve.build_predict_fn(cpu_tr)(img)
+    got_cpu = serve.load_predictor(path, device="cpu")(img)
+    cpu_eq = all(torch.equal(got_cpu[k], live_cpu[k]) and got_cpu[k].device.type == "cpu"
+                 for k in live_cpu)
+    cuda_only = serve.save_predictor(serve.export_predictor(tr, (224, 224), batch_size=2),
+                                     os.path.join(tmp, "cuda.pt2"))
+    try:
+        serve.load_predictor(cuda_only, device="cpu")
+        unlisted_raises = False
+    except ValueError:
+        unlisted_raises = True
+    check(cuda_eq and counts["pq_assign"] == 1 and counts["attention_qkv"] == 12,
+          f"tp export: CUDA member equal {cuda_eq}, launches {counts}")
+    check(cpu_eq, "tp export: the CPU member differs from the live CPU predictor")
+    check(unlisted_raises, "tp export: an unlisted device did not raise")
+    emit({"phase": "tensor_parallel", "case": "export_two_devices", "platforms": ["cuda", "cpu"],
+          "cuda_member_bit_equal": cuda_eq, "cpu_member_equal": cpu_eq,
+          "cuda_member_launches": counts, "unlisted_device_raises": unlisted_raises,
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_tensor_parallel(results: dict) -> None:
+    """Tensor parallelism (``parallel/mesh.py``: ``make_mesh_2d``,
+    ``shard_quantizer``, ``shard_backbone``) on the card:
+
+    (a) the shard kernel against itself and its plain version
+        (``phase_tp_kernel``);
+    (b) the preset on a 1 x 2 and a 2 x 2 grid of ranks started with
+        ``torch.multiprocessing`` (gloo on the one card, NCCL where there are
+        as many cards as ranks), each with the quantizer sharded, then with
+        the backbone's MLPs sharded too (``tp_child``), against one process
+        on the same card: serving b = 16 at 224^2 and the valid step at
+        b = 8, 320^2 on each data rank's rows against one process on the
+        same rows (>= 99.99% of pixels equal, exact-mode indices bit-equal
+        with the quantizer alone sharded; with the MLPs sharded too,
+        serving, features, indices and the valid step bit-equal to one
+        process running the same split arithmetic (``tp_split_mlp``), and
+        against the stock MLPs the serving correctness class: indices >=
+        95%, features' mean relative error <= 2e-2, beside a control that
+        changes only fc2's f32 summation order; whether 1 bf16 ulp and
+        99.9% of indices held is printed), ``TP_STEPS`` train steps at the
+        global b = 16 against one process on the global batch (loss terms
+        <= 1e-3 relative, the first step's head and codebook gradient
+        cosine >= 0.999), the model ranks
+        of each data group alike in outputs and whole state, the launches
+        of every path, and the gathered checkpoint loaded into one process;
+    (c) the two-device export (``tp_export``).  The phase prints its
+        seconds."""
+    import gc
+
+    import torch.multiprocessing as mp
+
+    from equss_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi()
+    phase_tp_kernel(results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    ctx = mp.get_context("spawn")
+    try:
+        cards = torch.cuda.device_count()
+        spawned = {}
+        for data, model in TP_GRIDS:
+            world = data * model
+            backend = "nccl" if cards >= world else "gloo"
+            procs = [ctx.Process(target=tp_child,
+                                 args=(r, world, data, model, backend, port, tmp))
+                     for port in [dist_free_port()] for r in range(world)]
+            for p in procs:
+                p.start()
+            spawned[(data, model)] = (procs, backend)
+        # one process on the same card meanwhile: the same rows of every data rank
+        inputs = tp_inputs()
+        _, tr = train_model("kernel")
+        splits = sorted({d for d, _ in TP_GRIDS})
+        one = {("rows", i, parts): tp_infer(tr, inputs, i, parts)
+               for parts in splits for i in range(parts)}
+        # the sharded MLPs' arithmetic in one process (every grid here has
+        # 2 model ranks), and the control: the stock MLPs with fc2 summed
+        # in another f32 order
+        with tp_split_mlp(2):
+            one.update({("split", i, parts): tp_infer(tr, inputs, i, parts)
+                        for parts in splits for i in range(parts)})
+        with tp_split_mlp(1):
+            control = tp_infer(tr, inputs, 0, 1)
+        stock = one[("rows", 0, 1)]
+        emit({"phase": "tensor_parallel", "case": "mlp_order_control",
+              "what": "one process: stock MLPs against fc2 as one f32 product, summed in "
+                      "another order (no sharding)",
+              "feature_max_abs_diff": (control["feat"] - stock["feat"]).abs().max().item(),
+              "feature_bf16_ulp": bf16_ulp(stock["feat"]),
+              "feature_elements_differing": (control["feat"] != stock["feat"]).float().mean().item(),
+              "indices_equal": tp_agree(control["indices"], stock["indices"]),
+              "serve_pixels_equal": min(tp_agree(control["serve"][k], stock["serve"][k])
+                                        for k in stock["serve"])})
+        one["global"] = tp_train(tr, inputs, 0, 1)
+        deadline = time.time() + TP_TIMEOUT_S
+        for (data, model), (procs, backend) in spawned.items():
+            for p in procs:
+                p.join(max(1.0, deadline - time.time()))
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(30)
+            codes = [p.exitcode for p in procs]
+            if not check(all(c == 0 for c in codes), f"tp {data}x{model}: exit codes {codes}"):
+                continue
+            ranks = [torch.load(os.path.join(tmp, f"tp_{data}x{model}_{r}.pt"), weights_only=False)
+                     for r in range(data * model)]
+            tp_check_grid(results, data, model, ranks, one, smi, backend)
+            for layout in TP_LAYOUTS:
+                sd = torch.load(os.path.join(tmp, f"tp_{data}x{model}_{layout}_sd.pt"))
+                loaded = Trainer(tr.cfg, device="cuda", model=type(tr.model)(tr.model.cfg, seed=0))
+                loaded.load_state_dict(sd)
+                shapes = all(sd[k].shape == v.shape for k, v in tr.state_dict().items())
+                check(shapes and set(sd) == set(tr.state_dict()),
+                      f"tp {data}x{model} {layout}: the gathered checkpoint's names or shapes")
+                del loaded
+        _, fresh = train_model("kernel")
+        tp_export(results, fresh, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "tensor_parallel", "case": "seconds", "seconds": time.perf_counter() - t0})
+
+
 KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     "attention_qkv": ("equss_tpu_torch/csrc/attention_qkv.cu", "equss_tpu/ops/attention.py:198"),
     "attention": ("equss_tpu_torch/csrc/attention_qkv.cu", "equss_tpu/ops/attention.py:91"),
@@ -4386,6 +4951,10 @@ KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     "pq_assign_wide": ("equss_tpu_torch/csrc/pq_assign.cu", "equss_tpu/ops/pq_pallas.py:443"),
     "pq_assign_wide_exact": ("equss_tpu_torch/csrc/pq_assign.cu",
                              "equss_tpu/ops/pq_pallas.py:443"),
+    # the shard entry (pq_assign_shard_launch) of the same kernel: its
+    # launches are the tensor-parallel phase's, one per forward or step on
+    # each rank's K shard
+    "pq_assign_shard": ("equss_tpu_torch/csrc/pq_assign.cu", "equss_tpu/ops/pq_pallas.py:443"),
 }
 
 
@@ -4397,6 +4966,8 @@ def pq_body_row(path: str) -> str:
     (``pq_assign``) on every other path (the preset's bf16 ones and
     ``pqgocls``'s)."""
     path = path.removeprefix("dist_variants_")      # the variants across ranks
+    if path.startswith("tp_"):
+        return "pq_assign_shard"
     if path.startswith(("pqgo_exact", "serve_exact")):
         return "pq_assign_exact"
     if path.startswith(("vq_exact", "unseg", "vae", "contra")):
@@ -4447,6 +5018,7 @@ def main() -> int:
     phase_new_vq_stage1(results)
     phase_variants_reference()
     phase_distributed(results)
+    phase_tensor_parallel(results)
 
     # launches: every main-path run (serving, serving with fused_ln, both
     # train configurations, both valid configurations, the exact sub-run's
@@ -4461,7 +5033,8 @@ def main() -> int:
     kernels = []
     for name, (src, replaces) in KERNEL_SOURCES.items():
         r = results[name]
-        wrapper = "pq_assign" if name.startswith("pq_assign") else name
+        wrapper = ("pq_assign" if name.startswith("pq_assign") and name != "pq_assign_shard"
+                   else name)
         paths = {p: c[wrapper] for p, c in by_path.items() if row_path(name, p)}
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": sum(paths.values()), "launches_by_path": paths,

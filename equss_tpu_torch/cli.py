@@ -29,7 +29,7 @@ The jobs that run a model (train, knn, export) build it through
 ``models/registry.py`` (every model the registry builds: ``pqgo`` and
 ``vq``, ``stego``, ``probe``, ``sl``) and take the CUDA card unless
 ``device`` says otherwise (``run(cfg, device="cpu")``, or the override
-``device=cpu``; ``export.platforms`` names the export's device); crop and
+``device=cpu``; ``export.platforms`` lists the export's devices); crop and
 pack are host work.  ``train.profile_dir`` traces the train job from the
 start of training to its end, the final evaluation included, with
 ``torch.profiler`` (host ops and, on CUDA, the kernels; the port's
@@ -341,8 +341,11 @@ def run_export_job(cfg: Dict[str, Any], device: DeviceLike = None) -> str:
     ``model.pt2``): input ``export.res`` (default ``dataset.val.res``)
     square, batch ``export.batch_size`` (default 1) symbolic unless
     ``export.symbolic_batch`` is ``off``, ImageNet normalisation inside
-    unless ``export.normalize`` is false, on the device of
-    ``export.platforms`` (else ``device``, ``cfg['device']``, CUDA).
+    unless ``export.normalize`` is false, traced on ``device`` (else
+    ``cfg['device']``, CUDA) and serving the devices of
+    ``export.platforms`` (a comma list, e.g. ``cuda,cpu``; default the
+    traced one's).  Where ``export.platforms`` does not list that device,
+    the trace runs on its first device.
 
         python -m equss_tpu_torch.cli export --config X.yaml \
             resume.checkpoint=<run>/ckpt export.path=model.pt2"""
@@ -354,8 +357,11 @@ def run_export_job(cfg: Dict[str, Any], device: DeviceLike = None) -> str:
     ckpt_path = (cfg.get("resume", {}) or {}).get("checkpoint")
     out_path = exp_cfg.get("path", serve.DEFAULT_PATH)
     res = int(exp_cfg.get("res", cfg["dataset"]["val"]["res"]))
-    platform = serve.export_device(exp_cfg.get("platforms"))
-    dev = resolve_device(platform or (device if device is not None else cfg.get("device")))
+    platforms = serve.export_devices(exp_cfg.get("platforms"))
+    want = device if device is not None else cfg.get("device")
+    if platforms and torch.device(want if want is not None else "cuda").type not in platforms:
+        want = platforms[0]
+    dev = resolve_device(want)
     trainer = Trainer(cfg, device=dev)
     backbone = _load_backbone(cfg)
     if backbone is not None:
@@ -369,7 +375,7 @@ def run_export_job(cfg: Dict[str, Any], device: DeviceLike = None) -> str:
     symbolic = exp_cfg.get("symbolic_batch", "auto")
     exported = serve.export_predictor(
         trainer, (res, res), batch_size=int(exp_cfg.get("batch_size", 1)),
-        normalize=bool(exp_cfg.get("normalize", True)), platforms=platform,
+        normalize=bool(exp_cfg.get("normalize", True)), platforms=platforms,
         # the override reader parses a bare `off` as False
         symbolic_batch={False: "off", True: "auto"}.get(symbolic, str(symbolic)))
     serve.save_predictor(exported, out_path)

@@ -194,6 +194,16 @@ constexpr int SMEM_MAX = 232448;    // bytes of shared memory a block can use
 
 enum Mode { NONE = 0, L2 = 1, Z_NORM = 2, Z_TRAINABLE = 3 };
 
+constexpr uint32_t KEY_INF = 0xFF800000u;   // ordered(+inf): keys at or above it mean "none"
+
+// the order of floats as unsigned integers: -0 counts as +0, every NaN
+// above +inf
+__device__ __forceinline__ uint32_t ordered(float x) {
+    if (isnan(x)) return 0xFFFFFFFFu;
+    const uint32_t b = __float_as_uint(x + 0.f);
+    return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
 // ------------------------------------------------------------ exact mode
 
 // rows a thread holds in registers, threads per block and the resident
@@ -268,7 +278,7 @@ pq_exact_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
                 const float* __restrict__ z_mean,
                 const float* __restrict__ z_std, int n, int M, int K,
                 int* __restrict__ idx, float* __restrict__ zn_out,
-                float* __restrict__ zq_out) {
+                float* __restrict__ zq_out, int k_off, long long* __restrict__ key_out) {
     constexpr int R = exact_rows<D>();
     constexpr int THREADS = exact_threads<D>();
     extern __shared__ __align__(16) float smem[];
@@ -341,7 +351,8 @@ pq_exact_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
     for (int i = 0; i < R; ++i) {
         if (r0 + i >= n) break;
         const size_t row = static_cast<size_t>(r0 + i) * M + m;
-        idx[row] = best[i];
+        idx[row] = best[i] + k_off;
+        if (key_out) key_out[row] = ordered(best_d[i]);
         const float4* src = reinterpret_cast<const float4*>(
             c_raw + (static_cast<size_t>(m) * K + best[i]) * D);
 #pragma unroll
@@ -353,7 +364,8 @@ pq_exact_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
 template <int D, int MODE>
 int launch_exact(const float* z, const float* c_norm, const float* c_raw,
                  const float* z_mean, const float* z_std, int* idx, float* zn,
-                 float* zq, int n, int M, int K, cudaStream_t stream) {
+                 float* zq, int n, int M, int K, int k_off, long long* key,
+                 cudaStream_t stream) {
     auto kernel = pq_exact_kernel<D, MODE>;
     const size_t smem = (static_cast<size_t>(K) * D + K) * sizeof(float);
     if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
@@ -365,7 +377,7 @@ int launch_exact(const float* z, const float* c_norm, const float* c_raw,
     const long long blocks = M * ((static_cast<long long>(n) + rows - 1) / rows);
     if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
     kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
-        z, c_norm, c_raw, z_mean, z_std, n, M, K, idx, zn, zq);
+        z, c_norm, c_raw, z_mean, z_std, n, M, K, idx, zn, zq, k_off, key);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -425,7 +437,8 @@ pq_fast_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
                const float* __restrict__ c_raw, const float* __restrict__ z_mean,
                const float* __restrict__ z_std, int n, int M, int K, int G,
                int rows_per_block, int* __restrict__ idx,
-               float* __restrict__ zn_out, float* __restrict__ zq_out) {
+               float* __restrict__ zn_out, float* __restrict__ zq_out, int k_off,
+               long long* __restrict__ key_out) {
     constexpr int P = D / 8;
     constexpr int TPC = 4 / P;          // n-tiles per chunk
     constexpr int CW = 8 * TPC;         // codewords per chunk
@@ -599,7 +612,8 @@ pq_fast_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
                         const float dist = L2_SHORT ? 1.f - acc[e]
                                                     : (z_sq[r] + (par ? cs.y : cs.x)) - 2.f * acc[e];
                         if (PACKED) {
-                            best_p[r][par] = min(best_p[r][par], (__float_as_int(dist) & ~0xFF) | k0);
+                            best_p[r][par] = min(best_p[r][par],
+                                                 (__float_as_int(dist) & ~0xFF) | (k0 + k_off));
                         } else if (dist < best_d[r]) {
                             best_d[r] = dist;
                             best_k[r] = k0 + par;
@@ -614,14 +628,16 @@ pq_fast_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
 
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
-                int best;
+                int best;           // this launch's codeword
+                long long won;      // its key: the packed word, or ordered(distance)
                 if (PACKED) {
                     // column 1's keys carry k0; k0 + 1 <= 255 keeps them in the byte
                     int key = min(best_p[r][0],
                                   best_p[r][1] == INT_MAX ? INT_MAX : best_p[r][1] + 1);
                     key = min(key, __shfl_xor_sync(0xffffffffu, key, 1));
                     key = min(key, __shfl_xor_sync(0xffffffffu, key, 2));
-                    best = key & 0xFF;
+                    best = (key & 0xFF) - k_off;
+                    won = key;
                 } else {
                     float bd = best_d[r];
                     best = best_k[r];
@@ -631,8 +647,13 @@ pq_fast_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
                         const int ok = __shfl_xor_sync(0xffffffffu, best, off);
                         if (od < bd || (od == bd && ok < best)) { bd = od; best = ok; }
                     }
+                    won = ordered(bd);
                 }
-                if (t == 0) s_idx[(g + 8 * r) * gs + sub] = best;
+                if (t == 0) {
+                    s_idx[(g + 8 * r) * gs + sub] = best + k_off;
+                    const int row = row_begin + tile * 16 + g + 8 * r;
+                    if (key_out && row < row_end) key_out[static_cast<size_t>(row) * M + m] = won;
+                }
                 const uint32_t* cw = s_raw + (sub * K + best) * (D / 2) + t;
 #pragma unroll
                 for (int p = 0; p < P; ++p) {
@@ -674,7 +695,8 @@ pq_fast_kernel(const float* __restrict__ z, const float* __restrict__ c_norm,
 template <int D, int MODE, bool PACKED>
 int launch_fast(const float* z, const float* c_norm, const float* c_raw,
                 const float* z_mean, const float* z_std, int* idx, float* zn,
-                float* zq, int n, int M, int K, cudaStream_t stream) {
+                float* zq, int n, int M, int K, int k_off, long long* key,
+                cudaStream_t stream) {
     auto kernel = pq_fast_kernel<D, MODE, PACKED>;
     constexpr int CW = 256 / D;
     const size_t k_pad = (static_cast<size_t>(K) + CW - 1) / CW * CW;
@@ -700,20 +722,24 @@ int launch_fast(const float* z, const float* c_norm, const float* c_raw,
     const int rows = ((n + row_runs - 1) / row_runs + 15) / 16 * 16;
     const dim3 grid(groups, (n + rows - 1) / rows);
     kernel<<<grid, FAST_THREADS, smem, stream>>>(z, c_norm, c_raw, z_mean, z_std, n, M,
-                                                 K, G, rows, idx, zn, zq);
+                                                 K, G, rows, idx, zn, zq, k_off, key);
     return static_cast<int>(cudaGetLastError());
 }
 
+// `packed`: the whole codebook's K <= 256 (a shard's K may be less)
 template <int D, int MODE>
-int launch_precision(bool exact, const float* z, const float* c_norm,
+int launch_precision(bool exact, bool packed, const float* z, const float* c_norm,
                      const float* c_raw, const float* z_mean, const float* z_std,
-                     int* idx, float* zn, float* zq, int n, int M, int K,
-                     cudaStream_t s) {
+                     int* idx, float* zn, float* zq, int n, int M, int K, int k_off,
+                     long long* key, cudaStream_t s) {
     if (exact)
-        return launch_exact<D, MODE>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
-    if (K <= 256)
-        return launch_fast<D, MODE, true>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
-    return launch_fast<D, MODE, false>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
+        return launch_exact<D, MODE>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K,
+                                     k_off, key, s);
+    if (packed)
+        return launch_fast<D, MODE, true>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K,
+                                          k_off, key, s);
+    return launch_fast<D, MODE, false>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K,
+                                       k_off, key, s);
 }
 
 // ------------------------------------------------------------- wide body
@@ -826,7 +852,8 @@ pq_wide_fast_kernel(const float* __restrict__ z, const __nv_bfloat16* __restrict
                     const float* __restrict__ csq, const float* __restrict__ c_raw,
                     const float* __restrict__ z_mean, const float* __restrict__ z_std,
                     int n, int M, int K, int d, int k_pad, int d_pad, int resident,
-                    int* __restrict__ idx, float* zn_out, float* __restrict__ zq_out) {
+                    int* __restrict__ idx, float* zn_out, float* __restrict__ zq_out,
+                    int k_off, long long* __restrict__ key_out) {
     constexpr bool L2_SHORT = MODE == L2 && PACKED;
     extern __shared__ __align__(128) unsigned char wf_smem[];
     __nv_bfloat16* s_ring = reinterpret_cast<__nv_bfloat16*>(wf_smem);   // [STAGES][CODES][DEPTH]
@@ -998,7 +1025,7 @@ pq_wide_fast_kernel(const float* __restrict__ z, const __nv_bfloat16* __restrict
                     const float dist = L2_SHORT ? 1.f - acc[j][e]
                                                 : (zsq_r[r] + ((e & 1) ? cs.y : cs.x)) - 2.f * acc[j][e];
                     if (PACKED) {
-                        best_p[r] = min(best_p[r], (__float_as_int(dist) & ~0xFF) | k);
+                        best_p[r] = min(best_p[r], (__float_as_int(dist) & ~0xFF) | (k + k_off));
                     } else if (dist < best_d[r]) {
                         best_d[r] = dist;
                         best_k[r] = k;
@@ -1040,12 +1067,14 @@ pq_wide_fast_kernel(const float* __restrict__ z, const __nv_bfloat16* __restrict
     }
     __syncthreads();
     if (tid < WF_ROWS) {
-        int best;
+        int best;           // this launch's codeword
+        long long won;      // its key: the packed word, or ordered(distance)
         if (PACKED) {
             int key = s_key[4 * tid];
 #pragma unroll
             for (int q = 1; q < 4; ++q) key = min(key, s_key[4 * tid + q]);
-            best = key & 0xFF;
+            best = (key & 0xFF) - k_off;
+            won = key;
         } else {
             float bd = s_kd[4 * tid];
             best = s_key[4 * tid];
@@ -1055,8 +1084,10 @@ pq_wide_fast_kernel(const float* __restrict__ z, const __nv_bfloat16* __restrict
                 const int ok = s_key[4 * tid + q];
                 if (od < bd || (od == bd && ok < best)) { bd = od; best = ok; }
             }
+            won = ordered(bd);
         }
         s_best[tid] = best;
+        if (key_out && row0 + tid < n) key_out[static_cast<size_t>(row0 + tid) * M + m] = won;
     }
     __syncthreads();
 
@@ -1065,7 +1096,7 @@ pq_wide_fast_kernel(const float* __restrict__ z, const __nv_bfloat16* __restrict
         const int row = row0 + r;
         if (row >= n) continue;
         const int best = s_best[r];
-        if (lane == 0) idx[static_cast<size_t>(row) * M + m] = best;
+        if (lane == 0) idx[static_cast<size_t>(row) * M + m] = best + k_off;
         const float* src = c_raw + (static_cast<size_t>(m) * K + best) * d;
         float* dst = zq_out + row * row_stride + col0;
 #pragma unroll 4
@@ -1095,8 +1126,8 @@ int wide_fast_config(int n, int M, int d, int* blocks, int* per_sm, size_t* smem
 template <int MODE, bool PACKED>
 int launch_wide_fast(const float* z, const float* c_norm, const float* c_raw,
                      const float* z_mean, const float* z_std, int* idx, float* zn,
-                     float* zq, int n, int M, int K, int d, void* workspace,
-                     cudaStream_t stream) {
+                     float* zq, int n, int M, int K, int d, void* workspace, int k_off,
+                     long long* key, cudaStream_t stream) {
     if (M > 65535 || workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     const int k_pad = round_up(K, WF_CODES), d_pad = round_up(d, WF_DEPTH);
     auto* cb = static_cast<__nv_bfloat16*>(workspace);
@@ -1111,7 +1142,7 @@ int launch_wide_fast(const float* z, const float* c_norm, const float* c_raw,
     const dim3 grid((n + WF_ROWS - 1) / WF_ROWS, M);
     pq_wide_fast_kernel<MODE, PACKED><<<grid, WF_THREADS, smem, stream>>>(
         z, cb, csq, c_raw, z_mean, z_std, n, M, K, d, k_pad, d_pad,
-        wide_fast_resident(d_pad) ? 1 : 0, idx, zn, zq);
+        wide_fast_resident(d_pad) ? 1 : 0, idx, zn, zq, k_off, key);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -1129,15 +1160,6 @@ constexpr int WX_TM = 4, WX_TN = 16;    // rows and codewords of a thread
 constexpr int WX_WAVES = 16;            // blocks per resident slot the codeword split aims at
 // the ring, |z_norm|^2 of the rows, the running minima (WX_TM rows per thread)
 constexpr int WX_SMEM = (WX_STAGES * WX_STAGE_FLOATS + WX_ROWS + 2 * WX_TM * WX_THREADS) * 4;
-constexpr uint32_t KEY_INF = 0xFF800000u;   // ordered(+inf): keys at or above it mean "none"
-
-// the order of floats as unsigned integers: -0 counts as +0, every NaN
-// above +inf
-__device__ __forceinline__ uint32_t ordered(float x) {
-    if (isnan(x)) return 0xFFFFFFFFu;
-    const uint32_t b = __float_as_uint(x + 0.f);
-    return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
-}
 
 // 16 bytes, global -> shared, or 16 zero bytes where !valid (src not read)
 __device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, bool valid) {
@@ -1240,7 +1262,8 @@ pq_wide_exact_kernel(const float* __restrict__ z, const float* __restrict__ c_no
                      const float* __restrict__ c_raw, const float* __restrict__ csq,
                      const float* __restrict__ z_mean, const float* __restrict__ z_std,
                      int n, int M, int K, int d, int splits, int tiles_per_block,
-                     int* __restrict__ idx, float* zn, float* zq_out) {
+                     int* __restrict__ idx, float* zn, float* zq_out, int k_off,
+                     long long* __restrict__ key_out) {
     extern __shared__ __align__(16) float wx_smem[];
     float* s_zsq = wx_smem + WX_STAGES * WX_STAGE_FLOATS;           // [ROWS]
     float* s_bd = s_zsq + WX_ROWS;                                  // [TM][THREADS]
@@ -1386,9 +1409,10 @@ pq_wide_exact_kernel(const float* __restrict__ z, const float* __restrict__ c_no
             const int ok = s_bk[i * WX_THREADS + th];
             if (od < bd || (od == bd && ok < bk)) { bd = od; bk = ok; }
         }
-        if (FUSED)
+        if (FUSED) {
             s_best[tid] = bk;
-        else
+            if (key_out) key_out[static_cast<size_t>(row0 + tid) * M + m] = ordered(bd);
+        } else
             atomicMin(reinterpret_cast<unsigned long long*>(zq_out + (row0 + tid) * row_stride + col0),
                       (static_cast<unsigned long long>(ordered(bd)) << 32) | static_cast<uint32_t>(bk));
     }
@@ -1398,7 +1422,7 @@ pq_wide_exact_kernel(const float* __restrict__ z, const float* __restrict__ c_no
             const int row = row0 + r;
             if (row >= n) break;
             const int best = s_best[r];
-            if (lane == 0) idx[static_cast<size_t>(row) * M + m] = best;
+            if (lane == 0) idx[static_cast<size_t>(row) * M + m] = best + k_off;
             gather_row(c_raw + (static_cast<size_t>(m) * K + best) * d,
                        zq_out + row * row_stride + col0, d, lane);
         }
@@ -1410,7 +1434,8 @@ pq_wide_exact_kernel(const float* __restrict__ z, const float* __restrict__ c_no
 // in z_q.
 __global__ void __launch_bounds__(256)
 pq_wide_exact_gather_kernel(const float* __restrict__ c_raw, int n, int M, int K, int d,
-                            int* __restrict__ idx, float* zq_out) {
+                            int* __restrict__ idx, float* zq_out, int k_off,
+                            long long* __restrict__ key_out) {
     const long long w = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
     if (w >= static_cast<long long>(n) * M) return;
@@ -1418,8 +1443,12 @@ pq_wide_exact_gather_kernel(const float* __restrict__ c_raw, int n, int M, int K
     unsigned long long key = 0;
     if (lane == 0) key = *reinterpret_cast<const unsigned long long*>(dst);
     key = __shfl_sync(0xffffffffu, key, 0);     // read before any lane writes the slot
-    const int best = static_cast<uint32_t>(key >> 32) >= KEY_INF ? 0 : static_cast<int>(key & 0xFFFFFFFFu);
-    if (lane == 0) idx[w] = best;
+    const uint32_t won = min(static_cast<uint32_t>(key >> 32), KEY_INF);
+    const int best = won == KEY_INF ? 0 : static_cast<int>(key & 0xFFFFFFFFu);
+    if (lane == 0) {
+        idx[w] = best + k_off;
+        if (key_out) key_out[w] = won;
+    }
     gather_row(c_raw + (static_cast<size_t>(w % M) * K + best) * d, dst, d, lane);
 }
 
@@ -1457,8 +1486,8 @@ int wide_exact_config(int n, int M, int K, int* blocks, int* per_sm, int* splits
 template <int MODE>
 int launch_wide_exact(const float* z, const float* c_norm, const float* c_raw,
                       const float* z_mean, const float* z_std, int* idx, float* zn,
-                      float* zq, int n, int M, int K, int d, void* workspace,
-                      cudaStream_t stream) {
+                      float* zq, int n, int M, int K, int d, void* workspace, int k_off,
+                      long long* key, cudaStream_t stream) {
     if (M > 65535 || workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     auto* csq = static_cast<float*>(workspace);
     int blocks = 0, per_sm = 0, splits = 0, per_block = 0;
@@ -1480,38 +1509,55 @@ int launch_wide_exact(const float* z, const float* c_norm, const float* c_raw,
     const dim3 grid((n + WX_ROWS - 1) / WX_ROWS * splits, M);
     if (fused) {
         pq_wide_exact_kernel<MODE, true><<<grid, WX_THREADS, WX_SMEM, stream>>>(
-            z, c_norm, c_raw, csq, z_mean, z_std, n, M, K, d, splits, per_block, idx, zn, zq);
+            z, c_norm, c_raw, csq, z_mean, z_std, n, M, K, d, splits, per_block, idx, zn, zq,
+            k_off, key);
         return static_cast<int>(cudaGetLastError());
     }
     pq_wide_exact_kernel<NONE, false><<<grid, WX_THREADS, WX_SMEM, stream>>>(
-        z, c_norm, c_raw, csq, z_mean, z_std, n, M, K, d, splits, per_block, idx, zn, zq);
+        z, c_norm, c_raw, csq, z_mean, z_std, n, M, K, d, splits, per_block, idx, zn, zq,
+        k_off, key);
     if ((err = static_cast<int>(cudaGetLastError()))) return err;
     pq_wide_exact_gather_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
-        c_raw, n, M, K, d, idx, zq);
+        c_raw, n, M, K, d, idx, zq, k_off, key);
     return static_cast<int>(cudaGetLastError());
 }
 
+// Everything a launch is given.  k_off and key serve a shard of the
+// codebook (pq_assign_shard_launch): the launch's codewords are numbers
+// k_off .. k_off + K - 1 of the whole codebook, whose size decides `packed`
+// (K_total <= 256) and the body; idx holds whole-codebook numbers, and key
+// (null for pq_assign_launch) each (row, subspace)'s winning key.
+struct Launch {
+    const float *z, *c_norm, *c_raw, *z_mean, *z_std;
+    int* idx;
+    float *zn, *zq;
+    int n, M, K, d;
+    bool exact, packed;
+    int k_off;
+    long long* key;
+    void* ws;
+    cudaStream_t s;
+};
+
 template <int MODE>
-int launch_wide_precision(bool exact, const float* z, const float* c_norm,
-                          const float* c_raw, const float* z_mean, const float* z_std,
-                          int* idx, float* zn, float* zq, int n, int M, int K, int d,
-                          void* ws, cudaStream_t s) {
-    if (exact)
-        return launch_wide_exact<MODE>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, ws, s);
-    if (K <= 256)
-        return launch_wide_fast<MODE, true>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, ws, s);
-    return launch_wide_fast<MODE, false>(z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, ws, s);
+int launch_wide_precision(const Launch& a) {
+    if (a.exact)
+        return launch_wide_exact<MODE>(a.z, a.c_norm, a.c_raw, a.z_mean, a.z_std, a.idx, a.zn,
+                                       a.zq, a.n, a.M, a.K, a.d, a.ws, a.k_off, a.key, a.s);
+    if (a.packed)
+        return launch_wide_fast<MODE, true>(a.z, a.c_norm, a.c_raw, a.z_mean, a.z_std, a.idx,
+                                            a.zn, a.zq, a.n, a.M, a.K, a.d, a.ws, a.k_off,
+                                            a.key, a.s);
+    return launch_wide_fast<MODE, false>(a.z, a.c_norm, a.c_raw, a.z_mean, a.z_std, a.idx, a.zn,
+                                         a.zq, a.n, a.M, a.K, a.d, a.ws, a.k_off, a.key, a.s);
 }
 
-int launch_wide_mode(int mode, bool exact, const float* z, const float* c_norm,
-                     const float* c_raw, const float* z_mean, const float* z_std,
-                     int* idx, float* zn, float* zq, int n, int M, int K, int d,
-                     void* ws, cudaStream_t s) {
+int launch_wide_mode(int mode, const Launch& a) {
     switch (mode) {
-        case NONE: return launch_wide_precision<NONE>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, ws, s);
-        case L2: return launch_wide_precision<L2>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, ws, s);
-        case Z_NORM: return launch_wide_precision<Z_NORM>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, ws, s);
-        case Z_TRAINABLE: return launch_wide_precision<Z_TRAINABLE>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, d, ws, s);
+        case NONE: return launch_wide_precision<NONE>(a);
+        case L2: return launch_wide_precision<L2>(a);
+        case Z_NORM: return launch_wide_precision<Z_NORM>(a);
+        case Z_TRAINABLE: return launch_wide_precision<Z_TRAINABLE>(a);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -1528,17 +1574,36 @@ bool narrow_fits(int d, int K, bool exact) {
 }
 
 template <int D>
-int launch_mode(int mode, bool exact, const float* z, const float* c_norm,
-                const float* c_raw, const float* z_mean, const float* z_std,
-                int* idx, float* zn, float* zq, int n, int M, int K,
-                cudaStream_t s) {
+int launch_mode(int mode, const Launch& a) {
     switch (mode) {
-        case NONE: return launch_precision<D, NONE>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
-        case L2: return launch_precision<D, L2>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
-        case Z_NORM: return launch_precision<D, Z_NORM>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
-        case Z_TRAINABLE: return launch_precision<D, Z_TRAINABLE>(exact, z, c_norm, c_raw, z_mean, z_std, idx, zn, zq, n, M, K, s);
+        case NONE: return launch_precision<D, NONE>(a.exact, a.packed, a.z, a.c_norm, a.c_raw, a.z_mean, a.z_std, a.idx, a.zn, a.zq, a.n, a.M, a.K, a.k_off, a.key, a.s);
+        case L2: return launch_precision<D, L2>(a.exact, a.packed, a.z, a.c_norm, a.c_raw, a.z_mean, a.z_std, a.idx, a.zn, a.zq, a.n, a.M, a.K, a.k_off, a.key, a.s);
+        case Z_NORM: return launch_precision<D, Z_NORM>(a.exact, a.packed, a.z, a.c_norm, a.c_raw, a.z_mean, a.z_std, a.idx, a.zn, a.zq, a.n, a.M, a.K, a.k_off, a.key, a.s);
+        case Z_TRAINABLE: return launch_precision<D, Z_TRAINABLE>(a.exact, a.packed, a.z, a.c_norm, a.c_raw, a.z_mean, a.z_std, a.idx, a.zn, a.zq, a.n, a.M, a.K, a.k_off, a.key, a.s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
+}
+
+// The body of a launch over K_total codewords, of which this one takes K:
+// the whole codebook's (narrow_fits(d, K_total)), so that a shard runs the
+// arithmetic of the launch over the whole codebook.
+int launch_any(int mode, int K_total, const Launch& a) {
+    if (a.n == 0) return 0;
+    if (a.K < 1 || a.M < 1 || K_total < a.K || a.k_off < 0 || a.k_off + a.K > K_total)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (a.d < 8 || a.d % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (!narrow_fits(a.d, K_total, a.exact)) return launch_wide_mode(mode, a);
+    switch (a.d) {
+        case 8: return launch_mode<8>(mode, a);
+        case 16: return launch_mode<16>(mode, a);
+        case 32: return launch_mode<32>(mode, a);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+size_t workspace_bytes(int M, int K, int K_total, int d, bool exact) {
+    if (M < 1 || K < 1 || d < 8 || d % 8 != 0 || narrow_fits(d, K_total, exact)) return 0;
+    return exact ? static_cast<size_t>(M) * K * 4 : wide_fast_workspace(M, K, d);
 }
 
 }  // namespace
@@ -1547,8 +1612,12 @@ int launch_mode(int mode, bool exact, const float* z, const float* c_norm,
 // mode: for the wide bodies, the fast one's bf16 codebook and squared
 // norms or the exact one's squared norms (M x K f32); else 0.
 extern "C" size_t pq_assign_workspace_bytes(int M, int K, int d, int exact) {
-    if (M < 1 || K < 1 || d < 8 || d % 8 != 0 || narrow_fits(d, K, exact != 0)) return 0;
-    return exact ? static_cast<size_t>(M) * K * 4 : wide_fast_workspace(M, K, d);
+    return workspace_bytes(M, K, K, d, exact != 0);
+}
+
+// The same for a shard launch of K codewords out of K_total.
+extern "C" size_t pq_assign_shard_workspace_bytes(int M, int K, int K_total, int d, int exact) {
+    return workspace_bytes(M, K, K_total, d, exact != 0);
 }
 
 // A wide launch on the current device: out[0] blocks, out[1] resident
@@ -1603,25 +1672,39 @@ extern "C" int pq_assign_launch(const void* z, const void* c_norm,
                                 const void* z_std, void* idx, void* zn,
                                 void* zq, int n, int M, int K, int d, int mode,
                                 int exact, void* stream, void* workspace) {
-    if (n == 0) return 0;
-    if (K < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
-    const auto s = static_cast<cudaStream_t>(stream);
-    const auto* zf = static_cast<const float*>(z);
-    const auto* cn = static_cast<const float*>(c_norm);
-    const auto* cr = static_cast<const float*>(c_raw);
-    const auto* zm = static_cast<const float*>(z_mean);
-    const auto* zs = static_cast<const float*>(z_std);
-    auto* ip = static_cast<int*>(idx);
-    auto* znp = static_cast<float*>(zn);
-    auto* zqp = static_cast<float*>(zq);
-    if (d < 8 || d % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    if (!narrow_fits(d, K, exact != 0))
-        return launch_wide_mode(mode, exact != 0, zf, cn, cr, zm, zs, ip, znp, zqp, n, M, K, d,
-                                workspace, s);
-    switch (d) {
-        case 8: return launch_mode<8>(mode, exact != 0, zf, cn, cr, zm, zs, ip, znp, zqp, n, M, K, s);
-        case 16: return launch_mode<16>(mode, exact != 0, zf, cn, cr, zm, zs, ip, znp, zqp, n, M, K, s);
-        case 32: return launch_mode<32>(mode, exact != 0, zf, cn, cr, zm, zs, ip, znp, zqp, n, M, K, s);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    const Launch a{static_cast<const float*>(z), static_cast<const float*>(c_norm),
+                   static_cast<const float*>(c_raw), static_cast<const float*>(z_mean),
+                   static_cast<const float*>(z_std), static_cast<int*>(idx),
+                   static_cast<float*>(zn), static_cast<float*>(zq), n, M, K, d,
+                   exact != 0, K <= 256, 0, nullptr, workspace,
+                   static_cast<cudaStream_t>(stream)};
+    return launch_any(mode, K, a);
+}
+
+// One shard of the codebook: c_norm and c_raw (M, K, d) are codewords
+// k_off .. k_off + K - 1 of a codebook of K_total.  The launch computes
+// what pq_assign_launch over the whole codebook computes for these
+// codewords: the body and the arithmetic of K_total (the packed minimum
+// and, with l2, 1 - cross where K_total <= 256), each distance as there.
+// idx (n, M) int32 holds whole-codebook numbers (k_off + k) of the first
+// minimum among these codewords, z_q their codeword, and key (n, M) int64
+// its key: in exact mode and in fast mode with K_total > 256
+// ordered(distance) (KEY_INF where no distance is below +inf, idx then
+// k_off), in fast mode with K_total <= 256 the packed int32 word.  The
+// least key over the shards (then the least index) is the whole launch's
+// first minimum.  workspace: pq_assign_shard_workspace_bytes bytes.
+extern "C" int pq_assign_shard_launch(const void* z, const void* c_norm,
+                                      const void* c_raw, const void* z_mean,
+                                      const void* z_std, void* idx, void* zn,
+                                      void* zq, void* key, int n, int M, int K, int d,
+                                      int k_off, int K_total, int mode, int exact,
+                                      void* stream, void* workspace) {
+    const Launch a{static_cast<const float*>(z), static_cast<const float*>(c_norm),
+                   static_cast<const float*>(c_raw), static_cast<const float*>(z_mean),
+                   static_cast<const float*>(z_std), static_cast<int*>(idx),
+                   static_cast<float*>(zn), static_cast<float*>(zq), n, M, K, d,
+                   exact != 0, K_total <= 256, k_off, static_cast<long long*>(key), workspace,
+                   static_cast<cudaStream_t>(stream)};
+    if (key == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_any(mode, K_total, a);
 }

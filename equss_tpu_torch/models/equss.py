@@ -257,6 +257,9 @@ class EQUSS(nn.Module):
             prob = mesh.gather_rows(aux["distance_prob"])
             flat = prob.reshape(-1, *prob.shape[-2:])
             half = flat.shape[0] // 2
-            aux["jsd"], aux["entropy"] = ema_jsd_entropy(flat[:half], flat[half:2 * half])
+            # a K-sharded quantizer's softmax is its shard's: the sums over K
+            # run over the model group
+            aux["jsd"], aux["entropy"] = ema_jsd_entropy(
+                flat[:half], flat[half:2 * half], sharded=flat.shape[-1] != cfg.pq.num_codebook)
         return {"feat": feat, "code": code, "z_q": z_q, "indices": indices,
                 "aux": aux, "state": {f"pq_state.{k}": v for k, v in pq_state.items()}}

@@ -44,6 +44,7 @@ from equss_tpu_torch.device import DeviceLike, resolve_device
 from equss_tpu_torch.ops.attention import attention_qkv
 from equss_tpu_torch.ops.layernorm import fused_add_layernorm, fused_layernorm
 from equss_tpu_torch.ops.resize import resize2d
+from equss_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,18 +232,27 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
+    """fc1 -> GELU -> fc2.  After ``parallel.mesh.shard_backbone`` fc1 holds
+    hidden / model of its output rows and fc2 the same columns of its input
+    (Megatron's MLP): fc2's partial products are summed over the model
+    group in f32 (``mesh.model_sum``), rounded once to the compute dtype
+    after the bias, which is added once, after the sum."""
+
     def __init__(self, cfg: ViTConfig, generator: torch.Generator):
         super().__init__()
         self.cfg = cfg
-        hidden = int(cfg.embed_dim * cfg.mlp_ratio)
-        self.fc1 = Dense(cfg.embed_dim, hidden, generator)
-        self.fc2 = Dense(hidden, cfg.embed_dim, generator)
+        self.hidden = int(cfg.embed_dim * cfg.mlp_ratio)
+        self.fc1 = Dense(cfg.embed_dim, self.hidden, generator)
+        self.fc2 = Dense(self.hidden, cfg.embed_dim, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         h = F.gelu(self.fc1(x, cfg.dtype),
                    approximate="tanh" if cfg.gelu_approximate else "none")
-        return self.fc2(h, cfg.dtype)
+        if self.fc2.weight.shape[1] == self.hidden:
+            return self.fc2(h, cfg.dtype)
+        part = F.linear(h.float(), self.fc2.weight.to(cfg.dtype).float())
+        return (mesh.model_sum(part) + self.fc2.bias.to(cfg.dtype).float()).to(cfg.dtype)
 
 
 class Block(nn.Module):

@@ -4,7 +4,7 @@ from typing import Dict
 
 from equss_tpu_torch.ops.attention import attention_qkv, fused_attention
 from equss_tpu_torch.ops.layernorm import fused_add_layernorm, fused_layernorm
-from equss_tpu_torch.ops.pq_assign import pq_assign
+from equss_tpu_torch.ops.pq_assign import pq_assign, pq_assign_shard
 
 KERNEL_WRAPPERS = {
     "attention_qkv": attention_qkv,
@@ -12,6 +12,7 @@ KERNEL_WRAPPERS = {
     "layernorm": fused_layernorm,
     "add_layernorm": fused_add_layernorm,
     "pq_assign": pq_assign,
+    "pq_assign_shard": pq_assign_shard,
 }
 
 

@@ -9,6 +9,13 @@ implementation, the kernel its CUDA one, and a fake implementation gives
 the outputs' shapes for ``torch.export``.  ``pq_assign`` takes the plain
 version for tensors on the CPU and the kernel for tensors on CUDA; it
 never falls back from one to the other.
+
+``pq_assign_shard`` (the op ``equss::pq_assign_shard``) is the same kernel
+on one shard of a codebook split on K over the ranks of a model group
+(``parallel/mesh.py``): it computes, for the shard's codewords, what one
+launch over the whole codebook computes for them, and returns each row's
+winning key beside its index, so that one cross-rank minimum of
+``merge_key`` picks the whole launch's first minimum.
 """
 from __future__ import annotations
 
@@ -132,8 +139,13 @@ def _kernel_lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p] * 2
+        lib.pq_assign_shard_launch.restype = ctypes.c_int
+        lib.pq_assign_shard_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p] * 2
         lib.pq_assign_workspace_bytes.restype = ctypes.c_size_t
         lib.pq_assign_workspace_bytes.argtypes = [ctypes.c_int] * 4
+        lib.pq_assign_shard_workspace_bytes.restype = ctypes.c_size_t
+        lib.pq_assign_shard_workspace_bytes.argtypes = [ctypes.c_int] * 5
         lib.pq_assign_wide_config.restype = ctypes.c_int
         lib.pq_assign_wide_config.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return lib
@@ -276,3 +288,157 @@ def pq_assign(
 
 
 pq_assign.launches = 0
+
+
+# ------------------------------------------------------- a codebook shard
+def packed_keys(K_total: int, exact: bool) -> bool:
+    """Whether a launch over a codebook of ``K_total`` takes the packed
+    minimum (fast mode, K_total <= 256), whose key is the int32 word
+    ``bits(dist) & ~0xFF | k``, rather than ``ordered_key`` of the distance."""
+    return not exact and K_total <= 256
+
+
+def merge_key(key: torch.Tensor, idx: torch.Tensor, packed: bool) -> torch.Tensor:
+    """A shard's (key, whole-codebook index) as one int64 whose least value
+    over the shards is the whole launch's first minimum: the key's order in
+    the high 32 bits (a packed word's signed order, or ``ordered_key``'s
+    unsigned order shifted by 2**31), the index in the low 32 bits, so that
+    equal keys keep the lower index."""
+    high = key if packed else key - 2 ** 31
+    return high * 2 ** 32 + idx.to(torch.int64)
+
+
+def pq_assign_shard_reference(
+    z: torch.Tensor, c_norm: torch.Tensor, c_raw: torch.Tensor, k_offset: int,
+    K_total: int, *, normalize: str = "none", z_mean: Optional[torch.Tensor] = None,
+    z_std: Optional[torch.Tensor] = None, exact: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the shard kernel: codebooks (M, K, d) are codewords
+    ``k_offset .. k_offset + K - 1`` of a codebook of ``K_total``, and the
+    arithmetic is the whole launch's (``pq_assign_reference`` at K_total:
+    with ``packed_keys`` the packed word of the whole-codebook index, and
+    with l2 the distance ``1 - cross``).  Returns ``(idx (n, M) int32 of
+    the whole codebook, z_norm, z_q, key (n, M) int64)``: the first minimum
+    among these codewords (NaN never taken, index ``k_offset`` where no
+    distance is below +inf), its codeword and its key: the packed word
+    with ``packed_keys``, else ``ordered_key`` of its distance (``KEY_INF``
+    where none is below +inf)."""
+    z = z.float()
+    c_norm = c_norm.float()
+    M, K = c_norm.shape[:2]
+    zn = normalize_vectors(z, normalize, z_mean, z_std)
+    z_sq = (zn * zn).sum(-1, keepdim=True)
+    c_sq = (c_norm * c_norm).sum(-1)
+    k = torch.arange(K, dtype=torch.int64, device=z.device)
+    packed = packed_keys(K_total, exact)
+    if exact:
+        dist = (z_sq + c_sq) - 2.0 * torch.einsum("nmd,mkd->nmk", zn, c_norm)
+        zq_src = c_raw.float()
+    else:
+        cross = torch.einsum("nmd,mkd->nmk", _bf16(zn), _bf16(c_norm))
+        dist = 1.0 - cross if normalize == "l2" and packed else (z_sq + c_sq) - 2.0 * cross
+        zq_src = _bf16(c_raw.float())
+    if packed:
+        words = (dist.view(torch.int32) & -256) | (k_offset + k).to(torch.int32)
+        key = words.amin(-1).to(torch.int64)
+        local = (key & 0xFF) - k_offset
+    else:
+        best = ((ordered_key(dist) - 2 ** 31) * 2 ** 32 + k).amin(-1)
+        key = (best >> 32) + 2 ** 31
+        none = key >= KEY_INF
+        key = torch.where(none, KEY_INF, key)
+        local = torch.where(none, 0, best & 0xFFFFFFFF)
+    m = torch.arange(M, device=z.device)
+    zq = zq_src[m, local]
+    return (local + k_offset).to(torch.int32), zn, zq, key
+
+
+@torch.library.custom_op("equss::pq_assign_shard", mutates_args=(), device_types="cpu")
+def _pq_assign_shard_op(z: torch.Tensor, c_norm: torch.Tensor, c_raw: torch.Tensor,
+                        z_mean: Optional[torch.Tensor], z_std: Optional[torch.Tensor],
+                        normalize: str, exact: bool, k_offset: int, k_total: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    idx, zn, zq, key = pq_assign_shard_reference(
+        z, c_norm, c_raw, k_offset, k_total, normalize=normalize, z_mean=z_mean, z_std=z_std,
+        exact=exact)
+    return idx, (zn.clone() if normalize == "none" else zn), zq, key
+
+
+@_pq_assign_shard_op.register_kernel("cuda")
+def _pq_assign_shard_cuda(z: torch.Tensor, c_norm: torch.Tensor, c_raw: torch.Tensor,
+                          z_mean: Optional[torch.Tensor], z_std: Optional[torch.Tensor],
+                          normalize: str, exact: bool, k_offset: int, k_total: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    n, M, d = z.shape
+    K = c_norm.shape[1]
+    check_cuda_tensor(z, "z", torch.float32)
+    for name, t in (("c_norm", c_norm), ("c_raw", c_raw)):
+        check_cuda_tensor(t, name, torch.float32, z.device)
+    stats = (None, None)
+    if normalize == "z_trainable":
+        for name, t in (("z_mean", z_mean), ("z_std", z_std)):
+            check_cuda_tensor(t, name, torch.float32, z.device)
+            if t.shape != (M, d):
+                raise ValueError(f"{name} must be ({M}, {d})")
+        stats = (z_mean.data_ptr(), z_std.data_ptr())
+    why = kernel_domain_error(d, k_total, exact)
+    if why:
+        raise ValueError(why)
+    idx = torch.empty((n, M), dtype=torch.int32, device=z.device)
+    zn = torch.empty_like(z)
+    zq = torch.empty_like(z)
+    key = torch.empty((n, M), dtype=torch.int64, device=z.device)
+    lib = _kernel_lib()
+    nbytes = lib.pq_assign_shard_workspace_bytes(M, K, k_total, d, int(exact))
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=z.device) if nbytes else None
+    with on_device(z):
+        err = lib.pq_assign_shard_launch(
+            z.data_ptr(), c_norm.data_ptr(), c_raw.data_ptr(), *stats,
+            idx.data_ptr(), zn.data_ptr(), zq.data_ptr(), key.data_ptr(), n, M, K, d,
+            k_offset, k_total, MODES.index(normalize), int(exact), launch_stream(z),
+            None if ws is None else ws.data_ptr())
+    if err:
+        raise RuntimeError(f"pq_assign_shard launch failed: CUDA error {err}")
+    pq_assign_shard.launches += 1
+    return idx, zn, zq, key
+
+
+@_pq_assign_shard_op.register_fake
+def _pq_assign_shard_fake(z, c_norm, c_raw, z_mean, z_std, normalize, exact, k_offset,
+                          k_total):
+    n, M, d = z.shape
+    return (z.new_empty((n, M), dtype=torch.int32), z.new_empty((n, M, d), dtype=torch.float32),
+            z.new_empty((n, M, d), dtype=torch.float32),
+            z.new_empty((n, M), dtype=torch.int64))
+
+
+def pq_assign_shard(
+    z: torch.Tensor, c_norm: torch.Tensor, c_raw: torch.Tensor, k_offset: int,
+    K_total: int, *, normalize: str = "none", z_mean: Optional[torch.Tensor] = None,
+    z_std: Optional[torch.Tensor] = None, exact: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``pq_assign`` on codewords ``k_offset .. k_offset + K - 1`` (c_norm,
+    c_raw (M, K, d)) of a codebook of ``K_total``; the op
+    ``equss::pq_assign_shard``.  Returns ``(idx, z_norm, z_q, key)`` as
+    ``pq_assign_shard_reference`` states them.  CPU tensors: the plain
+    version.  CUDA tensors: the kernel, which raises on what it does not
+    take."""
+    if normalize not in MODES:
+        raise ValueError(f"Unsupported normalize mode {normalize}")
+    if normalize == "z_trainable" and (z_mean is None or z_std is None):
+        raise ValueError("z_trainable requires z_mean and z_std")
+    n, M, d = z.shape
+    K = c_norm.shape[1]
+    if c_norm.shape != (M, K, d) or c_raw.shape != (M, K, d):
+        raise ValueError(f"codebooks must be ({M}, K, {d}), got "
+                         f"{tuple(c_norm.shape)} and {tuple(c_raw.shape)}")
+    if not 0 <= k_offset <= K_total - K:
+        raise ValueError(f"codewords {k_offset}..{k_offset + K - 1} are not inside a "
+                         f"codebook of {K_total}")
+    if normalize != "z_trainable":
+        z_mean = z_std = None
+    return _pq_assign_shard_op(z, c_norm, c_raw, z_mean, z_std, normalize, exact,
+                               int(k_offset), int(K_total))
+
+
+pq_assign_shard.launches = 0

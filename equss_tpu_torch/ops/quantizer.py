@@ -40,6 +40,30 @@ its candidates among the global batch's rows, gathered on every rank
 mask are not per row and every rank draws them alike.  ``pallas_auto_shards``
 stays 1 there: the size gate sees each rank's own rows already, where
 the JAX step sees the global batch and divides by the shards.
+
+On a (data, model) grid (``mesh.make_mesh_2d``) a quantizer whose tensors
+``mesh.shard_quantizer`` split on K holds K / model codewords of each
+subspace, and ``pq_forward`` sees it by the codebook's width against
+``num_codebook``.  Each model rank then finds its first minimum among its
+own codewords (the kernel route: ``pq_assign_shard``, the inference
+kernel under ``auto`` on CUDA and ``AssignShardSTE`` in training under an
+explicit ``use_pallas``; the plain route: ``pairwise_sqdist`` on the
+shard, its distances as ``ordered_key``s) and one int64 MIN over the model
+group of ``merge_key`` (key << 32 | whole-codebook index) picks the
+one-process first minimum: equal keys keep the lower index.  z_q is the
+owner's codeword, summed over the model group as its int32 bits (a -0.0
+entry stays -0.0) with the identity as backward, so that the codebook's
+gradient reaches the owner's rows only.  What runs over the whole K runs
+over the model group: ``z_trainable``'s codebook mean and variance (two
+all-reduced passes), the EMA smoothing's total count, the usage telemetry
+(on the gathered (M, K) counts), ``codebook-sum``, and the distance
+softmax (a max and a sum over the model group; ``distance_prob`` is the
+shard's (..., M, K / model), and ``ema_jsd_entropy(..., sharded=True)``
+sums its terms over the group).  The options that couple codewords
+otherwise in training (``use_split``, ``use_restart``, ``pq_dropout``,
+``use_gumbel``) gather the (M, K[, d]) tensors over the model group, run
+the one-process function and keep this rank's shard of the new state.
+The counts are summed over the data group only.
 """
 from __future__ import annotations
 
@@ -51,7 +75,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from equss_tpu_torch.ops.kmeans import gumbel, kmeans
-from equss_tpu_torch.ops.pq_assign import kernel_domain_error, normalize_vectors, pq_assign
+from equss_tpu_torch.ops.pq_assign import (kernel_domain_error, merge_key, normalize_vectors,
+                                           ordered_key, packed_keys, pq_assign, pq_assign_shard)
 from equss_tpu_torch.parallel import mesh
 
 
@@ -237,31 +262,65 @@ class AssignSTE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _d_idx, d_zn, d_zq):
         z, indices = ctx.saved_tensors
-        M, K, d = ctx.codebook_shape
-        if ctx.normalize == "none":
-            d_z = d_zn
-        else:
-            with torch.enable_grad():
-                zs = z.detach().requires_grad_()
-                (d_z,) = torch.autograd.grad(
-                    normalize_vectors(zs, ctx.normalize), zs, d_zn)
-        flat = (indices.long()
-                + K * torch.arange(M, device=indices.device)).reshape(-1)
-        d_c = torch.zeros((M * K, d), dtype=d_zq.dtype, device=d_zq.device)
-        d_c.index_add_(0, flat, d_zq.reshape(-1, d))
-        return d_z, d_c.reshape(M, K, d), None, None, None
+        return (*_ste_grads(ctx, z, indices, d_zn, d_zq), None, None, None)
+
+
+def _ste_grads(ctx, z, local_idx, d_zn, d_zq):
+    """``AssignSTE``'s gradients of z and of the codebook (whose rows the
+    indices ``local_idx`` number)."""
+    M, K, d = ctx.codebook_shape
+    if ctx.normalize == "none":
+        d_z = d_zn
+    else:
+        with torch.enable_grad():
+            zs = z.detach().requires_grad_()
+            (d_z,) = torch.autograd.grad(normalize_vectors(zs, ctx.normalize), zs, d_zn)
+    flat = (local_idx.long() + K * torch.arange(M, device=local_idx.device)).reshape(-1)
+    d_c = torch.zeros((M * K, d), dtype=d_zq.dtype, device=d_zq.device)
+    d_c.index_add_(0, flat, d_zq.reshape(-1, d))
+    return d_z, d_c.reshape(M, K, d)
+
+
+class AssignShardSTE(torch.autograd.Function):
+    """``AssignSTE`` on a K shard: ``pq_assign_shard`` forward (codewords
+    ``k_offset ..`` of a codebook of ``K_total``), the same backward, the
+    codebook's gradient scattered at the shard's own rows.
+    ``apply(z, codebook, codebook_norm, normalize, exact, k_offset,
+    K_total)`` returns ``(indices, z_norm, z_q, key)``."""
+
+    @staticmethod
+    def forward(ctx, z, codebook, codebook_norm, normalize, exact, k_offset, k_total):
+        indices, zn, zq, key = pq_assign_shard(
+            z.contiguous(), codebook_norm.contiguous(), codebook.contiguous(), k_offset,
+            k_total, normalize=normalize, exact=exact)
+        ctx.save_for_backward(z, indices)
+        ctx.normalize, ctx.k_offset = normalize, k_offset
+        ctx.codebook_shape = codebook.shape
+        ctx.mark_non_differentiable(indices, key)
+        return indices, zn, zq, key
+
+    @staticmethod
+    def backward(ctx, _d_idx, d_zn, d_zq, _d_key):
+        z, indices = ctx.saved_tensors
+        return (*_ste_grads(ctx, z, indices - ctx.k_offset, d_zn, d_zq),
+                None, None, None, None, None)
 
 
 def ema_codebook_update(state: Dict[str, torch.Tensor], count: torch.Tensor,
-                        vec_sum: torch.Tensor, cfg: PQConfig) -> Dict[str, torch.Tensor]:
+                        vec_sum: torch.Tensor, cfg: PQConfig,
+                        sharded: bool = False) -> Dict[str, torch.Tensor]:
     """The EMA codebook update with Laplace smoothing: ``count`` (M, K) and
     ``vec_sum`` (M, K, d) of this batch fold into ``ema_count`` and
     ``ema_weight_avg`` at ``decay``, and ``ema_weight`` becomes their
-    ratio with the smoothed counts.  Returns a new state dict."""
+    ratio with the smoothed counts.  ``sharded``: the tensors are this
+    model rank's K shard, and the smoothing's total count is summed over
+    the model group.  Returns a new state dict."""
     decay, eps = cfg.decay, cfg.eps
     ema_count = state["ema_count"] * decay + count * (1.0 - decay)
     ema_weight_avg = state["ema_weight_avg"] * decay + vec_sum * (1.0 - decay)
     n = ema_count.sum(-1, keepdim=True)                               # (M, 1)
+    if sharded:
+        mesh.model_sum_(n)
     smoothed = (ema_count + eps) / (n + cfg.num_codebook * eps) * n   # (M, K)
     return dict(state, ema_count=ema_count, ema_weight_avg=ema_weight_avg,
                 ema_weight=ema_weight_avg / smoothed[..., None])
@@ -317,23 +376,26 @@ def split_codes(codebook: torch.Tensor, total_count: torch.Tensor,
     return new_codebook, new_count
 
 
-def ema_jsd_entropy(prob_a: torch.Tensor, prob_b: torch.Tensor
+def ema_jsd_entropy(prob_a: torch.Tensor, prob_b: torch.Tensor, sharded: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """JSD and negative-entropy telemetry between two chunks of distance
     probabilities (..., M, K), averaged over the subspaces: per subspace
     the batch-mean KL JSD and the entropy of the batch-mean probability
-    (returned negated, as the reference's entropy loss is)."""
+    (returned negated, as the reference's entropy loss is).  ``sharded``:
+    the probabilities are a model rank's K shard, and the sums over K run
+    over the model group (``mesh.model_sum``)."""
     pa = prob_a.reshape(-1, *prob_a.shape[-2:])
     pb = prob_b.reshape(-1, *prob_b.shape[-2:])
+    sum_k = (lambda t: mesh.model_sum(t.sum(-1))) if sharded else (lambda t: t.sum(-1))
 
     def kl_batchmean(log_input, p_target):
         log_t = torch.log(p_target + 1e-6)
-        return (p_target * (log_t - log_input)).sum(-1).mean(0)
+        return sum_k(p_target * (log_t - log_input)).mean(0)
 
     log_m = torch.log(0.5 * (pa + pb) + 1e-6)
     jsd = (0.5 * (kl_batchmean(log_m, pa) + kl_batchmean(log_m, pb))).mean()
     avg_p = pa.mean(0)                                                # (M, K)
-    ent = (-avg_p * torch.log(avg_p + 1e-8)).sum(-1)                  # (M,)
+    ent = sum_k(-avg_p * torch.log(avg_p + 1e-8))                     # (M,)
     return jsd, (-ent).mean()
 
 
@@ -456,10 +518,17 @@ def pq_forward(
     straight-through step.  Each of these options takes the plain route,
     as in the JAX package.  The caller's ``state`` is not modified."""
     M, K, d = cfg.num_pq, cfg.num_codebook, cfg.sub_dim
+    codebook = params["codebook"] if cfg.vq_type == "param" else state["ema_weight"]
+    if codebook.shape[1] != K:
+        if training and _couples_codewords(cfg):
+            return _pq_forward_gathered(
+                z, params, state, cfg, want_prob=want_prob, generator=generator,
+                gumbel_noise=gumbel_noise, split_noise=split_noise, keep=keep,
+                cand_idx=cand_idx, parts=parts)
+        return _pq_forward_shard(z, params, state, cfg, training=training, want_prob=want_prob)
     lead_shape = z.shape[:-1]
     zf = z.reshape(-1, M, d).float()
     n = zf.shape[0]
-    codebook = params["codebook"] if cfg.vq_type == "param" else state["ema_weight"]
 
     z_mean = z_std = None
     if cfg.normalize == "z_trainable":
@@ -579,5 +648,140 @@ def pq_forward(
         aux["distance_prob"] = distance_prob.reshape(*lead_shape, M, K)
     if not cfg.use_weighted_sum:
         z_q = z_norm + (z_q - z_norm).detach()      # the straight-through value
+    return (z_q.reshape(*lead_shape, M * d), indices.reshape(*lead_shape, M),
+            aux, new_state)
+
+
+# ----------------------------------------------------- a K-sharded codebook
+def _couples_codewords(cfg: PQConfig) -> bool:
+    """Training options that couple codewords beyond a sum over K: the
+    split, the restart, the dropout mask (entry 0 kept) and the Gumbel
+    draw (its K slice)."""
+    return cfg.use_split or cfg.use_restart or cfg.pq_dropout > 0.0 or cfg.use_gumbel
+
+
+def _shard_k(tree: Dict[str, torch.Tensor], gather: bool) -> Dict[str, torch.Tensor]:
+    """The quantizer tensors that ``mesh.shard_quantizer`` splits on K,
+    gathered whole over the model group (``gather``) or cut to this rank's
+    shard; the others as they are."""
+    out = {}
+    for k, v in tree.items():
+        if mesh.QUANTIZER_LEAVES.get(k) == v.ndim:
+            v = mesh.gather_k(v) if gather else mesh.take_k(v).contiguous()
+        out[k] = v
+    return out
+
+
+def _pq_forward_gathered(z, params, state, cfg, **kw):
+    """``pq_forward`` of a K-sharded quantizer under an option that couples
+    codewords (``_couples_codewords``): the whole (M, K[, d]) tensors
+    gathered over the model group (the codebook's gradient comes back as
+    this rank's slice), the one-process function on them, this rank's
+    shard of the new state and of a restarted param codebook."""
+    z_q, indices, aux, new_state = pq_forward(z, _shard_k(params, True), _shard_k(state, True),
+                                              cfg, training=True, **kw)
+    if "restarted-codebook" in aux:
+        aux["restarted-codebook"] = mesh.take_k(aux["restarted-codebook"]).contiguous()
+    return z_q, indices, aux, _shard_k(new_state, False)
+
+
+def _pq_forward_shard(z, params, state, cfg, *, training, want_prob):
+    """``pq_forward`` on this model rank's K shard (the module docstring
+    says how); the same outputs as one process, ``distance_prob`` the
+    shard's."""
+    M, K, d = cfg.num_pq, cfg.num_codebook, cfg.sub_dim
+    codebook = params["codebook"] if cfg.vq_type == "param" else state["ema_weight"]
+    kp = codebook.shape[1]
+    if kp * mesh.model_size() != K:
+        raise ValueError(f"a codebook of {kp} codewords is not a shard of {K} over the "
+                         f"{mesh.model_size()} model ranks")
+    k_off = mesh.model_index() * kp
+    lead_shape = z.shape[:-1]
+    zf = z.reshape(-1, M, d).float()
+    n = zf.shape[0]
+
+    z_mean = z_std = None
+    if cfg.normalize == "z_trainable":
+        z_mean = params["z_mean"]
+        z_std = torch.sqrt(torch.exp(params["z_log_var"]))
+        c_mean = mesh.model_sum_sharded(codebook.sum(1, keepdim=True)) / K
+        c_var = mesh.model_sum_sharded(((codebook - c_mean) ** 2).sum(1, keepdim=True)
+                                       ) / max(K - 1, 1)
+        codebook_norm = (codebook - c_mean) / (torch.sqrt(c_var) + 1e-5)
+    else:
+        codebook_norm = normalize_vectors(codebook, cfg.normalize)
+
+    exact = cfg.assign_precision != "bf16"
+    want_prob = _want_prob(cfg, training, want_prob)
+    distance_prob = None
+    if _kernel_eligible(cfg, n, zf.device, training, want_prob):
+        if training:
+            idx, z_norm, z_q_own, key = AssignShardSTE.apply(
+                zf, codebook, codebook_norm, cfg.normalize, exact, k_off, K)
+        else:
+            idx, z_norm, z_q_own, key = pq_assign_shard(
+                zf.contiguous(), codebook_norm.contiguous(), codebook.contiguous(), k_off, K,
+                normalize=cfg.normalize, z_mean=z_mean, z_std=z_std, exact=exact)
+        packed = packed_keys(K, exact)
+    else:
+        z_norm = normalize_vectors(zf, cfg.normalize, z_mean, z_std)
+        with contextlib.nullcontext() if want_prob else torch.no_grad():
+            dist = pairwise_sqdist(z_norm, codebook_norm, precision=cfg.assign_precision)
+            if want_prob:
+                # the softmax over the whole K: a max and a sum over the group
+                logits = -dist.float() / cfg.jsd_ts
+                top = mesh.model_max_(logits.detach().amax(-1, keepdim=True))
+                e = torch.exp(logits - top)
+                distance_prob = e / mesh.model_sum_sharded(e.sum(-1, keepdim=True))
+            # the first minimum among this shard's codewords, by its key
+            k = torch.arange(kp, dtype=torch.int64, device=zf.device)
+            best = ((ordered_key(dist.detach()) - 2 ** 31) * 2 ** 32 + k).amin(-1)
+            key, local = (best >> 32) + 2 ** 31, best & 0xFFFFFFFF
+            del dist
+        idx = (local + k_off).to(torch.int32)
+        packed = False
+        if cfg.use_weighted_sum:
+            z_q_own = None
+        else:
+            source = codebook.to(torch.bfloat16).float() if not exact else codebook.float()
+            z_q_own = _gather_codewords(source, local)
+    # the one-process first minimum over every rank's
+    win = mesh.model_min_(merge_key(key, idx, packed))
+    indices = (win & 0xFFFFFFFF).to(torch.int32)
+    if cfg.use_weighted_sum:
+        z_q = mesh.model_sum(torch.einsum("nmk,mkd->nmd", distance_prob, codebook_norm.float()))
+    else:
+        own = (idx == indices)[..., None]
+        z_q = mesh.model_sum(torch.where(own, z_q_own, torch.zeros_like(z_q_own)), exact=True)
+
+    aux: Dict[str, torch.Tensor] = {}
+    new_state = dict(state)
+    commitment = torch.mean((z_norm - z_q.detach()) ** 2)
+    if cfg.vq_type == "param":
+        codebook_loss = torch.mean((z_q - z_norm.detach()) ** 2)
+        aux["vq-loss"] = cfg.book * codebook_loss + cfg.beta * commitment
+    else:
+        aux["vq-loss"] = cfg.beta * commitment
+    aux["codebook-sum"] = mesh.model_sum(codebook.abs().sum()) / M
+    if training:
+        with torch.no_grad():
+            local = indices.long() - k_off
+            mine = ((local >= 0) & (local < kp)).reshape(-1).float()
+            flat = (local.clamp(0, kp - 1)
+                    + kp * torch.arange(M, device=indices.device)).reshape(-1)
+            count = torch.zeros(M * kp, device=indices.device).index_add_(
+                0, flat, mine).reshape(M, kp)
+            mesh.all_reduce_sum(count)          # the data group's rows
+            new_state["vq_count"] = state["vq_count"] + count
+            aux.update(_usage_aux(mesh.gather_k(count), K))
+            if cfg.vq_type == "ema":
+                vec_sum = mesh.all_reduce_sum(torch.zeros((M * kp, d), device=zf.device)
+                                              .index_add_(0, flat, zf.reshape(-1, d) * mine[:, None]))
+                new_state = ema_codebook_update(new_state, count, vec_sum.reshape(M, kp, d),
+                                                cfg, sharded=True)
+    if distance_prob is not None:
+        aux["distance_prob"] = distance_prob.reshape(*lead_shape, M, kp)
+    if not cfg.use_weighted_sum:
+        z_q = z_norm + (z_q - z_norm).detach()
     return (z_q.reshape(*lead_shape, M * d), indices.reshape(*lead_shape, M),
             aux, new_state)

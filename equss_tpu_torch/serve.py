@@ -23,8 +23,14 @@ folds the ImageNet mean and std into the graph, so the artifact takes raw
 [0, 1] RGB; ``load_predictor``'s callable also takes uint8 (divided by
 255 first).
 
-An artifact holds one device's ops and runs on the device it was
-exported for.  Its batch is symbolic under ``symbolic_batch="auto"``
+An artifact is traced on the trainer's device and lists the devices it
+serves (``platforms``, default that device; written beside the program
+with ``torch.export.save``'s ``extra_files``), as JAX's multi-platform
+artifact does: ``load_predictor(path, device)`` moves the program to any
+listed device (``torch.export.passes.move_to_device_pass``), where the
+``equss::`` ops dispatch to that device's implementation (the kernels on
+CUDA, their plain versions on the CPU), and raises for a device the
+artifact does not list.  Its batch is symbolic under ``symbolic_batch="auto"``
 (pinned at ``batch_size`` if the symbolic export fails, with the reason
 printed) and pinned under ``"off"``.  On CUDA the quantizer's ``auto``
 route always takes the kernel, so a symbolic artifact keeps it; on the
@@ -35,13 +41,17 @@ devices (``parallel.mesh.make_mesh``): one replica of the live predictor
 per device, the batch split evenly, every replica launched before any
 result is read, the predictions concatenated in order.  The forward has
 no cross-image reduction, so the replicas need no collective, as the JAX
-package's sharded jit has none.
+package's sharded jit has none.  On a (data, model) grid
+(``parallel.mesh.make_mesh_2d``) with a sharded model both predictors run
+on every rank: each data rank answers its own rows, and the model ranks
+of a data group, which reduce over their group inside the model, return
+the same output.
 """
 from __future__ import annotations
 
 import copy
 import types
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -50,6 +60,8 @@ from equss_tpu_torch.data.transforms import normalize_images
 
 DEFAULT_PATH = "model.pt2"
 MAX_SYMBOLIC_BATCH = 4096
+PLATFORMS_FILE = "equss_platforms"     # the artifact's extra file listing its devices
+DEVICE_TYPES = ("cuda", "cpu")
 
 
 class Predictor(nn.Module):
@@ -131,25 +143,22 @@ def build_sharded_predict_fn(trainer, devices: Sequence[Union[str, torch.device]
     return ShardedPredictor(trainer, devices, normalize=normalize)
 
 
-def export_device(platforms: Union[None, str, Sequence[str]]) -> Optional[str]:
-    """``export.platforms`` -> the one device type an artifact is exported
-    for (``cuda`` or ``cpu``), None when not given.  A string may be one
-    item or a comma list (``export.platforms=cuda`` on the command line);
-    more than one device raises ``NotImplementedError``."""
+def export_devices(platforms: Union[None, str, Sequence[str]]) -> Optional[List[str]]:
+    """``export.platforms`` -> the device types an artifact serves, in
+    order, each ``cuda`` or ``cpu``; None when not given.  A string may be
+    one item or a comma list (``export.platforms=cuda,cpu`` on the
+    command line)."""
     if platforms is None:
         return None
     if isinstance(platforms, str):
         platforms = [p.strip() for p in platforms.split(",") if p.strip()]
-    platforms = list(platforms)
-    if len(platforms) > 1:
-        raise NotImplementedError(
-            f"export.platforms {platforms}: a torch.export artifact holds one "
-            f"device's ops; export once per device")
-    if not platforms:
-        return None
-    if platforms[0] not in ("cuda", "cpu"):
-        raise ValueError(f"export.platforms must be cuda or cpu, got {platforms[0]!r}")
-    return platforms[0]
+    out: List[str] = []
+    for p in platforms:
+        if p not in DEVICE_TYPES:
+            raise ValueError(f"export.platforms must be cuda or cpu, got {p!r}")
+        if p not in out:
+            out.append(p)
+    return out or None
 
 
 def export_predictor(trainer, img_hw: Tuple[int, int], *, batch_size: int = 1,
@@ -157,8 +166,10 @@ def export_predictor(trainer, img_hw: Tuple[int, int], *, batch_size: int = 1,
                      platforms: Union[None, str, Sequence[str]] = None,
                      symbolic_batch: str = "auto") -> torch.export.ExportedProgram:
     """Export the predictor of the trainer's weights for (b, H, W, 3)
-    float32 input on the trainer's device (``platforms``, when given,
-    must name it).
+    float32 input, traced on the trainer's device, for the devices of
+    ``platforms`` (``export_devices``; default the trainer's device type,
+    which it must list).  The list rides on the program as ``platforms``
+    and ``save_predictor`` writes it into the artifact.
 
     ``symbolic_batch="auto"`` tries a symbolic batch dimension first and
     pins ``batch_size`` if that fails, printing why; ``"off"`` pins it up
@@ -167,10 +178,10 @@ def export_predictor(trainer, img_hw: Tuple[int, int], *, batch_size: int = 1,
     normalisation constants) with real tensors."""
     if symbolic_batch not in ("auto", "off"):
         raise ValueError(f"export.symbolic_batch must be auto|off, got {symbolic_batch}")
-    want = export_device(platforms)
-    if want is not None and want != trainer.device.type:
+    want = export_devices(platforms) or [trainer.device.type]
+    if trainer.device.type not in want:
         raise ValueError(f"export.platforms asks for {want}, the trainer runs on "
-                         f"{trainer.device}; build the trainer on {want}")
+                         f"{trainer.device}; build the trainer on one of them")
     predict = build_predict_fn(trainer, normalize=normalize)
     H, W = img_hw
 
@@ -186,36 +197,60 @@ def export_predictor(trainer, img_hw: Tuple[int, int], *, batch_size: int = 1,
             predict(img)
             return torch.export.export(predict, (img,), dynamic_shapes=dynamic_shapes)
 
-    if symbolic_batch == "off":
-        return trace(batch_size)
-    batch = torch.export.Dim("batch", min=1, max=MAX_SYMBOLIC_BATCH)
-    try:
-        # a batch of 1 in the example would specialise the dimension to 1
-        return trace(max(batch_size, 2), ({0: batch},))
-    except Exception as e:  # noqa: BLE001 - any trace failure pins the batch
-        print(f"export: symbolic batch unavailable "
-              f"({type(e).__name__}: {str(e).splitlines()[0][:160]}); "
-              f"pinning batch_size={batch_size}", flush=True)
-    return trace(batch_size)
+    exported = None
+    if symbolic_batch == "auto":
+        batch = torch.export.Dim("batch", min=1, max=MAX_SYMBOLIC_BATCH)
+        try:
+            # a batch of 1 in the example would specialise the dimension to 1
+            exported = trace(max(batch_size, 2), ({0: batch},))
+        except Exception as e:  # noqa: BLE001 - any trace failure pins the batch
+            print(f"export: symbolic batch unavailable "
+                  f"({type(e).__name__}: {str(e).splitlines()[0][:160]}); "
+                  f"pinning batch_size={batch_size}", flush=True)
+    if exported is None:
+        exported = trace(batch_size)
+    exported.platforms = want
+    return exported
 
 
 def save_predictor(exported: torch.export.ExportedProgram, path: str = DEFAULT_PATH) -> str:
-    torch.export.save(exported, path)
+    """Write the artifact, with the devices it serves (``platforms``)."""
+    plats = getattr(exported, "platforms", None) or [_program_device(exported).type]
+    torch.export.save(exported, path, extra_files={PLATFORMS_FILE: ",".join(plats)})
     return path
 
 
-def load_predictor(path: str) -> Callable:
+def _program_device(exported: torch.export.ExportedProgram) -> torch.device:
+    """The device of a program's weights and constants (the CPU without)."""
+    tensors = list(exported.state_dict.values()) + list(exported.constants.values())
+    return next((t.device for t in tensors if isinstance(t, torch.Tensor)),
+                torch.device("cpu"))
+
+
+def load_predictor(path: str, device: Union[None, str, torch.device] = None) -> Callable:
     """Read an artifact into ``predict(img) -> {"cluster_preds",
-    "linear_preds"}``.  ``img`` (a tensor or a numpy array) goes to the
-    artifact's device; uint8 is divided by 255, as ``normalize_images``
-    does, since the artifact takes [0, 1] floats.  Imports the kernels'
-    op registrations and nothing of the model."""
+    "linear_preds"}`` on ``device`` (default the device it was traced on),
+    which the artifact must list; on another listed device the program is
+    moved there.  ``img`` (a tensor or a numpy array) goes to that device;
+    uint8 is divided by 255, as ``normalize_images`` does, since the
+    artifact takes [0, 1] floats.  Imports the kernels' op registrations
+    and nothing of the model."""
     import equss_tpu_torch.ops  # noqa: F401 - registers the equss:: ops
 
-    exported = torch.export.load(path)
-    tensors = list(exported.state_dict.values()) + list(exported.constants.values())
-    device = next((t.device for t in tensors if isinstance(t, torch.Tensor)),
-                  torch.device("cpu"))
+    extra = {PLATFORMS_FILE: ""}
+    exported = torch.export.load(path, extra_files=extra)
+    home = _program_device(exported)
+    listed = [p for p in extra[PLATFORMS_FILE].split(",") if p] or [home.type]
+    device = home if device is None else torch.device(device)
+    if device.type not in listed:
+        raise ValueError(f"{path} serves {listed}, not {device.type}; export it with "
+                         f"export.platforms={','.join(listed + [device.type])}")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device != home:
+        from torch.export.passes import move_to_device_pass
+
+        exported = move_to_device_pass(exported, device)
     module = exported.module()
 
     def predict(img) -> Dict[str, torch.Tensor]:

@@ -29,6 +29,8 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from equss_tpu_torch.parallel import mesh
+
 NO_WD_SUBTREES = ("pq", "club_enc")
 
 NamedParams = Iterable[Tuple[str, torch.nn.Parameter]]
@@ -60,11 +62,19 @@ def build_schedule(sched_cfg: Dict[str, Any], base_lr: float, iter_per_epoch: in
 
 
 def global_grad_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient present (f32)."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
+    """sqrt of the sum of squares of every gradient present (f32).  A
+    parameter that ``parallel.mesh`` split over a model group (``tp_dim``)
+    holds a part of the gradient: its squares are summed over the group,
+    so each counts once, and each whole parameter's once."""
+    params = [p for p in params if p.grad is not None]
+    if not params:
         return torch.zeros(())
-    return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    parts = [p for p in params if getattr(p, "tp_dim", None) is not None]
+    if not parts or mesh.model_size() == 1:
+        return torch.sqrt(sum((p.grad.float() ** 2).sum() for p in params))
+    whole = [(p.grad.float() ** 2).sum() for p in params if getattr(p, "tp_dim", None) is None]
+    split = mesh.model_sum_(sum((p.grad.float() ** 2).sum() for p in parts))
+    return torch.sqrt(sum(whole) + split if whole else split)
 
 
 class Optimizer:
@@ -128,6 +138,8 @@ class Optimizer:
             m = self.mini_step
             for n, p in self._named:
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
+                if self.acc[n].shape != p.shape:    # a parameter sharded since (parallel.mesh)
+                    self.acc[n] = torch.zeros_like(p)
                 self.acc[n] = self.acc[n] + (g - self.acc[n]) / (m + 1)
             if m < self.num_accum - 1:
                 self.mini_step = m + 1

@@ -76,6 +76,21 @@ parameters bit for bit.  ``validate`` sums the confusion matrices over
 the ranks before the Hungarian matching.  ``data_init`` runs on every
 rank on the gathered images of the global batch and keeps rank 0's
 values.  Every registered family runs so.
+
+On a (data, model) grid (``Trainer(cfg, mesh=parallel.mesh.make_mesh_2d(
+data, model))``, as the JAX ``Trainer(mesh=...)``) the program's ranks
+are this rank's data group: each data rank feeds its rows, the model
+ranks of a data group the same rows, and the gradient bucket, the
+metrics and the validation sums are summed over the data group.  After
+``mesh.shard_quantizer(grid, trainer.model)`` and / or
+``mesh.shard_backbone(grid, trainer.model)`` the steps run on the
+shards: Adam updates each rank's codebook shard, and the gradient norm
+(for the clip and the non-finite skip) counts each sharded parameter's
+squares once over the model group and each whole one once.
+``state_dict`` and ``train_state`` gather the shards into whole tensors,
+and ``load_state_dict`` and ``load_train_state`` take this rank's parts
+of whole ones, so a checkpoint written on a grid loads into one process
+and the other way round.
 """
 from __future__ import annotations
 
@@ -99,6 +114,8 @@ from equss_tpu_torch.models.registry import build_model
 from equss_tpu_torch.ops.crf import CRFConfig, batched_crf
 from equss_tpu_torch.parallel import mesh
 from equss_tpu_torch.train.optim import build_optimizer, global_grad_norm
+
+_MESH = mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,6 +182,8 @@ class Trainer:
     (``cfg['seed']`` when None), the probes and the three optimizers;
     ``model`` takes a model built by the caller instead.  ``device=None`` means CUDA,
     which must then be present; pass ``device='cpu'`` to run on the CPU.
+    ``mesh``: the process's (data, model) grid (``make_mesh_2d``), over
+    whose data group the steps run (the module docstring).
     ``train_step(batch)`` runs one step and returns its metrics,
     ``valid_step(batch)`` one eval step and ``validate(batches)`` the
     metrics over a loader (``validate_crf`` with the CRF); ``fit`` runs
@@ -173,10 +192,17 @@ class Trainer:
     weights out, ``train_state()`` all of it."""
 
     def __init__(self, cfg: Dict[str, Any], *, device: DeviceLike = None,
-                 seed: Optional[int] = None, model: Optional[nn.Module] = None):
+                 seed: Optional[int] = None, model: Optional[nn.Module] = None,
+                 mesh: Optional["_MESH.Grid"] = None):
+        grid, mesh = mesh, _MESH
+        if grid is not None and grid is not mesh.grid():
+            raise ValueError("Trainer(mesh=...) takes this process's grid: the one "
+                             "make_mesh_2d returned")
         # in a process group the steps take the distributed path, one
-        # rank included
-        self.world, self.distributed = mesh.world(), mesh.in_group()
+        # rank included; on a grid over the data group
+        self.grid = grid
+        self.world = grid.data if grid is not None else mesh.world()
+        self.distributed = mesh.in_group()
         self.cfg = cfg
         self.tc = TrainConfig.from_config(cfg)
         self.device = resolve_device(device)
@@ -237,17 +263,55 @@ class Trainer:
     def load_state_dict(self, sd: Mapping[str, torch.Tensor]) -> None:
         """Load a state dict of the model's names, plus the probes' under
         ``probes.`` (``convert.params_from_jax`` with probe_params), in
-        place: the optimizers keep their parameters."""
+        place: the optimizers keep their parameters.  A sharded model takes
+        its parts of whole tensors."""
         probes = {k[len("probes."):]: v for k, v in sd.items() if k.startswith("probes.")}
-        self.model.load_state_dict({k: v for k, v in sd.items()
-                                    if not k.startswith("probes.")})
+        self.model.load_state_dict(self._model_part({k: v for k, v in sd.items()
+                                                     if not k.startswith("probes.")}))
         self.evaluator.load_state_dict(probes)
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
         """The model's state dict plus the probes' under ``probes.``: what
-        ``load_state_dict`` takes."""
-        return {**self.model.state_dict(),
+        ``load_state_dict`` takes.  A sharded model's tensors are gathered
+        whole."""
+        return {**self._model_whole(self.model.state_dict()),
                 **{f"probes.{k}": v for k, v in self.evaluator.state_dict().items()}}
+
+    def _model_whole(self, sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A model state dict with the shards of a sharded model gathered."""
+        layout = mesh.sharded_layout(self.model)
+        return mesh.gather_sharded(sd, layout) if layout else sd
+
+    def _model_part(self, sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A model state dict with this rank's parts of a sharded model's
+        whole tensors."""
+        layout = mesh.sharded_layout(self.model)
+        if not layout:
+            return dict(sd)
+        return mesh.take_sharded(dict(sd), layout, self.model.state_dict())
+
+    def _opt_sharded(self, osd: Dict[str, Any], whole: bool) -> Dict[str, Any]:
+        """The model optimizer's state (``Optimizer.state_dict``) with each
+        sharded parameter's moments and gradient mean gathered whole
+        (``whole``) or cut to this rank's part."""
+        layout = mesh.sharded_layout(self.model)
+        if not layout:
+            return osd
+        params = dict(self.model.named_parameters())
+
+        def conv(name, t):
+            if name not in layout or not torch.is_tensor(t) or t.dim() == 0:
+                return t
+            if whole:
+                return mesh.gather_sharded({name: t}, layout)[name]
+            return mesh.take_sharded({name: t}, layout, {name: params[name]})[name]
+
+        out = dict(osd)
+        out["state"] = {n: {k: conv(n, v) for k, v in st.items()}
+                        for n, st in osd["state"].items()}
+        if "acc" in osd:
+            out["acc"] = {n: conv(n, v) for n, v in osd["acc"].items()}
+        return out
 
     def _optimizers(self):
         return {"model": self.tx_model, "cluster": self.tx_cluster, "linear": self.tx_linear}
@@ -260,9 +324,11 @@ class Trainer:
         ``generator_device`` (its state and device type).  The tensors
         are the live ones: copy before training on
         (``CheckpointManager.save`` does)."""
-        return {"model": self.model.state_dict(),
+        opt = {k: tx.state_dict() for k, tx in self._optimizers().items()}
+        opt["model"] = self._opt_sharded(opt["model"], whole=True)
+        return {"model": self._model_whole(self.model.state_dict()),
                 "probes": self.evaluator.state_dict(),
-                "opt": {k: tx.state_dict() for k, tx in self._optimizers().items()},
+                "opt": opt,
                 "step": self.step,
                 "generator": self.generator.get_state(),
                 "generator_device": self.device.type}
@@ -284,10 +350,11 @@ class Trainer:
                 f"cannot continue training on {self.device.type} from a checkpoint "
                 f"whose generator is a {saved} generator; restore it for "
                 f"evaluation only (resume.mode: eval) or train on {saved}")
-        self.model.load_state_dict(state["model"])
+        self.model.load_state_dict(self._model_part(state["model"]))
         self.evaluator.load_state_dict(state["probes"])
         for name, tx in self._optimizers().items():
-            tx.load_state_dict(state["opt"][name])
+            osd = state["opt"][name]
+            tx.load_state_dict(self._opt_sharded(osd, whole=False) if name == "model" else osd)
         self.step = int(state["step"])
         if resume_training and state.get("generator") is not None:
             self.generator.set_state(state["generator"])
@@ -447,8 +514,10 @@ class Trainer:
             new = self.model.data_init(img, self.generator)
             tensors = self.model.state_dict(keep_vars=True)
             with mesh.global_program():
-                for name, t in new.items():
-                    tensors[name].data.copy_(mesh.broadcast_(t.contiguous()))
+                new = {name: mesh.broadcast_(t.contiguous()) for name, t in new.items()}
+            # a sharded model keeps its parts
+            for name, t in self._model_part(new).items():
+                tensors[name].data.copy_(t)
 
     # -------------------------------------------------------- validation
     def valid_step(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

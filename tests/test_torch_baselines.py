@@ -429,6 +429,7 @@ _PQ_ROW_PATHS = {
                              "unseg_cocostuff27_valid", "vae_cocostuff27_train",
                              "vae_cocostuff27_valid", "contra_cocostuff27_train",
                              "contra_cocostuff27_valid"],
+    "pq_assign_shard": ["tp_1x2_quantizer_serve", "tp_2x2_quantizer_backbone_train"],
 }
 
 

@@ -25,8 +25,9 @@
   ``_make_batch_fns`` on the same corpus and seed.
 * Without ``device`` the jobs that run a model take CUDA and raise
   without it; a multi-process run needs its coordinator (its runs:
-  ``tests/test_torch_parallel.py``); the tensor-parallel layouts raise
-  ``NotImplementedError``.
+  ``tests/test_torch_parallel.py``); the tensor-parallel layouts change
+  nothing on one process's 1 x 1 grid, and ``export.platforms`` lists
+  several devices.
 * ``train.profile_dir`` and ``is_visualize`` through ``cli.main``: the
   Chrome trace names the port's custom op (``equss::pq_assign``, on its
   kernel route), and is written also when the traced body raises; the
@@ -44,7 +45,7 @@ import pytest
 import torch
 
 from equss_tpu.core import config as jconfig
-from equss_tpu_torch import cli
+from equss_tpu_torch import cli, serve
 from equss_tpu_torch.core import config
 from test_torch_checkpoint import _one_intra_op_thread  # noqa: F401 (autouse)
 
@@ -190,8 +191,13 @@ def test_cli_defaults_to_cuda_and_raises_on_what_is_not_ported(tmp_path, monkeyp
             raise RuntimeError("inside")
     with open(tmp_path / "prof" / "trace_rank0.json") as f:
         assert any(e.get("name") == "aten::sum" for e in json.load(f)["traceEvents"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        mesh.shard_quantizer(None, {}, {})
+    # tensor parallelism and the export for several devices are ported:
+    # on one process a 1 x 1 grid whose quantizer layout changes nothing,
+    # and export.platforms lists two devices
+    grid = mesh.make_mesh_2d(1, 1)
+    codebook = torch.ones(4, 8, 2)
+    assert mesh.shard_quantizer(grid, {"codebook": codebook}, {})[0]["codebook"] is codebook
+    assert serve.export_devices("cuda,cpu") == ["cuda", "cpu"]
 
 
 def _corpus_args(root, tmp_path):

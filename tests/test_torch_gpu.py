@@ -462,7 +462,7 @@ def test_confusion_update_on_cuda_equals_cpu(cuda):
 def _op_cases(device):
     """(name, op, args, plain version) of each custom op on card operands
     the kernels take."""
-    from equss_tpu_torch.ops.pq_assign import pq_assign_reference
+    from equss_tpu_torch.ops.pq_assign import pq_assign_reference, pq_assign_shard_reference
 
     g = torch.Generator(device=device).manual_seed(11)
     qkv = _attention_input(2, 785, 6, 64, g, "randn", 785).reshape(2, 785, 3 * 384)
@@ -487,6 +487,10 @@ def _op_cases(device):
          lambda: add_layernorm_reference(x, y, scale, bias)),
         ("pq_assign", ops.pq_assign.default, (z, cn, cb, None, None, "l2", True),
          lambda: pq_assign_reference(z, cn, cb, normalize="l2", exact=True)),
+        ("pq_assign_shard", ops.pq_assign_shard.default,
+         (z, cn[:, 128:].contiguous(), cb[:, 128:].contiguous(), None, None, "l2", True, 128, 256),
+         lambda: pq_assign_shard_reference(z, cn[:, 128:], cb[:, 128:], 128, 256, normalize="l2",
+                                           exact=True)),
     ]
 
 
@@ -503,7 +507,7 @@ def test_custom_ops_on_cuda_launch_the_kernels(cuda):
         assert KERNEL_WRAPPERS[name].launches == before + 1, name
         if name in ("attention_qkv", "attention"):
             _check_1ulp(out, ref, 2)
-        elif name == "pq_assign":
+        elif name in ("pq_assign", "pq_assign_shard"):
             assert (out[0] == ref[0]).float().mean().item() >= 0.9999
         else:
             o = out if name == "layernorm" else out[1]
@@ -554,3 +558,37 @@ def test_export_round_trip_on_cuda(cuda, tmp_path):
         ref = live(img.to(cuda))
         for k in ref:
             assert out[k].device.type == "cuda" and torch.equal(out[k], ref[k]), k
+
+
+@pytest.mark.parametrize("shape,exact", [
+    ((4096, 64, 256, 16), False), ((4096, 64, 256, 16), True), ((4096, 64, 512, 16), False),
+    ((1000, 1, 256, 1024), False), ((1000, 8, 2048, 64), False), ((1000, 1, 2048, 384), True),
+    ((3000, 4, 1024, 128), True), ((1000, 4, 300, 16), False)])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_pq_shard_launches_merge_to_the_whole_launch(cuda, shape, exact, shards):
+    """``pq_assign_shard`` on K shards, merged by the least ``merge_key``
+    (z_q from the owner), gives the indices and z_q of one ``pq_assign``
+    launch over the whole codebook bit for bit: the narrow and wide bodies
+    in both modes, the packed minimum of K <= 256 on shards of a larger
+    codebook's K (512: the full form on every shard) and a K that splits
+    unevenly into chunks (300 / 4 = 75)."""
+    from equss_tpu_torch.ops.pq_assign import merge_key, packed_keys, pq_assign_shard
+
+    n, M, K, d = shape
+    g = torch.Generator(device=cuda).manual_seed(K + d)
+    z = 3.0 * torch.randn((n, M, d), generator=g, device=cuda)
+    cb = torch.randn((M, K, d), generator=g, device=cuda)
+    cn = normalize_vectors(cb, "l2").contiguous()
+    idx, zn, zq = pq_assign(z, cn, cb, normalize="l2", exact=exact)
+    kp = K // shards
+    outs = [pq_assign_shard(z, cn[:, r * kp:(r + 1) * kp].contiguous(),
+                            cb[:, r * kp:(r + 1) * kp].contiguous(), r * kp, K,
+                            normalize="l2", exact=exact) for r in range(shards)]
+    win = torch.stack([merge_key(o[3], o[0], packed_keys(K, exact)) for o in outs]).amin(0)
+    got = (win & 0xFFFFFFFF).to(torch.int32)
+    assert torch.equal(got, idx)
+    owner = (torch.stack([o[0] for o in outs]) == got).int().argmax(0)
+    merged = torch.stack([o[2] for o in outs]).gather(
+        0, owner[None, ..., None].expand(1, *zq.shape))[0]
+    assert torch.equal(merged, zq)
+    assert all(torch.equal(o[1], zn) for o in outs)

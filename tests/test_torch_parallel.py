@@ -39,10 +39,11 @@ write what they computed to a file; the tests read it.
 * ``build_sharded_predict_fn`` over two CPU devices equal to
   ``build_predict_fn``; the PQ size gate of a rank equal to JAX's at the
   global n with the shards divisor; every registered family builds and
-  takes a step on two ranks, and only what stays unported raises
-  ``NotImplementedError``: the tensor-parallel layouts and a Sinkhorn
-  over a model axis (ROADMAP.md queue 1, item 9) and an export for more
-  than one device.
+  takes a step on two ranks, and what used to raise works there: a 1 x 2
+  (data, model) grid, ``shard_backbone`` on it, the Sinkhorn over its
+  model axis (against one process on both ranks' rows) and the list of
+  an export for two devices (``tests/test_torch_tensor_parallel.py`` holds
+  tensor parallelism itself).
 """
 import copy
 import glob
@@ -172,22 +173,26 @@ def _rank_modules(rank, job):
 
 def _rank_guards(job):
     """Every registered family's step on this rank's rows (whether it
-    was skipped), and the messages of what raises on several processes."""
+    was skipped); then what used to raise on several processes: a 1 x 2
+    grid (this rank's place), ``shard_backbone`` on it (the shapes), the
+    Sinkhorn over its model axis on this rank's rows, and the devices of
+    a two-device export."""
     batch = _rows({k: v[:, :32, :32] if k != "stego_perms" else v
                    for k, v in job["train"][0].items()}, mesh.rank())
     steps = {name: Trainer(cfg, device="cpu").train_step(batch)["skipped"]
              for name, cfg in job["families"].items()}
-    msgs = {}
-    for what, fn in (("mesh_2d", lambda: mesh.make_mesh_2d(1, 2)),
-                     ("shard_backbone", lambda: mesh.shard_backbone(None, {})),
-                     ("sinkhorn_model_axis", lambda: tsink.distributed_sinkhorn(
-                         torch.zeros(2, 3), epsilon=0.05, axis_name="model")),
-                     ("export", lambda: serve.export_device(["cuda", "cpu"]))):
-        try:
-            fn()
-        except NotImplementedError as e:
-            msgs[what] = str(e)
-    return {"steps": steps, "msgs": msgs}
+    grid = mesh.make_mesh_2d(1, 2)
+    sd = {"blocks.0.mlp.fc1.weight": torch.zeros(8, 4), "blocks.0.mlp.fc1.bias": torch.zeros(8),
+          "blocks.0.mlp.fc2.weight": torch.zeros(4, 8), "blocks.0.attn.qkv.weight": torch.zeros(12, 4)}
+    scores = torch.from_numpy(job["modules"]["scores"])
+    half = len(scores) // WORLD
+    works = {"mesh_2d": (grid.data, grid.model, grid.data_index, grid.model_index),
+             "shard_backbone": {k: tuple(v.shape) for k, v in mesh.shard_backbone(grid, sd).items()},
+             "sinkhorn_model_axis": tsink.distributed_sinkhorn(
+                 scores[mesh.rank() * half:(mesh.rank() + 1) * half], epsilon=0.05,
+                 axis_name="model"),
+             "export": serve.export_devices(["cuda", "cpu"])}
+    return {"steps": steps, "works": works}
 
 
 def _rank(rank, port, job_path, out_path):
@@ -377,10 +382,18 @@ def test_helpers_on_one_process_are_identities():
         assert mesh.all_reduce_sum(t) is t and mesh.gather_rows(t) is t
         assert mesh.mean_over_ranks(t) is t
         assert torch.equal(mesh.global_rows(lambda n: torch.arange(n), 3), torch.arange(3))
-    for fn in (lambda: mesh.make_mesh_2d(1, 2), lambda: mesh.shard_backbone(None, {}),
-               lambda: mesh.shard_quantizer(None, {}, {})):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fn()
+    # one process is a 1 x 1 grid, on which the layouts change nothing
+    with pytest.raises(ValueError, match="requested a 1x2 mesh but only 1"):
+        mesh.make_mesh_2d(1, 2)
+    grid = mesh.make_mesh_2d(1, 1)
+    assert grid.shape == {"data": 1, "model": 1} and mesh.model_size() == 1
+    params, state = {"pq": {"codebook": torch.ones(2, 4, 3)}}, {"pq": {"vq_count": torch.ones(2, 4)}}
+    p, s = mesh.shard_quantizer(grid, params, state)
+    assert p["pq"]["codebook"] is params["pq"]["codebook"] and s["pq"]["vq_count"].shape == (2, 4)
+    sd = {"blocks.0.mlp.fc1.weight": torch.ones(8, 4)}
+    assert mesh.shard_backbone(grid, sd)["blocks.0.mlp.fc1.weight"] is sd["blocks.0.mlp.fc1.weight"]
+    with mesh.global_program():
+        assert mesh.program_world() == 1
 
 
 def test_group_broadcast_replicate_and_barrier(runs):
@@ -585,15 +598,25 @@ def test_cli_two_processes_share_one_run_and_resume_bit_exact(runs):
 
 def test_families_and_options_that_couple_rows_raise_on_two_ranks(runs):
     """No family raises on two ranks any more: each registered one builds
-    and takes a finite step; what raises is what stays unported."""
-    for out in runs["ranks"]:
-        steps, msgs = out["guards"]["steps"], out["guards"]["msgs"]
+    and takes a finite step; and nothing of tensor parallelism raises
+    either: the 1 x 2 grid places the ranks at (0, r), ``shard_backbone``
+    halves fc1's rows and fc2's columns and keeps qkv, the Sinkhorn over
+    the model axis on each rank's half of the scores equals one process's
+    on all of them (within 1e-5), and an export lists two devices."""
+    scores = torch.from_numpy(runs["job"]["modules"]["scores"])
+    want = tsink.distributed_sinkhorn(scores, epsilon=0.05)
+    half = len(scores) // WORLD
+    for r, out in enumerate(runs["ranks"]):
+        steps, works = out["guards"]["steps"], out["guards"]["works"]
         assert set(steps) == set(registry.available_models())
         assert all(v == 0.0 for v in steps.values()), steps
-        assert set(msgs) == {"mesh_2d", "shard_backbone", "sinkhorn_model_axis", "export"}
-        for what in ("mesh_2d", "shard_backbone", "sinkhorn_model_axis"):
-            assert "item 9" in msgs[what], (what, msgs[what])
-        assert "one device" in msgs["export"]
+        assert works["mesh_2d"] == (1, 2, 0, r)
+        assert works["shard_backbone"] == {
+            "blocks.0.mlp.fc1.weight": (4, 4), "blocks.0.mlp.fc1.bias": (4,),
+            "blocks.0.mlp.fc2.weight": (4, 4), "blocks.0.attn.qkv.weight": (12, 4)}
+        np.testing.assert_allclose(works["sinkhorn_model_axis"].numpy(),
+                                   want[r * half:(r + 1) * half].numpy(), rtol=1e-5, atol=1e-7)
+        assert works["export"] == ["cuda", "cpu"]
 
 
 def test_sharded_predictor_matches_build_predict_fn():

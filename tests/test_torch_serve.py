@@ -135,16 +135,18 @@ def test_uint8_input_equals_float(artifact):
 
 
 def test_export_platforms_is_one_device(pair, tmp_path):
+    """``export.platforms`` parses to the device types an artifact serves
+    (one or several since the export for several devices); the trainer's
+    device must be among them."""
     _, _, tr = pair
-    assert serve.export_device("cpu") == "cpu"
-    assert serve.export_device(" cuda ") == "cuda"
-    assert serve.export_device(["cpu"]) == "cpu"
-    assert serve.export_device(None) is None
-    for many in ("cuda,cpu", ["cuda", "cpu"]):
-        with pytest.raises(NotImplementedError, match="one device"):
-            serve.export_device(many)
+    assert serve.export_devices("cpu") == ["cpu"]
+    assert serve.export_devices(" cuda ") == ["cuda"]
+    assert serve.export_devices(["cpu"]) == ["cpu"]
+    assert serve.export_devices(None) is None
+    for many in ("cuda,cpu", ["cuda", "cpu"], "cuda, cpu, cuda"):
+        assert serve.export_devices(many) == ["cuda", "cpu"]
     with pytest.raises(ValueError, match="cuda or cpu"):
-        serve.export_device("tpu")
+        serve.export_devices("tpu")
     with pytest.raises(ValueError, match="trainer runs on cpu"):
         serve.export_predictor(tr, (16, 16), platforms="cuda")
     # several devices serve through the sharded predictor, a batch that

@@ -196,14 +196,15 @@ def test_sinkhorn_cluster_loss_matches_jax(live):
 
 
 def test_sinkhorn_axis_name_raises_naming_the_multi_gpu_item():
-    """The data axis is the port's one axis (its reduce:
-    tests/test_torch_parallel.py); a model axis raises, naming the
-    tensor-parallel item."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ts.distributed_sinkhorn(torch.zeros(3, 2), epsilon=0.05, axis_name="model")
+    """Both axes of a (data, model) grid are ported (their reduces across
+    ranks: tests/test_torch_tensor_parallel.py); on one process each is the
+    one-process Sinkhorn, and an axis that is neither raises."""
+    with pytest.raises(ValueError, match="'data' or 'model'"):
+        ts.distributed_sinkhorn(torch.zeros(3, 2), epsilon=0.05, axis_name="pipe")
     scores = torch.rand(6, 4, generator=torch.Generator().manual_seed(0))
-    assert torch.equal(ts.distributed_sinkhorn(scores, epsilon=0.05, axis_name="data"),
-                       ts.distributed_sinkhorn(scores, epsilon=0.05))
+    for axis in ("data", "model"):
+        assert torch.equal(ts.distributed_sinkhorn(scores, epsilon=0.05, axis_name=axis),
+                           ts.distributed_sinkhorn(scores, epsilon=0.05))
 
 
 # ---------------------------------------------------------- photometric
