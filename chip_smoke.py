@@ -240,6 +240,24 @@ Phases, each printing JSON lines on stdout:
             quantizer options (restart with dropout and the weighted sum
             on the preset, restart with dropout on ``vq_cocostuff27``'s
             EMA codebook) at b = 16 on the plain PQ route.
+26. crf_compare  ``parity/crf_compare.py::run_crf_compare`` at the
+            flagship's widths (the twin config with PQ 64 x 256, d = 16,
+            27 classes: ViT-S/8 in f32, exact PQ), 20 train steps at b = 8,
+            224^2, then 2 val batches: the metrics with no CRF, the exact
+            mean field on the card and the host lattice, the two refined
+            argmaxes' agreement (>= 0.9) and each refinement's ms per image
+            and probe; the valid forwards' PQ launches (the narrow exact
+            body, 1 a val batch);
+27. tools   each tool of ``equss_tpu_torch/tools`` once through its
+            ``main``: ``flops``, ``profile_forward`` (b = 128, 3 steps),
+            ``bench_train_step`` (the kernel route, 1 window of 5 steps),
+            ``bench_serving`` (b = 8), ``bench_pq_kernel`` (n = 100 352,
+            fast and exact), ``bench_pipeline`` (64 items, 1 epoch, each
+            decode path the card can run) and ``e2e_demo`` (1 epoch on 16
+            train and 8 val images): one line per tool with its result,
+            seconds and launches (the benchmarks' own bars held: launches
+            per step or request, the artifacts' graph ops and pixels, the
+            PQ index agreement).
 The configurations of 17-23 are ``preset(name)``: the preset with the
 changes of ``PRESET_CHANGES``, which the tests hold against ``configs/``.
 In the kernels line each PQ row counts the launches of its own body's
@@ -248,7 +266,8 @@ narrow exact row the preset's exact ones, the wide fast row the VQ
 baseline's and NewVQ's, the wide exact row the exact VQ sub-run's and
 UnSeg's.
 
-Then the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+Then the wall seconds of each phase and the total (``phase_seconds``), the
+``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``.  Any failed check exits non-zero without the ok line; without
 CUDA it exits non-zero before doing anything.
 """
@@ -270,11 +289,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-
-# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12        # CUDA cores, no tensor cores
-PEAK_BYTES = 3.35e12
+# the H100's peaks: the port's one set of figures, with their source
+from equss_tpu_torch.tools.flops import PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_F32_FLOPS
+# the port's one profiler
+from equss_tpu_torch.tools.profile_forward import device_profile, profile_serving, serving_config
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FAILURES: list = []
@@ -546,45 +564,6 @@ def expected(per_unit: dict, units: int) -> dict:
     from equss_tpu_torch import launch_counts
 
     return {k: per_unit.get(k, 0) * units for k in launch_counts()}
-
-
-def device_profile(fn, calls: int, pick=(), sequence: Optional[str] = None) -> dict:
-    """Device time by kernel and the device's busy share over ``calls``
-    calls of ``fn`` (after two unprofiled ones), torch.profiler; the top
-    kernels, and under ``picked`` every kernel whose name holds one of the
-    strings ``pick``; with ``sequence``, under ``sequence`` the (name, ms)
-    of every kernel whose name holds it, in the order they ran."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # the kernels themselves (device-side events), not the ops that
-    # launched them, which report the same time again
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    total = sum(e.self_device_time_total for e in events)
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:14]
-    row = lambda e: {"name": e.key[:80], "ms": e.self_device_time_total / 1e3,  # noqa: E731
-                     "calls": e.count, "ms_per_call": e.self_device_time_total / 1e3 / e.count}
-    out = {"calls": calls, "wall_ms": 1e3 * wall, "device_ms": total / 1e3,
-           "device_busy_share": total / 1e3 / (1e3 * wall),
-           "kernel_launches": sum(e.count for e in events),
-           "top": [row(e) for e in top],
-           "picked": [row(e) for e in events if any(s in e.key for s in pick)]}
-    if sequence is not None:
-        ran = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA and sequence in e.name),
-                     key=lambda e: e.time_range.start)
-        out["sequence"] = [(e.name[:80], e.time_range.elapsed_us() / 1e3) for e in ran]
-    return out
 
 
 # ---------------------------------------------------------------- phases
@@ -1037,14 +1016,8 @@ def phase_fused_attention(results: dict) -> None:
 
 def main_config(precision: str = "bf16"):
     """bench.py's preset: ViT-S/8 at 224^2 in bf16 with attn_bf16, hidden
-    1024, PQ 64 x 256 with l2 normalisation."""
-    from equss_tpu_torch import EQUSSConfig, PQConfig
-
-    return EQUSSConfig(
-        model_type="vit_small", patch_size=8, hidden_dim=1024,
-        backbone_dtype=torch.bfloat16, attn_bf16=True,
-        pq=PQConfig(num_pq=64, num_codebook=256, embed_dim=1024,
-                    vq_type="param", normalize="l2", assign_precision=precision))
+    1024, PQ 64 x 256 with l2 normalisation (``tools/profile_forward.py``)."""
+    return serving_config("vit_small", precision)
 
 
 def requests(batch: int, count: int, seed: int):
@@ -1187,13 +1160,11 @@ def phase_reference(model, cfg) -> None:
 
 def phase_profile(model) -> None:
     """Device time by kernel and the device's busy share over two
-    serving forwards at b = 1 and at b = 128."""
-    from equss_tpu_torch.data.transforms import normalize_images
-
+    serving forwards at b = 1 and at b = 128
+    (``tools/profile_forward.py``)."""
     for batch in (1, 128):
-        img = normalize_images(requests(batch, 1, seed=3)[0].to("cuda"))
         emit({"phase": "profile", "what": "serve", "batch": batch, "forwards": 2,
-              **device_profile(lambda: model(img), 2, pick=KERNEL_PICK)})
+              **profile_serving(model, batch, 2, pick=KERNEL_PICK)})
 
 
 def phase_serve_fused_ln(model, cfg, results: dict) -> None:
@@ -4931,6 +4902,127 @@ def phase_tensor_parallel(results: dict) -> None:
     emit({"phase": "tensor_parallel", "case": "seconds", "seconds": time.perf_counter() - t0})
 
 
+# ---------------------------------------------------------- crf_compare
+
+CRF_COMPARE = {"n_steps": 20, "batch_size": 8, "res": 224, "n_val": 2, "seed": 0}
+
+
+def phase_crf_compare(results: dict) -> None:
+    """``run_crf_compare`` on the card at the flagship's widths (the twin
+    config with PQ 64 x 256, d = 16, 27 classes): every metric finite, the
+    exact and lattice argmaxes >= 90% equal for both probes, 16 images; the
+    path's launches are the valid forwards' exact narrow PQ body, one a val
+    batch (the twin config's f32 backbone runs the plain attention, as the
+    JAX twin's does, and training takes the plain PQ route)."""
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+    from equss_tpu_torch.parity.crf_compare import run_crf_compare
+    from equss_tpu_torch.parity.twin import make_twin_config
+
+    cfg = make_twin_config(embed_dim=1024, num_pq=64, num_codebook=256, num_classes=27)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    r = run_crf_compare(**CRF_COMPARE, device="cuda", cfg=cfg)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    results["launches"]["crf_compare"] = counts
+    values = [v for row in r["metrics"].values() for v in row.values()]
+    check(all(np.isfinite(v) for v in values), f"crf_compare: non-finite metric {r['metrics']}")
+    check(min(r["agreement"].values()) >= 0.9, f"crf_compare: agreement {r['agreement']}")
+    check(r["n_imgs"] == 16 and r["res"] == 224, f"crf_compare: {r['n_imgs']} images")
+    check(counts == expected({"pq_assign": 1}, CRF_COMPARE["n_val"]),
+          f"crf_compare: launches {counts}")
+    emit({"phase": "crf_compare", **CRF_COMPARE, "model": "vit_small f32, PQ 64x256 exact",
+          **r, "launches": counts, "seconds": seconds, "card": nvidia_smi()})
+
+
+# ---------------------------------------------------------------- tools
+
+# (tool, argv, the path's launches per unit, units): the tools that drive
+# a main path count their launches under ``tools_<tool>``; flops launches
+# nothing, and bench_pq_kernel holds the kernel against a library call,
+# whose launches do not count
+TOOL_RUNS = (
+    ("flops", [], None, 0),
+    ("profile_forward", ["--batch", "128", "--steps", "3"], SERVE_KERNELS, 5),
+    ("bench_train_step", ["--windows", "1", "--iters", "5", "--route", "kernel"],
+     FUSED_LN_KERNELS, 8),
+    ("bench_serving", ["--batch", "8"], None, 0),
+    ("bench_pq_kernel", ["--n", "100352"], None, 0),
+    ("bench_pq_kernel", ["--n", "100352", "--exact"], None, 0),
+    ("bench_pipeline", ["--n", "64", "--epochs", "1"], None, 0),
+    ("e2e_demo", ["--epochs", "1", "--n-train", "16", "--n-val", "8"], None, 0),
+)
+
+
+def tool_checks(name: str, argv: list, out: dict, counts: dict) -> None:
+    """The bars of each tool's own result."""
+    if name == "flops":
+        check(round(out["gflop_per_img_224"]["vit_small"]["total"], 2) == 46.69,
+              f"tools flops: {out}")
+    elif name == "bench_serving":
+        for key in ("live", "symbolic_batch=auto", "symbolic_batch=off"):
+            row = out[key]
+            check(row["launches_per_request"] == expected(SERVE_KERNELS, 1),
+                  f"tools bench_serving {key}: launches {row['launches_per_request']}")
+            if key != "live":
+                check(row["graph_ops"] == {"attention_qkv": 12, "pq_assign": 1}
+                      and min(row["pixel_agreement_vs_live"].values()) >= 0.9999,
+                      f"tools bench_serving {key}: ops {row['graph_ops']}, pixels "
+                      f"{row['pixel_agreement_vs_live']}")
+        check(out["symbolic_batch=off"]["input_shape"] == "(8, 224, 224, 3)"
+              and out["symbolic_batch=auto"]["input_shape"] != "(8, 224, 224, 3)",
+              "tools bench_serving: input shapes")
+    elif name == "bench_pq_kernel":
+        # against cdist's f32 distances: exact mode picks the same first
+        # minimum but near ties, the fast mode's bf16 distances tie more
+        need = 0.999 if "--exact" in argv else 0.99
+        check(all(r["index_agreement"] >= need for r in out["rows"]),
+              f"tools bench_pq_kernel {argv}: index agreement {out['rows']}")
+    elif name == "bench_pipeline":
+        check(all(v > 0 for v in out["img_per_sec"].values()) and counts["attention_qkv"] > 0,
+              f"tools bench_pipeline: {out['img_per_sec']}, launches {counts}")
+    elif name == "e2e_demo":
+        check(out["e2e"] == "ok" and all(np.isfinite(v) for v in out["final"].values())
+              and "crf_Cluster_mIoU" in out["final"]
+              and counts["attention_qkv"] > 0 and counts["pq_assign"] > 0,
+              f"tools e2e_demo: {out['final']}, launches {counts}")
+
+
+def phase_tools(results: dict) -> None:
+    """Each tool of ``equss_tpu_torch/tools`` once through its ``main``
+    (``TOOL_RUNS``), its launches counted from 0, a line each with the
+    result; ``bench_pipeline`` runs the native decode path where the
+    library builds (it needs libjpeg's and libpng's headers)."""
+    import importlib
+    import traceback
+
+    from equss_tpu_torch import launch_counts, reset_launch_counts
+    from equss_tpu_torch.data import native_loader
+
+    paths = "pil,native,pack" if native_loader.available() else "pil,pack"
+    for name, argv, per_unit, units in TOOL_RUNS:
+        if name == "bench_pipeline":
+            argv = [*argv, "--paths", paths]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            out = importlib.import_module(f"equss_tpu_torch.tools.{name}").main(argv)
+        except Exception as e:  # noqa: BLE001 - a failing tool fails the run, and the next runs
+            traceback.print_exc()
+            check(False, f"tools {name} {argv}: {type(e).__name__}: {e}")
+            continue
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        if name not in ("flops", "bench_pq_kernel"):
+            results["launches"][f"tools_{name}"] = counts
+        if per_unit is not None:
+            check(counts == expected(per_unit, units), f"tools {name}: launches {counts}")
+        tool_checks(name, argv, out, counts)
+        emit({"phase": "tools", "tool": name, "argv": argv, "seconds": seconds,
+              "launches": counts, "result": out})
+
+
 KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
     "attention_qkv": ("equss_tpu_torch/csrc/attention_qkv.cu", "equss_tpu/ops/attention.py:198"),
     "attention": ("equss_tpu_torch/csrc/attention_qkv.cu", "equss_tpu/ops/attention.py:91"),
@@ -4960,15 +5052,16 @@ KERNEL_SOURCES = {  # name: (source, the TPU kernel it replaces)
 
 def pq_body_row(path: str) -> str:
     """The kernels line's PQ row whose body ``path``'s PQ launches run:
-    the narrow exact body on the preset's exact paths, the wide exact body
-    on the exact VQ sub-run's, UnSeg's, the VAE's and Contra's, the wide
-    fast body on the VQ baseline's and NewVQ's, the narrow fast body
+    the narrow exact body on the preset's exact paths and the CRF
+    comparison's, the wide exact body on the exact VQ sub-run's, UnSeg's,
+    the VAE's and Contra's, the wide fast body on the VQ baseline's and
+    NewVQ's, the narrow fast body
     (``pq_assign``) on every other path (the preset's bf16 ones and
     ``pqgocls``'s)."""
     path = path.removeprefix("dist_variants_")      # the variants across ranks
     if path.startswith("tp_"):
         return "pq_assign_shard"
-    if path.startswith(("pqgo_exact", "serve_exact")):
+    if path.startswith(("pqgo_exact", "serve_exact", "crf_compare")):
         return "pq_assign_exact"
     if path.startswith(("vq_exact", "unseg", "vae", "contra")):
         return "pq_assign_wide_exact"
@@ -4984,49 +5077,52 @@ def row_path(name: str, path: str) -> bool:
     return pq_body_row(path) == name if name.startswith("pq_assign") else True
 
 
+def timed(seconds: dict, fn, *args):
+    """``fn(*args)``, its wall seconds added to ``seconds[fn's phase name]``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        name = fn.__name__.removeprefix("phase_")
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+
+
 def main() -> int:
-    kind = phase_device()
-    phase_build()
+    t_start = time.perf_counter()
+    seconds: dict = {}
+    kind = timed(seconds, phase_device)
+    timed(seconds, phase_build)
     results: dict = {"launches": {}}
-    phase_attention(results)
-    phase_pq(results)
-    phase_pq_wide(results)
-    phase_layernorm(results)
-    phase_fused_attention(results)
-    model, cfg = phase_main(results)
-    phase_serve_fused_ln(model, cfg, results)
-    phase_profile(model)
+    for phase in (phase_attention, phase_pq, phase_pq_wide, phase_layernorm,
+                  phase_fused_attention):
+        timed(seconds, phase, results)
+    model, cfg = timed(seconds, phase_main, results)
+    timed(seconds, phase_serve_fused_ln, model, cfg, results)
+    timed(seconds, phase_profile, model)
     del model
     torch.cuda.empty_cache()
-    phase_train(results)
-    phase_train_reference()
-    phase_valid(results)
-    phase_valid_reference()
-    phase_pqgo_exact(results)
-    phase_fit(results)
-    phase_crf()
-    phase_cli(results)
-    phase_rest(results)
-    phase_custom_op_ab(results)
-    phase_own_data(results)
-    phase_vq(results)
-    phase_vq_reference()
-    phase_stego(results)
-    phase_baselines(results)
-    phase_cli_baselines(results)
-    phase_variants(results)
-    phase_new_vq_stage1(results)
-    phase_variants_reference()
-    phase_distributed(results)
-    phase_tensor_parallel(results)
+    for phase, args in ((phase_train, (results,)), (phase_train_reference, ()),
+                        (phase_valid, (results,)), (phase_valid_reference, ()),
+                        (phase_pqgo_exact, (results,)), (phase_fit, (results,)),
+                        (phase_crf, ()), (phase_cli, (results,)), (phase_rest, (results,)),
+                        (phase_custom_op_ab, (results,)), (phase_own_data, (results,)),
+                        (phase_vq, (results,)), (phase_vq_reference, ()),
+                        (phase_stego, (results,)), (phase_baselines, (results,)),
+                        (phase_cli_baselines, (results,)), (phase_variants, (results,)),
+                        (phase_new_vq_stage1, (results,)), (phase_variants_reference, ()),
+                        (phase_distributed, (results,)), (phase_tensor_parallel, (results,)),
+                        (phase_crf_compare, (results,)), (phase_tools, (results,))):
+        timed(seconds, phase, *args)
+    emit({"phase_seconds": seconds, "total_seconds": time.perf_counter() - t_start})
 
     # launches: every main-path run (serving, serving with fused_ln, both
     # train configurations, both valid configurations, the exact sub-run's
     # train and valid steps, fit, the three CLI runs, the variants' train
     # and valid steps, NewVQ's stage 1, the kNN job, the train job on
     # files, the exported artifact's requests, the custom-op side of the
-    # A/B and the rest phase's paths), each counted from 0, each PQ launch
-    # under its body's row;
+    # A/B, the rest phase's paths, the CRF comparison's valid forwards and
+    # the tools' paths), each counted from 0, each PQ launch under its
+    # body's row;
     # ``attention`` has no caller on any path and is launched by its
     # kernel phase only
     by_path = results["launches"]

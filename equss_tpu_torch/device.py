@@ -22,6 +22,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def on_device(t: torch.Tensor) -> torch.cuda.device:
     """A context that makes ``t``'s CUDA device the current one.  Every
     kernel launch runs inside it: the libraries do their per-device setup

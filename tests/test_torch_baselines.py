@@ -420,8 +420,11 @@ _PQ_ROW_PATHS = {
                   # the option steps (the plain route)
                   "rest_visualize", "rest_cli_profile", "rest_cache", "rest_backbone",
                   "rest_pqgo_restart_dropout", "rest_pqgo_weighted_sum",
-                  "rest_ema_restart_dropout"],
-    "pq_assign_exact": ["serve_exact", "pqgo_exact_train", "pqgo_exact_valid"],
+                  "rest_ema_restart_dropout",
+                  # the tools that drive a main path
+                  "tools_profile_forward", "tools_bench_train_step", "tools_bench_serving",
+                  "tools_bench_pipeline", "tools_e2e_demo"],
+    "pq_assign_exact": ["serve_exact", "pqgo_exact_train", "pqgo_exact_valid", "crf_compare"],
     "pq_assign_wide": ["vq_train", "vq_valid", "vq_serve", "cli_vq",
                        "new_vq_cocostuff27_train", "new_vq_cocostuff27_valid",
                        "new_vq_stage1_train"],
