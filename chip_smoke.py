@@ -3122,13 +3122,14 @@ def phase_custom_op_ab(results: dict) -> None:
     import statistics
 
     from equss_tpu_torch import EQUSS, launch_counts, reset_launch_counts
+    from equss_tpu_torch.core import trace
     from equss_tpu_torch.data.transforms import normalize_images
     from equss_tpu_torch.ops.attention import attention_qkv
     from equss_tpu_torch.ops.pq_assign import normalize_vectors, pq_assign
     from equss_tpu_torch.tools import ctypes_ab
 
     model = EQUSS(main_config("bf16"), device="cuda", seed=0)
-    ctypes_fns = (ctypes_ab.attention_qkv_ctypes, ctypes_ab.pq_assign_ctypes)
+    ctypes_names = ("launch.attention_qkv_ctypes", "launch.pq_assign_ctypes")
     reset_launch_counts()
     row = {"phase": "custom_op_ab", "res": 224, "requests_per_turn": 20, "rounds": 3}
     for batch in (1, 8):
@@ -3147,7 +3148,7 @@ def phase_custom_op_ab(results: dict) -> None:
         for _ in range(3):
             for name in ("custom_op", "ctypes", "ctypes", "custom_op"):
                 before_c = launch_counts()
-                before_t = [f.launches for f in ctypes_fns]
+                before_t = [trace.counts().get(k, 0) for k in ctypes_names]
                 if name == "ctypes":
                     with ctypes_ab.ctypes_wrappers():
                         timed(3)
@@ -3157,7 +3158,7 @@ def phase_custom_op_ab(results: dict) -> None:
                     t, outs[name] = timed(20)
                 times[name] += t
                 made_c = {k: v - before_c[k] for k, v in launch_counts().items()}
-                made_t = [f.launches - b for f, b in zip(ctypes_fns, before_t)]
+                made_t = [trace.counts().get(k, 0) - b for k, b in zip(ctypes_names, before_t)]
                 want = [12 * 23, 23] if name == "ctypes" else [0, 0]
                 check(made_t == want and made_c == expected(
                           SERVE_KERNELS, 0 if name == "ctypes" else 23),

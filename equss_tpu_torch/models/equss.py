@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from equss_tpu_torch.core import trace
 from equss_tpu_torch.device import DeviceLike, resolve_device
 from equss_tpu_torch.losses.stego import StegoLossConfig, stego_loss
 from equss_tpu_torch.models.heads import ExpansionHead, dropout2d
@@ -219,10 +220,13 @@ class EQUSS(nn.Module):
                 if feat is None:
                     if img is None:
                         raise ValueError("forward needs img or feat")
-                    feat = self.features(img)
-                code = self.encode(feat)
-                z_q, indices, aux, _ = pq_forward(
-                    code, dict(self.pq), self.pq_state.as_dict(), self.cfg.pq)
+                    with trace.span("equss.backbone"):
+                        feat = self.features(img)
+                with trace.span("equss.head"):
+                    code = self.encode(feat)
+                with trace.span("equss.quantizer"):
+                    z_q, indices, aux, _ = pq_forward(
+                        code, dict(self.pq), self.pq_state.as_dict(), self.cfg.pq)
             return {"feat": feat, "code": code, "z_q": z_q, "indices": indices,
                     "aux": aux}
 
@@ -236,19 +240,23 @@ class EQUSS(nn.Module):
             if img is None or img_pos is None:
                 raise ValueError("training forward requires img and img_pos (kNN positive)")
             b = img.shape[0]
-            both = self.features(torch.cat([img, img_pos], 0))
+            with trace.span("equss.backbone"):
+                both = self.features(torch.cat([img, img_pos], 0))
         if cfg.dropout:
             if generator is None:
                 raise ValueError("training with dropout requires a generator")
             both = dropout2d(generator, both, cfg.drop_prob, parts=2)
-        code_both = self.encode(both)
+        with trace.span("equss.head"):
+            code_both = self.encode(both)
         feat, feat_pos = both[:b], both[b:]
         code, code_pos = code_both[:b], code_both[b:]
-        z_q, indices, aux, pq_state = pq_forward(
-            code, dict(self.pq), self.pq_state.as_dict(), cfg.pq, training=True,
-            generator=generator)
-        aux["stego-loss"] = stego_loss(generator, feat, feat_pos, code, code_pos,
-                                       cfg.stego, sample_override=stego_override)
+        with trace.span("equss.quantizer"):
+            z_q, indices, aux, pq_state = pq_forward(
+                code, dict(self.pq), self.pq_state.as_dict(), cfg.pq, training=True,
+                generator=generator)
+        with trace.span("equss.stego"):
+            aux["stego-loss"] = stego_loss(generator, feat, feat_pos, code, code_pos,
+                                           cfg.stego, sample_override=stego_override)
         if cfg.pq.vq_type == "ema" and "distance_prob" in aux:
             # between the two halves of the global batch's pixels, which in
             # a global program may lie on other ranks: every rank computes

@@ -1,7 +1,9 @@
-"""Ops of the port.  Each kernel wrapper counts its own launches in an
-integer attribute ``launches``; these helpers read and reset them all."""
+"""Ops of the port.  Each kernel wrapper counts its launches in the
+counter ``launch.<name>`` of ``core.trace``; these helpers read and reset
+them all."""
 from typing import Dict
 
+from equss_tpu_torch.core import trace
 from equss_tpu_torch.ops.attention import attention_qkv, fused_attention
 from equss_tpu_torch.ops.layernorm import fused_add_layernorm, fused_layernorm
 from equss_tpu_torch.ops.pq_assign import pq_assign, pq_assign_shard
@@ -17,9 +19,9 @@ KERNEL_WRAPPERS = {
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    counts = trace.counts()
+    return {name: counts.get(f"launch.{name}", 0) for name in KERNEL_WRAPPERS}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS.values():
-        fn.launches = 0
+    trace.reset_counts("launch.")

@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from equss_tpu_torch.core import trace
 from equss_tpu_torch.device import check_cuda_tensor, launch_stream, on_device
 from equss_tpu_torch.ops import _build
 
@@ -118,7 +119,7 @@ def _attention_qkv_cuda(qkv: torch.Tensor, num_heads: int, scale: float,
             qkv.data_ptr(), out.data_ptr(), B, N, num_heads, n_real, scale,
             launch_stream(qkv))
     _check_launch("attention_qkv", err)
-    attention_qkv.launches += 1
+    trace.count("launch.attention_qkv")
     return out
 
 
@@ -142,9 +143,6 @@ def attention_qkv(qkv: torch.Tensor, num_heads: int, scale: float,
     64 they are multiples of 16 bytes."""
     n_real = _split_heads(qkv, num_heads, n_real)[-1]
     return _attention_qkv_op(qkv, num_heads, scale, n_real)
-
-
-attention_qkv.launches = 0
 
 
 def fused_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -182,7 +180,7 @@ def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, N, H, hd, N, scale, launch_stream(q))
     _check_launch("fused_attention", err)
-    fused_attention.launches += 1
+    trace.count("launch.attention")
     return out
 
 
@@ -205,9 +203,6 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q, k and v must share one (B, N, H, hd) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     return _attention_op(q, k, v, scale)
-
-
-fused_attention.launches = 0
 
 
 ATTENTION_INPUTS = ("randn", "late_max", "late_max_near", "nan_neighbour")

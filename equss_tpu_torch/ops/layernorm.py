@@ -26,6 +26,7 @@ from typing import Tuple
 
 import torch
 
+from equss_tpu_torch.core import trace
 from equss_tpu_torch.device import check_cuda_tensor, launch_stream, on_device
 from equss_tpu_torch.ops import _build
 
@@ -101,7 +102,7 @@ def _layernorm_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             x.numel() // C, C, eps, launch_stream(x))
     if err:
         raise RuntimeError(f"layernorm launch failed: CUDA error {err}")
-    fused_layernorm.launches += 1
+    trace.count("launch.layernorm")
     return out
 
 
@@ -128,7 +129,7 @@ def _add_layernorm_cuda(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
             s.data_ptr(), out.data_ptr(), x.numel() // C, C, eps, launch_stream(x))
     if err:
         raise RuntimeError(f"add_layernorm launch failed: CUDA error {err}")
-    fused_add_layernorm.launches += 1
+    trace.count("launch.add_layernorm")
     return s, out
 
 
@@ -191,7 +192,3 @@ def fused_add_layernorm(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
     CPU tensors: the plain version.  CUDA tensors: the kernel, on the
     operands ``fused_layernorm``'s kernel takes."""
     return _add_layernorm_op(x, y, scale, bias, eps)
-
-
-fused_layernorm.launches = 0
-fused_add_layernorm.launches = 0

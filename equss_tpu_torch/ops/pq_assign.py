@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from equss_tpu_torch.core import trace
 from equss_tpu_torch.device import check_cuda_tensor, launch_stream, on_device
 from equss_tpu_torch.ops import _build
 
@@ -247,7 +248,7 @@ def _pq_assign_cuda(z: torch.Tensor, c_norm: torch.Tensor, c_raw: torch.Tensor,
             None if ws is None else ws.data_ptr())
     if err:
         raise RuntimeError(f"pq_assign launch failed: CUDA error {err}")
-    pq_assign.launches += 1
+    trace.count("launch.pq_assign")
     return idx, zn, zq
 
 
@@ -285,9 +286,6 @@ def pq_assign(
     if normalize != "z_trainable":
         z_mean = z_std = None
     return _pq_assign_op(z, c_norm, c_raw, z_mean, z_std, normalize, exact)
-
-
-pq_assign.launches = 0
 
 
 # ------------------------------------------------------- a codebook shard
@@ -399,7 +397,7 @@ def _pq_assign_shard_cuda(z: torch.Tensor, c_norm: torch.Tensor, c_raw: torch.Te
             None if ws is None else ws.data_ptr())
     if err:
         raise RuntimeError(f"pq_assign_shard launch failed: CUDA error {err}")
-    pq_assign_shard.launches += 1
+    trace.count("launch.pq_assign_shard")
     return idx, zn, zq, key
 
 
@@ -439,6 +437,3 @@ def pq_assign_shard(
         z_mean = z_std = None
     return _pq_assign_shard_op(z, c_norm, c_raw, z_mean, z_std, normalize, exact,
                                int(k_offset), int(K_total))
-
-
-pq_assign_shard.launches = 0

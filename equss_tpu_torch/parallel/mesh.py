@@ -93,6 +93,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from equss_tpu_torch.core import trace
 from equss_tpu_torch.device import DeviceLike, resolve_device
 
 
@@ -227,13 +228,20 @@ def shard_batch(batch: Dict[str, Any], device: DeviceLike) -> Dict[str, torch.Te
     """A host batch's numeric arrays on ``device``.  Each rank passes its
     own rows of the global batch, as the data pipeline yields them.
     Entries that are not numeric arrays (the image paths a corpus
-    carries) stay host-side: they are left out, as in the JAX package."""
+    carries) stay host-side: they are left out, as in the JAX package.
+    The bytes of each host array moved to another device are added to the
+    counter ``h2d_bytes`` (``core.trace``)."""
     out = {}
     for k, v in batch.items():
         if torch.is_tensor(v):
-            out[k] = v.to(device, non_blocking=True)
+            t = v
         elif hasattr(v, "dtype") and np.dtype(v.dtype).kind not in ("U", "S", "O"):
-            out[k] = torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
+            t = torch.from_numpy(np.asarray(v))
+        else:
+            continue
+        out[k] = t.to(device, non_blocking=True)
+        if t.device.type == "cpu" and out[k].device.type != "cpu":
+            trace.count("h2d_bytes", t.nbytes)
     return out
 
 

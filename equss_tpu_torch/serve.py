@@ -56,6 +56,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
+from equss_tpu_torch.core import trace
 from equss_tpu_torch.data.transforms import normalize_images
 
 DEFAULT_PATH = "model.pt2"
@@ -84,7 +85,8 @@ class Predictor(nn.Module):
         with torch.no_grad():
             out = self.model(img, training=False)
             label = torch.full(img.shape[:3], -1, dtype=torch.int64, device=img.device)
-            ev = self.evaluator(self.select_out(out), label)
+            with trace.span("equss.probes"):
+                ev = self.evaluator(self.select_out(out), label)
         res = {"linear_preds": ev["linear_preds"]}
         if "cluster_preds" in ev:
             res["cluster_preds"] = ev["cluster_preds"]

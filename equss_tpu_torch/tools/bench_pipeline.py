@@ -23,7 +23,9 @@ temporary directory removed at the end.  Real photos decode about twice
 as slowly: compare the paths' ratios, not their absolute rates.  Each
 epoch ends in ``torch.cuda.synchronize()``; with more than one epoch the
 first (warm-up) is not counted.  Prints one line per epoch and one JSON
-line with the best rate of each path.
+line with the best rate of each path and the megabytes a step that the
+transfer thread copied to the device (``h2d_bytes``, ``core/trace.py``;
+0 with ``--device cpu``, where the batches stay on the host).
 """
 from __future__ import annotations
 
@@ -98,6 +100,7 @@ def main(argv=None) -> dict:
                          f"yield no (drop_last) batch")
 
     from equss_tpu_torch import resolve_device
+    from equss_tpu_torch.core import trace
     from equss_tpu_torch.data.cache import default_pack_base, pack_dataset
     from equss_tpu_torch.data.pipeline import UnSegData
     from equss_tpu_torch.parallel.mesh import device_prefetch
@@ -118,21 +121,23 @@ def main(argv=None) -> dict:
                              pos_images=True, num_neighbors=7, num_workers=0, **kw)
 
         def run_epochs(data, tag):
-            rates = []
+            rates, steps, h2d = [], 0, trace.counts().get("h2d_bytes", 0)
             for epoch in range(args.epochs):
                 t0 = time.perf_counter()
                 count = 0
                 for batch in device_prefetch(data.batches(args.batch, seed=epoch), dev):
                     trainer.train_step(batch)
                     count += args.batch
+                    steps += 1
                 synchronize(dev)
                 dt = time.perf_counter() - t0
                 rates.append(count / dt)
                 print(f"  {tag} epoch {epoch}: {count / dt:.1f} img/s ({count} imgs, "
                       f"{dt:.1f}s)", flush=True)
+            h2d_mb[tag] = (trace.counts().get("h2d_bytes", 0) - h2d) / 1e6 / steps
             return max(rates[1:]) if len(rates) > 1 else rates[0]
 
-        results, pack_build_s = {}, None
+        results, h2d_mb, pack_build_s = {}, {}, None
         for tag in args.paths.split(","):
             if tag == "pil":
                 data = pipe(native="off", pack="off")
@@ -156,7 +161,8 @@ def main(argv=None) -> dict:
             shutil.rmtree(corpus, ignore_errors=True)
     out = {"tool": "bench_pipeline", "device": device_name(dev), "n": args.n,
            "epochs": args.epochs, "batch": args.batch, "res": args.res,
-           "img_per_sec": results, "pack_build_seconds": pack_build_s}
+           "img_per_sec": results, "h2d_mb_per_step": h2d_mb,
+           "pack_build_seconds": pack_build_s}
     print(json.dumps(out), flush=True)
     return out
 

@@ -8,8 +8,9 @@ launch through ctypes, called straight from Python.  ``ctypes_wrappers()``
 puts them in the places the model calls (``models/vit.py`` and
 ``ops/quantizer.py``) for the duration of a ``with`` block, so one
 process can serve the same model both ways in turns (``chip_smoke.py``'s
-``custom_op_ab`` phase).  Each counts its launches in ``.launches``, as
-the custom ops do.  Not used by the package itself.
+``custom_op_ab`` phase).  Each counts its launches in ``core.trace``'s
+counter ``launch.<name>_ctypes``, beside the custom ops' ``launch.<name>``.
+Not used by the package itself.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from equss_tpu_torch.core import trace
 from equss_tpu_torch.device import check_cuda_tensor, launch_stream, on_device
 from equss_tpu_torch.ops import attention
 # the package's name ``pq_assign`` is the wrapper function, not the module
@@ -40,11 +42,8 @@ def attention_qkv_ctypes(qkv: torch.Tensor, num_heads: int, scale: float,
             qkv.data_ptr(), out.data_ptr(), B, N, num_heads, n_real, scale,
             launch_stream(qkv))
     attention._check_launch("attention_qkv", err)
-    attention_qkv_ctypes.launches += 1
+    trace.count("launch.attention_qkv_ctypes")
     return out
-
-
-attention_qkv_ctypes.launches = 0
 
 
 def pq_assign_ctypes(z: torch.Tensor, c_norm: torch.Tensor, c_raw: torch.Tensor, *,
@@ -80,11 +79,8 @@ def pq_assign_ctypes(z: torch.Tensor, c_norm: torch.Tensor, c_raw: torch.Tensor,
             None if ws is None else ws.data_ptr())
     if err:
         raise RuntimeError(f"pq_assign launch failed: CUDA error {err}")
-    pq_assign_ctypes.launches += 1
+    trace.count("launch.pq_assign_ctypes")
     return idx, zn, zq
-
-
-pq_assign_ctypes.launches = 0
 
 
 @contextlib.contextmanager

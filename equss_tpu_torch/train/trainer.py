@@ -49,6 +49,10 @@ of an epoch.  A model whose state is initialised from data
 (``needs_data_init``: a ``kmeans`` or ``rand`` codebook, EMAModel's memory
 bank) gets its ``data_init`` on the first batch of a fresh ``fit``, before
 the first step; a resumed run and ``train_step`` alone do not call it.
+Under ``torch.profiler`` a step's layers are spans (``core/trace.py``):
+``equss.batch`` (the copy in), the model's own, ``equss.probes``,
+``equss.backward``, ``equss.read`` (the metrics' host read, which is the
+non-finite check's sync) and ``equss.optimizer``.
 
 With ``train.num_accum`` k > 1 each step is a micro-step of optax's
 ``MultiSteps``: the three optimizers average k micro-steps' gradients and
@@ -104,6 +108,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from equss_tpu_torch.core import trace
 from equss_tpu_torch.core.logging import MetricsLogger, count_params
 from equss_tpu_torch.data.transforms import (normalize_images, photometric_apply,
                                              photometric_draws)
@@ -430,7 +435,8 @@ class Trainer:
         draws = tuple(getattr(self.model, "draw_keys", ()))
         keys = (self._TRAIN_KEYS if consumes else tuple(
             k for k in self._TRAIN_KEYS if k not in self._VIEW_KEYS)) + draws
-        b = self._batch(batch, keys, aug=self.apply_aug)
+        with trace.span("equss.batch"):
+            b = self._batch(batch, keys, aug=self.apply_aug)
         for tx in (self.tx_model, self.tx_cluster, self.tx_linear):
             tx.zero_grad()
         override = None
@@ -443,11 +449,13 @@ class Trainer:
                          generator=self.generator, stego_override=override, **view)
         aux = out["aux"]
         model_loss = self._model_loss(aux)
-        ev = self.evaluator(self._select_out(out), b["label"])
+        with trace.span("equss.probes"):
+            ev = self.evaluator(self._select_out(out), b["label"])
         total = model_loss + ev["linear_loss"] + ev.get("cluster_loss", 0.0)
-        # each rank's share of the global mean; the ranks' gradients sum
-        (total / self.world if self.distributed else total).backward()
-        self._sum_gradients()
+        with trace.span("equss.backward"):
+            # each rank's share of the global mean; the ranks' gradients sum
+            (total / self.world if self.distributed else total).backward()
+            self._sum_gradients()
         metrics = {"loss": total, "model-loss": model_loss,
                    "linear-loss": ev["linear_loss"]}
         if "cluster_loss" in ev:
@@ -484,20 +492,22 @@ class Trainer:
         was)."""
         metrics, out = self.forward_backward(batch)
         names = list(metrics)
-        values = torch.stack([metrics[k].detach().float().reshape(())
-                              for k in names]).tolist()
+        with trace.span("equss.read"):
+            values = torch.stack([metrics[k].detach().float().reshape(())
+                                  for k in names]).tolist()
         result = dict(zip(names, values))
         ok = all(np.isfinite(result[k]) for k in ("loss", "grad-norm", "probe-grad-norm"))
         result["skipped"] = 0.0 if ok or not self.tc.skip_nonfinite else 1.0
         self.step += 1
         if result["skipped"] == 0.0:
-            self.tx_model.step(metrics["grad-norm"])
-            self.tx_cluster.step()
-            self.tx_linear.step()
-            buffers = dict(self.model.named_buffers())
-            with torch.no_grad():
-                for name, t in out.get("state", {}).items():
-                    buffers[name].copy_(t)
+            with trace.span("equss.optimizer"):
+                self.tx_model.step(metrics["grad-norm"])
+                self.tx_cluster.step()
+                self.tx_linear.step()
+                buffers = dict(self.model.named_buffers())
+                with torch.no_grad():
+                    for name, t in out.get("state", {}).items():
+                        buffers[name].copy_(t)
         return result
 
     def data_init(self, batch: Mapping[str, Any]) -> None:

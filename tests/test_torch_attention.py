@@ -19,6 +19,7 @@ import torch
 import jax.numpy as jnp
 
 from equss_tpu.ops.attention import fused_attention_qkv
+from equss_tpu_torch.ops import launch_counts
 from equss_tpu_torch.ops.attention import (
     attention_qkv,
     attention_qkv_reference,
@@ -64,9 +65,9 @@ def test_attention_qkv_reference_matches_jax_kernel(shape, n_real, kind):
 
 def test_attention_qkv_wrapper_takes_plain_version_on_cpu():
     qkv_j, qkv_t = _inputs(1, 40, 2, 64, seed=3)
-    before = attention_qkv.launches
+    before = launch_counts()["attention_qkv"]
     out = attention_qkv(qkv_t, 2, 0.125, n_real=33)
-    assert attention_qkv.launches == before          # no kernel launch
+    assert launch_counts()["attention_qkv"] == before          # no kernel launch
     torch.testing.assert_close(out, attention_qkv_reference(qkv_t, 2, 0.125, 33),
                                rtol=0, atol=0)
     with pytest.raises(ValueError):

@@ -8,6 +8,7 @@ imports no JAX, so it also runs on a machine that has only PyTorch:
 import pytest
 import torch
 
+from equss_tpu_torch.ops import launch_counts
 from equss_tpu_torch.ops import quantizer as tq
 from equss_tpu_torch.ops.attention import (
     attention_qkv,
@@ -61,9 +62,9 @@ def _check_1ulp(out, ref, items):
 def test_attention_kernel_matches_plain(cuda, B, N, H, n_real, kind):
     g = torch.Generator(device=cuda).manual_seed(B * N)
     qkv = _attention_input(B, N, H, 64, g, kind, n_real).reshape(B, N, 3 * 64 * H)
-    before = attention_qkv.launches
+    before = launch_counts()["attention_qkv"]
     out = attention_qkv(qkv, H, 0.125, n_real)
-    assert attention_qkv.launches == before + 1
+    assert launch_counts()["attention_qkv"] == before + 1
     ref = attention_qkv_reference(qkv, H, 0.125, n_real)
     _check_1ulp(out, ref, 1 if kind == "nan_neighbour" else B)
 
@@ -81,9 +82,9 @@ def test_pq_kernel_matches_plain(cuda, mode, exact, d, K):
     z = 3.0 * torch.randn((1000, M, d), generator=g, device=cuda)
     cb = torch.randn((M, K, d), generator=g, device=cuda)
     cn = normalize_vectors(cb, mode).contiguous()
-    before = pq_assign.launches
+    before = launch_counts()["pq_assign"]
     idx, zn, zq = pq_assign(z, cn, cb, normalize=mode, exact=exact)
-    assert pq_assign.launches == before + 1
+    assert launch_counts()["pq_assign"] == before + 1
     idx_r, zn_r, zq_r = pq_assign_reference(z, cn, cb, normalize=mode, exact=exact)
     agree = (idx == idx_r).float().mean().item()
     assert agree >= (0.9999 if exact else 0.995)
@@ -148,9 +149,9 @@ def test_pq_wide_body_matches_plain(cuda, mode, exact, M, K, d, n, dup):
         zm = 0.1 * torch.randn((M, d), generator=g, device=cuda)
         zs = torch.exp(0.1 * torch.randn((M, d), generator=g, device=cuda))
     kw = dict(normalize=mode, z_mean=zm, z_std=zs, exact=exact)
-    before = pq_assign.launches
+    before = launch_counts()["pq_assign"]
     idx, zn, zq = pq_assign(z, cn, cb, **kw)
-    assert pq_assign.launches == before + 1
+    assert launch_counts()["pq_assign"] == before + 1
     idx_r, zn_r, zq_r = pq_assign_reference(z, cn, cb, **kw)
     agree = (idx == idx_r).float().mean().item()
     assert agree >= (0.9999 if exact else 0.995)
@@ -258,9 +259,9 @@ def test_pq_narrow_exact_tiling_edges(cuda, d, K, M, n, case):
         z[r == 5] = float("nan")
     mode = "none" if case == "zeros_nan" else "l2"
     cn = normalize_vectors(cb, mode).contiguous()
-    before = pq_assign.launches
+    before = launch_counts()["pq_assign"]
     idx, zn, zq = pq_assign(z, cn, cb, normalize=mode, exact=True)
-    assert pq_assign.launches == before + 1
+    assert launch_counts()["pq_assign"] == before + 1
     idx_r, zn_r, _ = pq_assign_reference(z, cn, cb, normalize=mode, exact=True)
     assert (idx == idx_r).float().mean().item() >= 0.9999
     assert bool(((idx >= 0) & (idx < base)).all())
@@ -284,9 +285,9 @@ def test_pq_forward_on_cuda_never_takes_the_plain_route(cuda):
             params, state = tq.pq_init(torch.Generator().manual_seed(0), cfg)
             params = {k: v.to(cuda) for k, v in params.items()}
             state = {k: v.to(cuda) for k, v in state.items()}
-            before = pq_assign.launches
+            before = launch_counts()["pq_assign"]
             tq.pq_forward(torch.randn((2, 5, 5, M * d), device=cuda), params, state, cfg)
-            assert pq_assign.launches == before + 1, (M, K, d, precision)
+            assert launch_counts()["pq_assign"] == before + 1, (M, K, d, precision)
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
@@ -314,10 +315,10 @@ def test_layernorm_kernels_match_plain(cuda, rows, C):
     y = torch.randn((rows, C), generator=g, device=cuda).to(torch.bfloat16)
     scale = 1 + 0.1 * torch.randn(C, generator=g, device=cuda)
     bias = 0.1 * torch.randn(C, generator=g, device=cuda)
-    before = fused_layernorm.launches, fused_add_layernorm.launches
+    before = launch_counts()["layernorm"], launch_counts()["add_layernorm"]
     out = fused_layernorm(x, scale, bias)
     s, out2 = fused_add_layernorm(x, y, scale, bias)
-    assert (fused_layernorm.launches, fused_add_layernorm.launches) == \
+    assert (launch_counts()["layernorm"], launch_counts()["add_layernorm"]) == \
         (before[0] + 1, before[1] + 1)
     s_ref, ref2 = add_layernorm_reference(x, y, scale, bias)
     assert torch.equal(s, s_ref)
@@ -338,9 +339,9 @@ def test_layernorm_kernels_match_plain(cuda, rows, C):
 def test_fused_attention_kernel_matches_plain(cuda, B, N, H, hd, kind):
     g = torch.Generator(device=cuda).manual_seed(N)
     q, k, v = (t.contiguous() for t in _attention_input(B, N, H, hd, g, kind, N).unbind(2))
-    before = fused_attention.launches
+    before = launch_counts()["attention"]
     out = fused_attention(q, k, v, scale=hd ** -0.5)
-    assert fused_attention.launches == before + 1
+    assert launch_counts()["attention"] == before + 1
     ref = fused_attention_reference(q, k, v, scale=hd ** -0.5)
     _check_1ulp(out, ref, 1 if kind == "nan_neighbour" else B)
 
@@ -379,10 +380,10 @@ def test_ste_route_backward_matches_cpu(cuda):
         z = z0.to(dev).detach().requires_grad_()            # a leaf on each side
         params = {"codebook": cb0.to(dev).detach().requires_grad_()}
         state = {"vq_count": torch.zeros((8, 256), device=dev)}
-        before = pq_assign.launches
+        before = launch_counts()["pq_assign"]
         zq, idx, aux, _ = tq.pq_forward(z, params, state, cfg, training=True)
         (aux["vq-loss"] + (zq * w.to(dev)).sum()).backward()
-        assert pq_assign.launches == before + (0 if dev == "cpu" else 1)
+        assert launch_counts()["pq_assign"] == before + (0 if dev == "cpu" else 1)
         runs[str(dev)] = (idx.cpu(), z.grad.cpu(), params["codebook"].grad.cpu())
     (idx_c, gz_c, gc_c), (idx_g, gz_g, gc_g) = runs["cpu"], runs[str(cuda)]
     same = idx_c == idx_g
@@ -499,12 +500,10 @@ def test_custom_ops_on_cuda_launch_the_kernels(cuda):
     counted per call), agrees with its plain version at the kernel phases'
     bars, and passes ``torch.library.opcheck`` (its fake implementation
     against the kernel's outputs)."""
-    from equss_tpu_torch.ops import KERNEL_WRAPPERS
-
     for name, op, args, plain in _op_cases(cuda):
-        before = KERNEL_WRAPPERS[name].launches
+        before = launch_counts()[name]
         out, ref = op(*args), plain()
-        assert KERNEL_WRAPPERS[name].launches == before + 1, name
+        assert launch_counts()[name] == before + 1, name
         if name in ("attention_qkv", "attention"):
             _check_1ulp(out, ref, 2)
         elif name in ("pq_assign", "pq_assign_shard"):

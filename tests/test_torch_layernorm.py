@@ -40,6 +40,7 @@ from equss_tpu.ops.layernorm import fused_add_layernorm as j_add_ln
 from equss_tpu.ops.layernorm import fused_layernorm as j_ln
 from equss_tpu_torch.convert import backbone_from_flax
 from equss_tpu_torch.models import vit as tvit
+from equss_tpu_torch.ops import launch_counts
 from equss_tpu_torch.ops.attention import fused_attention, fused_attention_reference
 from equss_tpu_torch.ops.layernorm import (
     add_layernorm_reference,
@@ -75,7 +76,7 @@ def test_layernorm_plain_matches_jax_kernel(rows, C):
     xj, yj = jnp.asarray(x, jnp.bfloat16), jnp.asarray(y, jnp.bfloat16)
     xt, yt = torch.from_numpy(x).bfloat16(), torch.from_numpy(y).bfloat16()
     st, bt = torch.from_numpy(scale), torch.from_numpy(bias)
-    before = fused_layernorm.launches, fused_add_layernorm.launches
+    before = launch_counts()["layernorm"], launch_counts()["add_layernorm"]
 
     ref = np.asarray(j_ln(xj, jnp.asarray(scale), jnp.asarray(bias)), np.float32)
     out = fused_layernorm(xt, st, bt)
@@ -88,7 +89,7 @@ def test_layernorm_plain_matches_jax_kernel(rows, C):
     np.testing.assert_array_equal(s_t.float().numpy(), np.asarray(s_j, np.float32))
     _assert_ln_close(out2.float().numpy(), ref2, bias)
     # the wrappers took their plain versions: no kernel launched
-    assert (fused_layernorm.launches, fused_add_layernorm.launches) == before
+    assert (launch_counts()["layernorm"], launch_counts()["add_layernorm"]) == before
     torch.testing.assert_close(out, layernorm_reference(xt, st, bt), rtol=0, atol=0)
     torch.testing.assert_close(out2, add_layernorm_reference(xt, yt, st, bt)[1],
                                rtol=0, atol=0)
@@ -142,10 +143,10 @@ def test_fused_attention_plain_matches_jax_kernel(shape):
     scale = hd ** -0.5
     ref = np.asarray(j_fused_attention(*(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)),
                                        scale=scale), np.float32)
-    before = fused_attention.launches
+    before = launch_counts()["attention"]
     qt, kt, vt = (torch.from_numpy(t).bfloat16() for t in (q, k, v))
     out = fused_attention(qt, kt, vt, scale=scale)
-    assert fused_attention.launches == before
+    assert launch_counts()["attention"] == before
     assert out.shape == (B, N, H, hd) and out.dtype == torch.bfloat16
     torch.testing.assert_close(out, fused_attention_reference(qt, kt, vt, scale=scale),
                                rtol=0, atol=0)

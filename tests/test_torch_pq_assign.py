@@ -21,6 +21,7 @@ import torch
 import jax.numpy as jnp
 
 from equss_tpu.ops.pq_pallas import pq_assign_pallas
+from equss_tpu_torch.ops import launch_counts
 from equss_tpu_torch.ops.pq_assign import key_argmin, kernel_body, pq_assign, pq_assign_reference
 
 N, M, K, D = 700, 4, 128, 16
@@ -130,9 +131,9 @@ def test_pq_assign_wrapper_takes_plain_version_on_cpu():
     rng = np.random.RandomState(7)
     z = torch.from_numpy(rng.randn(50, 2, 8).astype(np.float32))
     cb = torch.from_numpy(rng.randn(2, 128, 8).astype(np.float32))
-    before = pq_assign.launches
+    before = launch_counts()["pq_assign"]
     got = pq_assign(z, cb, cb, normalize="l2", exact=False)
-    assert pq_assign.launches == before              # no kernel launch
+    assert launch_counts()["pq_assign"] == before              # no kernel launch
     for a, b in zip(got, pq_assign_reference(z, cb, cb, normalize="l2", exact=False)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(ValueError):

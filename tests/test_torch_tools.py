@@ -148,6 +148,7 @@ def test_bench_pipeline_on_the_cpu(tmp_path, capsys):
     assert line == out
     assert set(out["img_per_sec"]) == {"pil", "native", "pack"}
     assert all(v > 0 for v in out["img_per_sec"].values())
+    assert out["h2d_mb_per_step"] == {"pil": 0.0, "native": 0.0, "pack": 0.0}
     assert out["pack_build_seconds"] > 0
 
 

@@ -51,8 +51,8 @@ from equss_tpu.losses import stego as jstego
 from equss_tpu.ops import quantizer as jq
 from equss_tpu_torch.convert import probes_from_flax
 from equss_tpu_torch.losses import stego as tstego
+from equss_tpu_torch.ops import launch_counts
 from equss_tpu_torch.ops import quantizer as tq
-from equss_tpu_torch.ops.pq_assign import pq_assign
 
 
 def _close_to_max(got, want, frac):
@@ -121,9 +121,9 @@ def _port_pq(cfg, params, state, z, w):
 def test_pq_forward_training_exact_matches_jax(normalize, use_pallas):
     cfg_j, cfg_t, params, state, z, w = _pq_case(normalize, use_pallas, "exact", seed=3)
     (zq_j, idx_j, aux_j, st_j), (gz_j, gp_j) = _jax_pq(cfg_j, params, state, z, w)
-    before = pq_assign.launches
+    before = launch_counts()["pq_assign"]
     zq, idx, aux, st, gz, gp = _port_pq(cfg_t, params, state, z, w)
-    assert pq_assign.launches == before          # CPU: the plain versions
+    assert launch_counts()["pq_assign"] == before          # CPU: the plain versions
     np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_j))
     np.testing.assert_allclose(zq.detach().numpy(), np.asarray(zq_j), rtol=0, atol=1e-6)
     np.testing.assert_array_equal(st["vq_count"].numpy(), np.asarray(st_j["vq_count"]))
