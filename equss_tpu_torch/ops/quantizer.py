@@ -212,10 +212,24 @@ def pairwise_sqdist(z: torch.Tensor, codebook: torch.Tensor,
     return z_sq + c_sq - 2.0 * cross
 
 
-def _gather_codewords(codebook: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
-    """codebook (M, K, d), indices (n, M) -> (n, M, d)."""
-    m = torch.arange(codebook.shape[0], device=codebook.device)
-    return codebook[m, indices.long()]
+def _flat_rows(indices: torch.Tensor, M: int, K: int) -> torch.Tensor:
+    """indices (n, M) into an (M, K, d) codebook -> (n * M,) int64 rows of
+    its flat (M * K, d) view."""
+    return (indices.long() + K * torch.arange(M, device=indices.device)).reshape(-1)
+
+
+def _gather_codewords(codebook: torch.Tensor, indices: torch.Tensor,
+                      flat: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """codebook (M, K, d), indices (n, M) -> (n, M, d): a row gather
+    (``index_select``) on the flat (M * K, d) codebook, whose transpose
+    autograd takes as one ``index_add_`` scatter; an advanced index's is
+    ``index_put_(accumulate=True)``, which sorts the rows and on CUDA sums
+    each codeword's duplicates in sequence.  ``flat``: ``_flat_rows`` of
+    the indices, where the caller has it already."""
+    M, K, d = codebook.shape
+    if flat is None:
+        flat = _flat_rows(indices, M, K)
+    return codebook.reshape(M * K, d).index_select(0, flat).reshape(*indices.shape, d)
 
 
 def _usage_aux(count: torch.Tensor, K: int) -> Dict[str, torch.Tensor]:
@@ -275,7 +289,7 @@ def _ste_grads(ctx, z, local_idx, d_zn, d_zq):
         with torch.enable_grad():
             zs = z.detach().requires_grad_()
             (d_z,) = torch.autograd.grad(normalize_vectors(zs, ctx.normalize), zs, d_zn)
-    flat = (local_idx.long() + K * torch.arange(M, device=local_idx.device)).reshape(-1)
+    flat = _flat_rows(local_idx, M, K)
     d_c = torch.zeros((M * K, d), dtype=d_zq.dtype, device=d_zq.device)
     d_c.index_add_(0, flat, d_zq.reshape(-1, d))
     return d_z, d_c.reshape(M, K, d)
@@ -543,7 +557,7 @@ def pq_forward(
     exact = cfg.assign_precision != "bf16"
     want_prob = _want_prob(cfg, training, want_prob)
     gumbel_pick = cfg.use_gumbel and training
-    distance_prob = None
+    distance_prob = flat = None
     if _kernel_eligible(cfg, n, zf.device, training, want_prob):
         if training:
             indices, z_norm, z_q = AssignSTE.apply(
@@ -590,7 +604,8 @@ def pq_forward(
         else:
             source = (codebook.to(torch.bfloat16).float() if not exact and not gumbel_pick
                       else codebook.float())
-            z_q = _gather_codewords(source, indices)
+            flat = _flat_rows(indices, M, K)
+            z_q = _gather_codewords(source, indices, flat)
 
     aux: Dict[str, torch.Tensor] = {}
     new_state = dict(state)
@@ -603,7 +618,8 @@ def pq_forward(
     aux["codebook-sum"] = codebook.abs().sum() / M
     if training:
         with torch.no_grad():
-            flat = (indices.long() + K * torch.arange(M, device=indices.device)).reshape(-1)
+            if flat is None:
+                flat = _flat_rows(indices, M, K)
             # index_add_, not bincount: bincount reads its input's max back
             # to the host, which stalls the step on CUDA
             count = torch.zeros(M * K, device=indices.device).index_add_(
@@ -767,8 +783,7 @@ def _pq_forward_shard(z, params, state, cfg, *, training, want_prob):
         with torch.no_grad():
             local = indices.long() - k_off
             mine = ((local >= 0) & (local < kp)).reshape(-1).float()
-            flat = (local.clamp(0, kp - 1)
-                    + kp * torch.arange(M, device=indices.device)).reshape(-1)
+            flat = _flat_rows(local.clamp(0, kp - 1), M, kp)
             count = torch.zeros(M * kp, device=indices.device).index_add_(
                 0, flat, mine).reshape(M, kp)
             mesh.all_reduce_sum(count)          # the data group's rows

@@ -399,6 +399,44 @@ def test_ste_route_backward_matches_cpu(cuda):
                                atol=1e-5 * gc_c.abs().max().item())
 
 
+@pytest.mark.parametrize("source", ["f32", "bf16"])
+def test_plain_route_gather_backward_matches_cpu(cuda, source):
+    """The plain route's codeword gather at the train cell's shape (n =
+    50 176 rows, 64 x 256 x 16; codeword k drawn with weight 1 / (k + 1),
+    so runs of duplicates are long) from an f32 and a bf16-rounded
+    source: the rows bit-equal to the advanced index; the codebook's
+    gradient, one ``index_add_`` scatter, within 1e-5 of its largest
+    magnitude of the CPU's (each codeword's rows summed in another f32
+    order); and under deterministic algorithms two backward passes
+    bit-equal."""
+    M, K, d, n = 64, 256, 16, 50176
+    g = torch.Generator().manual_seed(26)
+    src0 = torch.randn((M, K, d), generator=g)
+    if source == "bf16":
+        src0 = src0.to(torch.bfloat16).float()
+    weight = 1.0 / torch.arange(1, K + 1, dtype=torch.float32)
+    idx = torch.multinomial(weight, n * M, replacement=True, generator=g)
+    idx = idx.reshape(n, M).to(torch.int32)
+    w = torch.randn((n, M, d), generator=g)
+
+    def grad(dev):
+        src = src0.to(dev, copy=True).requires_grad_()
+        zq = tq._gather_codewords(src, idx.to(dev))
+        assert torch.equal(zq, src.detach()[torch.arange(M, device=dev), idx.to(dev).long()])
+        (zq * w.to(dev)).sum().backward()
+        return src.grad.cpu()
+
+    on_cpu, on_card = grad("cpu"), grad(cuda)
+    torch.testing.assert_close(on_card, on_cpu, rtol=0,
+                               atol=1e-5 * on_cpu.abs().max().item())
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        assert torch.equal(grad(cuda), grad(cuda))
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
 @pytest.fixture
 def two_cards():
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:

@@ -297,3 +297,112 @@ def test_weighted_sum_matches_jax(training):
     assert np.abs(zq_t.detach().numpy().reshape(-1, 2, 8) - nearest).max() > 1e-3
     assert not tq._kernel_eligible(dataclasses.replace(cfg_t, use_pallas=True), 10,
                                    torch.device("cuda"), training=training)
+
+
+# ------------------------------------------------ the codeword gather
+
+@pytest.mark.parametrize("M,K,d,n,shard", [
+    (64, 256, 16, 37, None),           # the pqgo quantizer
+    (1, 2048, 384, 29, None),          # unseg's wide codebook
+    (64, 128, 16, 37, (1, 2)),         # a K shard's local indices (rank 1 of 2)
+], ids=["pqgo", "wide", "shard"])
+def test_gather_codewords_is_the_advanced_index(M, K, d, n, shard):
+    """The flat row gather gives the advanced index's rows bit for bit, on
+    a whole codebook and on a K shard indexed by its local indices."""
+    g = torch.Generator().manual_seed(M + K + d)
+    codebook = torch.randn((M, K, d), generator=g)
+    idx = torch.randint(0, K, (n, M), generator=g, dtype=torch.int32)
+    if shard is not None:
+        rank, ranks = shard
+        whole = torch.randn((M, K * ranks, d), generator=g)
+        codebook = whole[:, rank * K:(rank + 1) * K]          # a strided slice
+    got = tq._gather_codewords(codebook, idx)
+    assert got.shape == (n, M, d)
+    assert torch.equal(got, codebook[torch.arange(M), idx.long()])
+    assert torch.equal(tq._gather_codewords(codebook, idx, tq._flat_rows(idx, M, K)), got)
+
+
+def _gather_case(seed):
+    """M = 4, K = 32, d = 16 on 126 rows, a codebook on the data's scale:
+    each used codeword takes several rows of a subspace."""
+    base = dict(num_pq=4, num_codebook=32, embed_dim=64, vq_type="param", normalize="l2")
+    rng = np.random.RandomState(seed)
+    cb = rng.randn(4, 32, 16).astype(np.float32)
+    z = rng.randn(2, 9, 7, 64).astype(np.float32)
+    w = rng.randn(2, 9, 7, 64).astype(np.float32)            # z_q cotangent
+    return base, cb, z, w
+
+
+def _advanced_index_gather(codebook, indices, flat=None):
+    """The gather as the advanced index: autograd transposes it by
+    ``index_put_(accumulate=True)``."""
+    return codebook[torch.arange(codebook.shape[0]), indices.long()]
+
+
+def _port_codebook_grad(cfg, cb, z, w):
+    cbt = torch.from_numpy(cb).requires_grad_()
+    state = {"vq_count": torch.zeros(cfg.num_pq, cfg.num_codebook)}
+    zq, idx, aux, _ = tq.pq_forward(torch.from_numpy(z), {"codebook": cbt}, state, cfg,
+                                    training=True)
+    (aux["vq-loss"] + (zq * torch.from_numpy(w)).sum()).backward()
+    return idx, cbt.grad
+
+
+@pytest.mark.parametrize("precision", ["exact", "bf16"])
+def test_plain_route_codebook_gradient(precision, monkeypatch):
+    """The codebook's gradient through a training ``pq_forward`` on the
+    plain route (``use_pallas: auto`` on the CPU) against (a) the
+    advanced index's transpose: within 1e-5 of the gradient's scale, as
+    the two sum each codeword's rows in another f32 order; and (b) the
+    JAX package's one-hot VJP at the port's indices (the bf16 codeword
+    rounded on both sides; the z_q cotangent's straight-through term
+    gives the codebook nothing): within the file's 1e-5."""
+    base, cb, z, w = _gather_case(4)
+    cfg_t = tq.PQConfig(**base, assign_precision=precision)
+    cfg_j = jq.PQConfig(**base, assign_precision=precision)
+    assert not tq._kernel_eligible(cfg_t, 126, torch.device("cpu"), training=True)
+    idx, grad = _port_codebook_grad(cfg_t, cb, z, w)
+    counts = np.bincount(idx.reshape(-1, 4).numpy()[:, 0], minlength=32)
+    assert counts.max() >= 5                                 # duplicates to sum
+    with monkeypatch.context() as m:
+        m.setattr(tq, "_gather_codewords", _advanced_index_gather)
+        idx_a, grad_a = _port_codebook_grad(cfg_t, cb, z, w)
+    assert torch.equal(idx, idx_a)
+    _close(grad, grad_a.numpy())
+
+    M, d = cfg_j.num_pq, cfg_j.sub_dim
+    fixed = jnp.asarray(idx.reshape(-1, M).numpy())
+
+    def loss(cb_j):
+        zn = jq.normalize_vectors(jnp.asarray(z).reshape(-1, M, d), cfg_j.normalize)
+        src = cb_j.astype(jnp.bfloat16).astype(jnp.float32) if precision == "bf16" else cb_j
+        zq = jq._gather_codewords(src, fixed)
+        return cfg_j.book * jnp.mean((zq - jax.lax.stop_gradient(zn)) ** 2)
+
+    _close(grad, jax.grad(loss)(jnp.asarray(cb)))
+
+
+def _backward_ops(cfg, codebook_grad):
+    """The aten ops of one backward through a training ``pq_forward``."""
+    base, cb, z, w = _gather_case(5)
+    zt = torch.from_numpy(z).requires_grad_()
+    params, state = tq.pq_init(torch.Generator().manual_seed(0), cfg)
+    if cfg.vq_type == "param":
+        params = {"codebook": torch.from_numpy(cb).requires_grad_(codebook_grad)}
+    zq, _, aux, _ = tq.pq_forward(zt, params, state, cfg, training=True)
+    loss = aux["vq-loss"] + (zq * torch.from_numpy(w)).sum()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        loss.backward()
+    assert zt.grad is not None
+    return {e.name for e in prof.events()}
+
+
+@pytest.mark.parametrize("vq_type", ["param", "ema"])
+def test_plain_route_gather_transposes_by_index_add(vq_type):
+    """The param codebook's gradient is one ``index_add_`` scatter, with no
+    ``index_put_``; an EMA codebook takes no gradient, so its backward
+    runs neither."""
+    base = dict(_gather_case(5)[0], vq_type=vq_type)
+    ops = _backward_ops(tq.PQConfig(**base), codebook_grad=True)
+    assert "aten::_index_put_impl_" not in ops and "aten::index_put_" not in ops
+    assert ("aten::index_add_" in ops) == (vq_type == "param")
