@@ -1,15 +1,35 @@
 """What the per-layer readers (``metrics/*.py``) share.  A reader takes
 the traced run's summary (``trace.profile_slice`` with the cell's
 ``widths``, ``mix``, ``classes`` and the untraced ``rest`` of the window)
-and returns a number, or None where it finds nothing to read."""
+and returns a number, or None where it finds nothing to read.  Readers
+of the program's spans read ``by_span``: ``spans.attribute``'s rule, the
+one ``python3 -m perfbench.spans`` prints by."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
-from perfbench import trace, yardstick
+from perfbench import cell as cells, spans, trace, yardstick
 
 ATTENTION_KERNELS = ("attention_kernel",)
 PQ_KERNELS = ("pq_",)
+
+
+def by_span(s: Dict[str, Any]) -> Dict[str, Any]:
+    """The slice per unit by span (``spans.attribute``): device ms by the
+    innermost span, the benchmark's or the program's, open when its
+    launch started (``unlinked`` where the launch was not seen), idle ms
+    by the span open at the gap's middle, blocking calls by the span they
+    started in."""
+    device = [(n, b, e, at) for (n, b, e, _), at in zip(s["device_events"], s["launch_us"])]
+    return spans.attribute(s["host_spans"] + s["program_spans"], device, s["blocking"],
+                           s["slice_range_us"], s["units"])
+
+
+def span_ms(s: Dict[str, Any], name: str) -> Optional[float]:
+    """Device ms per unit launched inside span ``name``; None where none
+    was."""
+    ms = by_span(s)["device_ms_by_span"].get(name)
+    return ms if ms else None
 
 
 def kernels_per_unit(s: Dict[str, Any]) -> Optional[float]:
@@ -40,8 +60,9 @@ def roofline_pct(s: Dict[str, Any], needles: Tuple[str, ...], work: Dict[str, fl
     return 100.0 * count * yardstick.least_time(work["flops"], work["bytes"]) / seconds
 
 
-def tokens(w: Dict[str, int]) -> int:
-    return (w["res"] // w["patch"]) ** 2 + 1
+def tokens(w: Dict[str, Any]) -> int:
+    """The tokens one image puts through attention, by its backbone."""
+    return cells.backbone(w).tokens(w)
 
 
 def pixels(w: Dict[str, int]) -> int:

@@ -1,8 +1,9 @@
-"""The EQUSS forward in plain PyTorch: DINO's ViT (arXiv:2104.14294) on
-ImageNet-normalised images, the expansion head, product quantization
-with l2-normalised subspaces, and the linear and cluster probes, whose
-logits are resized bilinearly to the input.  NHWC throughout, weights
-under the names of ``perfbench/weights.py``.
+"""The EQUSS forward in plain PyTorch: the configuration's backbone
+(``backbone_<name>.py``; DINO's ViT, arXiv:2104.14294, in
+``backbone_dino.py``) on ImageNet-normalised images, the expansion head,
+product quantization with l2-normalised subspaces, and the linear and
+cluster probes, whose logits are resized bilinearly to the input.  NHWC
+throughout, weights under the names of ``perfbench/weights.py``.
 
 Departures from the published models, each the configuration's: the
 patch embedding is a (kh, kw, rgb)-ordered matrix (a stride-8 convolution
@@ -13,11 +14,12 @@ tanh form.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from perfbench import cell
 from perfbench.reference.precision import rnd
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -39,31 +41,11 @@ def linear(x: torch.Tensor, W: Weights, name: str, prec: str) -> torch.Tensor:
     return y + W[name + ".bias"]
 
 
-def vit_dense(W: Weights, x: torch.Tensor, w: Dict[str, int], prec: str) -> torch.Tensor:
-    """Normalised images (b, H, W, 3) -> the last block's normed patch
-    tokens (b, H/p, W/p, d), f32."""
-    b, H, Wd, _ = x.shape
-    p, d, heads = w["patch"], w["embed_dim"], w["num_heads"]
-    gh, gw = H // p, Wd // p
-    if W["backbone.pos_embed"].shape[1] != gh * gw + 1:
-        raise ValueError("the reference runs at the position embedding's own grid")
-    patches = x.reshape(b, gh, p, gw, p, 3).permute(0, 1, 3, 2, 4, 5).reshape(b, gh * gw, -1)
-    t = linear(patches, W, "backbone.patch_embed", prec)
-    t = torch.cat([W["backbone.cls_token"].expand(b, 1, d), t], 1) + W["backbone.pos_embed"]
-    n, hd = t.shape[1], d // heads
-    for i in range(w["depth"]):
-        k = f"backbone.blocks.{i}."
-        h = F.layer_norm(t, (d,), W[k + "norm1.weight"], W[k + "norm1.bias"], LN_EPS)
-        qkv = linear(h, W, k + "attn.qkv", prec).reshape(b, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
-        q, kk, v = qkv[0], qkv[1], qkv[2]
-        att = torch.softmax(torch.matmul(rnd(q, prec), rnd(kk, prec).transpose(-1, -2))
-                            * hd ** -0.5, dim=-1)
-        o = torch.matmul(rnd(att, prec), rnd(v, prec)).transpose(1, 2).reshape(b, n, d)
-        t = t + linear(o, W, k + "attn.proj", prec)
-        h = F.layer_norm(t, (d,), W[k + "norm2.weight"], W[k + "norm2.bias"], LN_EPS)
-        t = t + linear(F.gelu(linear(h, W, k + "mlp.fc1", prec)), W, k + "mlp.fc2", prec)
-    t = F.layer_norm(t, (d,), W["backbone.norm.weight"], W["backbone.norm.bias"], LN_EPS)
-    return t[:, 1:].reshape(b, gh, gw, d)
+def dense(W: Weights, x: torch.Tensor, w: Dict[str, Any], prec: str) -> torch.Tensor:
+    """Normalised images (b, H, W, 3) -> the backbone's last normed patch
+    tokens (b, H/p, W/p, d), f32, by the configuration's backbone module
+    (``reference/backbone_<name>.py``)."""
+    return cell.backbone(w).dense(W, x, w, prec)
 
 
 def head(W: Weights, f: torch.Tensor, prec: str) -> torch.Tensor:
@@ -117,7 +99,7 @@ def features(W: Weights, img: torch.Tensor, w: Dict[str, int], precs: Dict[str, 
              ) -> torch.Tensor:
     """uint8 images -> the straight-through quantized code z_q (b, gh, gw,
     hidden) the probes read at inference."""
-    code = head(W, vit_dense(W, normalize(img), w, precs["backbone"]), precs["head"])
+    code = head(W, dense(W, normalize(img), w, precs["backbone"]), precs["head"])
     b, gh, gw, hid = code.shape
     M = w["num_pq"]
     _, zn, zq = pq_assign(code.reshape(-1, M, hid // M), W["pq.codebook"], precs["pq"])

@@ -116,7 +116,7 @@ class ReferenceTrainer:
         b = batch["img"].shape[0]
         with torch.no_grad():
             x = torch.cat([ref.normalize(batch["img"]), ref.normalize(batch["img_pos"])])
-            both = torch.cat([ref.vit_dense(W, x[s:s + 16], w, precs["backbone"])
+            both = torch.cat([ref.dense(W, x[s:s + 16], w, precs["backbone"])
                               for s in range(0, x.shape[0], 16)])
         pre = cfg["model"]["pretrained"]
         if pre.get("dropout", True) and pre.get("drop_prob", 0.1) > 0:

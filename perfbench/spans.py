@@ -5,9 +5,10 @@ cell runs this, and no result line reads it.
 
 The program marks its layers with ``equss.*`` ranges while the profiler
 records (``equss_tpu_torch/core/trace.py``); ``trace.profile_slice``
-keeps them out of its summary.  This sets the cell up as a run does,
-serves one slice unprofiled, then profiles one slice keeping every host
-range and runtime call, and puts
+keeps them apart from the benchmark's spans.  This sets the cell up as a
+run does, serves one slice unprofiled, then profiles one slice as a
+traced run does, and puts (``attribute``, the rule the per-layer readers
+read by, ``readers.by_span``)
 
 * each device event (kernel, copy, memset) down to the innermost span
   open when its launching runtime call started, linked by the profiler's
@@ -34,9 +35,6 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from perfbench import trace
-
-PREFIXES = ("equss.", *trace.SPAN_PREFIXES)
-BLOCKING = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 Range = Tuple[str, float, float]
 
@@ -80,38 +78,14 @@ def attribute(ranges: List[Range], device: List[Tuple[str, float, float, Optiona
 
 
 def profile(body: Callable[[], int], device: torch.device) -> Dict[str, Any]:
-    """``body`` (which returns its units) under the profiler, as
-    ``trace.profile_slice`` runs it, reduced by ``attribute``."""
-    from torch.profiler import ProfilerActivity, profile as profiler
+    """``body`` (which returns its units) under ``trace.profile_slice``,
+    reduced by ``attribute``."""
+    from perfbench import readers
 
-    cuda = device.type == "cuda"
-    if cuda:
-        torch.cuda.synchronize(device)
-    with profiler(activities=[ProfilerActivity.CPU]
-                  + ([ProfilerActivity.CUDA] if cuda else [])) as prof:
-        with torch.profiler.record_function("slice"):
-            units = body()
-            if cuda:
-                torch.cuda.synchronize(device)
-    ranges, dev, launches, blocking, slice_range = [], [], {}, [], (0.0, 0.0)
-    for e in prof.events():
-        name, s, t = e.name, e.time_range.start, e.time_range.end
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            if not (name == "slice" or name.startswith(PREFIXES)
-                    or getattr(e, "is_user_annotation", False)):
-                dev.append((name, s, t, getattr(e, "linked_correlation_id", 0) or e.id))
-        elif name == "slice":
-            slice_range = (s, t)
-        elif name.startswith(PREFIXES):
-            ranges.append((name, s, t))
-        elif name.startswith("cu"):
-            launches[e.id] = s
-            if name in BLOCKING:
-                blocking.append((name, s))
-    out = attribute(ranges, [(n, s, t, launches.get(i)) for n, s, t, i in dev], blocking,
-                    slice_range, units)
-    out["device_events"] = len(dev)
-    out["linked"] = sum(1 for *_, i in dev if i in launches)
+    s = trace.profile_slice(lambda: {"units": body()}, device)
+    out = readers.by_span(s)
+    out["device_events"] = len(s["device_events"])
+    out["linked"] = sum(1 for at in s["launch_us"] if at is not None)
     return out
 
 

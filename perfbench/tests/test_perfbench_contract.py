@@ -5,6 +5,7 @@ from pathlib import Path
 
 import pytest
 
+from equss_tpu_torch.models.vit import make_vit_config
 from perfbench import cell as cells
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -58,9 +59,10 @@ def test_configuration_files(conf):
     spec = json.loads((ROOT / conf["file"]).read_text())
     assert spec["name"] == conf["name"] and spec["reduced"] == conf["reduced"]
     pre = spec["config"]["model"]["pretrained"]
-    width = {"vit_small": 384, "vit_base": 768}[pre["model_type"]]
-    assert spec["widths"]["embed_dim"] == width and spec["widths"]["patch"] == pre[
-        "dino_patch_size"]
+    vit = make_vit_config(pre["model_type"], pre["dino_patch_size"])
+    w = spec["widths"]
+    assert (w["embed_dim"], w["depth"], w["num_heads"], w["patch"]) == (
+        vit.embed_dim, vit.depth, vit.num_heads, vit.patch_size)
     vq = spec["config"]["model"]["vq"]
     assert spec["widths"]["num_pq"] == vq["num_pq"][0]
     assert spec["widths"]["num_codebook"] == vq["num_codebooks"][0]

@@ -1,8 +1,10 @@
-"""The benchmark's own arithmetic: the FLOPs of ``tools/flops.py``, the
-train step's terms and the rooflines of the two kernels."""
+"""The benchmark's own arithmetic: the FLOPs of ``tools/flops.py`` (the
+backbone's from its module, ``reference/backbone_dino.py``), the train
+step's terms and the rooflines of the two kernels."""
 import pytest
 
 from perfbench import yardstick
+from perfbench.reference import backbone_dino
 
 
 def widths(d):
@@ -30,7 +32,7 @@ def test_pq_work_at_vit_s8_serving():
 
 def test_train_step_terms():
     t = yardstick.train_flops_terms(widths(768), 64, 20)
-    assert t["backbone_fwd"] == 128 * yardstick.vit_flops(224, 8, 768, 12)
+    assert t["backbone_fwd"] == 128 * backbone_dino.vit_flops(224, 8, 768, 12)
     assert t["pq_dist"] == 64 * yardstick.pq_flops(784, 1024, 256)
     # the backbone is most of it, the rest a few per cent
     total = yardstick.train_flops_per_step(widths(768), 64, 20)

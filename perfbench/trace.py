@@ -4,10 +4,14 @@ requests or steps, reduced to a summary that the per-layer readers
 
 Host spans are the benchmark's own ``record_function`` ranges around its
 calls into the program (``request.copy_in``, ``request.predict``,
-``request.copy_out``; ``step.batch``, ``step.train_step``); there are no
-spans inside the program.  Device events are the kernels, copies and
-memsets the profiler saw on the card.  The busy time is the union of
-their intervals, so that streams that overlap are not counted twice.
+``request.copy_out``; ``step.batch``, ``step.train_step``).  Program spans
+are the program's ``equss.*`` ranges around its layers
+(``equss_tpu_torch/core/trace.py``), on while the profiler records; they
+are kept apart, so that what reads the host spans (the idle gaps, the
+breakdown) reads them alone.  Device events are the kernels, copies and
+memsets the profiler saw on the card, each with the start of the runtime
+call that launched it.  The busy time is the union of their intervals,
+so that streams that overlap are not counted twice.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ from typing import Any, Callable, Dict, List, Tuple
 import torch
 
 SPAN_PREFIXES = ("request.", "step.")
+PROGRAM_PREFIX = "equss."
+BLOCKING = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 
 def span(name: str, on: bool):
@@ -40,15 +46,23 @@ def profile_slice(body: Callable[[], Dict[str, Any]], device: torch.device
                   ) -> Dict[str, Any]:
     """Run ``body`` (which returns the slice's counts) under the profiler;
     returns those counts with ``slice_s`` (its wall seconds, synchronised
-    at both ends), the device events ``(name, start_us, end_us, kind)`` and
-    the host spans ``(name, start_us, end_us)``, on one time base."""
+    at both ends) and, on one time base in µs: the device events
+    ``(name, start, end, kind)``; ``launch_us``, for each device event in
+    that order the start of the runtime call that launched it (None where
+    the profiler saw none); the benchmark's ``host_spans`` and the
+    program's ``program_spans`` ``(name, start, end)``; the ``blocking``
+    runtime calls ``(name, start)``.  ``counters`` is the change in the
+    program's counters (``core.trace.counts()``) over the slice."""
     from torch.profiler import ProfilerActivity, profile
+
+    from equss_tpu_torch.core import trace as program
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    before = program.counts()
     with profile(activities=activities) as prof:
         with torch.profiler.record_function("slice"):
             t0 = time.perf_counter()
@@ -56,23 +70,40 @@ def profile_slice(body: Callable[[], Dict[str, Any]], device: torch.device
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             slice_s = time.perf_counter() - t0
-    dev_events: List[Tuple[str, float, float, str]] = []
+    after = program.counts()
+    dev_events: List[Tuple[str, float, float, str, int]] = []
     spans: List[Tuple[str, float, float]] = []
+    program_spans: List[Tuple[str, float, float]] = []
+    launches: Dict[int, float] = {}
+    blocking: List[Tuple[str, float]] = []
     slice_range = None
     for e in prof.events():
         start, end = e.time_range.start, e.time_range.end
         # the profiler mirrors each host span onto the device's timeline as
         # an annotation: that is no work of the device
-        ours = e.name == "slice" or e.name.startswith(SPAN_PREFIXES)
+        ours = e.name == "slice" or e.name.startswith((*SPAN_PREFIXES, PROGRAM_PREFIX))
         if e.device_type == torch.autograd.DeviceType.CUDA:
             if not ours and not getattr(e, "is_user_annotation", False):
-                dev_events.append((e.name, start, end, event_kind(e.name)))
+                # the runtime call that launched it has the same id
+                dev_events.append((e.name, start, end, event_kind(e.name),
+                                   getattr(e, "linked_correlation_id", 0) or e.id))
         elif e.name == "slice":
             slice_range = (start, end)
         elif e.name.startswith(SPAN_PREFIXES):
             spans.append((e.name, start, end))
+        elif e.name.startswith(PROGRAM_PREFIX):
+            program_spans.append((e.name, start, end))
+        elif e.name.startswith("cu"):
+            launches[e.id] = start
+            if e.name in BLOCKING:
+                blocking.append((e.name, start))
+    dev_events.sort(key=lambda e: e[1])
+    counters = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
     return {**counts, "slice_s": slice_s, "slice_range_us": slice_range,
-            "device_events": sorted(dev_events, key=lambda e: e[1]), "host_spans": spans}
+            "device_events": [e[:4] for e in dev_events],
+            "launch_us": [launches.get(e[4]) for e in dev_events],
+            "host_spans": spans, "program_spans": program_spans, "blocking": blocking,
+            "counters": counters}
 
 
 def busy_intervals(events) -> List[Tuple[float, float]]:

@@ -1,6 +1,7 @@
 """Seeded random weights of an EQUSS model and its probes, made on the
 device in two calls (one normal draw, one uniform draw) and cut into
 tensors under the names the port's ``Trainer.load_state_dict`` takes.
+The backbone's tensors are its module's (``reference/backbone_<name>.py``).
 
 Every weight is f32, as the port stores its parameters.  Scales: each
 matrix N(0, 1/fan_in); biases, the CLS token and the position embedding
@@ -14,48 +15,25 @@ window instead of keeping a copy.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
+from perfbench import cell as cells
 from perfbench.traffic import sub_seed
 
 Spec = List[Tuple[str, Tuple[int, ...], str, float]]
 
 
-def weight_spec(w: Dict[str, int], classes: int) -> Spec:
+def weight_spec(w: Dict[str, Any], classes: int) -> Spec:
     """(name, shape, draw, scale) of every tensor: draw ``normal`` (scale
     is the std, ``+1`` added where the name ends in ``norm*.weight``),
-    ``uniform`` (scale is the bound) or ``zeros``."""
-    d, p, hid = w["embed_dim"], w["patch"], w["hidden"]
-    mlp = w["mlp_ratio"] * d
+    ``uniform`` (scale is the bound) or ``zeros``.  The backbone's
+    tensors come first, in its module's order (``cell.backbone``)."""
+    d, hid = w["embed_dim"], w["hidden"]
     M, K = w["num_pq"], w["num_codebook"]
-    grid = w["res"] // p
-    spec: Spec = [
-        ("backbone.cls_token", (1, 1, d), "normal", 0.02),
-        ("backbone.pos_embed", (1, grid * grid + 1, d), "normal", 0.02),
-        ("backbone.patch_embed.weight", (d, p * p * 3), "normal", (p * p * 3) ** -0.5),
-        ("backbone.patch_embed.bias", (d,), "normal", 0.02),
-    ]
-    for i in range(w["depth"]):
-        b = f"backbone.blocks.{i}."
-        spec += [
-            (b + "norm1.weight", (d,), "normal", 0.1),
-            (b + "norm1.bias", (d,), "normal", 0.05),
-            (b + "attn.qkv.weight", (3 * d, d), "normal", d ** -0.5),
-            (b + "attn.qkv.bias", (3 * d,), "normal", 0.02),
-            (b + "attn.proj.weight", (d, d), "normal", d ** -0.5),
-            (b + "attn.proj.bias", (d,), "normal", 0.02),
-            (b + "norm2.weight", (d,), "normal", 0.1),
-            (b + "norm2.bias", (d,), "normal", 0.05),
-            (b + "mlp.fc1.weight", (mlp, d), "normal", d ** -0.5),
-            (b + "mlp.fc1.bias", (mlp,), "normal", 0.02),
-            (b + "mlp.fc2.weight", (d, mlp), "normal", mlp ** -0.5),
-            (b + "mlp.fc2.bias", (d,), "normal", 0.02),
-        ]
+    spec: Spec = list(cells.backbone(w).weight_spec(w))
     spec += [
-        ("backbone.norm.weight", (d,), "normal", 0.1),
-        ("backbone.norm.bias", (d,), "normal", 0.05),
         ("head.cluster1.weight", (hid, d), "normal", d ** -0.5),
         ("head.cluster1.bias", (hid,), "normal", 0.02),
         ("head.cluster2_fc1.weight", (d, d), "normal", d ** -0.5),
@@ -75,7 +53,7 @@ def _is_norm_scale(name: str) -> bool:
     return name.split(".")[-2].startswith("norm") and name.endswith(".weight")
 
 
-def make_weights(w: Dict[str, int], classes: int, seed: int,
+def make_weights(w: Dict[str, Any], classes: int, seed: int,
                  device: torch.device) -> Dict[str, torch.Tensor]:
     """The state dict of ``weight_spec`` drawn from ``seed`` on ``device``."""
     spec = weight_spec(w, classes)

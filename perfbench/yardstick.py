@@ -4,7 +4,8 @@ program cannot move it.
 
 The inference counts are a copy of ``equss_tpu_torch/tools/flops.py``
 (2 x MACs of every matmul the model needs; ViT-S/8 at 224^2 46.69
-GFLOP/img, ViT-B/8 160.10).  The train-step count is this file's own:
+GFLOP/img, ViT-B/8 160.10); the backbone's share is its module's
+``flops`` (``reference/backbone_<name>.py``).  The train-step count is this file's own:
 each term is a function below.  A roofline's least time is the larger of
 a kernel's FLOPs over the bf16 peak and its bytes over the HBM rate, each
 input byte counted once and each output byte once, from the shapes and
@@ -12,26 +13,14 @@ dtypes of the cell.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
+
+from perfbench import cell as cells
 
 # one H100 SXM (NVIDIA data sheet; dense, without sparsity, at 700 W)
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12          # CUDA cores
 PEAK_BYTES = 3.35e12            # HBM3
-
-
-def vit_flops(res: int, patch: int, d: int, depth: int, mlp_ratio: int = 4) -> float:
-    """One image through the ViT encoder (patch embedding and the
-    blocks; the CLS token included)."""
-    g = res // patch
-    n = g * g + 1
-    patch_embed = 2 * g * g * (patch * patch * 3) * d
-    qkv = 2 * n * d * (3 * d)
-    scores = 2 * n * n * d
-    attnv = 2 * n * n * d
-    proj = 2 * n * d * d
-    mlp = 2 * 2 * n * d * (mlp_ratio * d)
-    return patch_embed + depth * (qkv + scores + attnv + proj + mlp)
 
 
 def head_flops(px: int, d: int, hidden: int) -> float:
@@ -46,16 +35,16 @@ def pq_flops(px: int, hidden: int, k: int) -> float:
     return 2 * px * hidden * k
 
 
-def segment_flops_per_image(w: Dict[str, int]) -> float:
+def segment_flops_per_image(w: Dict[str, Any]) -> float:
     """``tools/flops.py``'s serving count: backbone, head, PQ (the probes
     and the resize, under 0.3% of it, are not counted)."""
     px = (w["res"] // w["patch"]) ** 2
-    return (vit_flops(w["res"], w["patch"], w["embed_dim"], w["depth"], w["mlp_ratio"])
+    return (cells.backbone(w).flops(w)
             + head_flops(px, w["embed_dim"], w["hidden"])
             + pq_flops(px, w["hidden"], w["num_codebook"]))
 
 
-def train_flops_terms(w: Dict[str, int], batch: int, classes: int) -> Dict[str, float]:
+def train_flops_terms(w: Dict[str, Any], batch: int, classes: int) -> Dict[str, float]:
     """The terms of one pqgo train step on ``batch`` images and their
     ``batch`` kNN positives: the frozen backbone's forward on 2b images;
     the head's forward on 2b and its backward (every weight gradient, and
@@ -74,7 +63,7 @@ def train_flops_terms(w: Dict[str, int], batch: int, classes: int) -> Dict[str, 
     corr = 2 * q * q                          # one correlation pair, per channel
     resize = 2 * (res * g * g + res * res * g)    # 28^2 -> res^2, per channel
     return {
-        "backbone_fwd": b2 * vit_flops(res, p, d, w["depth"], w["mlp_ratio"]),
+        "backbone_fwd": b2 * cells.backbone(w).flops(w),
         "head_fwd": b2 * head,
         "head_bwd": b2 * (head + 2 * px * hid * d),
         "pq_dist": batch * pq_flops(px, hid, w["num_codebook"]),
@@ -85,7 +74,7 @@ def train_flops_terms(w: Dict[str, int], batch: int, classes: int) -> Dict[str, 
     }
 
 
-def train_flops_per_step(w: Dict[str, int], batch: int, classes: int) -> float:
+def train_flops_per_step(w: Dict[str, Any], batch: int, classes: int) -> float:
     return sum(train_flops_terms(w, batch, classes).values())
 
 
